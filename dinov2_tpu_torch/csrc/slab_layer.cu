@@ -26,7 +26,9 @@
 //      (T=257 = 4*64+1) is masked, not padded. Exact online softmax with the
 //      running row max: f32 scores and softmax, P rounded to bf16 for the P.V
 //      mma with f32 accumulation, divided by the f32 row sum at the end.
-//      Output bf16 into an attention slab (B, T, D) in HBM.
+//      Output bf16 into an attention slab (B, T, D) in HBM. The core is
+//      attention_core.cuh::attention_tile, which K4 (flash_attention.cu)
+//      runs too.
 //   3. gemm_kernel<residual>: attn @ w_proj, epilogue
 //      bf16(acc) + bf16(b_proj), * bf16(ls1), + x, each step rounded to bf16.
 // The TPU kernel keeps the qkv slab and the attention output on chip; this
@@ -44,52 +46,11 @@
 // Shared memory is static (< 48 KB per block), so no opt-in attribute is
 // needed. Every entry point returns cudaGetLastError() after its launches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_core.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr int kTile = 64;        // GEMM tile rows/cols/depth; attention query/key tile
-constexpr int kLds = kTile + 8;  // shared row stride in elements (144 B): conflict-free fragment loads
-constexpr int kThreads = 128;    // four warps
-constexpr int kHeadDim = 64;
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two adjacent bf16 as one 32-bit register (lower address in the low half)
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_pair(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
-  return pack_pair(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
+using namespace dinov2;
 
 // out (M, N) = epilogue(A' @ W) with A (M, K), W (K, N) row-major bf16 and
 // A' = LN(A) when kLayerNorm. One 64x64 output tile per block; warp w owns
@@ -220,155 +181,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // out[b, t, h*64:(h+1)*64] = softmax(q k^T * scale) v for one (image, head)
-// pair and a tile of 64 queries; qkv is the (B, T, 3D) slab [q | k | v].
-// Warp w owns queries 16w..16w+15 of the tile. Score and output fragments
-// stay in registers (mma.sync accumulator layout: row g and g+8, columns
-// 2*tig and 2*tig+1 of each 8-wide n-tile); a score accumulator is reused
-// directly as the A operand of the P.V product.
-__global__ void __launch_bounds__(kThreads)
+// pair and a tile of 64 queries, read straight out of the (B, T, 3D) slab
+// [q | k | v] at column offsets h*64, D+h*64 and 2D+h*64 (attention_core.cuh).
+__global__ void __launch_bounds__(kThreads, kAttentionBlocksPerSm)
     attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int t, int d,
                      int heads, float scale) {
-  __shared__ __align__(16) bf16 qs[kTile][kLds];
-  __shared__ __align__(16) bf16 ks[kTile][kLds];
-  __shared__ __align__(16) bf16 vs[kTile][kLds];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tig = lane & 3;
   const int img = blockIdx.x / heads, head = blockIdx.x % heads;
-  const int q0 = blockIdx.y * kTile;
   const size_t ld = 3 * static_cast<size_t>(d);
   const bf16* base = qkv + static_cast<size_t>(img) * t * ld + head * kHeadDim;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int i = tid; i < kTile * kHeadDim / 8; i += kThreads) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    *reinterpret_cast<uint4*>(&qs[r][c]) =
-        q0 + r < t ? *reinterpret_cast<const uint4*>(base + (q0 + r) * ld + c) : zero;
-  }
-  __syncthreads();
-
-  uint32_t qf[4][4];
-  const int qr = warp * 16 + g;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    qf[kc][0] = ld_pair(&qs[qr][16 * kc + 2 * tig]);
-    qf[kc][1] = ld_pair(&qs[qr + 8][16 * kc + 2 * tig]);
-    qf[kc][2] = ld_pair(&qs[qr][16 * kc + 8 + 2 * tig]);
-    qf[kc][3] = ld_pair(&qs[qr + 8][16 * kc + 8 + 2 * tig]);
-  }
-
-  float o[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) o[nt][j] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < t; k0 += kTile) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int i = tid; i < kTile * kHeadDim / 8; i += kThreads) {
-      const int r = i >> 3, c = (i & 7) * 8;
-      uint4 kv = zero, vv = zero;
-      if (k0 + r < t) {
-        const bf16* src = base + (k0 + r) * ld + c;
-        kv = *reinterpret_cast<const uint4*>(src + d);
-        vv = *reinterpret_cast<const uint4*>(src + 2 * d);
-      }
-      *reinterpret_cast<uint4*>(&ks[r][c]) = kv;
-      *reinterpret_cast<uint4*>(&vs[r][c]) = vv;
-    }
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const bf16* krow = &ks[nt * 8 + g][16 * kc + 2 * tig];
-        mma_16816(s[nt], qf[kc], ld_pair(krow), ld_pair(krow + 8));
-      }
-    }
-
-    // scale, mask the keys past T, running row max (rows g and g+8)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + nt * 8 + 2 * tig + (j & 1);
-        const float v = key < t ? s[nt][j] * scale : -INFINITY;
-        s[nt][j] = v;
-        mx[j >> 1] = fmaxf(mx[j >> 1], v);
-      }
-    }
-    float m_new[2], alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      m_new[h] = fmaxf(m_run[h], mx[h]);  // finite: key k0 < T is never masked
-      alpha[h] = expf(m_run[h] - m_new[h]);
-      m_run[h] = m_new[h];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[nt][j] - m_new[j >> 1]);
-        s[nt][j] = p;
-        rs[j >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
-      rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
-      l_run[h] = l_run[h] * alpha[h] + rs[h];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      o[nt][0] *= alpha[0];
-      o[nt][1] *= alpha[0];
-      o[nt][2] *= alpha[1];
-      o[nt][3] *= alpha[1];
-    }
-
-    // o += bf16(P) @ V; keys 16kc..16kc+15 are score n-tiles 2kc and 2kc+1
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const uint32_t pf[4] = {
-          pack_floats(s[2 * kc][0], s[2 * kc][1]),
-          pack_floats(s[2 * kc][2], s[2 * kc][3]),
-          pack_floats(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-          pack_floats(s[2 * kc + 1][2], s[2 * kc + 1][3]),
-      };
-      const int kr = 16 * kc + 2 * tig;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int c = nt * 8 + g;
-        const uint32_t b0 = pack_pair(vs[kr][c], vs[kr + 1][c]);
-        const uint32_t b1 = pack_pair(vs[kr + 8][c], vs[kr + 9][c]);
-        mma_16816(o[nt], pf, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + warp * 16 + g + 8 * h;
-    if (row >= t) continue;
-    bf16* dst = out + (static_cast<size_t>(img) * t + row) * d + head * kHeadDim + 2 * tig;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      *reinterpret_cast<uint32_t*>(dst + nt * 8) =
-          pack_floats(o[nt][2 * h] / l_run[h], o[nt][2 * h + 1] / l_run[h]);
-    }
-  }
+  attention_tile(base, base + d, base + 2 * d, ld,
+                 out + static_cast<size_t>(img) * t * d + head * kHeadDim, d, t,
+                 blockIdx.y * kTile, scale);
 }
 
 }  // namespace

@@ -1,11 +1,12 @@
-"""OpenCV-compatible bicubic resize as two f32 matmuls (port of
-dinov2_tpu/image/resize.py).
+"""OpenCV-compatible resizes (port of dinov2_tpu/image/resize.py).
 
 cv2.resize(INTER_CUBIC) on float images uses the A = -0.75 cubic kernel,
 sample centers at (i+0.5)*scale-0.5, replicated borders and no antialiasing
 (quirk Q2). A separable resize is linear, so each axis is a (dst, src)
-weight matrix built in numpy; `_cubic_coeffs` and `cubic_resize_matrix` are
-copied verbatim from the JAX package, whose module imports jax.
+weight matrix built in numpy and applied as two f32 matmuls.
+INTER_NEAREST is a gather by a numpy index per axis. `_cubic_coeffs`,
+`cubic_resize_matrix` and `nearest_resize_index` are copied verbatim from
+the JAX package, whose module imports jax.
 """
 
 from __future__ import annotations
@@ -47,6 +48,14 @@ def cubic_resize_matrix(src: int, dst: int) -> np.ndarray:
     return m.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=256)
+def nearest_resize_index(src: int, dst: int) -> np.ndarray:
+    """cv2 INTER_NEAREST source index per dst pixel: floor(i * src/dst), clamped."""
+    scale = src / dst
+    idx = np.floor(np.arange(dst) * scale).astype(np.int64)
+    return np.minimum(idx, src - 1)
+
+
 def resize_bicubic(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """cv2.resize(..., INTER_CUBIC) on float images; img is (..., H, W, C).
 
@@ -60,3 +69,11 @@ def resize_bicubic(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     x = img.float()
     x = torch.einsum("Oh,...hwc->...Owc", mh, x)
     return torch.einsum("Ow,...hwc->...hOc", mw, x)
+
+
+def resize_nearest(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """cv2.resize(..., INTER_NEAREST); img is (..., H, W, C)."""
+    h, w = img.shape[-3], img.shape[-2]
+    ih = torch.from_numpy(nearest_resize_index(h, out_h)).to(img.device)
+    iw = torch.from_numpy(nearest_resize_index(w, out_w)).to(img.device)
+    return img.index_select(-3, ih).index_select(-2, iw)

@@ -2,11 +2,14 @@
 
 Functional and batch-first, with the JAX signatures: `forward(params, x,
 config, opts, classify)` on a parameter tree whose encoder layers are
-stacked on axis 0. The attention half-layer of every layer is the K1 kernel
-(ops/fused_attention.py::slab_layer_block: the CUDA kernel on a card, its
-plain version on the CPU); the MLP half-layer is plain PyTorch, as the JAX
-package leaves it to XLA. `DinoViT` is a thin nn.Module that owns the
-weight tensors.
+stacked on axis 0. The attention half-layer of every layer takes the route
+`resolve_attention_path(opts.flash_attention, T)` picks (ops/attention.py):
+"slab" is the K1 kernel (ops/fused_attention.py::slab_layer_block), "flash"
+is LN1 then the unfused half-layer around the K4 kernel
+(ops/flash_attention.py), "vanilla" the same around plain PyTorch. Each
+kernel runs as CUDA on a card and as its plain version on the CPU. The MLP
+half-layer is plain PyTorch, as the JAX package leaves it to XLA.
+`DinoViT` is a thin nn.Module that owns the weight tensors.
 
 Numerics as in the JAX package: LN statistics in f32; matmuls accumulate in
 f32 and round to the compute dtype before the bias add; tokens are embedded
@@ -15,7 +18,8 @@ registers spliced after the pos-embed add (C8), classify pooling
 sum(patches)/n_img_embd² with registers included in reference mode (Q3, Q5).
 
 Left out: the JAX CLS-shift overflow rescue (the port's softmax takes the
-exact row max), batch chunking, remat, sequence parallelism and SwiGLU.
+exact row max), batch chunking (TPU scheduling), remat, sequence
+parallelism and SwiGLU.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from torch import nn
 
 from dinov2_tpu_torch.models.config import DinoConfig
 from dinov2_tpu_torch.image.posembed import interpolate_pos_embed
+from dinov2_tpu_torch.ops.attention import resolve_attention_path, self_attention_block
 from dinov2_tpu_torch.ops.fused_attention import slab_layer_block
 from dinov2_tpu_torch.ops.qmatmul import apply_linear
 
@@ -35,6 +40,7 @@ from dinov2_tpu_torch.ops.qmatmul import apply_linear
 @dataclass(frozen=True)
 class ModelOptions:
     parity: str = "reference"  # "reference" replicates ggml quirks; "hf" matches HF
+    flash_attention: Any = "auto"  # True | False | "auto" | "slab" | "flash" | "vanilla"
     compute_dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -60,13 +66,21 @@ def mlp_block(x: torch.Tensor, p: dict, activation: str) -> torch.Tensor:
 def _attention_half_layer(
     x: torch.Tensor, layer: dict, config: DinoConfig, opts: ModelOptions
 ) -> torch.Tensor:
-    """LN1 -> QKV -> attention -> proj -> LayerScale -> residual: K1."""
+    """LN1 -> QKV -> attention -> proj -> LayerScale -> residual: K1 as one
+    kernel on the slab route; LN1 and self_attention_block (the K4 kernel on
+    the flash route) otherwise, in the JAX ordering."""
     heads = config.num_attention_heads
-    return slab_layer_block(
-        x, layer["norm1"]["scale"], layer["norm1"]["bias"],
-        layer["qkv"]["kernel"], layer["qkv"]["bias"],
-        layer["proj"]["kernel"], layer["proj"]["bias"],
-        layer["ls1"], heads, 1.0 / (config.hidden_size // heads) ** 0.5, config.eps,
+    path = resolve_attention_path(opts.flash_attention, x.shape[1])
+    if path == "slab":
+        return slab_layer_block(
+            x, layer["norm1"]["scale"], layer["norm1"]["bias"],
+            layer["qkv"]["kernel"], layer["qkv"]["bias"],
+            layer["proj"]["kernel"], layer["proj"]["bias"],
+            layer["ls1"], heads, 1.0 / (config.hidden_size // heads) ** 0.5, config.eps,
+        )
+    h = layer_norm(x, layer["norm1"], config.eps)
+    return self_attention_block(
+        x, h, layer["qkv"], layer["proj"], layer["ls1"], heads, flash=path
     )
 
 

@@ -4,12 +4,12 @@ Each source is compiled by `nvcc` into a shared library with a plain C
 interface and loaded with ctypes, at the first call that needs it (never at
 import, so the CPU-only test suite imports this module freely). Libraries go
 to `build/kernels/` at the root of the checkout, named by a hash of the
-source and the flags, so an edited source is rebuilt and a stale one is
-never loaded.
+source, of every header in csrc/ and of the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.
 
 The entry points take device pointers and the CUDA stream as `void*` and
 return `cudaGetLastError()` after their launches; the Python wrappers
-(ops/fused_attention.py) check the code and raise.
+(ops/fused_attention.py, ops/flash_attention.py) check the code and raise.
 """
 
 from __future__ import annotations
@@ -42,11 +42,20 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def library_path(name: str) -> Path:
+    """build/kernels/lib<name>-<hash>.so, the hash taken over csrc/<name>.cu,
+    every csrc/*.cuh header (any of them may be included) and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu into build/kernels/lib<name>-<hash>.so (once)."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    lib = library_path(name)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -65,17 +74,31 @@ def build(name: str) -> Path:
     return lib
 
 
+def _load(name: str) -> ctypes.CDLL:
+    """Build and load csrc/<name>.cu; every library exports the error string."""
+    lib = ctypes.CDLL(str(build(name)))
+    lib.dinov2_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.dinov2_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def slab_layer_lib() -> ctypes.CDLL:
     """The K1 library (csrc/slab_layer.cu), built on first use."""
-    lib = ctypes.CDLL(str(build("slab_layer")))
+    lib = _load("slab_layer")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dinov2_slab_layer_bf16.argtypes = (
-        [ptr] * 11 + [i32] * 4 + [f32, f32, ptr]
-    )
+    lib.dinov2_slab_layer_bf16.argtypes = [ptr] * 11 + [i32] * 4 + [f32, f32, ptr]
     lib.dinov2_slab_layer_bf16.restype = i32
-    lib.dinov2_cuda_error_string.argtypes = [i32]
-    lib.dinov2_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def flash_attention_lib() -> ctypes.CDLL:
+    """The K4 library (csrc/flash_attention.cu), built on first use."""
+    lib = _load("flash_attention")
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.dinov2_flash_attention_bf16.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 3 + [f32, ptr]
+    lib.dinov2_flash_attention_bf16.restype = i32
     return lib
 
 

@@ -1,12 +1,25 @@
-"""Plain multi-head attention core (port of dinov2_tpu/ops/attention.py:18-46).
+"""Multi-head self-attention (port of dinov2_tpu/ops/attention.py, dense
+weights).
 
-This is the attention that the K1 kernel's plain version uses
-(ops/fused_attention.py::slab_layer_reference).
+`vanilla_attention` is the plain attention core: the plain version of the
+K1 and K4 kernels (ops/fused_attention.py, ops/flash_attention.py) and the
+"vanilla" route. `self_attention` and `self_attention_block` run the unfused
+half-layer (fused QKV, attention core, proj, LayerScale, residual) that
+models/vit.py takes on every route but "slab".
 """
 
 from __future__ import annotations
 
 import torch
+
+from dinov2_tpu_torch.ops.qmatmul import apply_linear
+
+# "auto" takes the flash kernel (K4) from this many tokens on: the JAX
+# package's long-sequence threshold (ops/attention.py::resolve_attention_path)
+# without its VMEM gates, which describe a TPU. It puts classify at 224 px
+# (T=257) on the slab route and 518 px feature mode (T=1370) on flash, as the
+# JAX package routes them for every preset.
+FLASH_MIN_TOKENS = 1024
 
 
 def split_heads(qkv: torch.Tensor, num_heads: int) -> tuple[torch.Tensor, ...]:
@@ -28,3 +41,69 @@ def vanilla_attention(
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     weights = torch.softmax(scores * scale, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
+
+
+def resolve_attention_path(flash, t: int) -> str:
+    """The attention route, "slab" | "flash" | "vanilla", for T tokens.
+
+    True is the reference's `-fa` flag (the flash kernel), False the plain
+    einsum; the three names select themselves; "auto" takes "flash" from
+    FLASH_MIN_TOKENS tokens on and "slab" (the K1 half-layer, which takes any
+    T) below. On a CUDA device "auto" therefore always reaches a kernel."""
+    if flash is True:
+        return "flash"
+    if flash is False:
+        return "vanilla"
+    if flash in ("slab", "vanilla", "flash"):
+        return flash
+    if flash != "auto":
+        raise ValueError(f"unknown attention route {flash!r}")
+    return "flash" if t >= FLASH_MIN_TOKENS else "slab"
+
+
+def self_attention(
+    x: torch.Tensor,
+    qkv_params: dict,
+    proj_params: dict,
+    num_heads: int,
+    flash=False,
+) -> torch.Tensor:
+    """fused QKV -> attention core -> output projection, (B, T, D) -> (B, T, D).
+
+    The flash route reads q/k/v straight out of the qkv slab
+    (flash_attention_slab) for any head_dim, with no head transposes. The
+    slab route is only the whole half-layer here (K1,
+    ops/fused_attention.py::slab_layer_block, which models/vit.py calls): the
+    JAX package's slab attention cores (K2, K3) are not ported."""
+    b, t, d = x.shape
+    scale = 1.0 / (d // num_heads) ** 0.5
+    path = resolve_attention_path(flash, t)
+    if path == "slab":
+        raise NotImplementedError(
+            "the slab attention core (K3) is not ported to dinov2_tpu_torch yet "
+            "(see ROADMAP.md); the slab route runs the whole half-layer, "
+            "ops/fused_attention.py::slab_layer_block"
+        )
+    qkv = apply_linear(x, qkv_params)
+    if path == "flash":
+        from dinov2_tpu_torch.ops.flash_attention import flash_attention_slab
+
+        out = flash_attention_slab(qkv, num_heads, scale)
+    else:
+        out = vanilla_attention(*split_heads(qkv, num_heads), scale).reshape(b, t, d)
+    return apply_linear(out, proj_params)
+
+
+def self_attention_block(
+    x_res: torch.Tensor,
+    x_norm: torch.Tensor,
+    qkv_params: dict,
+    proj_params: dict,
+    ls1: torch.Tensor,
+    num_heads: int,
+    flash=False,
+) -> torch.Tensor:
+    """x_res + ls1 * proj(attention(qkv(x_norm))), LayerScale and residual in
+    x_res's dtype."""
+    out = self_attention(x_norm, qkv_params, proj_params, num_heads, flash=flash)
+    return x_res + out * ls1.to(x_res.dtype)

@@ -1,31 +1,42 @@
-"""Inference engine: load -> classify (port of dinov2_tpu/runtime/engine.py).
+"""Inference engine: load -> classify / features / PCA (port of
+dinov2_tpu/runtime/engine.py).
 
-Classify mode only. Batches are padded on the host to a power of two (the
-JAX engine's bucket, which bounds its jit cache; here it keeps the kernels'
-shapes to a few), preprocessed on the device, and run through one forward.
-Mixed-size images are preprocessed per size group and merged into one
-forward batch. Feature mode and PCA are not ported yet (ROADMAP.md).
+Batches are padded on the host to a power of two (the JAX engine's bucket,
+which bounds its jit cache; here it keeps the kernels' shapes to a few),
+preprocessed on the device, and run through one forward.
+  - classify: mixed-size images are preprocessed per size group and merged
+    into one forward batch (all are 224x224 after the crop).
+  - features: one forward per size group (the patch grid depends on the
+    size, quirk Q4); cls_token and patch_tokens come back to the host.
+  - PCA: preprocess, forward and a per-image PCA on the device, grid-sized
+    u8 images back to the host, nearest-resized there to the input size.
 
-`device="cuda"` runs the K1 CUDA kernel and needs a GPU: with none, the
-constructor raises; it never falls back to the CPU. `device="cpu"` runs
+`flash_attention` picks the attention route (ops/attention.py::
+resolve_attention_path); "auto" takes K1 below 1024 tokens and K4 from
+there on. `device="cuda"` runs the CUDA kernels and needs a GPU: with none,
+the constructor raises; it never falls back to the CPU. `device="cpu"` runs
 the plain PyTorch versions.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
 
-from dinov2_tpu_torch.image.preprocess import classify_preprocess
+from dinov2_tpu_torch.image.pca import pca_visualization_batch, resize_nearest_host
+from dinov2_tpu_torch.image.preprocess import (
+    classify_preprocess,
+    feature_preprocess,
+    feature_target_size,
+)
 from dinov2_tpu_torch.models.params import load_params
 from dinov2_tpu_torch.models.vit import DinoViT, ModelOptions
 from dinov2_tpu_torch.ops.qmatmul import set_cuda_matmul_precision
+from dinov2_tpu_torch.utils.debug import check_finite
 from dinov2_tpu_torch.utils.timing import time_blocked
-
-_NOT_PORTED = "is not ported to dinov2_tpu_torch yet (see ROADMAP.md)"
 
 
 def _bucket(n: int) -> int:
@@ -42,6 +53,7 @@ class DinoEngine:
         model_path: str | Path,
         dtype: torch.dtype = torch.bfloat16,
         parity: str = "reference",
+        flash_attention="auto",
         device="cuda",
     ):
         self.device = torch.device(device)
@@ -55,11 +67,22 @@ class DinoEngine:
         self.loaded = load_params(model_path, dtype=dtype, device=self.device)
         self.config = self.loaded.config
         self.id2label = self.loaded.id2label
-        self.opts = ModelOptions(parity=parity, compute_dtype=dtype)
+        self.opts = ModelOptions(
+            parity=parity, flash_attention=flash_attention, compute_dtype=dtype
+        )
         self.model = DinoViT(self.loaded.params, self.config, self.opts)
         self.last_compute_ms = 0.0
 
     # ------------------------------------------------------------------
+    @staticmethod
+    def _stack_batch(images) -> np.ndarray:
+        if isinstance(images, np.ndarray) and images.ndim == 3:
+            images = images[None]
+        batch = np.stack(list(images), axis=0)
+        if batch.ndim != 4 or batch.shape[-1] != 3:
+            raise ValueError("expected RGB images (B, H, W, 3)")
+        return batch
+
     @staticmethod
     def _group_by_shape(images) -> list[tuple[list[int], np.ndarray]]:
         """Group images by (H, W): one preprocess per size group."""
@@ -82,10 +105,16 @@ class DinoEngine:
             [batch, np.repeat(batch[-1:], target - batch.shape[0], axis=0)], axis=0
         )
 
-    def _preprocess(self, batch: np.ndarray, rows: int) -> torch.Tensor:
-        """Host RGB batch padded to `rows` -> preprocessed tensor on device."""
-        x = torch.from_numpy(self._pad_rows(batch, rows)).to(self.device)
-        return classify_preprocess(x)
+    def _upload(self, batch: np.ndarray, rows: int) -> torch.Tensor:
+        """Host batch padded to `rows` (on the host: the padding never crosses
+        PCIe twice) -> tensor on the device."""
+        return torch.from_numpy(self._pad_rows(batch, rows)).to(self.device)
+
+    def _feature_grid(self, batch: np.ndarray) -> tuple[int, int]:
+        """The quirk-Q4 patch grid of a (B, H, W, 3) batch."""
+        p = self.config.patch_size
+        th, tw = feature_target_size(batch.shape[1], batch.shape[2], p)
+        return th // p, tw // p
 
     # ------------------------------------------------------------------
     def classify(
@@ -113,13 +142,14 @@ class DinoEngine:
         def run():
             if len(groups) == 1:
                 idxs, batch = groups[0]
-                pre = self._preprocess(batch, _bucket(len(idxs)))
+                pre = classify_preprocess(self._upload(batch, _bucket(len(idxs))))
                 return self.model(pre, classify=True), len(idxs)
             order, parts = [], []
             for idxs, batch in groups:
                 order.extend(idxs)
                 # pad each group to its bucket before preprocessing, slice after
-                parts.append(self._preprocess(batch, _bucket(len(idxs)))[: len(idxs)])
+                pre = classify_preprocess(self._upload(batch, _bucket(len(idxs))))
+                parts.append(pre[: len(idxs)])
             inv = torch.from_numpy(np.argsort(np.asarray(order))).to(self.device)
             pre = torch.cat(parts)[inv]
             n = pre.shape[0]
@@ -128,18 +158,100 @@ class DinoEngine:
 
         (out, n), ms = time_blocked(run, device=self.device)
         self.last_compute_ms = ms
+        check_finite(out, "classify:")
         return out["probs"][:n].cpu().numpy()
 
     # ------------------------------------------------------------------
-    def extract_features(self, images):
-        raise NotImplementedError(f"feature mode {_NOT_PORTED}")
+    def extract_features(self, images) -> dict[str, Any]:
+        """Feature mode: preprocess (patch-multiple resize), forward, return
+        cls_token (B, D) and patch_tokens (B, N, D) as f32 host arrays, and
+        the patch grid.
 
-    def pca_visualization(self, image):
-        raise NotImplementedError(f"PCA visualization {_NOT_PORTED}")
+        Images must share one size (the patch grid is shape-defining); use
+        extract_features_mixed for a mixed-size list."""
+        batch = self._stack_batch(images)
+        n = batch.shape[0]
+        x = self._upload(batch, _bucket(n))
 
+        @torch.inference_mode()
+        def run():
+            pre = feature_preprocess(x, self.config.patch_size)
+            return self.model(pre, classify=False)
+
+        out, ms = time_blocked(run, device=self.device)
+        self.last_compute_ms = ms
+        check_finite(out, "features:")
+        return {
+            "cls_token": out["cls_token"][:n].cpu().numpy(),
+            "patch_tokens": out["patch_tokens"][:n].cpu().numpy(),
+            "grid": self._feature_grid(batch),
+        }
+
+    def extract_features_mixed(self, images) -> list[dict[str, Any]]:
+        """Mixed-size feature extraction: one batched forward per (H, W) group;
+        per-image dicts in the input order (grids differ per size)."""
+        groups = self._group_by_shape(images)
+        results: list[dict[str, Any] | None] = [None] * sum(len(i) for i, _ in groups)
+        for idxs, batch in groups:
+            feats = self.extract_features(batch)
+            for row, i in enumerate(idxs):
+                results[i] = {
+                    "cls_token": feats["cls_token"][row],
+                    "patch_tokens": feats["patch_tokens"][row],
+                    "grid": feats["grid"],
+                }
+        return results  # type: ignore[return-value]
+
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def _pca_grid(self, x: torch.Tensor, grid: tuple[int, int]) -> torch.Tensor:
+        """Device batch (B, H, W, 3) -> (B, gh, gw, 3) uint8 PCA images on the
+        device: preprocess, forward, per-image PCA at the patch grid's size."""
+        pre = feature_preprocess(x, self.config.patch_size)
+        out = self.model(pre, classify=False)
+        return pca_visualization_batch(out["patch_tokens"], grid)
+
+    def _pca_batch(self, batch: np.ndarray) -> np.ndarray:
+        """Same-size images (B, H, W, 3) -> (B, H, W, 3) uint8 PCA images at the
+        input size: the device returns the grid (a ~p² smaller copy) and the
+        host nearest-resizes it, as the reference does."""
+        n = batch.shape[0]
+        x = self._upload(batch, _bucket(n))
+        vis, ms = time_blocked(self._pca_grid, x, self._feature_grid(batch), device=self.device)
+        self.last_compute_ms = ms
+        return resize_nearest_host(vis[:n].cpu().numpy(), batch.shape[1], batch.shape[2])
+
+    def pca_visualization(self, image: np.ndarray) -> np.ndarray:
+        """One RGB image -> uint8 PCA visualization at the image's size."""
+        img = image[None] if image.ndim == 3 else image
+        return self._pca_batch(np.asarray(img))[0]
+
+    def pca_visualization_async(self, image: np.ndarray) -> torch.Tensor:
+        """Queue one frame's preprocess + forward + PCA without waiting for the
+        device; returns the (bucket, gh, gw, 3) uint8 tensor on the device
+        (row 0 is the frame; `.cpu()` waits). The caller can decode the next
+        frame meanwhile."""
+        batch = self._stack_batch(image)
+        return self._pca_grid(self._upload(batch, _bucket(batch.shape[0])), self._feature_grid(batch))
+
+    def pca_visualizations(self, images) -> list[np.ndarray]:
+        """Mixed-size images -> per-image uint8 PCA visualizations: one
+        preprocess + forward + batched PCA per (H, W) group."""
+        groups = self._group_by_shape(images)
+        out: list[np.ndarray | None] = [None] * sum(len(i) for i, _ in groups)
+        for idxs, batch in groups:
+            vis = self._pca_batch(batch)
+            for row, i in enumerate(idxs):
+                out[i] = vis[row]
+        return out  # type: ignore[return-value]
+
+    # ------------------------------------------------------------------
     def warmup(self, image_hw: tuple[int, int], batch: int = 1, classify: bool = True):
-        """Run one classify batch of the given input size (builds the kernel
-        library and warms the caching allocator)."""
-        if not (classify and self.loaded.has_classifier):
-            raise NotImplementedError(f"feature mode {_NOT_PORTED}")
-        self.classify_probs(np.zeros((batch, *image_hw, 3), dtype=np.uint8))
+        """Run one batch of the given input size (builds the kernel libraries
+        and warms the caching allocator): classify when asked and the
+        checkpoint has a head, features otherwise."""
+        dummy = np.zeros((batch, *image_hw, 3), dtype=np.uint8)
+        if classify and self.loaded.has_classifier:
+            self.classify_probs(dummy)
+        else:
+            self.extract_features(dummy)

@@ -1,21 +1,27 @@
-"""Where the time goes in the port's classify path on one CUDA GPU.
+"""Where the time goes in the port's classify or feature path on one CUDA GPU.
 
-    python3 -m dinov2_tpu_torch.utils.profile_slice
+    python3 -m dinov2_tpu_torch.utils.profile_slice [--mode classify|features]
 
-Builds a random-weight ViT-B/14 at its published widths (PRESETS["base"],
-1000 classes, img_size 518, f16 weights from seed 0), loads it with
-DinoEngine(device="cuda", bf16, parity="reference") and runs
-classify_probs on 64 random 256x256 uint8 images, as chip_smoke.py does:
-two warm-up calls, 10 calls on the host clock without the profiler, then 3
-calls under torch.profiler. Prints the card, the median wall ms per call, the
-device time per call (the sum of every kernel's and copy's own device time,
-one stream, so nothing overlaps), the idle share 1 - device/wall, and every
-device op with its launches, ms per call and ms per launch. The profiler's
-full table and a Chrome trace go into chiprun_out/profile_slice/.
+classify (the default): a random-weight ViT-B/14 at its published widths
+(PRESETS["base"], 1000 classes, img_size 518, f16 weights from seed 0) in
+DinoEngine(device="cuda", bf16, parity="reference"), `classify_probs` on 64
+random 256x256 uint8 images, as chip_smoke.py runs it.
+features: a random-weight ViT-L/14 (PRESETS["large"]) in the same engine,
+`extract_features` on 8 random 512x512 images (518 px in, T=1370, the K4
+route), as chip_smoke.py runs it.
+
+Each mode makes two warm-up calls, 10 calls on the host clock without the
+profiler, then 3 calls under torch.profiler. It prints the card, the median
+wall ms per call, the device time per call (the sum of every kernel's and
+copy's own device time, one stream, so nothing overlaps), the idle share
+1 - device/wall, and every device op with its launches, ms per call and ms
+per launch. The profiler's full table and a Chrome trace go into
+OUT/<mode>/ under the working directory (.gitignore lists OUT).
 """
 
 from __future__ import annotations
 
+import argparse
 import statistics
 import subprocess
 import sys
@@ -27,28 +33,36 @@ import numpy as np
 import torch
 
 SEED = 0
-BATCH = 64
-IMAGE_PX = 256
 TIMED_CALLS = 10
 PROFILED_CALLS = 3
 OUT = Path("chiprun_out/profile_slice")
+# mode -> (preset, classifier overrides, batch, image px, engine call, label)
+MODES = {
+    "classify": ("base", {"num_classes": 1000, "img_size": 518}, 64, 256,
+                 "classify_probs", "ViT-B/14 classify_probs"),
+    "features": ("large", {}, 8, 512, "extract_features", "ViT-L/14 extract_features"),
+}
 
 
-def _engine(seed: int):
+def _engine(preset: str, overrides: dict, seed: int):
     from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
     from dinov2_tpu_torch.models.config import PRESETS, DinoConfig
     from dinov2_tpu_torch.runtime.engine import DinoEngine
 
-    config = DinoConfig(**{**PRESETS["base"].__dict__, "num_classes": 1000, "img_size": 518})
+    config = DinoConfig(**{**PRESETS[preset].__dict__, **overrides})
     with tempfile.TemporaryDirectory() as tmp:
-        path = write_synthetic_gguf(Path(tmp) / "vit_b14.gguf", config, seed=seed)
+        path = write_synthetic_gguf(Path(tmp) / f"{preset}.gguf", config, seed=seed)
         return DinoEngine(path, dtype=torch.bfloat16, parity="reference", device="cuda")
 
 
-def main() -> int:
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device available", file=sys.stderr)
         return 1
+    parser = argparse.ArgumentParser(prog="profile_slice")
+    parser.add_argument("--mode", choices=sorted(MODES), default="classify")
+    mode = parser.parse_args(list(argv)).mode
+    preset, overrides, batch, px, call, label = MODES[mode]
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -56,23 +70,21 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    engine = _engine(SEED)
-    images = np.random.default_rng(SEED + 1).integers(
-        0, 256, (BATCH, IMAGE_PX, IMAGE_PX, 3), dtype=np.uint8
-    )
+    run = getattr(_engine(preset, overrides, SEED), call)
+    images = np.random.default_rng(SEED + 1).integers(0, 256, (batch, px, px, 3), dtype=np.uint8)
     for _ in range(2):
-        engine.classify_probs(images)
+        run(images)
     seconds = []
     for _ in range(TIMED_CALLS):
         start = time.perf_counter()
-        engine.classify_probs(images)
+        run(images)
         seconds.append(time.perf_counter() - start)
     wall_ms = 1e3 * statistics.median(seconds)
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         for _ in range(PROFILED_CALLS):
-            engine.classify_probs(images)
+            run(images)
         torch.cuda.synchronize()
 
     averages = prof.key_averages()
@@ -82,7 +94,7 @@ def main() -> int:
         print("profile_slice: the profiler recorded no device time", file=sys.stderr)
         return 1
     print(
-        f"ViT-B/14 classify_probs, {BATCH} images of {IMAGE_PX} px, bf16 ({card}): "
+        f"{label}, {batch} images of {px} px, bf16 ({card}): "
         f"wall {wall_ms:.3f} ms per call (median of {TIMED_CALLS}, no profiler); "
         f"device {device_ms:.3f} ms per call (mean of {PROFILED_CALLS} profiled); "
         f"idle {1 - device_ms / wall_ms:.1%}"
@@ -101,14 +113,15 @@ def main() -> int:
     for e in sorted(host, key=lambda e: -e.device_time_total)[:15]:
         print(f"| `{e.key}` | {e.count / PROFILED_CALLS:g} | {e.device_time_total / 1e3 / PROFILED_CALLS:.4f} |")
 
-    OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "key_averages.txt").write_text(
+    out = OUT / mode
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "key_averages.txt").write_text(
         averages.table(sort_by="self_device_time_total", row_limit=-1, max_name_column_width=120)
     )
-    prof.export_chrome_trace(str(OUT / "trace.json"))
-    print(f"profile_slice: table and trace in {OUT}")
+    prof.export_chrome_trace(str(out / "trace.json"))
+    print(f"profile_slice: table and trace in {out}")
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

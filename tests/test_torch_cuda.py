@@ -12,6 +12,8 @@ import torch
 
 from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
 from dinov2_tpu_torch.models.config import DinoConfig
+from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
+from dinov2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_slab
 from dinov2_tpu_torch.ops.fused_attention import slab_layer_block, slab_layer_reference
 
 pytestmark = pytest.mark.cuda
@@ -98,3 +100,88 @@ def test_engine_on_cuda_close_to_cpu_f32(cuda, tmp_path):
     want = DinoEngine(path, dtype=torch.float32, device="cpu").classify_probs(imgs)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-2, atol=0)
+
+
+def _slab(b, t, heads, seed, device, dtype=torch.bfloat16, hd=64):
+    """A (B, T, 3*H*hd) qkv slab of N(0, 1.5²) values: peaked softmax rows."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((b, t, 3 * heads * hd)) * 1.5).to(device, dtype)
+
+
+@pytest.mark.parametrize("entry", ["flash_attention", "flash_attention_slab"])
+@pytest.mark.parametrize(
+    "b, t, heads", [(1, 1, 1), (2, 5, 2), (3, 64, 2), (2, 65, 3), (1, 1370, 4), (1, 4500, 2)]
+)
+def test_flash_attention_kernel_matches_plain(cuda, entry, b, t, heads):
+    """K4 against the plain version in bf16 and in f32 on the same bf16
+    inputs, with K1's bound (the kernel at most twice as far from f32 as the
+    plain bf16 version, plus 1e-3 of the output's scale). T covers one row,
+    ragged tiles, an exact tile, the 518 px sequence and one past 4096 keys
+    (70 key tiles of online softmax), through both entries: the slab's
+    strided views and contiguous (B, T, H, 64) tensors."""
+    qkv = _slab(b, t, heads, seed=t, device=cuda)
+    q, k, v = split_heads(qkv, heads)
+    if entry == "flash_attention":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        got = flash_attention(q, k, v, 0.125)
+    else:
+        got = flash_attention_slab(qkv, heads, 0.125).reshape(b, t, heads, 64)
+    plain = vanilla_attention(q, k, v, 0.125)
+    want = vanilla_attention(q.float(), k.float(), v.float(), 0.125)
+    torch.cuda.synchronize()
+    assert got.shape == (b, t, heads, 64) and got.dtype == torch.bfloat16
+    assert got.is_contiguous() and torch.isfinite(got).all()
+    err = (got.float() - want).abs().max().item()
+    err_plain = (plain.float() - want).abs().max().item()
+    assert err <= 2 * err_plain + 1e-3 * want.abs().max().item()
+
+
+def test_flash_launch_counter_counts_kernel_calls_only(cuda):
+    qkv = _slab(2, 37, 2, seed=0, device=cuda)
+    q, k, v = split_heads(qkv, 2)
+    before = flash_attention.launches
+    flash_attention(q, k, v, 0.125)
+    flash_attention_slab(qkv, 2, 0.125)
+    vanilla_attention(q, k, v, 0.125)
+    flash_attention_slab(qkv.cpu(), 2, 0.125)
+    assert flash_attention.launches == before + 2
+
+
+@pytest.mark.parametrize("case", ["f32", "head_dim 32"])
+def test_flash_kernel_refuses(cuda, case):
+    if case == "f32":
+        qkv, heads = _slab(1, 5, 2, seed=0, device=cuda, dtype=torch.float32), 2
+    else:
+        qkv, heads = _slab(1, 5, 2, seed=0, device=cuda, hd=32), 2
+    before = flash_attention.launches
+    with pytest.raises(NotImplementedError):
+        flash_attention_slab(qkv, heads, 0.125)
+    assert flash_attention.launches == before
+
+
+def test_engine_features_on_cuda_close_to_cpu_f32(cuda, tmp_path):
+    """DinoEngine.extract_features and PCA in bf16 on the card, on the flash
+    route, against the same checkpoint in f32 on the CPU: tokens within
+    K1's bf16 bound of 5e-2 of max|token| (chip_smoke.py)."""
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    config = DinoConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                        num_classes=0, patch_size=14, img_size=70)
+    path = write_synthetic_gguf(tmp_path / "tiny.gguf", config, seed=3)
+    imgs = np.random.default_rng(0).integers(0, 256, (3, 90, 100, 3), dtype=np.uint8)
+    gpu = DinoEngine(path, dtype=torch.bfloat16, flash_attention=True, device="cuda")
+    k1, k4 = slab_layer_block.launches, flash_attention.launches
+    got = gpu.extract_features(imgs)
+    assert flash_attention.launches == k4 + config.num_hidden_layers
+    assert slab_layer_block.launches == k1
+    cpu = DinoEngine(path, dtype=torch.float32, flash_attention=True, device="cpu")
+    want = cpu.extract_features(imgs)
+    assert got["grid"] == want["grid"] == (7, 8)
+    for key in ("cls_token", "patch_tokens"):
+        assert got[key].shape == want[key].shape and np.isfinite(got[key]).all()
+        scale = np.abs(want[key]).max()
+        assert np.abs(got[key] - want[key]).max() <= 5e-2 * scale
+    vis = gpu.pca_visualizations(list(imgs))
+    assert [v.shape for v in vis] == [(90, 100, 3)] * 3 and vis[0].dtype == np.uint8
+    frame = gpu.pca_visualization_async(imgs[0])
+    assert frame.is_cuda and frame.dtype == torch.uint8 and tuple(frame.shape) == (1, 7, 8, 3)

@@ -65,17 +65,6 @@ def test_classify_topk_and_metadata(engines):
     engine.warmup((80, 80), batch=2)
 
 
-def test_feature_mode_not_ported(engines):
-    _, engine = engines
-    img = np.zeros((70, 70, 3), dtype=np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        engine.extract_features(img)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        engine.pca_visualization(img)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        engine.warmup((70, 70), classify=False)
-
-
 def test_cuda_engine_raises_without_a_gpu(tmp_path, monkeypatch):
     """device='cuda' never falls back to the CPU."""
     path = write_synthetic_gguf(tmp_path / "tiny.gguf", TINY, seed=3)

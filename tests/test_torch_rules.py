@@ -70,4 +70,20 @@ def test_importing_the_kernel_module_runs_no_compiler(monkeypatch):
 
     module = importlib.reload(_kernels)
     assert module.slab_layer_lib.cache_info().currsize == 0
+    assert module.flash_attention_lib.cache_info().currsize == 0
 
+
+
+def test_chip_smoke_prints_no_result_without_a_gpu(tmp_path):
+    """chip_smoke.py exits non-zero and prints nothing on stdout where no
+    CUDA device is available, run from the checkout or alone in a directory."""
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_bytes((ROOT / "chip_smoke.py").read_bytes())
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (alone, tmp_path)):
+        proc = subprocess.run(
+            [sys.executable, str(script)], cwd=cwd, env=env,
+            capture_output=True, text=True, timeout=120,
+        )
+        assert proc.returncode != 0 and proc.stdout == ""
