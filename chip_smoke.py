@@ -2,10 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's two user paths once each through the Python API a user
+Drives the port's three user paths once each through the Python API a user
 calls, with random f16 weights from a seed, bf16, parity="reference":
   - classify: DinoEngine.classify on 64 RGB images of 256x256 with a
     full-width ViT-B/14 (1000 classes); the attention half-layer is K1;
+  - quantized classify: the same ViT-B/14 quantized to q4_0 with
+    quantize_gguf, through DinoEngine(quant_mode="fused").classify on the
+    same images; K8 is the attention half-layer, K7 runs fc1, fc2 and the
+    head from the packed blocks;
   - features and PCA: DinoEngine.extract_features and pca_visualizations on
     8 RGB images of 512x512 (518 px in, a 37x37 grid, T=1370) with a
     full-width ViT-L/14; its attention core is K4.
@@ -14,12 +18,14 @@ sources in this checkout (one nvcc per source, all at once) and holds each
 against its plain PyTorch version on the card. Each path runs with the
 launch counts set to 0 just before it and read just after.
 
-Phases, one line each: device, build, kernel checks, classify slice and its
-cross-check, feature slice, PCA, feature cross-check. Any failure exits
-non-zero. The line before the last is a JSON object with one entry per
-kernel; the last line is {"ok": true, "device": {...}}. With no CUDA device,
-or run from a directory that holds only this file, it exits non-zero and
-prints no result.
+Phases, one line each (or one per format): device, build, kernel checks
+(K1, K4, K7, K8), classify slice and its cross-check, quantized classify
+slice, its cross-check and its findings (other routes, weight memory),
+feature slice, PCA, feature cross-check. Any failure exits non-zero. The
+line before the last is a JSON object with one entry per kernel; the last
+line is {"ok": true, "device": {...}}. With no CUDA device, or run from a
+directory that holds only this file, it exits non-zero and prints no
+result.
 """
 
 import os
@@ -59,7 +65,9 @@ FEATURE_TIMED_CALLS = 10
 # PCA images from the same tokens on the card and on the CPU: at most one u8
 # level apart (an f32 rounding across a .5 boundary) on >= 99% of pixels
 PCA_AGREE = 0.99
-KERNELS = ("slab_layer", "flash_attention")
+KERNELS = ("slab_layer", "flash_attention", "quant_matmul", "quant_layer")
+QUANT_FORMATS = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0")
+QUANT_SLICE_FORMAT = "q4_0"
 
 
 def require(ok: bool, what: str) -> None:
@@ -98,14 +106,14 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    """Both kernel libraries, one nvcc each, started together."""
+    """Every kernel library, one nvcc each, started together."""
     from dinov2_tpu_torch.ops import _kernels
 
     start = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         libs = list(pool.map(_kernels.build, KERNELS))
-    _kernels.slab_layer_lib()
-    _kernels.flash_attention_lib()
+    for name in KERNELS:
+        getattr(_kernels, f"{name}_lib")()
     names = ", ".join(str(lib.relative_to(ROOT)) for lib in libs)
     print(f"build: {names} in {time.perf_counter() - start:.2f} s")
 
@@ -209,22 +217,271 @@ def phase_flash_check(card: str) -> dict:
     }
 
 
-def phase_slice(card: str) -> int:
-    """DinoEngine.classify on the card; returns K1 launches of that run (K4
-    must launch no time: T=257 takes the slab route)."""
-    from dinov2_tpu_torch.image.preprocess import classify_preprocess
-    from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
+def _vit_b14_config():
     from dinov2_tpu_torch.models.config import PRESETS, DinoConfig
-    from dinov2_tpu_torch.models.params import load_params
+
+    return DinoConfig(**{**PRESETS["base"].__dict__, "num_classes": 1000, "img_size": 518})
+
+
+def _classify_images() -> np.ndarray:
+    return np.random.default_rng(SEED + 1).integers(
+        0, 256, (BATCH, IMAGE_PX, IMAGE_PX, 3), dtype=np.uint8
+    )
+
+
+def _timed_classify(engine, images) -> tuple[float, float]:
+    """img/s over TIMED_CALLS classify_probs calls, and their median ms."""
+    seconds = []
+    for _ in range(TIMED_CALLS):
+        start = time.perf_counter()
+        engine.classify_probs(images)
+        seconds.append(time.perf_counter() - start)
+    return BATCH * TIMED_CALLS / sum(seconds), 1e3 * statistics.median(seconds)
+
+
+def _cpu_cross_check(engine, cpu_params, images, config) -> tuple[float, float]:
+    """The first images through the engine's forward on the card and through
+    the port's plain f32 forward on the CPU: max|dtokens|/max|tokens| and
+    max|dprobs|."""
+    from dinov2_tpu_torch.image.preprocess import classify_preprocess
     from dinov2_tpu_torch.models.vit import ModelOptions, forward_features, forward_head
+
+    sub = images[:CROSS_CHECK_IMAGES]
+    with torch.inference_mode():
+        pre = classify_preprocess(torch.from_numpy(sub).cuda())
+        tok = forward_features(engine.model.params, pre, config, engine.opts)
+        prob = forward_head(engine.model.params, tok, config, engine.opts)
+        opts32 = ModelOptions(parity="reference", compute_dtype=torch.float32)
+        pre32 = classify_preprocess(torch.from_numpy(sub))
+        tok32 = forward_features(cpu_params, pre32, config, opts32)
+        prob32 = forward_head(cpu_params, tok32, config, opts32)
+    tok_rel = ((tok.cpu() - tok32).abs().max() / tok32.abs().max()).item()
+    return tok_rel, (prob.cpu() - prob32).abs().max().item()
+
+
+def _check_probs(top5, probs, config) -> float:
+    """Shapes, finiteness and row sums of a classify run; returns the
+    largest |row sum - 1|."""
+    require(len(top5) == BATCH and all(len(r) == 5 for r in top5), "classify top-5 shape")
+    require(probs.shape == (BATCH, config.num_classes), f"probs shape {probs.shape}")
+    require(bool(np.isfinite(probs).all()), "probs are not finite")
+    row_err = float(np.abs(probs.sum(axis=-1) - 1.0).max())
+    require(row_err <= 1e-3, f"probs rows sum to 1 within {row_err}")
+    return row_err
+
+
+def phase_quant_matmul_check(card: str) -> dict:
+    """K7 in every format at the quantized slice's shapes against its plain
+    version in x's dtype and in f32: fc1 with the GELU epilogue, fc2 with its
+    bias, and the head on f32 features (N=1000, the masked edge)."""
+    from dinov2_tpu_torch.models.params import quantize_linear
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel, quant_matmul_reference
+
+    shapes = {  # name -> (M, K, N, activation, x dtype)
+        "fc1": (BATCH * 257, 768, 3072, "gelu_tanh_f16", torch.bfloat16),
+        "fc2": (BATCH * 257, 3072, 768, None, torch.bfloat16),
+        "head": (BATCH, 1536, 1000, None, torch.float32),
+    }
+    measured: dict = {}
+    for fmt in QUANT_FORMATS:
+        for name, (m, k, n, act, dtype) in shapes.items():
+            rng = np.random.default_rng(SEED + k)
+            ql = quantize_linear(rng.standard_normal((n, k)) * 0.05, fmt, device="cuda")
+            x = torch.from_numpy(rng.standard_normal((m, k))).to("cuda", dtype)
+            bias = torch.from_numpy(rng.standard_normal(n) * 0.1).to("cuda", torch.float32)
+            kernel = partial(quant_matmul_kernel, x, ql, bias, act)
+            plain = partial(quant_matmul_reference, x, ql, bias, act)
+            got, ref = kernel(), plain()
+            want = quant_matmul_reference(x.float(), ql, bias, act)
+            torch.cuda.synchronize()
+            err_kernel = (got.float() - want).abs().max().item()
+            err_plain = (ref.float() - want).abs().max().item()
+            ref_max = want.abs().max().item()
+            bound = 2 * err_plain + 1e-3 * ref_max  # K1's bound, for the same reasons
+            ms_kernel, ms_plain = cuda_median_ms(kernel), cuda_median_ms(plain)
+            print(
+                f"kernel check: quant_matmul_kernel {fmt} {name} M={m} K={k} N={n} "
+                f"{str(dtype).removeprefix('torch.')} {act}: max|K7-f32| {err_kernel:.6g}, "
+                f"max|plain-f32| {err_plain:.6g}, max|f32| {ref_max:.6g}, bound {bound:.6g}; "
+                f"median K7 {ms_kernel:.4f} ms, plain {ms_plain:.4f} ms ({card})"
+            )
+            require(bool(torch.isfinite(got).all()), f"K7 {fmt} {name} output is not finite")
+            require(err_kernel <= bound, f"K7 {fmt} {name} error {err_kernel} exceeds {bound}")
+            measured[fmt, name] = {"max_abs_err": err_kernel, "ms": ms_kernel, "plain_ms": ms_plain}
+    q = {name: measured[QUANT_SLICE_FORMAT, name] for name in shapes}
+    return {
+        # q4_0's times at fc1 (and the other shapes beside); the worst error
+        "max_abs_err": max(v["max_abs_err"] for v in measured.values()),
+        "ms": q["fc1"]["ms"],
+        "plain_ms": q["fc1"]["plain_ms"],
+        **{f"{key}_{name}": q[name][key] for name in ("fc2", "head") for key in ("ms", "plain_ms")},
+    }
+
+
+def phase_quant_layer_check(card: str) -> dict:
+    """K8 at the main path's shape against its plain version in bf16 and
+    f32, for q4_0 and q5_1 (packed planes, q5_1 with m and 5th bits) and
+    q8_0 (int8 SoA)."""
+    from dinov2_tpu_torch.models.params import quantize_linear
+    from dinov2_tpu_torch.ops.fused_quant_attention import (
+        quant_layer_reference,
+        slab_layer_block_quant,
+    )
+
+    b, t, d, heads = BATCH, 257, 768, 12
+    scale, eps = 1.0 / (d // heads) ** 0.5, 1e-6
+    measured = {}
+    for fmt in ("q4_0", "q5_1", "q8_0"):
+        rng = np.random.default_rng(SEED)
+        arrays = [
+            (rng.standard_normal((b, t, d)), torch.bfloat16),  # x
+            (rng.uniform(0.5, 1.5, d), torch.float32),  # ln scale
+            (rng.standard_normal(d) * 0.1, torch.float32),  # ln bias
+            (rng.standard_normal(3 * d) * 0.1, torch.float32),  # b_qkv
+            (rng.standard_normal(d) * 0.1, torch.float32),  # b_proj
+            (rng.uniform(0.1, 1.0, d), torch.float32),  # ls1
+        ]
+        x, lns, lnb, bq, bp, ls = [torch.from_numpy(a).to("cuda", dt) for a, dt in arrays]
+        wq = quantize_linear(rng.standard_normal((3 * d, d)) * 0.05, fmt, device="cuda")
+        wp = quantize_linear(rng.standard_normal((d, d)) * 0.05, fmt, device="cuda")
+        rest = (lns, lnb, wq, bq, wp, bp, ls, heads, scale, eps)
+        got = slab_layer_block_quant(x, *rest)
+        plain = quant_layer_reference(x, *rest)
+        want = quant_layer_reference(x.float(), *rest)
+        torch.cuda.synchronize()
+        err_kernel = (got.float() - want).abs().max().item()
+        err_plain = (plain.float() - want).abs().max().item()
+        ref_max = want.abs().max().item()
+        bound = 2 * err_plain + 1e-3 * ref_max  # K1's bound, for the same reasons
+        ms_kernel = cuda_median_ms(lambda: slab_layer_block_quant(x, *rest))
+        ms_plain = cuda_median_ms(lambda: quant_layer_reference(x, *rest))
+        print(
+            f"kernel check: slab_layer_block_quant {fmt} ({'packed' if wq.packed else 'int8 SoA'}) "
+            f"B={b} T={t} D={d} H={heads}: max|K8-f32| {err_kernel:.6g}, "
+            f"max|plain_bf16-f32| {err_plain:.6g}, max|f32| {ref_max:.6g}, bound {bound:.6g}; "
+            f"median K8 {ms_kernel:.4f} ms, plain bf16 {ms_plain:.4f} ms ({card})"
+        )
+        require(bool(torch.isfinite(got).all()), f"K8 {fmt} output is not finite")
+        require(err_kernel <= bound, f"K8 {fmt} error {err_kernel} exceeds {bound}")
+        measured[fmt] = {"max_abs_err": err_kernel, "ms": ms_kernel, "plain_ms": ms_plain}
+    return {
+        "max_abs_err": max(v["max_abs_err"] for v in measured.values()),
+        "ms": measured[QUANT_SLICE_FORMAT]["ms"],
+        "plain_ms": measured[QUANT_SLICE_FORMAT]["plain_ms"],
+    }
+
+
+def _load_engine(path, **quant):
+    """A DinoEngine on the card and the device memory its load allocated:
+    (engine, peak MB during the load, MB held after it)."""
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine = DinoEngine(path, dtype=torch.bfloat16, parity="reference", device="cuda", **quant)
+    torch.cuda.synchronize()
+    return (engine, (torch.cuda.max_memory_allocated() - base) / 1e6,
+            (torch.cuda.memory_allocated() - base) / 1e6)
+
+
+def phase_quant_slice(card: str, dense_rate: float) -> tuple[int, int]:
+    """The ViT-B/14 of the classify slice quantized to q4_0 through
+    DinoEngine(quant_mode="fused").classify on the card; returns the K7 and
+    K8 launches of that run (K1 and K4 must launch no time). Then, as
+    findings and no checks, the other quantized routes' rates and the
+    weights' device memory in fused and dequant mode."""
+    from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
+    from dinov2_tpu_torch.models.params import load_params
+    from dinov2_tpu_torch.ops.flash_attention import flash_attention
+    from dinov2_tpu_torch.ops.fused_attention import slab_layer_block
+    from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel
+    from dinov2_tpu_torch.quant import quantize_gguf
+
+    config = _vit_b14_config()
+    images = _classify_images()
+    with tempfile.TemporaryDirectory() as tmp:
+        dense = write_synthetic_gguf(Path(tmp) / "vit_b14.gguf", config, seed=SEED)
+        start = time.perf_counter()
+        path = quantize_gguf(dense, Path(tmp) / f"vit_b14.{QUANT_SLICE_FORMAT}.gguf",
+                             QUANT_SLICE_FORMAT)
+        quantize_s = time.perf_counter() - start
+        engine, fused_peak_mb, fused_mb = _load_engine(path, quant_mode="fused")
+        routes = {
+            'quant_slab="dequant" (K1 on per-layer dequantized weights, K7)':
+                _load_engine(path, quant_mode="fused", quant_slab="dequant")[0],
+            'quant_backend="dequant" (K8, plain dequant + cuBLAS matmuls)':
+                _load_engine(path, quant_mode="fused", quant_backend="dequant")[0],
+        }
+        dequant_engine, dequant_peak_mb, dequant_mb = _load_engine(path, quant_mode="dequant")
+        del dequant_engine
+        cpu_model = load_params(path, dtype=torch.float32, device="cpu", quant_mode="dequant")
+    require(engine.loaded.quantized, "the q4_0 file did not load as QuantLinear weights")
+
+    engine.warmup((IMAGE_PX, IMAGE_PX), batch=BATCH)
+    counters = (slab_layer_block_quant, quant_matmul_kernel, slab_layer_block, flash_attention)
+    for counter in counters:
+        counter.launches = 0
+    top5 = engine.classify(images, topk=5)
+    probs = engine.classify_probs(images)
+    rate, median_ms = _timed_classify(engine, images)
+    k8, k7, k1, k4 = (counter.launches for counter in counters)
+    forwards = 2 + TIMED_CALLS
+    layers = config.num_hidden_layers
+
+    row_err = _check_probs(top5, probs, config)
+    require(k8 == layers * forwards, f"K8 launched {k8} times in {forwards} forwards")
+    require(k7 == (2 * layers + 1) * forwards, f"K7 launched {k7} times in {forwards} forwards")
+    require(k1 == 0 and k4 == 0, f"K1 launched {k1} and K4 {k4} times in the quantized path")
+    print(
+        f"quant slice: ViT-B/14 {QUANT_SLICE_FORMAT} (quant_mode=\"fused\") classify "
+        f"{BATCH}x{IMAGE_PX}px bf16 on {card}: probs finite, max|row sum - 1| {row_err:.3g}, "
+        f"K8 launches {k8} = {layers} x {forwards} forwards, K7 launches {k7} = "
+        f"{2 * layers + 1} x {forwards}, K1 and K4 0; {rate:.1f} img/s over {TIMED_CALLS} "
+        f"timed classify_probs calls (median {median_ms:.2f} ms/call); "
+        f"quantize_gguf took {quantize_s:.1f} s"
+    )
+
+    tok_rel, prob_err = _cpu_cross_check(engine, cpu_model.params, images, config)
+    print(
+        f"quant cross-check: {CROSS_CHECK_IMAGES} images, GPU bf16 fused vs CPU f32 plain on "
+        f"the same {QUANT_SLICE_FORMAT} file decoded at load: max|dtokens|/max|tokens| "
+        f"{tok_rel:.4g} (bound {TOKEN_REL_BOUND}), max|dprobs| {prob_err:.4g} "
+        f"(bound {PROB_ABS_BOUND})"
+    )
+    require(tok_rel <= TOKEN_REL_BOUND, "quantized tokens differ from the CPU f32 forward")
+    require(prob_err <= PROB_ABS_BOUND, "quantized probs differ from the CPU f32 forward")
+
+    for label, other in routes.items():
+        other.warmup((IMAGE_PX, IMAGE_PX), batch=BATCH)
+        other_rate, other_ms = _timed_classify(other, images)
+        print(
+            f"quant finding, not a check: {label}: {other_rate:.1f} img/s (median "
+            f"{other_ms:.2f} ms/call) against {rate:.1f} img/s on the default kernel routes "
+            f"and {dense_rate:.1f} img/s for the dense bf16 model ({card})"
+        )
+    weight_mb = sum(t.numel() * t.element_size() for t in engine.model.buffers()) / 1e6
+    print(
+        f"quant finding, not a check: device memory of the load, {QUANT_SLICE_FORMAT} ViT-B/14: "
+        f"fused {fused_mb:.1f} MB held ({weight_mb:.1f} MB of model buffers, peak "
+        f"{fused_peak_mb:.1f} MB), dequant {dequant_mb:.1f} MB held (peak "
+        f"{dequant_peak_mb:.1f} MB) (torch.cuda memory stats, {card})"
+    )
+    return k7, k8
+
+
+def phase_slice(card: str) -> tuple[int, float]:
+    """DinoEngine.classify on the card; returns K1 launches of that run (K4
+    must launch no time: T=257 takes the slab route) and its img/s."""
+    from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
+    from dinov2_tpu_torch.models.params import load_params
     from dinov2_tpu_torch.ops.flash_attention import flash_attention
     from dinov2_tpu_torch.ops.fused_attention import slab_layer_block
     from dinov2_tpu_torch.runtime.engine import DinoEngine
 
-    config = DinoConfig(**{**PRESETS["base"].__dict__, "num_classes": 1000, "img_size": 518})
-    images = np.random.default_rng(SEED + 1).integers(
-        0, 256, (BATCH, IMAGE_PX, IMAGE_PX, 3), dtype=np.uint8
-    )
+    config = _vit_b14_config()
+    images = _classify_images()
     with tempfile.TemporaryDirectory() as tmp:
         path = write_synthetic_gguf(Path(tmp) / "vit_b14.gguf", config, seed=SEED)
         engine = DinoEngine(path, dtype=torch.bfloat16, parity="reference", device="cuda")
@@ -234,19 +491,11 @@ def phase_slice(card: str) -> int:
     slab_layer_block.launches = flash_attention.launches = 0
     top5 = engine.classify(images, topk=5)
     probs = engine.classify_probs(images)
-    seconds = []
-    for _ in range(TIMED_CALLS):
-        start = time.perf_counter()
-        engine.classify_probs(images)
-        seconds.append(time.perf_counter() - start)
+    rate, median_ms = _timed_classify(engine, images)
     launches, k4_launches = slab_layer_block.launches, flash_attention.launches
     forwards = 2 + TIMED_CALLS
 
-    require(len(top5) == BATCH and all(len(r) == 5 for r in top5), "classify top-5 shape")
-    require(probs.shape == (BATCH, config.num_classes), f"probs shape {probs.shape}")
-    require(bool(np.isfinite(probs).all()), "probs are not finite")
-    row_err = float(np.abs(probs.sum(axis=-1) - 1.0).max())
-    require(row_err <= 1e-3, f"probs rows sum to 1 within {row_err}")
+    row_err = _check_probs(top5, probs, config)
     require(
         launches == config.num_hidden_layers * forwards,
         f"K1 launched {launches} times in {forwards} forwards",
@@ -256,22 +505,12 @@ def phase_slice(card: str) -> int:
         f"slice: ViT-B/14 classify {BATCH}x{IMAGE_PX}px bf16 on {card}: probs finite, "
         f"max|row sum - 1| {row_err:.3g}, K1 launches {launches} = "
         f"{config.num_hidden_layers} x {forwards} forwards; "
-        f"{BATCH * TIMED_CALLS / sum(seconds):.1f} img/s over {TIMED_CALLS} timed "
-        f"classify_probs calls (median {1e3 * statistics.median(seconds):.2f} ms/call)"
+        f"{rate:.1f} img/s over {TIMED_CALLS} timed "
+        f"classify_probs calls (median {median_ms:.2f} ms/call)"
     )
 
     # the same images through the port's plain f32 forward on the CPU
-    sub = images[:CROSS_CHECK_IMAGES]
-    with torch.inference_mode():
-        pre = classify_preprocess(torch.from_numpy(sub).cuda())
-        tok = forward_features(engine.model.params, pre, config, engine.opts)
-        prob = forward_head(engine.model.params, tok, config, engine.opts)
-        opts32 = ModelOptions(parity="reference", compute_dtype=torch.float32)
-        pre32 = classify_preprocess(torch.from_numpy(sub))
-        tok32 = forward_features(cpu_model.params, pre32, config, opts32)
-        prob32 = forward_head(cpu_model.params, tok32, config, opts32)
-    tok_rel = ((tok.cpu() - tok32).abs().max() / tok32.abs().max()).item()
-    prob_err = (prob.cpu() - prob32).abs().max().item()
+    tok_rel, prob_err = _cpu_cross_check(engine, cpu_model.params, images, config)
     print(
         f"cross-check: {CROSS_CHECK_IMAGES} images, GPU bf16 vs CPU f32 plain: "
         f"max|dtokens|/max|tokens| {tok_rel:.4g} (bound {TOKEN_REL_BOUND}), "
@@ -279,7 +518,7 @@ def phase_slice(card: str) -> int:
     )
     require(tok_rel <= TOKEN_REL_BOUND, "tokens differ from the CPU f32 forward")
     require(prob_err <= PROB_ABS_BOUND, "probs differ from the CPU f32 forward")
-    return launches
+    return launches, rate
 
 
 def _agree_u8(a: np.ndarray, b: np.ndarray) -> float:
@@ -426,7 +665,10 @@ def main() -> int:
     phase_build()
     k1_measured = phase_kernel_check(card)
     k4_measured = phase_flash_check(card)
-    k1_launches = phase_slice(card)
+    k7_measured = phase_quant_matmul_check(card)
+    k8_measured = phase_quant_layer_check(card)
+    k1_launches, dense_rate = phase_slice(card)
+    k7_launches, k8_launches = phase_quant_slice(card, dense_rate)
     k4_launches = phase_features(card)
     kernels = [
         {
@@ -445,6 +687,23 @@ def main() -> int:
             "also_replaces": "dinov2_tpu/ops/flash_attention.py:34",
             "launches": k4_launches,
             **k4_measured,
+        },
+        {
+            "name": "quant_matmul_kernel",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/quant_matmul.cu",
+            "replaces": "dinov2_tpu/ops/pallas_qmatmul.py:215",
+            "also_replaces": "dinov2_tpu/ops/pallas_qmatmul.py:81, dinov2_tpu/ops/pallas_qmatmul.py:104",
+            "launches": k7_launches,
+            **k7_measured,
+        },
+        {
+            "name": "slab_layer_block_quant",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/quant_layer.cu",
+            "replaces": "dinov2_tpu/ops/fused_quant_attention.py:183",
+            "launches": k8_launches,
+            **k8_measured,
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -8,14 +8,21 @@ leaf by leaf:
     layout is (out, in); it is transposed once at load);
   - norms, biases, LayerScale, cls_token, pos_embed and register tokens in f32.
 
-Only dense f16/f32 checkpoints with the MLP FFN are ported. Quantized
-checkpoints and the SwiGLU FFN (ViT-g) raise NotImplementedError; both are
-listed in ROADMAP.md.
+Quantized checkpoints (ggml q4_0/q4_1/q5_0/q5_1/q8_0) load in one of two
+modes, as in the JAX package:
+  - "dequant": the blocks are decoded on the host at load, and the weights
+    live on the device as dense kernels in the compute dtype;
+  - "fused": each quantized linear stays in ggml's blocks on the device as a
+    `QuantLinear`, kept (out, in), and every matmul dequantizes it on the fly
+    (the K7 and K8 kernels, ops/qmatmul_kernel.py and
+    ops/fused_quant_attention.py).
+The W8A8 "int8" mode (Int8Linear) and the SwiGLU FFN (ViT-g) raise
+NotImplementedError; both are listed in ROADMAP.md.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Any
 
@@ -24,8 +31,55 @@ import torch
 
 from dinov2_tpu_torch.io.gguf import GGMLType, GGUFReader, GGUFTensor, QUANTIZED_TYPES
 from dinov2_tpu_torch.models.config import DinoConfig, id2label_from_kv
+from dinov2_tpu_torch.quant import QUANT_TYPE_NAMES, block_dtype, quantize, unpack_codes
 
 _NOT_PORTED = "not ported to dinov2_tpu_torch yet (see ROADMAP.md, 'Modules to port')"
+
+QUANT_FIELDS = ("codes", "d", "m", "qh_lo", "qh_hi")  # QuantLinear's tensor fields
+
+
+@dataclass
+class QuantLinear:
+    """A ggml-quantized linear weight (out, in), in one of two layouts
+    (port of the JAX package's QuantLinear; the K7 and K8 kernels read both):
+
+    packed=False ("int8 SoA", any of the five formats):
+      codes: (out, in) int8 with the zero point subtracted, so the weight is
+             codes*d (+ m for q4_1/q5_1).
+    packed=True (q4_0/q4_1/q5_0/q5_1, the load path's layout):
+      codes: (out, in/2) uint8 natural-order nibble planes: byte j holds
+             element j in its low nibble and element j + in/2 in its high one;
+      qh_lo, qh_hi: (out, in/16) uint8 5th bits of the q5 formats, bit i of
+             word g the bit of plane lane 8g + i (None for q4).
+    In both, d and m (None for the symmetric formats) are (out, in/32) f32
+    per-32-block scales and mins. `ggml_type`, `shape` and `packed` are
+    static; the stacked layer tree holds one QuantLinear per weight name with
+    a leading layer axis on every tensor field."""
+
+    codes: torch.Tensor
+    d: torch.Tensor
+    m: torch.Tensor | None
+    ggml_type: int
+    shape: tuple[int, int]
+    packed: bool = False
+    qh_lo: torch.Tensor | None = None
+    qh_hi: torch.Tensor | None = None
+
+    @property
+    def zero_point(self) -> int:
+        """What a packed code carries above its value: 8 for q4_0, 16 for
+        q5_0, 0 for the affine formats; SoA codes have it subtracted."""
+        if not self.packed or self.m is not None:
+            return 0
+        return 16 if self.qh_lo is not None else 8
+
+    def tensors(self) -> dict[str, torch.Tensor]:
+        """The tensor fields that are set, by name."""
+        return {f: getattr(self, f) for f in QUANT_FIELDS if getattr(self, f) is not None}
+
+    def map(self, fn) -> QuantLinear:
+        """The same weight with fn applied to every tensor field."""
+        return replace(self, **{k: fn(v) for k, v in self.tensors().items()})
 
 
 @dataclass
@@ -34,13 +88,19 @@ class LoadedModel:
     params: dict[str, Any]
     id2label: dict[int, str]
     has_classifier: bool
+    quantized: bool = False  # weights kept as QuantLinear (quant_mode="fused")
 
 
-def _stack(dicts: list[dict[str, Any]]) -> dict[str, Any]:
-    """Stack identically-structured trees of tensors along a new axis 0."""
+def _stack(dicts: list[Any]) -> Any:
+    """Stack identically-structured trees of tensors (and QuantLinears, field
+    by field) along a new axis 0."""
     first = dicts[0]
     if isinstance(first, dict):
         return {k: _stack([d[k] for d in dicts]) for k in first}
+    if isinstance(first, QuantLinear):
+        return replace(first, **{
+            k: torch.stack([q.tensors()[k] for q in dicts], dim=0) for k in first.tensors()
+        })
     return torch.stack(dicts, dim=0)
 
 
@@ -115,44 +175,168 @@ def init_params(
 def params_from_numpy(tree: Any, device="cpu") -> Any:
     """A tree of numpy arrays (e.g. the JAX params through np.asarray) ->
     the same tree of torch tensors, dtypes kept. bfloat16 arrays (numpy's
-    ml_dtypes extension type) are moved bit for bit."""
+    ml_dtypes extension type) are moved bit for bit. A QuantLinear of either
+    package becomes the port's, its layout kept."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if hasattr(tree, "ggml_type"):
+        return QuantLinear(
+            **{f: None if getattr(tree, f) is None else params_from_numpy(getattr(tree, f), device)
+               for f in QUANT_FIELDS},
+            ggml_type=int(tree.ggml_type),
+            shape=tuple(int(s) for s in tree.shape),
+            packed=bool(tree.packed),
+        )
     arr = np.asarray(tree)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(arr.copy()).to(device)
 
 
+# the formats that load packed; q8_0 loads as int8 SoA (its codes are bytes)
+_PACKED_TYPES = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1)
+
+
+def decode_packed_planes(
+    codes: torch.Tensor, qh_lo: torch.Tensor | None, qh_hi: torch.Tensor | None, zero: int
+) -> torch.Tensor:
+    """Natural-order nibble planes (+ the q5 5th-bit words) back to integer
+    codes: (..., out, k/2) uint8 -> (..., out, k) int32, `zero` subtracted.
+
+    The single source of truth for the packed layout: byte j = element j
+    (low nibble) | element j + k/2 (high nibble); word g of qh_lo/qh_hi holds
+    the 5th bits of plane lanes 8g..8g+7, lane 8g+i in bit i."""
+    lo = (codes & 0xF).to(torch.int32)
+    hi = (codes >> 4).to(torch.int32)
+    if qh_lo is not None:
+        shifts = torch.arange(8, dtype=torch.int32, device=codes.device)
+
+        def bits(words: torch.Tensor) -> torch.Tensor:
+            b = (words.to(torch.int32)[..., None] >> shifts) & 1
+            return b.reshape(*words.shape[:-1], words.shape[-1] * 8)
+
+        lo = lo | (bits(qh_lo) << 4)
+        hi = hi | (bits(qh_hi) << 4)
+    q = torch.cat([lo, hi], dim=-1)
+    return q - zero if zero else q
+
+
+def _natural_plane_words(bits: np.ndarray) -> np.ndarray:
+    """(out, half_k) 0/1 bits -> (out, half_k//8) uint8, one byte per 8
+    consecutive lanes, bit i of word g = bits[:, 8g+i]."""
+    o, hk = bits.shape
+    w = bits.astype(np.uint32).reshape(o, hk // 8, 8)
+    return (w << np.arange(8, dtype=np.uint32)).sum(axis=2).astype(np.uint8)
+
+
+def _int8_soa(t: GGUFTensor, device) -> QuantLinear:
+    """A ggml-quantized (out, in) tensor in the int8 SoA layout."""
+    gt = GGMLType(t.ggml_type)
+    codes, d, m = unpack_codes(t.data, gt, t.shape)
+    return QuantLinear(
+        codes=_tensor(codes, torch.int8, device),
+        d=_tensor(d, torch.float32, device),
+        m=None if m is None else _tensor(m, torch.float32, device),
+        ggml_type=int(gt),
+        shape=tuple(t.shape),
+    )
+
+
+def _soa_from_blocks(t: GGUFTensor, device="cpu") -> QuantLinear:
+    """A ggml-quantized (out, in) tensor -> QuantLinear on `device`: packed
+    planes for q4_0/q4_1/q5_0/q5_1 (ggml's block-local nibbles, elements
+    32b+j and 32b+16+j in byte j of block b, repacked once on the host),
+    int8 SoA for q8_0. Scales and mins lift out as f32."""
+    out_dim, in_dim = t.shape
+    gt = GGMLType(t.ggml_type)
+    if gt not in _PACKED_TYPES:
+        return _int8_soa(t, device)
+    nb = in_dim // 32
+    blocks = t.data.view(np.uint8).view(block_dtype(gt)).reshape(out_dim, nb)
+    qs = blocks["qs"]  # (out, nb, 16)
+    elems = np.empty((out_dim, nb, 32), dtype=np.uint8)
+    elems[..., :16] = qs & 0xF
+    elems[..., 16:] = qs >> 4
+    elems = elems.reshape(out_dim, in_dim)
+    half = in_dim // 2
+    qh_lo = qh_hi = None
+    if "qh" in blocks.dtype.names:
+        qh = blocks["qh"].astype(np.uint32)  # bit r = 5th bit of element 32b+r
+        bits = ((qh[..., None] >> np.arange(32, dtype=np.uint32)) & 1).reshape(out_dim, in_dim)
+        qh_lo = _tensor(_natural_plane_words(bits[:, :half]), torch.uint8, device)
+        qh_hi = _tensor(_natural_plane_words(bits[:, half:]), torch.uint8, device)
+    return QuantLinear(
+        codes=_tensor(elems[:, :half] | (elems[:, half:] << 4), torch.uint8, device),
+        d=_tensor(blocks["d"].astype(np.float32), torch.float32, device),
+        m=_tensor(blocks["m"].astype(np.float32), torch.float32, device)
+        if "m" in blocks.dtype.names else None,
+        ggml_type=int(gt),
+        shape=(out_dim, in_dim),
+        packed=True,
+        qh_lo=qh_lo,
+        qh_hi=qh_hi,
+    )
+
+
+def quantize_linear(w: np.ndarray, quant_type: str, packed: bool = True, device="cpu") -> QuantLinear:
+    """A float (out, in) weight -> QuantLinear through ggml's codec
+    ("q4_0" ... "q8_0"): the load path's layout (packed planes for q4/q5,
+    int8 SoA for q8_0), or int8 SoA for any format with packed=False."""
+    gt = QUANT_TYPE_NAMES[quant_type]
+    raw = quantize(np.asarray(w, dtype=np.float32), gt)
+    t = GGUFTensor(name="w", shape=tuple(w.shape), ggml_type=gt, data=raw)
+    return _soa_from_blocks(t, device) if packed else _int8_soa(t, device)
+
+
 def _linear(
-    tensors: dict[str, GGUFTensor], name: str, dtype: torch.dtype, device
-) -> dict[str, torch.Tensor]:
-    """`{name}.weight` (out, in) as an (in, out) kernel, plus its f32 bias."""
-    out = {"kernel": _tensor(tensors[f"{name}.weight"].as_numpy().T, dtype, device)}
+    tensors: dict[str, GGUFTensor], name: str, dtype: torch.dtype, device, quant_mode: str
+) -> dict[str, Any]:
+    """`{name}.weight` (out, in) as an (in, out) kernel, or kept (out, in) as
+    a QuantLinear when it is quantized and quant_mode is "fused"; plus its
+    f32 bias."""
+    w = tensors[f"{name}.weight"]
+    if quant_mode == "fused" and w.ggml_type in QUANTIZED_TYPES:
+        out: dict[str, Any] = {"kernel": _soa_from_blocks(w, device)}
+    else:  # as_numpy decodes ggml blocks to f32
+        out = {"kernel": _tensor(w.as_numpy().T, dtype, device)}
     b = tensors.get(f"{name}.bias")
     if b is not None:
         out["bias"] = _tensor(b.as_numpy(), torch.float32, device)
     return out
 
 
+QUANT_MODES = ("dequant", "fused", "int8")
+
+
 def load_params(
-    path: str | Path, dtype: torch.dtype = torch.bfloat16, device="cpu"
+    path: str | Path,
+    dtype: torch.dtype = torch.bfloat16,
+    device="cpu",
+    quant_mode: str = "dequant",
 ) -> LoadedModel:
-    """Load a dense (f16/f32) GGUF checkpoint onto `device`."""
+    """Load a GGUF checkpoint onto `device`: dense f16/f32, or ggml-quantized
+    in `quant_mode` "dequant" (decoded at load) or "fused" (QuantLinear
+    weights). A dense file ignores "fused", as in the JAX package."""
+    if quant_mode not in QUANT_MODES:
+        raise ValueError(f"quant_mode must be one of {QUANT_MODES}, got {quant_mode!r}")
+    if quant_mode == "int8":
+        raise NotImplementedError(
+            f"quant_mode='int8' (Int8Linear, W8A8 with no Pallas kernel) is {_NOT_PORTED}"
+        )
     reader = GGUFReader(path)
     try:
-        return _load(reader, dtype, device)
+        return _load(reader, dtype, device, quant_mode)
     finally:
         reader.close()
 
 
-def _load(reader: GGUFReader, dtype: torch.dtype, device) -> LoadedModel:
+def _load(reader: GGUFReader, dtype: torch.dtype, device, quant_mode: str) -> LoadedModel:
     kv, tensors = reader.kv, reader.tensors
     config = DinoConfig.from_gguf_kv(kv)
     id2label = id2label_from_kv(kv, config.num_classes)
-    quantized = [n for n, t in tensors.items() if t.ggml_type in QUANTIZED_TYPES]
-    if GGMLType(config.ftype) in QUANTIZED_TYPES or quantized:
-        raise NotImplementedError(f"quantized checkpoints are {_NOT_PORTED}")
+    quantized = GGMLType(config.ftype) in QUANTIZED_TYPES
+    if not quantized:
+        quant_mode = "dequant"  # "fused" needs ggml blocks to keep
     if config.swiglu or "encoder.layer.0.mlp.weights_in.weight" in tensors:
         raise NotImplementedError(f"SwiGLU FFN is {_NOT_PORTED}")
 
@@ -182,13 +366,13 @@ def _load(reader: GGUFReader, dtype: torch.dtype, device) -> LoadedModel:
         base = f"encoder.layer.{i}"
         layers.append({
             "norm1": {"scale": f32(f"{base}.norm1.weight"), "bias": f32(f"{base}.norm1.bias")},
-            "qkv": _linear(tensors, f"{base}.attention.attention.qkv", dtype, device),
-            "proj": _linear(tensors, f"{base}.attention.output.dense", dtype, device),
+            "qkv": _linear(tensors, f"{base}.attention.attention.qkv", dtype, device, quant_mode),
+            "proj": _linear(tensors, f"{base}.attention.output.dense", dtype, device, quant_mode),
             "ls1": f32(f"{base}.layer_scale1.lambda1"),
             "norm2": {"scale": f32(f"{base}.norm2.weight"), "bias": f32(f"{base}.norm2.bias")},
             "mlp": {
-                "fc1": _linear(tensors, f"{base}.mlp.fc1", dtype, device),
-                "fc2": _linear(tensors, f"{base}.mlp.fc2", dtype, device),
+                "fc1": _linear(tensors, f"{base}.mlp.fc1", dtype, device, quant_mode),
+                "fc2": _linear(tensors, f"{base}.mlp.fc2", dtype, device, quant_mode),
             },
             "ls2": f32(f"{base}.layer_scale2.lambda1"),
         })
@@ -196,7 +380,8 @@ def _load(reader: GGUFReader, dtype: torch.dtype, device) -> LoadedModel:
     p["final_norm"] = {"scale": f32("layernorm.weight"), "bias": f32("layernorm.bias")}
     has_classifier = "classifier.weight" in tensors
     if has_classifier:
-        p["classifier"] = _linear(tensors, "classifier", dtype, device)
+        p["classifier"] = _linear(tensors, "classifier", dtype, device, quant_mode)
     return LoadedModel(
-        config=config, params=p, id2label=id2label, has_classifier=has_classifier
+        config=config, params=p, id2label=id2label, has_classifier=has_classifier,
+        quantized=quantized and quant_mode == "fused",
     )

@@ -11,6 +11,22 @@ kernel runs as CUDA on a card and as its plain version on the CPU. The MLP
 half-layer is plain PyTorch, as the JAX package leaves it to XLA.
 `DinoViT` is a thin nn.Module that owns the weight tensors.
 
+Quantized weights (QuantLinear, quant_mode="fused") route as follows, with
+two options in place of the JAX package's environment knobs:
+  - slab route, qkv and proj quantized, `quant_slab` (DINOV2_TPU_QUANT_SLAB):
+    "auto" and "kernel" run the K8 kernel
+    (ops/fused_quant_attention.py::slab_layer_block_quant); "dequant"
+    dequantizes the layer's weights into K1 (the JAX package's TPU
+    default); "off" takes the unfused route, whose slab attention core (K3)
+    is not ported and raises;
+  - every other quantized linear (fc1 with its GELU, fc2, the classifier on
+    f32 features, qkv and proj on the flash and vanilla routes) goes through
+    ops/qmatmul.py::quant_matmul with `quant_backend`
+    (DINOV2_TPU_QUANT_BACKEND): "auto" and "kernel" run the K7 kernel
+    (ops/qmatmul_kernel.py), "dequant" dequantizes and runs a plain matmul.
+On a card "auto" therefore always reaches a kernel; the JAX package's
+"auto" picks the dequant routes, a choice measured on a TPU.
+
 Numerics as in the JAX package: LN statistics in f32; matmuls accumulate in
 f32 and round to the compute dtype before the bias add; tokens are embedded
 in f32 and cast once; the final LN and the head run in f32. Quirks kept:
@@ -19,7 +35,7 @@ sum(patches)/n_img_embd² with registers included in reference mode (Q3, Q5).
 
 Left out: the JAX CLS-shift overflow rescue (the port's softmax takes the
 exact row max), batch chunking (TPU scheduling), remat, sequence
-parallelism and SwiGLU.
+parallelism, SwiGLU and the W8A8 Int8Linear.
 """
 
 from __future__ import annotations
@@ -31,10 +47,14 @@ import torch
 from torch import nn
 
 from dinov2_tpu_torch.models.config import DinoConfig
+from dinov2_tpu_torch.models.params import QUANT_FIELDS, QuantLinear
 from dinov2_tpu_torch.image.posembed import interpolate_pos_embed
 from dinov2_tpu_torch.ops.attention import resolve_attention_path, self_attention_block
 from dinov2_tpu_torch.ops.fused_attention import slab_layer_block
-from dinov2_tpu_torch.ops.qmatmul import apply_linear
+from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
+from dinov2_tpu_torch.ops.qmatmul import QUANT_BACKENDS, apply_linear, dequant_weight
+
+QUANT_SLAB_MODES = ("auto", "kernel", "dequant", "off")
 
 
 @dataclass(frozen=True)
@@ -42,6 +62,16 @@ class ModelOptions:
     parity: str = "reference"  # "reference" replicates ggml quirks; "hf" matches HF
     flash_attention: Any = "auto"  # True | False | "auto" | "slab" | "flash" | "vanilla"
     compute_dtype: torch.dtype = torch.bfloat16
+    quant_slab: str = "auto"  # "auto" | "kernel" | "dequant" | "off" (module docstring)
+    quant_backend: str = "auto"  # "auto" | "kernel" | "dequant"
+
+    def __post_init__(self):
+        if self.quant_slab not in QUANT_SLAB_MODES:
+            raise ValueError(f"quant_slab must be one of {QUANT_SLAB_MODES}, got {self.quant_slab!r}")
+        if self.quant_backend not in QUANT_BACKENDS:
+            raise ValueError(
+                f"quant_backend must be one of {QUANT_BACKENDS}, got {self.quant_backend!r}"
+            )
 
     @property
     def gelu_activation(self) -> str:
@@ -58,29 +88,43 @@ def layer_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
     return (y * p["scale"] + p["bias"]).to(x.dtype)
 
 
-def mlp_block(x: torch.Tensor, p: dict, activation: str) -> torch.Tensor:
+def mlp_block(x: torch.Tensor, p: dict, activation: str, backend: str = "auto") -> torch.Tensor:
     """fc1 -> GELU -> fc2."""
-    return apply_linear(apply_linear(x, p["fc1"], activation=activation), p["fc2"])
+    h = apply_linear(x, p["fc1"], activation=activation, backend=backend)
+    return apply_linear(h, p["fc2"], backend=backend)
 
 
 def _attention_half_layer(
     x: torch.Tensor, layer: dict, config: DinoConfig, opts: ModelOptions
 ) -> torch.Tensor:
-    """LN1 -> QKV -> attention -> proj -> LayerScale -> residual: K1 as one
-    kernel on the slab route; LN1 and self_attention_block (the K4 kernel on
-    the flash route) otherwise, in the JAX ordering."""
+    """LN1 -> QKV -> attention -> proj -> LayerScale -> residual: K1 (or K8
+    with quantized weights) as one kernel on the slab route; LN1 and
+    self_attention_block (the K4 kernel on the flash route) otherwise, in
+    the JAX ordering."""
     heads = config.num_attention_heads
+    scale = 1.0 / (config.hidden_size // heads) ** 0.5
     path = resolve_attention_path(opts.flash_attention, x.shape[1])
-    if path == "slab":
+    w_qkv, w_proj = layer["qkv"]["kernel"], layer["proj"]["kernel"]
+    quantized = isinstance(w_qkv, QuantLinear), isinstance(w_proj, QuantLinear)
+    if path == "slab" and all(quantized) and opts.quant_slab in ("auto", "kernel"):
+        return slab_layer_block_quant(
+            x, layer["norm1"]["scale"], layer["norm1"]["bias"], w_qkv, layer["qkv"]["bias"],
+            w_proj, layer["proj"]["bias"], layer["ls1"], heads, scale, config.eps,
+        )
+    if path == "slab" and all(quantized) and opts.quant_slab == "dequant":
+        # the layer's weights dequantized into K1's dense (in, out) layout
+        w_qkv = dequant_weight(w_qkv, x.dtype).T.contiguous()
+        w_proj = dequant_weight(w_proj, x.dtype).T.contiguous()
+        quantized = False, False
+    if path == "slab" and not any(quantized):
         return slab_layer_block(
-            x, layer["norm1"]["scale"], layer["norm1"]["bias"],
-            layer["qkv"]["kernel"], layer["qkv"]["bias"],
-            layer["proj"]["kernel"], layer["proj"]["bias"],
-            layer["ls1"], heads, 1.0 / (config.hidden_size // heads) ** 0.5, config.eps,
+            x, layer["norm1"]["scale"], layer["norm1"]["bias"], w_qkv, layer["qkv"]["bias"],
+            w_proj, layer["proj"]["bias"], layer["ls1"], heads, scale, config.eps,
         )
     h = layer_norm(x, layer["norm1"], config.eps)
     return self_attention_block(
-        x, h, layer["qkv"], layer["proj"], layer["ls1"], heads, flash=path
+        x, h, layer["qkv"], layer["proj"], layer["ls1"], heads, flash=path,
+        backend=opts.quant_backend,
     )
 
 
@@ -92,7 +136,10 @@ def _mlp_half_layer(
         raise NotImplementedError(
             "SwiGLU FFN is not ported to dinov2_tpu_torch yet (see ROADMAP.md)"
         )
-    h = mlp_block(layer_norm(x, layer["norm2"], config.eps), layer["mlp"], opts.gelu_activation)
+    h = mlp_block(
+        layer_norm(x, layer["norm2"], config.eps), layer["mlp"], opts.gelu_activation,
+        opts.quant_backend,
+    )
     return x + h * layer["ls2"].to(x.dtype)
 
 
@@ -106,6 +153,8 @@ def _layer(layers: Any, i: int) -> Any:
     """Layer i of the stacked layer tree."""
     if isinstance(layers, dict):
         return {k: _layer(v, i) for k, v in layers.items()}
+    if isinstance(layers, QuantLinear):
+        return layers.map(lambda t: t[i])
     return layers[i]
 
 
@@ -160,7 +209,7 @@ def head_logits(
     else:
         pooled = tokens[:, 1 + config.num_register_tokens :].mean(dim=1)
     feats = torch.cat([cls, pooled], dim=-1)
-    return apply_linear(feats, params["classifier"]).float()
+    return apply_linear(feats, params["classifier"], backend=opts.quant_backend).float()
 
 
 def forward_head(
@@ -189,7 +238,8 @@ def forward(
     return out
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+def _flatten(tree: dict, prefix: str = "") -> dict[str, Any]:
+    """Tree path -> leaf; a QuantLinear is one leaf."""
     flat = {}
     for k, v in tree.items():
         name = f"{prefix}{k}"
@@ -202,14 +252,22 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
 
 class DinoViT(nn.Module):
     """Owns the weight tensors (as buffers named by their tree path, e.g.
-    "layers/qkv/kernel") and runs the functional forward on them."""
+    "layers/qkv/kernel", or "layers/qkv/kernel/codes" for a QuantLinear's
+    fields) and runs the functional forward on them. A QuantLinear's static
+    fields (ggml_type, shape, packed) are kept beside the buffers."""
 
     def __init__(self, params: dict, config: DinoConfig, opts: ModelOptions):
         super().__init__()
         self.config = config
         self.opts = opts
-        for name, tensor in _flatten(params).items():
-            self.register_buffer(name, tensor)
+        self._quant_static: dict[str, tuple] = {}
+        for name, leaf in _flatten(params).items():
+            if isinstance(leaf, QuantLinear):
+                self._quant_static[name] = (leaf.ggml_type, leaf.shape, leaf.packed)
+                for field, tensor in leaf.tensors().items():
+                    self.register_buffer(f"{name}/{field}", tensor)
+            else:
+                self.register_buffer(name, leaf)
 
     @property
     def params(self) -> dict[str, Any]:
@@ -220,6 +278,16 @@ class DinoViT(nn.Module):
             for key in path:
                 node = node.setdefault(key, {})
             node[leaf] = tensor
+        for name, (ggml_type, shape, packed) in self._quant_static.items():
+            *path, leaf = name.split("/")
+            node = tree
+            for key in path:
+                node = node[key]
+            fields = node[leaf]
+            node[leaf] = QuantLinear(
+                **{f: fields.get(f) for f in QUANT_FIELDS},
+                ggml_type=ggml_type, shape=shape, packed=packed,
+            )
         return tree
 
     def forward(self, x: torch.Tensor, classify: bool = False) -> dict[str, torch.Tensor]:

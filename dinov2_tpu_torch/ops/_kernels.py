@@ -9,7 +9,8 @@ header is rebuilt and a stale library is never loaded.
 
 The entry points take device pointers and the CUDA stream as `void*` and
 return `cudaGetLastError()` after their launches; the Python wrappers
-(ops/fused_attention.py, ops/flash_attention.py) check the code and raise.
+(ops/fused_attention.py, ops/flash_attention.py, ops/qmatmul_kernel.py,
+ops/fused_quant_attention.py) check the code and raise.
 """
 
 from __future__ import annotations
@@ -99,6 +100,36 @@ def flash_attention_lib() -> ctypes.CDLL:
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.dinov2_flash_attention_bf16.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 3 + [f32, ptr]
     lib.dinov2_flash_attention_bf16.restype = i32
+    return lib
+
+
+# a QuantLinear as the C entry points take it: codes, d, m, qh_lo, qh_hi,
+# packed, zero point
+_QUANT_WEIGHT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+
+
+@functools.cache
+def quant_matmul_lib() -> ctypes.CDLL:
+    """The K7 library (csrc/quant_matmul.cu), built on first use."""
+    lib = _load("quant_matmul")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.dinov2_quant_matmul.argtypes = (
+        [ptr, i32] + _QUANT_WEIGHT_ARGS + [ptr, i32, ptr] + [i32] * 3 + [ptr]
+    )
+    lib.dinov2_quant_matmul.restype = i32
+    return lib
+
+
+@functools.cache
+def quant_layer_lib() -> ctypes.CDLL:
+    """The K8 library (csrc/quant_layer.cu), built on first use."""
+    lib = _load("quant_layer")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dinov2_quant_layer_bf16.argtypes = (
+        [ptr] * 3 + _QUANT_WEIGHT_ARGS + [ptr] + _QUANT_WEIGHT_ARGS + [ptr] * 5
+        + [i32] * 4 + [f32, f32, ptr]
+    )
+    lib.dinov2_quant_layer_bf16.restype = i32
     return lib
 
 

@@ -1,11 +1,11 @@
-"""Multi-head self-attention (port of dinov2_tpu/ops/attention.py, dense
-weights).
+"""Multi-head self-attention (port of dinov2_tpu/ops/attention.py).
 
 `vanilla_attention` is the plain attention core: the plain version of the
 K1 and K4 kernels (ops/fused_attention.py, ops/flash_attention.py) and the
 "vanilla" route. `self_attention` and `self_attention_block` run the unfused
 half-layer (fused QKV, attention core, proj, LayerScale, residual) that
-models/vit.py takes on every route but "slab".
+models/vit.py takes on every route but "slab"; QuantLinear qkv and proj
+weights go through ops/qmatmul.py::quant_matmul with `backend`.
 """
 
 from __future__ import annotations
@@ -67,6 +67,7 @@ def self_attention(
     proj_params: dict,
     num_heads: int,
     flash=False,
+    backend: str = "auto",
 ) -> torch.Tensor:
     """fused QKV -> attention core -> output projection, (B, T, D) -> (B, T, D).
 
@@ -84,14 +85,14 @@ def self_attention(
             "(see ROADMAP.md); the slab route runs the whole half-layer, "
             "ops/fused_attention.py::slab_layer_block"
         )
-    qkv = apply_linear(x, qkv_params)
+    qkv = apply_linear(x, qkv_params, backend=backend)
     if path == "flash":
         from dinov2_tpu_torch.ops.flash_attention import flash_attention_slab
 
         out = flash_attention_slab(qkv, num_heads, scale)
     else:
         out = vanilla_attention(*split_heads(qkv, num_heads), scale).reshape(b, t, d)
-    return apply_linear(out, proj_params)
+    return apply_linear(out, proj_params, backend=backend)
 
 
 def self_attention_block(
@@ -102,8 +103,9 @@ def self_attention_block(
     ls1: torch.Tensor,
     num_heads: int,
     flash=False,
+    backend: str = "auto",
 ) -> torch.Tensor:
     """x_res + ls1 * proj(attention(qkv(x_norm))), LayerScale and residual in
     x_res's dtype."""
-    out = self_attention(x_norm, qkv_params, proj_params, num_heads, flash=flash)
+    out = self_attention(x_norm, qkv_params, proj_params, num_heads, flash=flash, backend=backend)
     return x_res + out * ls1.to(x_res.dtype)

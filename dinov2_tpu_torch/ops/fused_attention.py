@@ -58,7 +58,12 @@ def slab_layer_reference(
     return _slab_block_reference(x, qkv, w_proj, b_proj, ls1, num_heads, scale)
 
 
-def _check_cuda_args(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, ls1, num_heads):
+def check_half_layer_args(
+    x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads, w_qkv=None, w_proj=None
+):
+    """What the CUDA half-layer kernels (K1, and K8 with quantized weights)
+    take: bf16 x (B, T, D) with head_dim 64 and f32 rows; the dense (in, out)
+    weights too where they are given."""
     if x.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the CUDA half-layer kernel takes bf16 activations, got {x.dtype}"
@@ -71,14 +76,15 @@ def _check_cuda_args(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, ls1, nu
             f"the CUDA half-layer kernel needs head_dim 64, got D={d}, H={num_heads}"
         )
     expected = {
-        "w_qkv": (w_qkv, (d, 3 * d), torch.bfloat16),
-        "w_proj": (w_proj, (d, d), torch.bfloat16),
         "ln_scale": (ln_scale, (d,), torch.float32),
         "ln_bias": (ln_bias, (d,), torch.float32),
         "b_qkv": (b_qkv, (3 * d,), torch.float32),
         "b_proj": (b_proj, (d,), torch.float32),
         "ls1": (ls1, (d,), torch.float32),
     }
+    if w_qkv is not None:
+        expected["w_qkv"] = (w_qkv, (d, 3 * d), torch.bfloat16)
+        expected["w_proj"] = (w_proj, (d, d), torch.bfloat16)
     for name, (tensor, shape, dtype) in expected.items():
         if tuple(tensor.shape) != shape or tensor.dtype != dtype:
             raise ValueError(
@@ -118,7 +124,7 @@ def slab_layer_block(
         )
     if x.device.type != "cuda":
         raise ValueError(f"no slab_layer_block for device {x.device}")
-    _check_cuda_args(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, ls1, num_heads)
+    check_half_layer_args(x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads, w_qkv, w_proj)
     from dinov2_tpu_torch.ops._kernels import check_status, slab_layer_lib
 
     lib = slab_layer_lib()

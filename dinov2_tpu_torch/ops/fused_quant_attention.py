@@ -1,0 +1,90 @@
+"""The quantized attention half-layer, K8 (port of
+dinov2_tpu/ops/fused_quant_attention.py).
+
+    slab_layer_block_quant(x, ...) = x + ls1 * (proj(attention(qkv(LN1 x))) + b_proj)
+
+with the qkv (3D, D) and proj (D, D) weights as QuantLinear (models/
+params.py), dequantized in `dequant_weight`'s order (code -> f32, x d, + m,
+one cast to x's dtype). On a CUDA tensor it launches the hand-written kernel
+in csrc/quant_layer.cu, which replaces the Pallas TPU kernel
+`_quant_layer_kernel`: K1's three launches (ops/fused_attention.py) with the
+weight tiles dequantized from the ggml blocks as they reach shared memory,
+so the dense weights never exist in HBM. On a CPU tensor it runs the plain
+PyTorch version, `quant_layer_reference`: dequant_weight, then K1's plain
+version, as the JAX package's reference does.
+
+The TPU kernel dequantizes both weights once per call into VMEM scratch and
+keeps the qkv slab and the attention output on chip; this first version
+writes and re-reads both through HBM, as K1 does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dinov2_tpu_torch.ops.fused_attention import check_half_layer_args, slab_layer_reference
+from dinov2_tpu_torch.ops.qmatmul import dequant_weight
+from dinov2_tpu_torch.ops.qmatmul_kernel import check_quant_weight, quant_weight_args
+
+
+def quant_layer_reference(
+    x, ln_scale, ln_bias, qkv_ql, b_qkv, proj_ql, b_proj, ls1, num_heads, scale, eps
+):
+    """The plain PyTorch version of K8: K1's plain version on the
+    dequantized (in, out) weights (what quant_mode="dequant" computes)."""
+    wq = dequant_weight(qkv_ql, x.dtype).T
+    wp = dequant_weight(proj_ql, x.dtype).T
+    return slab_layer_reference(x, ln_scale, ln_bias, wq, b_qkv, wp, b_proj, ls1, num_heads,
+                                scale, eps)
+
+
+def slab_layer_block_quant(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    qkv_ql,
+    b_qkv: torch.Tensor,
+    proj_ql,
+    b_proj: torch.Tensor,
+    ls1: torch.Tensor,
+    num_heads: int,
+    scale: float,
+    eps: float,
+) -> torch.Tensor:
+    """x + ls1 * proj(attention(qkv(LN(x)))): x (B, T, D); qkv_ql (3D, D) and
+    proj_ql (D, D) QuantLinear; ln_scale, ln_bias, b_proj, ls1 (D,) and b_qkv
+    (3D,) in f32.
+
+    CPU tensors run the plain version. CUDA tensors launch the K8 kernel
+    (bf16 only; anything else raises) and add one to
+    `slab_layer_block_quant.launches`."""
+    if x.device.type == "cpu":
+        return quant_layer_reference(
+            x, ln_scale, ln_bias, qkv_ql, b_qkv, proj_ql, b_proj, ls1, num_heads, scale, eps
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"no slab_layer_block_quant for device {x.device}")
+    check_half_layer_args(x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads)
+    b, t, d = x.shape
+    check_quant_weight(qkv_ql, "qkv", x.device, 3 * d, d)
+    check_quant_weight(proj_ql, "proj", x.device, d, d)
+    from dinov2_tpu_torch.ops._kernels import check_status, quant_layer_lib
+
+    lib = quant_layer_lib()
+    qkv = torch.empty((b, t, 3 * d), dtype=x.dtype, device=x.device)
+    attn = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):  # the launches go to the current device
+        code = lib.dinov2_quant_layer_bf16(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+            *quant_weight_args(qkv_ql), b_qkv.data_ptr(),
+            *quant_weight_args(proj_ql), b_proj.data_ptr(), ls1.data_ptr(),
+            qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
+            b, t, d, num_heads, scale, eps, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    check_status(lib, code, "slab_layer_block_quant")
+    slab_layer_block_quant.launches += 1
+    return out
+
+
+slab_layer_block_quant.launches = 0  # kernel launches on CUDA tensors

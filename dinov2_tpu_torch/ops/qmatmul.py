@@ -1,16 +1,28 @@
-"""Dense linear apply and activations (port of dinov2_tpu/ops/qmatmul.py).
+"""Linear apply, dense or ggml-quantized, and activations (port of
+dinov2_tpu/ops/qmatmul.py).
 
-Only the dense path is ported: quantized weights (QuantLinear, Int8Linear)
-and their kernels are listed in ROADMAP.md. Matmuls accumulate in f32 and
-round once to the compute dtype, then the bias is added in that dtype, the
-JAX package's ordering (`jnp.dot(..., preferred_element_type=x.dtype)` +
-`bias.astype(x.dtype)`).
+Matmuls accumulate in f32 and round once to the compute dtype, then the
+bias is added in that dtype, the JAX package's ordering
+(`jnp.dot(..., preferred_element_type=x.dtype)` + `bias.astype(x.dtype)`).
+
+A `QuantLinear` kernel (models/params.py) goes through `quant_matmul`, the
+one dispatch point of quantized matmuls. Its backends:
+  - "kernel": the K7 dequant-matmul (ops/qmatmul_kernel.py), which reads the
+    ggml blocks straight from their packed form on a card and runs its plain
+    version on the CPU;
+  - "dequant": `dequant_weight` into a dense weight of x's dtype, then a
+    plain matmul (the JAX package's "xla" backend);
+  - "auto": "kernel", so a card always reaches the kernel. The JAX package's
+    "auto" is "dequant", a choice measured on a TPU that does not carry over.
+The W8A8 Int8Linear is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from dinov2_tpu_torch.models.params import QuantLinear, decode_packed_planes
 
 
 def set_cuda_matmul_precision() -> None:
@@ -45,14 +57,57 @@ def apply_activation(y: torch.Tensor, activation: str | None) -> torch.Tensor:
     raise ValueError(f"unknown activation {activation!r}")
 
 
-def apply_linear(
-    x: torch.Tensor, layer: dict, activation: str | None = None
-) -> torch.Tensor:
-    """x @ kernel (+ bias) (+ activation) for a dense (in, out) kernel.
+QUANT_BACKENDS = ("auto", "kernel", "dequant")
 
-    The kernel is cast to x's dtype first, so f32 features meet an f32
+
+def dequant_weight(ql, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """A QuantLinear -> its dense (out, in) weight in `dtype`, in the JAX
+    package's order: integer codes -> f32, times d, plus m for q4_1/q5_1,
+    each in f32, then one cast. Both layouts; dims come from the tensors."""
+    out_dim = ql.codes.shape[0]
+    in_dim = ql.codes.shape[1] * (2 if ql.packed else 1)
+    if ql.packed:
+        q = decode_packed_planes(ql.codes, ql.qh_lo, ql.qh_hi, ql.zero_point)
+    else:
+        q = ql.codes
+    w = q.to(torch.float32).reshape(out_dim, in_dim // 32, 32) * ql.d[..., None]
+    if ql.m is not None:
+        w = w + ql.m[..., None]
+    return w.reshape(out_dim, in_dim).to(dtype)
+
+
+def quant_matmul(
+    x: torch.Tensor,
+    ql,
+    backend: str = "auto",
+    bias: torch.Tensor | None = None,
+    activation: str | None = None,
+) -> torch.Tensor:
+    """x (..., in) @ W^T (+ bias) (+ activation) for an (out, in)
+    QuantLinear W: the one dispatch point of quantized matmuls (module
+    docstring for the backends)."""
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel, quant_matmul_reference
+
+    if backend not in QUANT_BACKENDS:
+        raise ValueError(f"quant backend must be one of {QUANT_BACKENDS}, got {backend!r}")
+    if backend == "dequant":
+        return quant_matmul_reference(x, ql, bias, activation)
+    return quant_matmul_kernel(x, ql, bias, activation)
+
+
+def apply_linear(
+    x: torch.Tensor, layer: dict, activation: str | None = None, backend: str = "auto"
+) -> torch.Tensor:
+    """x @ kernel (+ bias) (+ activation) for a dense (in, out) kernel or an
+    (out, in) QuantLinear (through quant_matmul with `backend`, which carries
+    the bias and the activation into the kernel's epilogue).
+
+    A dense kernel is cast to x's dtype first, so f32 features meet an f32
     classifier (JAX promotes the bf16 kernel the same way)."""
-    y = torch.matmul(x, layer["kernel"].to(x.dtype))
+    kernel = layer["kernel"]
+    if isinstance(kernel, QuantLinear):
+        return quant_matmul(x, kernel, backend, layer.get("bias"), activation)
+    y = torch.matmul(x, kernel.to(x.dtype))
     if "bias" in layer:
         y = y + layer["bias"].to(x.dtype)
     return apply_activation(y, activation)

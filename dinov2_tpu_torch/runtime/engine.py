@@ -13,7 +13,10 @@ preprocessed on the device, and run through one forward.
 
 `flash_attention` picks the attention route (ops/attention.py::
 resolve_attention_path); "auto" takes K1 below 1024 tokens and K4 from
-there on. `device="cuda"` runs the CUDA kernels and needs a GPU: with none,
+there on. A ggml-quantized checkpoint loads with `quant_mode` "dequant"
+(dense weights decoded at load) or "fused" (the blocks stay on the device
+and run through K8 and K7; `quant_slab` and `quant_backend` pick their
+routes, models/vit.py). `device="cuda"` runs the CUDA kernels and needs a GPU: with none,
 the constructor raises; it never falls back to the CPU. `device="cpu"` runs
 the plain PyTorch versions.
 """
@@ -55,6 +58,9 @@ class DinoEngine:
         parity: str = "reference",
         flash_attention="auto",
         device="cuda",
+        quant_mode: str = "dequant",
+        quant_slab: str = "auto",
+        quant_backend: str = "auto",
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -64,12 +70,13 @@ class DinoEngine:
                     "(use device='cpu' for the plain PyTorch path)"
                 )
             set_cuda_matmul_precision()
-        self.loaded = load_params(model_path, dtype=dtype, device=self.device)
+        self.opts = ModelOptions(
+            parity=parity, flash_attention=flash_attention, compute_dtype=dtype,
+            quant_slab=quant_slab, quant_backend=quant_backend,
+        )
+        self.loaded = load_params(model_path, dtype=dtype, device=self.device, quant_mode=quant_mode)
         self.config = self.loaded.config
         self.id2label = self.loaded.id2label
-        self.opts = ModelOptions(
-            parity=parity, flash_attention=flash_attention, compute_dtype=dtype
-        )
         self.model = DinoViT(self.loaded.params, self.config, self.opts)
         self.last_compute_ms = 0.0
 

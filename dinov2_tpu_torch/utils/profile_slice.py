@@ -1,6 +1,7 @@
 """Where the time goes in the port's classify or feature path on one CUDA GPU.
 
     python3 -m dinov2_tpu_torch.utils.profile_slice [--mode classify|features]
+        [--quant q4_0|q4_1|q5_0|q5_1|q8_0]
 
 classify (the default): a random-weight ViT-B/14 at its published widths
 (PRESETS["base"], 1000 classes, img_size 518, f16 weights from seed 0) in
@@ -9,6 +10,9 @@ random 256x256 uint8 images, as chip_smoke.py runs it.
 features: a random-weight ViT-L/14 (PRESETS["large"]) in the same engine,
 `extract_features` on 8 random 512x512 images (518 px in, T=1370, the K4
 route), as chip_smoke.py runs it.
+--quant FMT: the same checkpoint quantized with quantize_gguf and loaded
+with quant_mode="fused" (K8 for the attention half-layer, K7 for the other
+linears), as chip_smoke.py's quantized slice runs it.
 
 Each mode makes two warm-up calls, 10 calls on the host clock without the
 profiler, then 3 calls under torch.profiler. It prints the card, the median
@@ -16,7 +20,7 @@ wall ms per call, the device time per call (the sum of every kernel's and
 copy's own device time, one stream, so nothing overlaps), the idle share
 1 - device/wall, and every device op with its launches, ms per call and ms
 per launch. The profiler's full table and a Chrome trace go into
-OUT/<mode>/ under the working directory (.gitignore lists OUT).
+OUT/<mode>[_<quant>]/ under the working directory (.gitignore lists OUT).
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from dinov2_tpu_torch.quant import QUANT_TYPE_NAMES
+
 SEED = 0
 TIMED_CALLS = 10
 PROFILED_CALLS = 3
@@ -44,15 +50,19 @@ MODES = {
 }
 
 
-def _engine(preset: str, overrides: dict, seed: int):
+def _engine(preset: str, overrides: dict, seed: int, quant: str | None):
     from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
     from dinov2_tpu_torch.models.config import PRESETS, DinoConfig
+    from dinov2_tpu_torch.quant import quantize_gguf
     from dinov2_tpu_torch.runtime.engine import DinoEngine
 
     config = DinoConfig(**{**PRESETS[preset].__dict__, **overrides})
     with tempfile.TemporaryDirectory() as tmp:
         path = write_synthetic_gguf(Path(tmp) / f"{preset}.gguf", config, seed=seed)
-        return DinoEngine(path, dtype=torch.bfloat16, parity="reference", device="cuda")
+        if quant:
+            path = quantize_gguf(path, Path(tmp) / f"{preset}.{quant}.gguf", quant)
+        return DinoEngine(path, dtype=torch.bfloat16, parity="reference", device="cuda",
+                          quant_mode="fused" if quant else "dequant")
 
 
 def main(argv=()) -> int:
@@ -61,8 +71,12 @@ def main(argv=()) -> int:
         return 1
     parser = argparse.ArgumentParser(prog="profile_slice")
     parser.add_argument("--mode", choices=sorted(MODES), default="classify")
-    mode = parser.parse_args(list(argv)).mode
+    parser.add_argument("--quant", choices=sorted(QUANT_TYPE_NAMES), default=None)
+    args = parser.parse_args(list(argv))
+    mode, quant = args.mode, args.quant
     preset, overrides, batch, px, call, label = MODES[mode]
+    if quant:
+        label = f"{label}, {quant} fused"
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -70,7 +84,7 @@ def main(argv=()) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    run = getattr(_engine(preset, overrides, SEED), call)
+    run = getattr(_engine(preset, overrides, SEED, quant), call)
     images = np.random.default_rng(SEED + 1).integers(0, 256, (batch, px, px, 3), dtype=np.uint8)
     for _ in range(2):
         run(images)
@@ -113,7 +127,7 @@ def main(argv=()) -> int:
     for e in sorted(host, key=lambda e: -e.device_time_total)[:15]:
         print(f"| `{e.key}` | {e.count / PROFILED_CALLS:g} | {e.device_time_total / 1e3 / PROFILED_CALLS:.4f} |")
 
-    out = OUT / mode
+    out = OUT / (f"{mode}_{quant}" if quant else mode)
     out.mkdir(parents=True, exist_ok=True)
     (out / "key_averages.txt").write_text(
         averages.table(sort_by="self_device_time_total", row_limit=-1, max_name_column_width=120)

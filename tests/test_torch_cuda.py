@@ -185,3 +185,164 @@ def test_engine_features_on_cuda_close_to_cpu_f32(cuda, tmp_path):
     assert [v.shape for v in vis] == [(90, 100, 3)] * 3 and vis[0].dtype == np.uint8
     frame = gpu.pca_visualization_async(imgs[0])
     assert frame.is_cuda and frame.dtype == torch.uint8 and tuple(frame.shape) == (1, 7, 8, 3)
+
+
+QUANT_FORMATS = ["q4_0", "q4_1", "q5_0", "q5_1", "q8_0"]
+
+
+def _ql(fmt, n, k, seed, device, packed=True, scale=0.05):
+    from dinov2_tpu_torch.models.params import quantize_linear
+
+    w = np.random.default_rng(seed).standard_normal((n, k)).astype(np.float32) * scale
+    return quantize_linear(w, fmt, packed, device)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("fmt", QUANT_FORMATS)
+def test_quant_matmul_kernel_dequantizes_exactly(cuda, fmt, packed):
+    """Through an identity input K7's output is its dequantized weight:
+    bit for bit dequant_weight's, in bf16 and in f32."""
+    from dinov2_tpu_torch.ops.qmatmul import dequant_weight
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel
+
+    ql = _ql(fmt, 200, 256, seed=1, device=cuda, packed=packed, scale=0.5)
+    for dtype in (torch.bfloat16, torch.float32):
+        got = quant_matmul_kernel(torch.eye(256, dtype=dtype, device=cuda), ql)
+        assert torch.equal(got, dequant_weight(ql, dtype).T)
+
+
+@pytest.mark.parametrize(
+    "m, k, n, activation, dtype, packed",
+    [
+        (300, 256, 200, "gelu_tanh_f16", torch.bfloat16, True),
+        (65, 256, 1000, "gelu_erf", torch.bfloat16, False),  # the head's N edge
+        (130, 128, 33, "gelu_tanh", torch.bfloat16, True),  # odd N: scalar stores
+        (1, 384, 64, None, torch.bfloat16, True),
+        (64, 1536, 1000, None, torch.float32, True),  # the f32 classifier head
+        (77, 256, 70, "gelu_erf", torch.float32, False),
+    ],
+)
+@pytest.mark.parametrize("fmt", QUANT_FORMATS)
+def test_quant_matmul_kernel_matches_plain(cuda, fmt, m, k, n, activation, dtype, packed):
+    """K7 against its plain version in x's dtype and in f32 on the same
+    inputs, with K1's bound (at most twice the plain version's distance from
+    f32, plus 1e-3 of the output's scale); f32 x holds 1e-5 of that scale."""
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel, quant_matmul_reference
+
+    ql = _ql(fmt, n, k, seed=m, device=cuda, packed=packed)
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(rng.standard_normal((m, k))).to(cuda, dtype)
+    bias = torch.from_numpy(rng.standard_normal(n) * 0.1).to(cuda, torch.float32)
+    got = quant_matmul_kernel(x, ql, bias, activation)
+    plain = quant_matmul_reference(x, ql, bias, activation)
+    want = quant_matmul_reference(x.float(), ql, bias, activation)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and got.dtype == dtype and torch.isfinite(got).all()
+    err = (got.float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-5 * scale
+    else:
+        assert err <= 2 * (plain.float() - want).abs().max().item() + 1e-3 * scale
+
+
+@pytest.mark.parametrize("b, t, heads", [(1, 1, 2), (2, 37, 2), (3, 65, 4), (2, 257, 12)])
+@pytest.mark.parametrize("fmt, packed", [(f, True) for f in QUANT_FORMATS] + [("q4_1", False)])
+def test_quant_layer_kernel_matches_plain(cuda, fmt, packed, b, t, heads):
+    """K8 against its plain version with K1's bound, and bit for bit K1 on
+    the dequantized weights (the two differ only in their weight loader)."""
+    from dinov2_tpu_torch.ops.fused_quant_attention import (
+        quant_layer_reference,
+        slab_layer_block_quant,
+    )
+    from dinov2_tpu_torch.ops.qmatmul import dequant_weight
+
+    d = 64 * heads
+    x, lns, lnb, _, bq, _, bp, ls = _half_layer_args(b, t, d, seed=t, device=cuda)
+    wq = _ql(fmt, 3 * d, d, seed=1, device=cuda, packed=packed)
+    wp = _ql(fmt, d, d, seed=2, device=cuda, packed=packed)
+    got = slab_layer_block_quant(x, lns, lnb, wq, bq, wp, bp, ls, heads, 0.125, 1e-6)
+    plain = quant_layer_reference(x, lns, lnb, wq, bq, wp, bp, ls, heads, 0.125, 1e-6)
+    want = quant_layer_reference(x.float(), lns, lnb, wq, bq, wp, bp, ls, heads, 0.125, 1e-6)
+    dense = [dequant_weight(w, torch.bfloat16).T.contiguous() for w in (wq, wp)]
+    k1 = slab_layer_block(x, lns, lnb, dense[0], bq, dense[1], bp, ls, heads, 0.125, 1e-6)
+    torch.cuda.synchronize()
+    assert got.shape == (b, t, d) and torch.isfinite(got).all()
+    err = (got.float() - want).abs().max().item()
+    assert err <= 2 * (plain.float() - want).abs().max().item() + 1e-3 * want.abs().max().item()
+    assert torch.equal(got, k1)
+
+
+def test_quant_launch_counters_count_kernel_calls_only(cuda):
+    from dinov2_tpu_torch.ops.fused_quant_attention import (
+        quant_layer_reference,
+        slab_layer_block_quant,
+    )
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel, quant_matmul_reference
+
+    ql = _ql("q4_0", 64, 128, seed=0, device=cuda)
+    x = torch.zeros((5, 128), dtype=torch.bfloat16, device=cuda)
+    before = quant_matmul_kernel.launches
+    quant_matmul_kernel(x, ql)
+    quant_matmul_kernel(x.float(), ql)
+    quant_matmul_reference(x, ql)
+    quant_matmul_kernel(x.cpu(), ql.map(torch.Tensor.cpu))
+    assert quant_matmul_kernel.launches == before + 2
+
+    x, lns, lnb, _, bq, _, bp, ls = _half_layer_args(2, 37, 128, seed=0, device=cuda)
+    wq, wp = _ql("q8_0", 384, 128, 1, cuda), _ql("q8_0", 128, 128, 2, cuda)
+    before = slab_layer_block_quant.launches
+    slab_layer_block_quant(x, lns, lnb, wq, bq, wp, bp, ls, 2, 0.125, 1e-6)
+    quant_layer_reference(x, lns, lnb, wq, bq, wp, bp, ls, 2, 0.125, 1e-6)
+    cpu = [a.cpu() for a in (x, lns, lnb)]
+    slab_layer_block_quant(*cpu, wq.map(torch.Tensor.cpu), bq.cpu(), wp.map(torch.Tensor.cpu),
+                           bp.cpu(), ls.cpu(), 2, 0.125, 1e-6)
+    assert slab_layer_block_quant.launches == before + 1
+
+
+@pytest.mark.parametrize("case", ["K8 f32", "K8 packed D=64", "K7 packed K=64", "K7 f16"])
+def test_quant_kernels_refuse(cuda, case):
+    from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel
+
+    counts = (slab_layer_block_quant.launches, quant_matmul_kernel.launches)
+    if case.startswith("K8"):
+        d = 128 if case == "K8 f32" else 64
+        x, lns, lnb, _, bq, _, bp, ls = _half_layer_args(1, 5, d, seed=0, device=cuda)
+        if case == "K8 f32":
+            x = x.float()
+        wq, wp = _ql("q4_0", 3 * d, d, 1, cuda), _ql("q4_0", d, d, 2, cuda)
+        with pytest.raises(NotImplementedError, match="bf16" if case == "K8 f32" else "K/2"):
+            slab_layer_block_quant(x, lns, lnb, wq, bq, wp, bp, ls, d // 64, 0.125, 1e-6)
+    else:
+        k = 64 if case == "K7 packed K=64" else 128
+        dtype = torch.float16 if case == "K7 f16" else torch.bfloat16
+        with pytest.raises(NotImplementedError):
+            quant_matmul_kernel(torch.zeros((3, k), dtype=dtype, device=cuda), _ql("q5_1", 8, k, 0, cuda))
+    assert (slab_layer_block_quant.launches, quant_matmul_kernel.launches) == counts
+
+
+@pytest.mark.parametrize("fmt", ["q4_0", "q5_1", "q8_0"])
+def test_engine_quant_classify_on_cuda_close_to_cpu_f32(cuda, tmp_path, fmt):
+    """DinoEngine(quant_mode="fused") in bf16 on the card (K8 in every layer,
+    K7 for fc1, fc2 and the head) against the same file in f32 on the CPU,
+    with the dense engine test's bound."""
+    from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel
+    from dinov2_tpu_torch.quant import quantize_gguf
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    config = DinoConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                        num_classes=4, patch_size=14, img_size=70)
+    dense = write_synthetic_gguf(tmp_path / "tiny.gguf", config, seed=3)
+    path = quantize_gguf(dense, tmp_path / f"tiny.{fmt}.gguf", fmt)
+    imgs = np.random.default_rng(0).integers(0, 256, (3, 90, 100, 3), dtype=np.uint8)
+    gpu = DinoEngine(path, dtype=torch.bfloat16, device="cuda", quant_mode="fused")
+    counts = (slab_layer_block_quant.launches, quant_matmul_kernel.launches, slab_layer_block.launches)
+    got = gpu.classify_probs(imgs)
+    layers = config.num_hidden_layers
+    assert (slab_layer_block_quant.launches, quant_matmul_kernel.launches,
+            slab_layer_block.launches) == (counts[0] + layers, counts[1] + 2 * layers + 1, counts[2])
+    want = DinoEngine(path, dtype=torch.float32, device="cpu", quant_mode="dequant").classify_probs(imgs)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-2, atol=0)

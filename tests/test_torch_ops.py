@@ -104,9 +104,16 @@ def test_cuda_argument_checks(case, error):
         args[7] = args[7].to(torch.bfloat16)
     elif case == "x not contiguous":
         args[0] = torch.zeros((2, 128, 5), dtype=torch.bfloat16).transpose(1, 2)
-    fused_attention._check_cuda_args(*_cuda_args())  # the valid set passes
+    _check_k1_args(_cuda_args())  # the valid set passes
     with pytest.raises(error):
-        fused_attention._check_cuda_args(*args)
+        _check_k1_args(args)
+
+
+def _check_k1_args(args):
+    x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, ls1, heads = args
+    fused_attention.check_half_layer_args(
+        x, ln_scale, ln_bias, b_qkv, b_proj, ls1, heads, w_qkv, w_proj
+    )
 
 
 def _f16_ordinal(a: np.ndarray) -> np.ndarray:

@@ -23,9 +23,9 @@ def test_no_source_file_imports_jax():
 def test_only_the_reexport_modules_name_the_jax_package():
     """chip_smoke.py and the port's modules import `dinov2_tpu_torch` only;
     the JAX package's jax-free host modules come in through models/config.py,
-    io/gguf.py and io/synthetic.py."""
+    io/gguf.py, io/synthetic.py and quant/__init__.py."""
     pattern = re.compile(r"^\s*(import|from) dinov2_tpu(\.|\s|$)", re.MULTILINE)
-    reexports = {"models/config.py", "io/gguf.py", "io/synthetic.py"}
+    reexports = {"models/config.py", "io/gguf.py", "io/synthetic.py", "quant/__init__.py"}
     naming = {
         str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py") if pattern.search(p.read_text())
     }
@@ -69,8 +69,8 @@ def test_importing_the_kernel_module_runs_no_compiler(monkeypatch):
     from dinov2_tpu_torch.ops import _kernels
 
     module = importlib.reload(_kernels)
-    assert module.slab_layer_lib.cache_info().currsize == 0
-    assert module.flash_attention_lib.cache_info().currsize == 0
+    for lib in ("slab_layer_lib", "flash_attention_lib", "quant_matmul_lib", "quant_layer_lib"):
+        assert getattr(module, lib).cache_info().currsize == 0, lib
 
 
 
