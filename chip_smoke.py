@@ -2,50 +2,56 @@
 
     python3 chip_smoke.py
 
-Drives the port's three user paths once each through the Python API a user
-calls, with random f16 weights from a seed, bf16, parity="reference":
+Drives the port's user paths once each through the Python API a user calls,
+with random f16 weights from a seed, bf16, parity="reference":
   - classify: DinoEngine.classify on 64 RGB images of 256x256 with a
-    full-width ViT-B/14 (1000 classes); the attention half-layer is K1;
+    full-width ViT-B/14 (1000 classes); the attention half-layer is K1. Then
+    the same weights with fuse_mlp=True: K1 and, for the MLP half-layer, K5;
   - quantized classify: the same ViT-B/14 quantized to q4_0 with
     quantize_gguf, through DinoEngine(quant_mode="fused").classify on the
     same images; K8 is the attention half-layer, K7 runs fc1, fc2 and the
     head from the packed blocks;
   - features and PCA: DinoEngine.extract_features and pca_visualizations on
     8 RGB images of 512x512 (518 px in, a 37x37 grid, T=1370) with a
-    full-width ViT-L/14; its attention core is K4.
+    full-width ViT-L/14; its attention core is K4;
+  - ViT-g/14 classify: DinoEngine.classify on 16 images of 256x256 with the
+    full ViT-g/14 (D=1536, 40 layers, 24 heads, SwiGLU hidden 4096, 1000
+    classes, ~1.1 B parameters) from a synthetic f16 GGUF, at each level of
+    the slab route: slab_fusion="core" (K3, the JAX package's route for this
+    model), "proj" (K2) and "layer" (K1) on the same device weights.
 On the way it builds every hand-written kernel of those paths from the
 sources in this checkout (one nvcc per source, all at once) and holds each
-against its plain PyTorch version on the card. Each path runs with the
-launch counts set to 0 just before it and read just after.
+against its plain PyTorch version on the card, with its time beside its
+roofline bound (H100 SXM peaks) and, for K3 and K4, beside
+scaled_dot_product_attention on the same inputs (a yardstick the port never
+calls). Each path runs with the launch counts set to 0 just before it and
+read just after.
 
-Phases, one line each (or one per format): device, build, kernel checks
-(K1, K4, K7, K8), classify slice and its cross-check, quantized classify
+Phases, one line each (or one per format or shape), each with its seconds:
+device, build, kernel checks (K1, K3 and K2, K5, K4, K7, K8), classify slice,
+its cross-check and the fuse_mlp slice with its own, quantized classify
 slice, its cross-check and its findings (other routes, weight memory),
-feature slice, PCA, feature cross-check. Any failure exits non-zero. The
-line before the last is a JSON object with one entry per kernel; the last
-line is {"ok": true, "device": {...}}. With no CUDA device, or run from a
-directory that holds only this file, it exits non-zero and prints no
-result.
+feature slice, PCA, feature cross-check, ViT-g/14 slice at its three levels
+and its cross-check. Any failure exits non-zero. The line before the last is
+a JSON object with one entry per kernel; the last line is
+{"ok": true, "device": {...}}. With no CUDA device, or run from a directory
+that holds only this file, it exits non-zero and prints no result.
 """
 
-import os
+import copy
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
+from pathlib import Path
 
-# dinov2_tpu/__init__.py imports jax when JAX_PLATFORMS is set; the port
-# re-exports that package's jax-free host modules and must run without jax.
-os.environ.pop("JAX_PLATFORMS", None)
-
-import json  # noqa: E402
-import statistics  # noqa: E402
-import subprocess  # noqa: E402
-import sys  # noqa: E402
-import tempfile  # noqa: E402
-import time  # noqa: E402
-from concurrent.futures import ThreadPoolExecutor  # noqa: E402
-from functools import partial  # noqa: E402
-from pathlib import Path  # noqa: E402
-
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
+import numpy as np
+import torch
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -65,9 +71,23 @@ FEATURE_TIMED_CALLS = 10
 # PCA images from the same tokens on the card and on the CPU: at most one u8
 # level apart (an f32 rounding across a .5 boundary) on >= 99% of pixels
 PCA_AGREE = 0.99
-KERNELS = ("slab_layer", "flash_attention", "quant_matmul", "quant_layer")
+KERNELS = ("slab_layer", "slab_attention", "slab_mlp", "flash_attention", "quant_matmul",
+           "quant_layer")
 QUANT_FORMATS = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0")
 QUANT_SLICE_FORMAT = "q4_0"
+# the ViT-g/14 slice: all 40 layers at full width
+GIANT_BATCH = 16
+GIANT_CROSS_CHECK_IMAGES = 2
+# bf16 error grows with depth: docs/PARITY.md measured 2.5e-1 on the 40-layer
+# giant's bf16 tokens against 8.4e-2 for ViT-S/B (3x), and no bf16 probs for
+# it. The token bound is relative to max|token| and stays; the probs bound
+# scales with the tokens' envelope, 3 x 3e-4 ~ 1e-3 (this slice reads 3.2e-4).
+GIANT_PROB_ABS_BOUND = 1e-3
+# H100 SXM peaks (NVIDIA's data sheet, dense): a kernel's bound is the larger
+# of its operations over the first and its bytes over the second
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # outside the tensor cores: K7's f32 head
+PEAK_BYTES_PER_S = 3.35e12
 
 
 def require(ok: bool, what: str) -> None:
@@ -89,6 +109,95 @@ def cuda_median_ms(fn, warmup: int = 3, reps: int = 20) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the given tensors; a QuantLinear counts its tensor fields."""
+    total = 0
+    for t in tensors:
+        parts = t.tensors().values() if hasattr(t, "tensors") else [t]
+        total += sum(p.numel() * p.element_size() for p in parts)
+    return total
+
+
+def roofline(flops: float, moved_bytes: int, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    """The least time the card could take: each input byte read once, each
+    output byte written once, the operations at the peak rate of their type
+    (the bf16 tensor rate unless the caller says otherwise)."""
+    ops_ms = 1e3 * flops / peak_flops
+    bytes_ms = 1e3 * moved_bytes / PEAK_BYTES_PER_S
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def check_kernel(label, tag, kernel, plain, plain_f32, card, flops, moved_bytes,
+                 library=None, peak_flops=PEAK_BF16_FLOPS) -> dict:
+    """One kernel call against its plain version in the same dtype and in
+    f32 on the same inputs. The kernel and the plain bf16 version round to
+    bf16 at the same points but sum in other orders, and the attention
+    kernels round the unnormalized probabilities where the plain version
+    rounds normalized ones. Both distances from f32 are bf16 rounding noise
+    of one size, so the kernel may be twice as far as the plain version,
+    plus 1e-3 of the output's scale. Then CUDA-event medians of the kernel,
+    the plain version and, where given, the library call."""
+    got, ref, want = kernel(), plain(), plain_f32()
+    torch.cuda.synchronize()
+    got = got.reshape(want.shape)
+    err_kernel = (got.float() - want).abs().max().item()
+    err_plain = (ref.reshape(want.shape).float() - want).abs().max().item()
+    ref_max = want.abs().max().item()
+    bound = 2 * err_plain + 1e-3 * ref_max
+    measured = {
+        "max_abs_err": err_kernel,
+        "ms": cuda_median_ms(kernel),
+        "plain_ms": cuda_median_ms(plain),
+        **roofline(flops, moved_bytes, peak_flops),
+        "library_ms": cuda_median_ms(library) if library else None,
+    }
+    line = (
+        f"kernel check: {label}: max|{tag}-f32| {err_kernel:.6g}, max|plain-f32| "
+        f"{err_plain:.6g}, max|f32| {ref_max:.6g}, bound {bound:.6g}; median {tag} "
+        f"{measured['ms']:.4f} ms, plain {measured['plain_ms']:.4f} ms, roofline "
+        f"{measured['bound_ms']:.4f} ms ({measured['bound_by']})"
+    )
+    if library:
+        line += f", scaled_dot_product_attention {measured['library_ms']:.4f} ms"
+    print(f"{line} ({card})")
+    require(bool(torch.isfinite(got).all()), f"{label}: output is not finite")
+    require(err_kernel <= bound, f"{label}: error {err_kernel} exceeds {bound}")
+    return measured
+
+
+def sdpa(q, k, v, scale):
+    """The library yardstick for K3 and K4: one
+    scaled_dot_product_attention call on the (B, T, H, 64) head views."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale
+    )
+
+
+def _half_layer_args(rng, b, t, d) -> list:
+    """x, LN scale and bias, w_qkv, b_qkv, w_proj, b_proj, ls1 on the card."""
+    arrays = [
+        (rng.standard_normal((b, t, d)), torch.bfloat16),  # x
+        (rng.uniform(0.5, 1.5, d), torch.float32),  # ln scale
+        (rng.standard_normal(d) * 0.1, torch.float32),  # ln bias
+        (rng.standard_normal((d, 3 * d)) * 0.05, torch.bfloat16),  # w_qkv
+        (rng.standard_normal(3 * d) * 0.1, torch.float32),  # b_qkv
+        (rng.standard_normal((d, d)) * 0.05, torch.bfloat16),  # w_proj
+        (rng.standard_normal(d) * 0.1, torch.float32),  # b_proj
+        (rng.uniform(0.1, 1.0, d), torch.float32),  # ls1
+    ]
+    return [torch.from_numpy(a).to("cuda", dt) for a, dt in arrays]
+
+
+def half_layer_flops(b, t, d, heads) -> float:
+    """QKV and proj GEMMs and the attention products of one half-layer."""
+    return 2.0 * b * t * d * 4 * d + attention_flops(b, t, heads)
+
+
+def attention_flops(b, t, heads) -> float:
+    return 4.0 * b * heads * t * t * 64
 
 
 def phase_device() -> str:
@@ -120,59 +229,114 @@ def phase_build() -> None:
 
 def phase_kernel_check(card: str) -> dict:
     """K1 at the main path's shape against its plain version in bf16 and f32."""
-    from dinov2_tpu_torch.ops.fused_attention import (
-        slab_layer_block,
-        slab_layer_reference,
-    )
+    from dinov2_tpu_torch.ops.fused_attention import slab_layer_block, slab_layer_reference
 
     b, t, d, heads = BATCH, 257, 768, 12
     scale, eps = 1.0 / (d // heads) ** 0.5, 1e-6
-    rng = np.random.default_rng(SEED)
-    arrays = [
-        (rng.standard_normal((b, t, d)), torch.bfloat16),  # x
-        (rng.uniform(0.5, 1.5, d), torch.float32),  # ln scale
-        (rng.standard_normal(d) * 0.1, torch.float32),  # ln bias
-        (rng.standard_normal((d, 3 * d)) * 0.05, torch.bfloat16),  # w_qkv
-        (rng.standard_normal(3 * d) * 0.1, torch.float32),  # b_qkv
-        (rng.standard_normal((d, d)) * 0.05, torch.bfloat16),  # w_proj
-        (rng.standard_normal(d) * 0.1, torch.float32),  # b_proj
-        (rng.uniform(0.1, 1.0, d), torch.float32),  # ls1
-    ]
-    args = [torch.from_numpy(a).to("cuda", dt) for a, dt in arrays]
+    args = _half_layer_args(np.random.default_rng(SEED), b, t, d)
     args32 = [a.float() for a in args]  # the same bf16-rounded values in f32
-
-    got = slab_layer_block(*args, heads, scale, eps)
-    plain = slab_layer_reference(*args, heads, scale, eps)
-    want = slab_layer_reference(*args32, heads, scale, eps)
-    torch.cuda.synchronize()
-    err_kernel = (got.float() - want).abs().max().item()
-    err_plain = (plain.float() - want).abs().max().item()
-    ref_max = want.abs().max().item()
-    # The kernel and the plain bf16 version round to bf16 at the same points
-    # but sum in other orders, and the kernel rounds the unnormalized
-    # probabilities where the plain version rounds normalized ones. Both
-    # distances from f32 are bf16 rounding noise of one size, so the kernel
-    # may be twice as far as the plain version, plus 1e-3 of the output's
-    # scale for the differently rounded probabilities.
-    bound = 2 * err_plain + 1e-3 * ref_max
-    ms_kernel = cuda_median_ms(lambda: slab_layer_block(*args, heads, scale, eps))
-    ms_plain = cuda_median_ms(lambda: slab_layer_reference(*args, heads, scale, eps))
-    print(
-        f"kernel check: slab_layer_block B={b} T={t} D={d} H={heads}: "
-        f"max|K1-f32| {err_kernel:.6g}, max|plain_bf16-f32| {err_plain:.6g}, "
-        f"max|f32| {ref_max:.6g}, bound {bound:.6g}; median K1 {ms_kernel:.4f} ms, "
-        f"plain bf16 {ms_plain:.4f} ms ({card})"
+    return check_kernel(
+        f"slab_layer_block B={b} T={t} D={d} H={heads}", "K1",
+        lambda: slab_layer_block(*args, heads, scale, eps),
+        lambda: slab_layer_reference(*args, heads, scale, eps),
+        lambda: slab_layer_reference(*args32, heads, scale, eps),
+        card, half_layer_flops(b, t, d, heads), nbytes(*args, args[0]),
     )
-    require(bool(torch.isfinite(got).all()), "K1 output is not finite")
-    require(err_kernel <= bound, f"K1 error {err_kernel} exceeds {bound}")
-    return {"max_abs_err": err_kernel, "ms": ms_kernel, "plain_ms": ms_plain}
+
+
+def phase_slab_attention_check(card: str) -> tuple[dict, dict]:
+    """K3 and K2 against their plain versions at ViT-g/14's classify shape
+    and at ViT-B/14's, each on the slab K1 makes from random inputs; there
+    K3 must equal K1's attention output and K2 K1's output bit for bit.
+    Beside K3, scaled_dot_product_attention on the same head views."""
+    from dinov2_tpu_torch.ops.attention import split_heads
+    from dinov2_tpu_torch.ops.fused_attention import (
+        _slab_block_reference,
+        _slab_reference,
+        slab_attention,
+        slab_attention_block,
+        slab_layer_buffers,
+    )
+
+    measured = {}
+    for b, t, heads in ((GIANT_BATCH, 257, 24), (BATCH, 257, 12)):
+        d, scale = 64 * heads, 0.125
+        args = _half_layer_args(np.random.default_rng(SEED + heads), b, t, d)
+        x, _, _, _, _, wp, bp, ls = args
+        k1_out, qkv, k1_attn = slab_layer_buffers(*args, heads, scale, 1e-6)
+        shape = f"B={b} T={t} D={d} H={heads}"
+        k3 = check_kernel(
+            f"slab_attention {shape}", "K3",
+            lambda: slab_attention(qkv, heads, scale),
+            lambda: _slab_reference(qkv, heads, scale),
+            lambda: _slab_reference(qkv.float(), heads, scale),
+            card, attention_flops(b, t, heads), nbytes(qkv, k1_attn),
+            library=partial(sdpa, *split_heads(qkv, heads), scale),
+        )
+        block = (x, qkv, wp, bp, ls)
+        k2 = check_kernel(
+            f"slab_attention_block {shape}", "K2",
+            lambda: slab_attention_block(*block, heads, scale),
+            lambda: _slab_block_reference(*block, heads, scale),
+            lambda: _slab_block_reference(*[a.float() for a in block], heads, scale),
+            card, attention_flops(b, t, heads) + 2.0 * b * t * d * d, nbytes(*block, x),
+        )
+        same_k3 = torch.equal(slab_attention(qkv, heads, scale), k1_attn)
+        same_k2 = torch.equal(slab_attention_block(*block, heads, scale), k1_out)
+        print(f"kernel check: on K1's own slab, {shape}: K3 equals K1's attention output bit "
+              f"for bit: {same_k3}; K2 equals K1's output bit for bit: {same_k2}")
+        require(same_k3, f"K3 differs from K1's attention output at {shape}")
+        require(same_k2, f"K2 differs from K1's output at {shape}")
+        measured[heads] = k3, k2
+    (k3, k2), (k3_b, k2_b) = measured[24], measured[12]
+    for main, other in ((k3, k3_b), (k2, k2_b)):  # the JSON line's numbers are ViT-g's shape's
+        main["max_abs_err"] = max(main["max_abs_err"], other["max_abs_err"])
+        main["ms_vit_b"], main["plain_ms_vit_b"] = other["ms"], other["plain_ms"]
+    k3["library_ms_vit_b"] = k3_b["library_ms"]
+    return k3, k2
+
+
+def phase_slab_mlp_check(card: str) -> dict:
+    """K5 against its plain version at the fuse_mlp slice's shape for both
+    parity modes' activations, and at ViT-L/14's 518 px shape."""
+    from dinov2_tpu_torch.ops.fused_attention import slab_mlp_block, slab_mlp_reference
+
+    measured = {}
+    for b, t, d, act in ((BATCH, 257, 768, "gelu_tanh_f16"), (BATCH, 257, 768, "gelu_erf"),
+                         (FEATURE_BATCH, 1370, 1024, "gelu_tanh_f16")):
+        rng = np.random.default_rng(SEED + d)
+        arrays = [
+            (rng.standard_normal((b, t, d)), torch.bfloat16),  # x
+            (rng.uniform(0.5, 1.5, d), torch.float32),  # ln scale
+            (rng.standard_normal(d) * 0.1, torch.float32),  # ln bias
+            (rng.standard_normal((d, 4 * d)) * 0.05, torch.bfloat16),  # w1
+            (rng.standard_normal(4 * d) * 0.1, torch.float32),  # b1
+            (rng.standard_normal((4 * d, d)) * 0.05, torch.bfloat16),  # w2
+            (rng.standard_normal(d) * 0.1, torch.float32),  # b2
+            (rng.uniform(0.1, 1.0, d), torch.float32),  # ls2
+        ]
+        args = [torch.from_numpy(a).to("cuda", dt) for a, dt in arrays]
+        args32 = [a.float() for a in args]
+        measured[d, act] = check_kernel(
+            f"slab_mlp_block B={b} T={t} D={d} DH={4 * d} {act}", "K5",
+            lambda: slab_mlp_block(*args, act, 1e-6),
+            lambda: slab_mlp_reference(*args, act, 1e-6),
+            lambda: slab_mlp_reference(*args32, act, 1e-6),
+            card, 4.0 * b * t * d * 4 * d, nbytes(*args, args[0]),
+        )
+    main = measured[768, "gelu_tanh_f16"]
+    main["max_abs_err"] = max(m["max_abs_err"] for m in measured.values())
+    for key in ("ms", "plain_ms"):
+        main[f"{key}_gelu_erf"] = measured[768, "gelu_erf"][key]
+        main[f"{key}_vit_l_518"] = measured[1024, "gelu_tanh_f16"][key]
+    return main
 
 
 def phase_flash_check(card: str) -> dict:
     """K4 against its plain version in bf16 and f32 at the feature slice's
     shape through flash_attention_slab, and at an 896 px image's sequence
     (T=4226, which the TPU runs as multi-KV online softmax) through
-    flash_attention."""
+    flash_attention; scaled_dot_product_attention beside both."""
     from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
     from dinov2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_slab
 
@@ -188,33 +352,18 @@ def phase_flash_check(card: str) -> dict:
         else:
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             entry, kernel = "flash_attention", partial(flash_attention, q, k, v, scale)
-        got = kernel().reshape(b, t, heads, 64)
-        plain = vanilla_attention(q, k, v, scale)
-        want = vanilla_attention(q.float(), k.float(), v.float(), scale)
-        torch.cuda.synchronize()
-        err_kernel = (got.float() - want).abs().max().item()
-        err_plain = (plain.float() - want).abs().max().item()
-        ref_max = want.abs().max().item()
-        bound = 2 * err_plain + 1e-3 * ref_max  # K1's bound, for the same reasons
-        ms_kernel = cuda_median_ms(kernel)
-        ms_plain = cuda_median_ms(lambda: vanilla_attention(q, k, v, scale))
-        print(
-            f"kernel check: {entry} B={b} T={t} H={heads} hd=64: "
-            f"max|K4-f32| {err_kernel:.6g}, max|plain_bf16-f32| {err_plain:.6g}, "
-            f"max|f32| {ref_max:.6g}, bound {bound:.6g}; median K4 {ms_kernel:.4f} ms, "
-            f"plain bf16 {ms_plain:.4f} ms ({card})"
+        measured[t] = check_kernel(
+            f"{entry} B={b} T={t} H={heads} hd=64", "K4", kernel,
+            partial(vanilla_attention, q, k, v, scale),
+            partial(vanilla_attention, q.float(), k.float(), v.float(), scale),
+            card, attention_flops(b, t, heads), nbytes(q, k, v, q),
+            library=partial(sdpa, q, k, v, scale),
         )
-        require(bool(torch.isfinite(got).all()), f"K4 output at T={t} is not finite")
-        require(err_kernel <= bound, f"K4 error {err_kernel} at T={t} exceeds {bound}")
-        measured[t] = {"max_abs_err": err_kernel, "ms": ms_kernel, "plain_ms": ms_plain}
-    return {
-        # the JSON line's numbers are the slice shape's; the error is the worse
-        "max_abs_err": max(m["max_abs_err"] for m in measured.values()),
-        "ms": measured[1370]["ms"],
-        "plain_ms": measured[1370]["plain_ms"],
-        "ms_t4226": measured[4226]["ms"],
-        "plain_ms_t4226": measured[4226]["plain_ms"],
-    }
+    main = measured[1370]  # the JSON line's numbers are the slice shape's; the error is the worse
+    main["max_abs_err"] = max(m["max_abs_err"] for m in measured.values())
+    for key in ("ms", "plain_ms", "library_ms"):
+        main[f"{key}_t4226"] = measured[4226][key]
+    return main
 
 
 def _vit_b14_config():
@@ -236,17 +385,28 @@ def _timed_classify(engine, images) -> tuple[float, float]:
         start = time.perf_counter()
         engine.classify_probs(images)
         seconds.append(time.perf_counter() - start)
-    return BATCH * TIMED_CALLS / sum(seconds), 1e3 * statistics.median(seconds)
+    return len(images) * TIMED_CALLS / sum(seconds), 1e3 * statistics.median(seconds)
 
 
-def _cpu_cross_check(engine, cpu_params, images, config) -> tuple[float, float]:
+def _same_weights(engine, **options):
+    """A second engine on the same device tensors, with other ModelOptions."""
+    from dinov2_tpu_torch.models.vit import DinoViT
+
+    other = copy.copy(engine)
+    other.opts = dataclasses.replace(engine.opts, **options)
+    other.model = DinoViT(engine.loaded.params, engine.config, other.opts)
+    return other
+
+
+def _cpu_cross_check(engine, cpu_params, images, config,
+                     n: int = CROSS_CHECK_IMAGES) -> tuple[float, float]:
     """The first images through the engine's forward on the card and through
     the port's plain f32 forward on the CPU: max|dtokens|/max|tokens| and
     max|dprobs|."""
     from dinov2_tpu_torch.image.preprocess import classify_preprocess
     from dinov2_tpu_torch.models.vit import ModelOptions, forward_features, forward_head
 
-    sub = images[:CROSS_CHECK_IMAGES]
+    sub = images[:n]
     with torch.inference_mode():
         pre = classify_preprocess(torch.from_numpy(sub).cuda())
         tok = forward_features(engine.model.params, pre, config, engine.opts)
@@ -262,8 +422,9 @@ def _cpu_cross_check(engine, cpu_params, images, config) -> tuple[float, float]:
 def _check_probs(top5, probs, config) -> float:
     """Shapes, finiteness and row sums of a classify run; returns the
     largest |row sum - 1|."""
-    require(len(top5) == BATCH and all(len(r) == 5 for r in top5), "classify top-5 shape")
-    require(probs.shape == (BATCH, config.num_classes), f"probs shape {probs.shape}")
+    batch = len(probs)
+    require(len(top5) == batch and all(len(r) == 5 for r in top5), "classify top-5 shape")
+    require(probs.shape == (batch, config.num_classes), f"probs shape {probs.shape}")
     require(bool(np.isfinite(probs).all()), "probs are not finite")
     row_err = float(np.abs(probs.sum(axis=-1) - 1.0).max())
     require(row_err <= 1e-3, f"probs rows sum to 1 within {row_err}")
@@ -289,31 +450,20 @@ def phase_quant_matmul_check(card: str) -> dict:
             ql = quantize_linear(rng.standard_normal((n, k)) * 0.05, fmt, device="cuda")
             x = torch.from_numpy(rng.standard_normal((m, k))).to("cuda", dtype)
             bias = torch.from_numpy(rng.standard_normal(n) * 0.1).to("cuda", torch.float32)
-            kernel = partial(quant_matmul_kernel, x, ql, bias, act)
-            plain = partial(quant_matmul_reference, x, ql, bias, act)
-            got, ref = kernel(), plain()
-            want = quant_matmul_reference(x.float(), ql, bias, act)
-            torch.cuda.synchronize()
-            err_kernel = (got.float() - want).abs().max().item()
-            err_plain = (ref.float() - want).abs().max().item()
-            ref_max = want.abs().max().item()
-            bound = 2 * err_plain + 1e-3 * ref_max  # K1's bound, for the same reasons
-            ms_kernel, ms_plain = cuda_median_ms(kernel), cuda_median_ms(plain)
-            print(
-                f"kernel check: quant_matmul_kernel {fmt} {name} M={m} K={k} N={n} "
-                f"{str(dtype).removeprefix('torch.')} {act}: max|K7-f32| {err_kernel:.6g}, "
-                f"max|plain-f32| {err_plain:.6g}, max|f32| {ref_max:.6g}, bound {bound:.6g}; "
-                f"median K7 {ms_kernel:.4f} ms, plain {ms_plain:.4f} ms ({card})"
+            measured[fmt, name] = check_kernel(
+                f"quant_matmul_kernel {fmt} {name} M={m} K={k} N={n} "
+                f"{str(dtype).removeprefix('torch.')} {act}", "K7",
+                partial(quant_matmul_kernel, x, ql, bias, act),
+                partial(quant_matmul_reference, x, ql, bias, act),
+                partial(quant_matmul_reference, x.float(), ql, bias, act),
+                card, 2.0 * m * k * n, nbytes(x, ql, bias) + m * n * x.element_size(),
+                peak_flops=PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS,
             )
-            require(bool(torch.isfinite(got).all()), f"K7 {fmt} {name} output is not finite")
-            require(err_kernel <= bound, f"K7 {fmt} {name} error {err_kernel} exceeds {bound}")
-            measured[fmt, name] = {"max_abs_err": err_kernel, "ms": ms_kernel, "plain_ms": ms_plain}
     q = {name: measured[QUANT_SLICE_FORMAT, name] for name in shapes}
     return {
-        # q4_0's times at fc1 (and the other shapes beside); the worst error
+        # q4_0's numbers at fc1 (and the other shapes' times beside); the worst error
+        **q["fc1"],
         "max_abs_err": max(v["max_abs_err"] for v in measured.values()),
-        "ms": q["fc1"]["ms"],
-        "plain_ms": q["fc1"]["plain_ms"],
         **{f"{key}_{name}": q[name][key] for name in ("fc2", "head") for key in ("ms", "plain_ms")},
     }
 
@@ -333,41 +483,22 @@ def phase_quant_layer_check(card: str) -> dict:
     measured = {}
     for fmt in ("q4_0", "q5_1", "q8_0"):
         rng = np.random.default_rng(SEED)
-        arrays = [
-            (rng.standard_normal((b, t, d)), torch.bfloat16),  # x
-            (rng.uniform(0.5, 1.5, d), torch.float32),  # ln scale
-            (rng.standard_normal(d) * 0.1, torch.float32),  # ln bias
-            (rng.standard_normal(3 * d) * 0.1, torch.float32),  # b_qkv
-            (rng.standard_normal(d) * 0.1, torch.float32),  # b_proj
-            (rng.uniform(0.1, 1.0, d), torch.float32),  # ls1
-        ]
-        x, lns, lnb, bq, bp, ls = [torch.from_numpy(a).to("cuda", dt) for a, dt in arrays]
+        x, lns, lnb, _, bq, _, bp, ls = _half_layer_args(rng, b, t, d)
         wq = quantize_linear(rng.standard_normal((3 * d, d)) * 0.05, fmt, device="cuda")
         wp = quantize_linear(rng.standard_normal((d, d)) * 0.05, fmt, device="cuda")
         rest = (lns, lnb, wq, bq, wp, bp, ls, heads, scale, eps)
-        got = slab_layer_block_quant(x, *rest)
-        plain = quant_layer_reference(x, *rest)
-        want = quant_layer_reference(x.float(), *rest)
-        torch.cuda.synchronize()
-        err_kernel = (got.float() - want).abs().max().item()
-        err_plain = (plain.float() - want).abs().max().item()
-        ref_max = want.abs().max().item()
-        bound = 2 * err_plain + 1e-3 * ref_max  # K1's bound, for the same reasons
-        ms_kernel = cuda_median_ms(lambda: slab_layer_block_quant(x, *rest))
-        ms_plain = cuda_median_ms(lambda: quant_layer_reference(x, *rest))
-        print(
-            f"kernel check: slab_layer_block_quant {fmt} ({'packed' if wq.packed else 'int8 SoA'}) "
-            f"B={b} T={t} D={d} H={heads}: max|K8-f32| {err_kernel:.6g}, "
-            f"max|plain_bf16-f32| {err_plain:.6g}, max|f32| {ref_max:.6g}, bound {bound:.6g}; "
-            f"median K8 {ms_kernel:.4f} ms, plain bf16 {ms_plain:.4f} ms ({card})"
+        measured[fmt] = check_kernel(
+            f"slab_layer_block_quant {fmt} ({'packed' if wq.packed else 'int8 SoA'}) "
+            f"B={b} T={t} D={d} H={heads}", "K8",
+            lambda: slab_layer_block_quant(x, *rest),
+            lambda: quant_layer_reference(x, *rest),
+            lambda: quant_layer_reference(x.float(), *rest),
+            card, half_layer_flops(b, t, d, heads), nbytes(x, lns, lnb, wq, bq, wp, bp, ls, x),
         )
-        require(bool(torch.isfinite(got).all()), f"K8 {fmt} output is not finite")
-        require(err_kernel <= bound, f"K8 {fmt} error {err_kernel} exceeds {bound}")
-        measured[fmt] = {"max_abs_err": err_kernel, "ms": ms_kernel, "plain_ms": ms_plain}
     return {
+        **measured[QUANT_SLICE_FORMAT],
         "max_abs_err": max(v["max_abs_err"] for v in measured.values()),
-        "ms": measured[QUANT_SLICE_FORMAT]["ms"],
-        "plain_ms": measured[QUANT_SLICE_FORMAT]["plain_ms"],
+        **{f"ms_{fmt}": measured[fmt]["ms"] for fmt in ("q5_1", "q8_0")},
     }
 
 
@@ -471,13 +602,21 @@ def phase_quant_slice(card: str, dense_rate: float) -> tuple[int, int]:
     return k7, k8
 
 
-def phase_slice(card: str) -> tuple[int, float]:
-    """DinoEngine.classify on the card; returns K1 launches of that run (K4
-    must launch no time: T=257 takes the slab route) and its img/s."""
+def phase_slice(card: str) -> tuple[int, float, int]:
+    """DinoEngine.classify on the card; returns K1 launches of that run (no
+    other kernel of the port may launch: T=257 takes the slab route and
+    fuse_mlp is off by default), its img/s, and the K5 launches of the
+    second run, the same weights with fuse_mlp=True (K1 and K5 in every
+    layer, no plain-torch op on the residual stream between them)."""
     from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
     from dinov2_tpu_torch.models.params import load_params
     from dinov2_tpu_torch.ops.flash_attention import flash_attention
-    from dinov2_tpu_torch.ops.fused_attention import slab_layer_block
+    from dinov2_tpu_torch.ops.fused_attention import (
+        slab_attention,
+        slab_attention_block,
+        slab_layer_block,
+        slab_mlp_block,
+    )
     from dinov2_tpu_torch.runtime.engine import DinoEngine
 
     config = _vit_b14_config()
@@ -486,25 +625,28 @@ def phase_slice(card: str) -> tuple[int, float]:
         path = write_synthetic_gguf(Path(tmp) / "vit_b14.gguf", config, seed=SEED)
         engine = DinoEngine(path, dtype=torch.bfloat16, parity="reference", device="cuda")
         cpu_model = load_params(path, dtype=torch.float32, device="cpu")
+    layers, forwards = config.num_hidden_layers, 2 + TIMED_CALLS
+    counters = (slab_layer_block, slab_mlp_block, slab_attention, slab_attention_block,
+                flash_attention)
 
-    engine.warmup((IMAGE_PX, IMAGE_PX), batch=BATCH)
-    slab_layer_block.launches = flash_attention.launches = 0
-    top5 = engine.classify(images, topk=5)
-    probs = engine.classify_probs(images)
-    rate, median_ms = _timed_classify(engine, images)
-    launches, k4_launches = slab_layer_block.launches, flash_attention.launches
-    forwards = 2 + TIMED_CALLS
+    def run(eng):
+        """The path with the counts at 0 just before and read just after."""
+        eng.warmup((IMAGE_PX, IMAGE_PX), batch=BATCH)
+        for counter in counters:
+            counter.launches = 0
+        top5 = eng.classify(images, topk=5)
+        probs = eng.classify_probs(images)
+        rate, median_ms = _timed_classify(eng, images)
+        return [c.launches for c in counters], _check_probs(top5, probs, config), rate, median_ms
 
-    row_err = _check_probs(top5, probs, config)
-    require(
-        launches == config.num_hidden_layers * forwards,
-        f"K1 launched {launches} times in {forwards} forwards",
-    )
-    require(k4_launches == 0, f"K4 launched {k4_launches} times in the classify path")
+    (launches, k5_off, *others), row_err, rate, median_ms = run(engine)
+    require(launches == layers * forwards, f"K1 launched {launches} times in {forwards} forwards")
+    require(k5_off == 0 and not any(others),
+            f"K5 launched {k5_off} and K3, K2, K4 {others} times in the default classify path")
     print(
         f"slice: ViT-B/14 classify {BATCH}x{IMAGE_PX}px bf16 on {card}: probs finite, "
         f"max|row sum - 1| {row_err:.3g}, K1 launches {launches} = "
-        f"{config.num_hidden_layers} x {forwards} forwards; "
+        f"{layers} x {forwards} forwards, K5, K3, K2 and K4 0; "
         f"{rate:.1f} img/s over {TIMED_CALLS} timed "
         f"classify_probs calls (median {median_ms:.2f} ms/call)"
     )
@@ -518,7 +660,104 @@ def phase_slice(card: str) -> tuple[int, float]:
     )
     require(tok_rel <= TOKEN_REL_BOUND, "tokens differ from the CPU f32 forward")
     require(prob_err <= PROB_ABS_BOUND, "probs differ from the CPU f32 forward")
-    return launches, rate
+
+    fused = _same_weights(engine, fuse_mlp=True)
+    (k1, k5, *others), row_err, fused_rate, fused_ms = run(fused)
+    require(k1 == layers * forwards and k5 == layers * forwards,
+            f"fuse_mlp: K1 launched {k1} and K5 {k5} times in {forwards} forwards")
+    require(not any(others), f"fuse_mlp: K3, K2, K4 launched {others} times")
+    tok_rel, prob_err = _cpu_cross_check(fused, cpu_model.params, images, config)
+    print(
+        f"fuse_mlp slice: ViT-B/14 classify, fuse_mlp=True, {BATCH}x{IMAGE_PX}px bf16 on {card}: "
+        f"probs finite, max|row sum - 1| {row_err:.3g}, K1 launches {k1} and K5 launches {k5} "
+        f"= {layers} x {forwards} forwards each; {fused_rate:.1f} img/s (median "
+        f"{fused_ms:.2f} ms/call) against {rate:.1f} img/s (median {median_ms:.2f} ms/call) "
+        f"with fuse_mlp=False in this run; cross-check vs CPU f32 plain: "
+        f"max|dtokens|/max|tokens| {tok_rel:.4g} (bound {TOKEN_REL_BOUND}), max|dprobs| "
+        f"{prob_err:.4g} (bound {PROB_ABS_BOUND})"
+    )
+    require(tok_rel <= TOKEN_REL_BOUND, "fuse_mlp: tokens differ from the CPU f32 forward")
+    require(prob_err <= PROB_ABS_BOUND, "fuse_mlp: probs differ from the CPU f32 forward")
+    return launches, rate, k5
+
+
+def phase_giant(card: str) -> tuple[int, int]:
+    """The full ViT-g/14 (40 layers, SwiGLU) through DinoEngine.classify from
+    a synthetic f16 GGUF, slab_fusion="core": returns the K3 launches of that
+    run and, from the same device weights at "proj", the K2 launches; then
+    "layer" (K1), each level timed as a finding; and the "core" forward held
+    against the port's plain f32 forward on the CPU."""
+    from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
+    from dinov2_tpu_torch.models.config import PRESETS
+    from dinov2_tpu_torch.models.params import load_params
+    from dinov2_tpu_torch.ops.fused_attention import (
+        slab_attention,
+        slab_attention_block,
+        slab_layer_block,
+        slab_mlp_block,
+    )
+
+    config = PRESETS["giant"]
+    images = np.random.default_rng(SEED + 3).integers(
+        0, 256, (GIANT_BATCH, IMAGE_PX, IMAGE_PX, 3), dtype=np.uint8
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        start = time.perf_counter()
+        path = write_synthetic_gguf(Path(tmp) / "vit_g14.gguf", config, seed=SEED)
+        write_s, size_gb = time.perf_counter() - start, path.stat().st_size / 1e9
+        start = time.perf_counter()
+        engine, _, held_mb = _load_engine(path, slab_fusion="core")
+        load_s = time.perf_counter() - start
+        start = time.perf_counter()
+        cpu_model = load_params(path, dtype=torch.float32, device="cpu")
+        cpu_load_s = time.perf_counter() - start
+    require(engine.config.swiglu and engine.config.swiglu_hidden == 4096,
+            "the ViT-g/14 file did not load as SwiGLU with hidden 4096")
+    print(
+        f"giant load: ViT-g/14 f16 GGUF of {size_gb:.2f} GB written in {write_s:.1f} s, loaded "
+        f"onto the card in {load_s:.1f} s ({held_mb:.0f} MB held) and onto the CPU in f32 in "
+        f"{cpu_load_s:.1f} s"
+    )
+
+    layers, forwards = config.num_hidden_layers, 2 + TIMED_CALLS
+    counters = {"core": slab_attention, "proj": slab_attention_block, "layer": slab_layer_block}
+    rates = {}
+    for level in ("core", "proj", "layer"):
+        eng = engine if level == "core" else _same_weights(engine, slab_fusion=level)
+        eng.warmup((IMAGE_PX, IMAGE_PX), batch=GIANT_BATCH)
+        for counter in (*counters.values(), slab_mlp_block):
+            counter.launches = 0
+        top5 = eng.classify(images, topk=5)
+        probs = eng.classify_probs(images)
+        rate, median_ms = _timed_classify(eng, images)
+        launches = {name: counter.launches for name, counter in counters.items()}
+        row_err = _check_probs(top5, probs, config)
+        require(launches == {name: layers * forwards * (name == level) for name in counters},
+                f'slab_fusion="{level}": launches {launches} in {forwards} forwards')
+        require(slab_mlp_block.launches == 0, "K5 launched on the SwiGLU path")
+        rates[level] = rate, median_ms, launches[level]
+        kernel = {"core": "K3", "proj": "K2", "layer": "K1"}[level]
+        print(
+            f'giant slice: ViT-g/14 classify, slab_fusion="{level}", {GIANT_BATCH}x{IMAGE_PX}px '
+            f"bf16 on {card}: probs finite, max|row sum - 1| {row_err:.3g}, {kernel} launches "
+            f"{launches[level]} = {layers} x {forwards} forwards, the other two levels' kernels "
+            f"0; {rate:.1f} img/s over {TIMED_CALLS} timed classify_probs calls (median "
+            f"{median_ms:.2f} ms/call)"
+            + ("" if level == "core" else ", a finding, not a check")
+        )
+
+    start = time.perf_counter()
+    tok_rel, prob_err = _cpu_cross_check(engine, cpu_model.params, images, config,
+                                         n=GIANT_CROSS_CHECK_IMAGES)
+    print(
+        f"giant cross-check: {GIANT_CROSS_CHECK_IMAGES} images, GPU bf16 (K3) vs CPU f32 plain, "
+        f"all {layers} layers: max|dtokens|/max|tokens| {tok_rel:.4g} (bound {TOKEN_REL_BOUND}), "
+        f"max|dprobs| {prob_err:.4g} (bound {GIANT_PROB_ABS_BOUND}) in "
+        f"{time.perf_counter() - start:.1f} s"
+    )
+    require(tok_rel <= TOKEN_REL_BOUND, "ViT-g/14 tokens differ from the CPU f32 forward")
+    require(prob_err <= GIANT_PROB_ABS_BOUND, "ViT-g/14 probs differ from the CPU f32 forward")
+    return rates["core"][2], rates["proj"][2]
 
 
 def _agree_u8(a: np.ndarray, b: np.ndarray) -> float:
@@ -655,29 +894,60 @@ def phase_features(card: str) -> int:
     return launches
 
 
+def timed_phase(name: str, phase, *args):
+    """Run one phase and print the seconds it took."""
+    start = time.perf_counter()
+    result = phase(*args)
+    torch.cuda.synchronize()
+    print(f"phase time: {name} {time.perf_counter() - start:.1f} s")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    start = time.perf_counter()
     smi = phase_device()
     card = smi.replace(",", "")
-    phase_build()
-    k1_measured = phase_kernel_check(card)
-    k4_measured = phase_flash_check(card)
-    k7_measured = phase_quant_matmul_check(card)
-    k8_measured = phase_quant_layer_check(card)
-    k1_launches, dense_rate = phase_slice(card)
-    k7_launches, k8_launches = phase_quant_slice(card, dense_rate)
-    k4_launches = phase_features(card)
+    timed_phase("build", phase_build)
+    k1_measured = timed_phase("K1 check", phase_kernel_check, card)
+    k3_measured, k2_measured = timed_phase("K3 and K2 checks", phase_slab_attention_check, card)
+    k5_measured = timed_phase("K5 check", phase_slab_mlp_check, card)
+    k4_measured = timed_phase("K4 check", phase_flash_check, card)
+    k7_measured = timed_phase("K7 check", phase_quant_matmul_check, card)
+    k8_measured = timed_phase("K8 check", phase_quant_layer_check, card)
+    k1_launches, dense_rate, k5_launches = timed_phase("classify slices", phase_slice, card)
+    k7_launches, k8_launches = timed_phase("quantized slice", phase_quant_slice, card, dense_rate)
+    k4_launches = timed_phase("feature slice", phase_features, card)
+    k3_launches, k2_launches = timed_phase("ViT-g/14 slice", phase_giant, card)
+    print(f"phase time: all {time.perf_counter() - start:.1f} s")
+    fused = "dinov2_tpu/ops/fused_attention.py"
     kernels = [
         {
             "name": "slab_layer_block",
             "route": "cuda",
             "source": "dinov2_tpu_torch/csrc/slab_layer.cu",
-            "replaces": "dinov2_tpu/ops/fused_attention.py:593",
+            "replaces": f"{fused}:593",
             "launches": k1_launches,
             **k1_measured,
+        },
+        {
+            "name": "slab_attention_block",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/slab_attention.cu",
+            "replaces": f"{fused}:478",
+            "launches": k2_launches,
+            **k2_measured,
+        },
+        {
+            "name": "slab_attention",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/slab_attention.cu",
+            "replaces": f"{fused}:331",
+            "launches": k3_launches,
+            **k3_measured,
         },
         {
             "name": "flash_attention",
@@ -687,6 +957,15 @@ def main() -> int:
             "also_replaces": "dinov2_tpu/ops/flash_attention.py:34",
             "launches": k4_launches,
             **k4_measured,
+        },
+        {
+            "name": "slab_mlp_block",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/slab_mlp.cu",
+            "replaces": f"{fused}:811",
+            "also_replaces": f"{fused}:859",
+            "launches": k5_launches,
+            **k5_measured,
         },
         {
             "name": "quant_matmul_kernel",

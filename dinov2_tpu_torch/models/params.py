@@ -16,8 +16,9 @@ modes, as in the JAX package:
     `QuantLinear`, kept (out, in), and every matmul dequantizes it on the fly
     (the K7 and K8 kernels, ops/qmatmul_kernel.py and
     ops/fused_quant_attention.py).
-The W8A8 "int8" mode (Int8Linear) and the SwiGLU FFN (ViT-g) raise
-NotImplementedError; both are listed in ROADMAP.md.
+The SwiGLU FFN (ViT-g) loads as `mlp.win` (D, 2*hidden) and `mlp.wout`
+(hidden, D) in place of fc1/fc2, dense or QuantLinear alike. The W8A8 "int8"
+mode (Int8Linear) raises NotImplementedError; it is listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -119,12 +120,11 @@ def init_params(
     """Random weights with load_params' structure, drawn from
     np.random.default_rng(seed) in the JAX init_params' order, so one seed
     gives the same weights in both packages."""
-    if config.swiglu:
-        raise NotImplementedError(f"SwiGLU FFN is {_NOT_PORTED}")
     rng = np.random.default_rng(seed)
     d = config.hidden_size
     p = config.patch_size
     inter = int(d * config.mlp_ratio)
+    sh = config.swiglu_hidden_dim
     n_pos = config.num_model_patches + 1
 
     def w(*shape, f32=False):
@@ -149,10 +149,13 @@ def init_params(
         params["register_tokens"] = w(config.num_register_tokens, d, f32=True)
 
     def layer():
-        mlp = {  # drawn before qkv/proj, as in the JAX init
-            "fc1": {"kernel": w(d, inter), "bias": zeros(inter)},
-            "fc2": {"kernel": w(inter, d), "bias": zeros(d)},
-        }
+        mlp = (  # drawn before qkv/proj, as in the JAX init
+            {"win": {"kernel": w(d, 2 * sh), "bias": zeros(2 * sh)},
+             "wout": {"kernel": w(sh, d), "bias": zeros(d)}}
+            if config.swiglu
+            else {"fc1": {"kernel": w(d, inter), "bias": zeros(inter)},
+                  "fc2": {"kernel": w(inter, d), "bias": zeros(d)}}
+        )
         return {
             "norm1": {"scale": ones(d), "bias": zeros(d)},
             "qkv": {"kernel": w(d, 3 * d), "bias": zeros(3 * d)},
@@ -337,8 +340,11 @@ def _load(reader: GGUFReader, dtype: torch.dtype, device, quant_mode: str) -> Lo
     quantized = GGMLType(config.ftype) in QUANTIZED_TYPES
     if not quantized:
         quant_mode = "dequant"  # "fused" needs ggml blocks to keep
-    if config.swiglu or "encoder.layer.0.mlp.weights_in.weight" in tensors:
-        raise NotImplementedError(f"SwiGLU FFN is {_NOT_PORTED}")
+    # SwiGLU is detected from the tensors too, and written back into the config
+    swiglu = config.swiglu or "encoder.layer.0.mlp.weights_in.weight" in tensors
+    mlp_names = (
+        {"win": "weights_in", "wout": "weights_out"} if swiglu else {"fc1": "fc1", "fc2": "fc2"}
+    )
 
     def f32(name: str) -> torch.Tensor:
         return _tensor(tensors[name].as_numpy().reshape(-1), torch.float32, device)
@@ -371,8 +377,8 @@ def _load(reader: GGUFReader, dtype: torch.dtype, device, quant_mode: str) -> Lo
             "ls1": f32(f"{base}.layer_scale1.lambda1"),
             "norm2": {"scale": f32(f"{base}.norm2.weight"), "bias": f32(f"{base}.norm2.bias")},
             "mlp": {
-                "fc1": _linear(tensors, f"{base}.mlp.fc1", dtype, device, quant_mode),
-                "fc2": _linear(tensors, f"{base}.mlp.fc2", dtype, device, quant_mode),
+                key: _linear(tensors, f"{base}.mlp.{name}", dtype, device, quant_mode)
+                for key, name in mlp_names.items()
             },
             "ls2": f32(f"{base}.layer_scale2.lambda1"),
         })
@@ -381,6 +387,18 @@ def _load(reader: GGUFReader, dtype: torch.dtype, device, quant_mode: str) -> Lo
     has_classifier = "classifier.weight" in tensors
     if has_classifier:
         p["classifier"] = _linear(tensors, "classifier", dtype, device, quant_mode)
+    if swiglu:
+        # the real FFN hidden size comes from the weights, so a checkpoint off
+        # the HF sizing rule (swiglu_hidden_dim) keeps its true GEMM shapes
+        updates: dict[str, Any] = {}
+        if config.use_swiglu_ffn is None:
+            updates["use_swiglu_ffn"] = True
+        if config.swiglu_hidden is None:
+            updates["swiglu_hidden"] = (
+                tensors["encoder.layer.0.mlp.weights_in.weight"].shape[0] // 2
+            )
+        if updates:
+            config = DinoConfig(**{**config.__dict__, **updates})
     return LoadedModel(
         config=config, params=p, id2label=id2label, has_classifier=has_classifier,
         quantized=quantized and quant_mode == "fused",

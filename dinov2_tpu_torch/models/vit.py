@@ -4,12 +4,29 @@ Functional and batch-first, with the JAX signatures: `forward(params, x,
 config, opts, classify)` on a parameter tree whose encoder layers are
 stacked on axis 0. The attention half-layer of every layer takes the route
 `resolve_attention_path(opts.flash_attention, T)` picks (ops/attention.py):
-"slab" is the K1 kernel (ops/fused_attention.py::slab_layer_block), "flash"
+"slab" is one of the slab kernels of ops/fused_attention.py (below), "flash"
 is LN1 then the unfused half-layer around the K4 kernel
 (ops/flash_attention.py), "vanilla" the same around plain PyTorch. Each
-kernel runs as CUDA on a card and as its plain version on the CPU. The MLP
-half-layer is plain PyTorch, as the JAX package leaves it to XLA.
+kernel runs as CUDA on a card and as its plain version on the CPU.
 `DinoViT` is a thin nn.Module that owns the weight tensors.
+
+The slab route has three levels, `slab_fusion` (the JAX package walks them
+by its VMEM gates fits_slab_layer, fits_slab_proj, fits_slab, which describe
+a TPU; the port carries no such gate and takes an option in their place):
+  - "layer": the whole half-layer in one call, K1 (slab_layer_block), or K8
+    on quantized weights; "auto" is "layer";
+  - "proj": LN1 and the QKV GEMM in PyTorch, then attention core + proj +
+    bias + LayerScale + residual in one call, K2 (slab_attention_block);
+  - "core": LN1, QKV GEMM, the attention core K3 (slab_attention), then proj,
+    LayerScale and residual in PyTorch: the JAX package's route for ViT-g/14.
+What a level cannot take (a proj without bias, mixed dense and quantized
+weights) falls to the next one, as in the JAX package.
+
+The MLP half-layer is plain PyTorch (fc1, GELU, fc2, or SwiGLU: weights_in,
+SiLU(x1) * x2, weights_out), as the JAX package leaves it to XLA. With
+`fuse_mlp` (off by default, as there) a GELU MLP on the slab route with both
+biases runs as one call of the K5 kernel (slab_mlp_block); SwiGLU and a
+mixed dense/quantized pair take no fused route.
 
 Quantized weights (QuantLinear, quant_mode="fused") route as follows, with
 two options in place of the JAX package's environment knobs:
@@ -17,8 +34,10 @@ two options in place of the JAX package's environment knobs:
     "auto" and "kernel" run the K8 kernel
     (ops/fused_quant_attention.py::slab_layer_block_quant); "dequant"
     dequantizes the layer's weights into K1 (the JAX package's TPU
-    default); "off" takes the unfused route, whose slab attention core (K3)
-    is not ported and raises;
+    default); "off" takes the truly unfused route: the K3 core between
+    quant_matmul calls for qkv and proj. At the "proj" level a quantized
+    proj is dequantized into K2 unless "off"; with `fuse_mlp` a quantized
+    fc1/fc2 pair is dequantized into K5 unless "off";
   - every other quantized linear (fc1 with its GELU, fc2, the classifier on
     f32 features, qkv and proj on the flash and vanilla routes) goes through
     ops/qmatmul.py::quant_matmul with `quant_backend`
@@ -35,7 +54,7 @@ sum(patches)/n_img_embd² with registers included in reference mode (Q3, Q5).
 
 Left out: the JAX CLS-shift overflow rescue (the port's softmax takes the
 exact row max), batch chunking (TPU scheduling), remat, sequence
-parallelism, SwiGLU and the W8A8 Int8Linear.
+parallelism and the W8A8 Int8Linear.
 """
 
 from __future__ import annotations
@@ -44,17 +63,19 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dinov2_tpu_torch.models.config import DinoConfig
 from dinov2_tpu_torch.models.params import QUANT_FIELDS, QuantLinear
 from dinov2_tpu_torch.image.posembed import interpolate_pos_embed
 from dinov2_tpu_torch.ops.attention import resolve_attention_path, self_attention_block
-from dinov2_tpu_torch.ops.fused_attention import slab_layer_block
+from dinov2_tpu_torch.ops.fused_attention import slab_layer_block, slab_mlp_block
 from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
 from dinov2_tpu_torch.ops.qmatmul import QUANT_BACKENDS, apply_linear, dequant_weight
 
 QUANT_SLAB_MODES = ("auto", "kernel", "dequant", "off")
+SLAB_FUSION_LEVELS = ("auto", "layer", "proj", "core")
 
 
 @dataclass(frozen=True)
@@ -64,8 +85,14 @@ class ModelOptions:
     compute_dtype: torch.dtype = torch.bfloat16
     quant_slab: str = "auto"  # "auto" | "kernel" | "dequant" | "off" (module docstring)
     quant_backend: str = "auto"  # "auto" | "kernel" | "dequant"
+    slab_fusion: str = "auto"  # "auto" | "layer" | "proj" | "core" (module docstring)
+    fuse_mlp: bool = False  # the MLP half-layer as the K5 kernel, where it applies
 
     def __post_init__(self):
+        if self.slab_fusion not in SLAB_FUSION_LEVELS:
+            raise ValueError(
+                f"slab_fusion must be one of {SLAB_FUSION_LEVELS}, got {self.slab_fusion!r}"
+            )
         if self.quant_slab not in QUANT_SLAB_MODES:
             raise ValueError(f"quant_slab must be one of {QUANT_SLAB_MODES}, got {self.quant_slab!r}")
         if self.quant_backend not in QUANT_BACKENDS:
@@ -94,29 +121,41 @@ def mlp_block(x: torch.Tensor, p: dict, activation: str, backend: str = "auto") 
     return apply_linear(h, p["fc2"], backend=backend)
 
 
+def swiglu_block(x: torch.Tensor, p: dict, backend: str = "auto") -> torch.Tensor:
+    """weights_in -> split halves -> SiLU(x1) * x2 in the compute dtype ->
+    weights_out."""
+    x1, x2 = apply_linear(x, p["win"], backend=backend).chunk(2, dim=-1)
+    return apply_linear(F.silu(x1) * x2, p["wout"], backend=backend)
+
+
 def _attention_half_layer(
     x: torch.Tensor, layer: dict, config: DinoConfig, opts: ModelOptions
 ) -> torch.Tensor:
-    """LN1 -> QKV -> attention -> proj -> LayerScale -> residual: K1 (or K8
-    with quantized weights) as one kernel on the slab route; LN1 and
-    self_attention_block (the K4 kernel on the flash route) otherwise, in
-    the JAX ordering."""
+    """LN1 -> QKV -> attention -> proj -> LayerScale -> residual. On the slab
+    route at the "layer" level: K1 (or K8 with quantized weights) as one
+    kernel. Otherwise LN1 and self_attention_block: K2 or K3 on the slab
+    route below that level, the K4 kernel on the flash route, in the JAX
+    ordering."""
     heads = config.num_attention_heads
     scale = 1.0 / (config.hidden_size // heads) ** 0.5
     path = resolve_attention_path(opts.flash_attention, x.shape[1])
     w_qkv, w_proj = layer["qkv"]["kernel"], layer["proj"]["kernel"]
     quantized = isinstance(w_qkv, QuantLinear), isinstance(w_proj, QuantLinear)
-    if path == "slab" and all(quantized) and opts.quant_slab in ("auto", "kernel"):
+    whole = (
+        path == "slab" and opts.slab_fusion in ("auto", "layer")
+        and "bias" in layer["qkv"] and "bias" in layer["proj"]
+    )
+    if whole and all(quantized) and opts.quant_slab in ("auto", "kernel"):
         return slab_layer_block_quant(
             x, layer["norm1"]["scale"], layer["norm1"]["bias"], w_qkv, layer["qkv"]["bias"],
             w_proj, layer["proj"]["bias"], layer["ls1"], heads, scale, config.eps,
         )
-    if path == "slab" and all(quantized) and opts.quant_slab == "dequant":
+    if whole and all(quantized) and opts.quant_slab == "dequant":
         # the layer's weights dequantized into K1's dense (in, out) layout
         w_qkv = dequant_weight(w_qkv, x.dtype).T.contiguous()
         w_proj = dequant_weight(w_proj, x.dtype).T.contiguous()
         quantized = False, False
-    if path == "slab" and not any(quantized):
+    if whole and not any(quantized):
         return slab_layer_block(
             x, layer["norm1"]["scale"], layer["norm1"]["bias"], w_qkv, layer["qkv"]["bias"],
             w_proj, layer["proj"]["bias"], layer["ls1"], heads, scale, config.eps,
@@ -124,22 +163,40 @@ def _attention_half_layer(
     h = layer_norm(x, layer["norm1"], config.eps)
     return self_attention_block(
         x, h, layer["qkv"], layer["proj"], layer["ls1"], heads, flash=path,
-        backend=opts.quant_backend,
+        backend=opts.quant_backend, fuse_proj=opts.slab_fusion != "core",
+        dequant_proj=opts.quant_slab != "off",
     )
 
 
 def _mlp_half_layer(
     x: torch.Tensor, layer: dict, config: DinoConfig, opts: ModelOptions
 ) -> torch.Tensor:
-    """LN2 -> MLP -> LayerScale -> residual, in the compute dtype."""
+    """LN2 -> MLP -> LayerScale -> residual, in the compute dtype. With
+    `fuse_mlp`, on the slab route, a GELU MLP with both biases is one call of
+    the K5 kernel; a quantized fc1/fc2 pair is dequantized into it unless
+    quant_slab is "off"; a mixed dense/quantized pair takes no fused route."""
+    mlp = layer["mlp"]
+    if (
+        opts.fuse_mlp and not config.swiglu
+        and resolve_attention_path(opts.flash_attention, x.shape[1]) == "slab"
+        and "bias" in mlp["fc1"] and "bias" in mlp["fc2"]
+    ):
+        w1, w2 = mlp["fc1"]["kernel"], mlp["fc2"]["kernel"]
+        quantized = isinstance(w1, QuantLinear), isinstance(w2, QuantLinear)
+        if all(quantized) and opts.quant_slab != "off":
+            w1 = dequant_weight(w1, x.dtype).T.contiguous()
+            w2 = dequant_weight(w2, x.dtype).T.contiguous()
+            quantized = False, False
+        if not any(quantized):
+            return slab_mlp_block(
+                x, layer["norm2"]["scale"], layer["norm2"]["bias"], w1, mlp["fc1"]["bias"],
+                w2, mlp["fc2"]["bias"], layer["ls2"], opts.gelu_activation, config.eps,
+            )
+    h = layer_norm(x, layer["norm2"], config.eps)
     if config.swiglu:
-        raise NotImplementedError(
-            "SwiGLU FFN is not ported to dinov2_tpu_torch yet (see ROADMAP.md)"
-        )
-    h = mlp_block(
-        layer_norm(x, layer["norm2"], config.eps), layer["mlp"], opts.gelu_activation,
-        opts.quant_backend,
-    )
+        h = swiglu_block(h, mlp, opts.quant_backend)
+    else:
+        h = mlp_block(h, mlp, opts.gelu_activation, opts.quant_backend)
     return x + h * layer["ls2"].to(x.dtype)
 
 

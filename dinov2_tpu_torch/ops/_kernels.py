@@ -94,6 +94,28 @@ def slab_layer_lib() -> ctypes.CDLL:
 
 
 @functools.cache
+def slab_attention_lib() -> ctypes.CDLL:
+    """The K3 and K2 library (csrc/slab_attention.cu), built on first use."""
+    lib = _load("slab_attention")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dinov2_slab_attention_bf16.argtypes = [ptr] * 2 + [i32] * 4 + [f32, ptr]
+    lib.dinov2_slab_attention_bf16.restype = i32
+    lib.dinov2_slab_attention_block_bf16.argtypes = [ptr] * 7 + [i32] * 4 + [f32, ptr]
+    lib.dinov2_slab_attention_block_bf16.restype = i32
+    return lib
+
+
+@functools.cache
+def slab_mlp_lib() -> ctypes.CDLL:
+    """The K5 library (csrc/slab_mlp.cu), built on first use."""
+    lib = _load("slab_mlp")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.dinov2_slab_mlp_bf16.argtypes = [ptr] * 9 + [i32] * 4 + [f32, ptr]
+    lib.dinov2_slab_mlp_bf16.restype = i32
+    return lib
+
+
+@functools.cache
 def flash_attention_lib() -> ctypes.CDLL:
     """The K4 library (csrc/flash_attention.cu), built on first use."""
     lib = _load("flash_attention")

@@ -1,18 +1,21 @@
 """Multi-head self-attention (port of dinov2_tpu/ops/attention.py).
 
 `vanilla_attention` is the plain attention core: the plain version of the
-K1 and K4 kernels (ops/fused_attention.py, ops/flash_attention.py) and the
-"vanilla" route. `self_attention` and `self_attention_block` run the unfused
-half-layer (fused QKV, attention core, proj, LayerScale, residual) that
-models/vit.py takes on every route but "slab"; QuantLinear qkv and proj
-weights go through ops/qmatmul.py::quant_matmul with `backend`.
+K1 to K4 kernels (ops/fused_attention.py, ops/flash_attention.py) and the
+"vanilla" route. `self_attention` and `self_attention_block` run the
+half-layer after LN1 (fused QKV, attention core, proj, LayerScale,
+residual): models/vit.py takes them on the flash and vanilla routes and, on
+the slab route, at the "proj" (K2) and "core" (K3) levels of
+`ModelOptions.slab_fusion`. QuantLinear qkv and proj weights go through
+ops/qmatmul.py::quant_matmul with `backend`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from dinov2_tpu_torch.ops.qmatmul import apply_linear
+from dinov2_tpu_torch.models.params import QuantLinear
+from dinov2_tpu_torch.ops.qmatmul import apply_linear, dequant_weight
 
 # "auto" takes the flash kernel (K4) from this many tokens on: the JAX
 # package's long-sequence threshold (ops/attention.py::resolve_attention_path)
@@ -71,22 +74,18 @@ def self_attention(
 ) -> torch.Tensor:
     """fused QKV -> attention core -> output projection, (B, T, D) -> (B, T, D).
 
-    The flash route reads q/k/v straight out of the qkv slab
-    (flash_attention_slab) for any head_dim, with no head transposes. The
-    slab route is only the whole half-layer here (K1,
-    ops/fused_attention.py::slab_layer_block, which models/vit.py calls): the
-    JAX package's slab attention cores (K2, K3) are not ported."""
+    The slab route runs the K3 core (ops/fused_attention.py::slab_attention)
+    and the flash route K4 (flash_attention_slab); both read q/k/v straight
+    out of the qkv slab, with no head transposes."""
     b, t, d = x.shape
     scale = 1.0 / (d // num_heads) ** 0.5
     path = resolve_attention_path(flash, t)
-    if path == "slab":
-        raise NotImplementedError(
-            "the slab attention core (K3) is not ported to dinov2_tpu_torch yet "
-            "(see ROADMAP.md); the slab route runs the whole half-layer, "
-            "ops/fused_attention.py::slab_layer_block"
-        )
     qkv = apply_linear(x, qkv_params, backend=backend)
-    if path == "flash":
+    if path == "slab":
+        from dinov2_tpu_torch.ops.fused_attention import slab_attention
+
+        out = slab_attention(qkv, num_heads, scale)
+    elif path == "flash":
         from dinov2_tpu_torch.ops.flash_attention import flash_attention_slab
 
         out = flash_attention_slab(qkv, num_heads, scale)
@@ -104,8 +103,33 @@ def self_attention_block(
     num_heads: int,
     flash=False,
     backend: str = "auto",
+    fuse_proj: bool = True,
+    dequant_proj: bool = True,
 ) -> torch.Tensor:
     """x_res + ls1 * proj(attention(qkv(x_norm))), LayerScale and residual in
-    x_res's dtype."""
+    x_res's dtype.
+
+    On the slab route with `fuse_proj` and a proj bias, the core, proj, bias,
+    LayerScale and residual are one call of the K2 kernel
+    (ops/fused_attention.py::slab_attention_block) on the QKV GEMM's slab. A
+    QuantLinear proj is dequantized into it when `dequant_proj` (the JAX
+    package's rule: every DINOV2_TPU_QUANT_SLAB mode but "off"); otherwise,
+    and without `fuse_proj`, the unfused order runs: the K3 core, then proj
+    through apply_linear. Same numerics ordering either way."""
+    b, t, d = x_norm.shape
+    if fuse_proj and "bias" in proj_params and resolve_attention_path(flash, t) == "slab":
+        proj_kernel = proj_params["kernel"]
+        if isinstance(proj_kernel, QuantLinear):
+            proj_kernel = (
+                dequant_weight(proj_kernel, x_norm.dtype).T.contiguous() if dequant_proj else None
+            )
+        if proj_kernel is not None:
+            from dinov2_tpu_torch.ops.fused_attention import slab_attention_block
+
+            qkv = apply_linear(x_norm, qkv_params, backend=backend)
+            return slab_attention_block(
+                x_res, qkv, proj_kernel, proj_params["bias"], ls1, num_heads,
+                1.0 / (d // num_heads) ** 0.5,
+            )
     out = self_attention(x_norm, qkv_params, proj_params, num_heads, flash=flash, backend=backend)
     return x_res + out * ls1.to(x_res.dtype)

@@ -1,15 +1,23 @@
-"""The attention half-layer, K1 (port of dinov2_tpu/ops/fused_attention.py).
+"""The slab kernels K1, K2, K3 and K5 (port of
+dinov2_tpu/ops/fused_attention.py).
 
-    slab_layer_block(x, ...) = x + ls1 * (proj(attention(qkv(LN1 x))) + b_proj)
+    slab_layer_block(x, ...)      = x + ls1 * (proj(attention(qkv(LN1 x))) + b_proj)   K1
+    slab_attention_block(x, qkv, ...) = x + ls1 * (attention(qkv) @ w_proj + b_proj)   K2
+    slab_attention(qkv, ...)      = attention(qkv), (B, T, 3D) -> (B, T, D)            K3
+    slab_mlp_block(x, ...)        = x + ls2 * (fc2(act(fc1(LN2 x) + b1)) + b2)         K5
 
-On a CUDA tensor it launches the hand-written kernel in
-csrc/slab_layer.cu, which replaces the Pallas TPU kernel
-`dinov2_tpu/ops/fused_attention.py::_slab_layer_kernel`. On a CPU tensor it
-runs the plain PyTorch version, `slab_layer_reference`, which keeps the
-JAX package's unfused ordering (`_slab_layer_reference` followed by
-`_slab_block_reference`).
+On a CUDA tensor each launches its hand-written kernel (csrc/slab_layer.cu,
+csrc/slab_attention.cu for K2 and K3, csrc/slab_mlp.cu), which replace the
+Pallas TPU kernels `_slab_layer_kernel`, `_slab_proj_kernel`, `_slab_kernel`
+and `_slab_mlp_kernel`/`_slab_mlp_flat_kernel` of
+`dinov2_tpu/ops/fused_attention.py`; bf16 only, anything else raises. On a
+CPU tensor each runs its plain PyTorch version (`slab_layer_reference`,
+`_slab_block_reference`, `_slab_reference`, `slab_mlp_reference`), which
+keeps the JAX package's unfused ordering. Every wrapper counts its kernel
+launches in `.launches`. What bounds K2, K3 and K5 on the card is in their
+sources' notes.
 
-What bounds the kernel on an H100, at the main path's shape (B=64, T=257,
+What bounds K1 on an H100, at the main path's shape (B=64, T=257,
 D=768, H=12): ~91 GFLOP per call (58 in the QKV GEMM, 19 in proj, 13 in
 attention), 1.1 of the forward's 2.9 TFLOP over 12 layers. This first
 version runs in three launches (LN+QKV GEMM, attention, proj GEMM with the
@@ -27,6 +35,8 @@ from __future__ import annotations
 import torch
 
 from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
+from dinov2_tpu_torch.ops.qmatmul import apply_activation
+from dinov2_tpu_torch.ops.qmatmul_kernel import ACTIVATIONS
 
 
 def _slab_reference(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
@@ -58,33 +68,23 @@ def slab_layer_reference(
     return _slab_block_reference(x, qkv, w_proj, b_proj, ls1, num_heads, scale)
 
 
-def check_half_layer_args(
-    x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads, w_qkv=None, w_proj=None
-):
-    """What the CUDA half-layer kernels (K1, and K8 with quantized weights)
-    take: bf16 x (B, T, D) with head_dim 64 and f32 rows; the dense (in, out)
-    weights too where they are given."""
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the CUDA half-layer kernel takes bf16 activations, got {x.dtype}"
-        )
-    if x.dim() != 3:
-        raise ValueError(f"x must be (B, T, D), got {tuple(x.shape)}")
-    b, t, d = x.shape
-    if d != 64 * num_heads:
-        raise NotImplementedError(
-            f"the CUDA half-layer kernel needs head_dim 64, got D={d}, H={num_heads}"
-        )
-    expected = {
-        "ln_scale": (ln_scale, (d,), torch.float32),
-        "ln_bias": (ln_bias, (d,), torch.float32),
-        "b_qkv": (b_qkv, (3 * d,), torch.float32),
-        "b_proj": (b_proj, (d,), torch.float32),
-        "ls1": (ls1, (d,), torch.float32),
-    }
-    if w_qkv is not None:
-        expected["w_qkv"] = (w_qkv, (d, 3 * d), torch.bfloat16)
-        expected["w_proj"] = (w_proj, (d, d), torch.bfloat16)
+def slab_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, activation, eps):
+    """The plain PyTorch version of K5: f32 LN statistics and affine, one
+    cast; fc1 accumulated in f32 and cast before the bias add; the activation
+    in x's dtype; fc2 likewise; LayerScale and residual in x's dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mu) ** 2).mean(dim=-1, keepdim=True)
+    h = ((x32 - mu) * torch.rsqrt(var + eps) * ln_scale + ln_bias).to(x.dtype)
+    a1 = torch.matmul(h, w1.to(h.dtype)).to(h.dtype) + b1.to(h.dtype)
+    g = apply_activation(a1, activation)
+    y = torch.matmul(g, w2.to(h.dtype)).to(x.dtype) + b2.to(x.dtype)
+    return x + y * ls2.to(x.dtype)
+
+
+def _check_tensors(x: torch.Tensor, expected: dict) -> None:
+    """Every named (tensor, shape, dtype) has that shape and dtype, lies on
+    x's device, is contiguous and 16-byte aligned; x too."""
     for name, (tensor, shape, dtype) in expected.items():
         if tuple(tensor.shape) != shape or tensor.dtype != dtype:
             raise ValueError(
@@ -95,6 +95,39 @@ def check_half_layer_args(
             raise ValueError(f"{name} is on {tensor.device}, x on {x.device}")
         if not tensor.is_contiguous() or tensor.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def _check_bf16_head64(x: torch.Tensor, d: int, num_heads: int, what: str) -> None:
+    """The attention kernels take bf16 (B, T, .) with head_dim 64."""
+    if x.dtype != torch.bfloat16:
+        raise NotImplementedError(f"the CUDA {what} kernel takes bf16 activations, got {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"{what}: expected a (B, T, .) tensor, got {tuple(x.shape)}")
+    if d != 64 * num_heads:
+        raise NotImplementedError(
+            f"the CUDA {what} kernel needs head_dim 64, got D={d}, H={num_heads}"
+        )
+
+
+def check_half_layer_args(
+    x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads, w_qkv=None, w_proj=None
+):
+    """What the CUDA half-layer kernels (K1, and K8 with quantized weights)
+    take: bf16 x (B, T, D) with head_dim 64 and f32 rows; the dense (in, out)
+    weights too where they are given."""
+    _check_bf16_head64(x, x.shape[-1], num_heads, "half-layer")
+    d = x.shape[-1]
+    expected = {
+        "ln_scale": (ln_scale, (d,), torch.float32),
+        "ln_bias": (ln_bias, (d,), torch.float32),
+        "b_qkv": (b_qkv, (3 * d,), torch.float32),
+        "b_proj": (b_proj, (d,), torch.float32),
+        "ls1": (ls1, (d,), torch.float32),
+    }
+    if w_qkv is not None:
+        expected["w_qkv"] = (w_qkv, (d, 3 * d), torch.bfloat16)
+        expected["w_proj"] = (w_proj, (d, d), torch.bfloat16)
+    _check_tensors(x, expected)
 
 
 def slab_layer_block(
@@ -124,6 +157,17 @@ def slab_layer_block(
         )
     if x.device.type != "cuda":
         raise ValueError(f"no slab_layer_block for device {x.device}")
+    return slab_layer_buffers(
+        x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, ls1, num_heads, scale, eps
+    )[0]
+
+
+def slab_layer_buffers(
+    x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, ls1, num_heads, scale, eps
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The K1 launch on CUDA tensors with its two scratch buffers kept:
+    (out, the (B, T, 3D) qkv slab, the (B, T, D) attention output). The
+    checks that hold K2 and K3 against K1 on K1's own slab read them."""
     check_half_layer_args(x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads, w_qkv, w_proj)
     from dinov2_tpu_torch.ops._kernels import check_status, slab_layer_lib
 
@@ -141,7 +185,180 @@ def slab_layer_block(
         )
     check_status(lib, code, "slab_layer_block")
     slab_layer_block.launches += 1
-    return out
+    return out, qkv, attn
 
 
 slab_layer_block.launches = 0  # kernel launches on CUDA tensors
+
+
+def check_slab_attention_args(qkv, num_heads, x=None, w_proj=None, b_proj=None, ls1=None):
+    """What the CUDA slab attention kernels take: a bf16 (B, T, 3D) slab with
+    head_dim 64 (K3); with x given, K2's bf16 x (B, T, D) and w_proj (D, D)
+    and f32 b_proj and ls1 rows too."""
+    if qkv.dim() != 3 or qkv.shape[-1] % 3:
+        raise ValueError(f"qkv must be (B, T, 3D), got {tuple(qkv.shape)}")
+    b, t, three_d = qkv.shape
+    d = three_d // 3
+    _check_bf16_head64(qkv, d, num_heads, "slab attention")
+    if x is None:
+        return _check_tensors(qkv, {})
+    if x.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"the CUDA slab attention kernel takes bf16 activations, got {x.dtype}"
+        )
+    _check_tensors(x, {
+        "x": (x, (b, t, d), torch.bfloat16),
+        "qkv": (qkv, (b, t, 3 * d), torch.bfloat16),
+        "w_proj": (w_proj, (d, d), torch.bfloat16),
+        "b_proj": (b_proj, (d,), torch.float32),
+        "ls1": (ls1, (d,), torch.float32),
+    })
+
+
+def slab_attention(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """(B, T, 3D) fused qkv slab, [q | k | v] along features -> (B, T, D)
+    attention output, per head softmax(q k^T * scale) v, no head transposes.
+
+    CPU tensors run the plain version. CUDA tensors launch the K3 kernel
+    (bf16, head_dim 64; anything else raises) and add one to
+    `slab_attention.launches`."""
+    if qkv.device.type == "cpu":
+        return _slab_reference(qkv, num_heads, scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no slab_attention for device {qkv.device}")
+    check_slab_attention_args(qkv, num_heads)
+    b, t, three_d = qkv.shape
+    d = three_d // 3
+    from dinov2_tpu_torch.ops._kernels import check_status, slab_attention_lib
+
+    lib = slab_attention_lib()
+    out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):  # the launch goes to the current device
+        code = lib.dinov2_slab_attention_bf16(
+            qkv.data_ptr(), out.data_ptr(), b, t, d, num_heads, scale,
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    check_status(lib, code, "slab_attention")
+    slab_attention.launches += 1
+    return out
+
+
+slab_attention.launches = 0  # kernel launches on CUDA tensors
+
+
+def slab_attention_block(
+    x: torch.Tensor,
+    qkv: torch.Tensor,
+    w_proj: torch.Tensor,
+    b_proj: torch.Tensor,
+    ls1: torch.Tensor,
+    num_heads: int,
+    scale: float,
+) -> torch.Tensor:
+    """x + ls1 * (slab_attention(qkv) @ w_proj + b_proj): x (B, T, D) the
+    residual stream, qkv (B, T, 3D), w_proj (D, D) stored (in, out), b_proj
+    and ls1 (D,) in f32.
+
+    CPU tensors run the plain version. CUDA tensors launch the K2 kernel
+    (bf16, head_dim 64; anything else raises) and add one to
+    `slab_attention_block.launches`. On the slab K1 makes, the output is
+    K1's bit for bit: both run the same two launches on it."""
+    if x.device.type == "cpu":
+        return _slab_block_reference(x, qkv, w_proj, b_proj, ls1, num_heads, scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"no slab_attention_block for device {x.device}")
+    check_slab_attention_args(qkv, num_heads, x, w_proj, b_proj, ls1)
+    b, t, d = x.shape
+    from dinov2_tpu_torch.ops._kernels import check_status, slab_attention_lib
+
+    lib = slab_attention_lib()
+    attn = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):  # the launches go to the current device
+        code = lib.dinov2_slab_attention_block_bf16(
+            x.data_ptr(), qkv.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(), ls1.data_ptr(),
+            attn.data_ptr(), out.data_ptr(), b, t, d, num_heads, scale,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    check_status(lib, code, "slab_attention_block")
+    slab_attention_block.launches += 1
+    return out
+
+
+slab_attention_block.launches = 0  # kernel launches on CUDA tensors
+
+MLP_KERNEL_WIDTHS = (384, 768, 1024)  # the D the K5 kernel is built for, with DH = 4 D
+
+
+def check_slab_mlp_args(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2):
+    """What the CUDA MLP kernel takes: bf16 x (B, T, D) with D in
+    MLP_KERNEL_WIDTHS, bf16 (in, out) weights with DH = 4 D, f32 rows."""
+    if x.dtype != torch.bfloat16:
+        raise NotImplementedError(f"the CUDA MLP kernel takes bf16 activations, got {x.dtype}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, T, D), got {tuple(x.shape)}")
+    d = x.shape[-1]
+    dh = w1.shape[-1]
+    if d not in MLP_KERNEL_WIDTHS or dh != 4 * d:
+        raise NotImplementedError(
+            f"the CUDA MLP kernel is built for D in {MLP_KERNEL_WIDTHS} with DH = 4 D, "
+            f"got D={d}, DH={dh}"
+        )
+    _check_tensors(x, {
+        "ln_scale": (ln_scale, (d,), torch.float32),
+        "ln_bias": (ln_bias, (d,), torch.float32),
+        "w1": (w1, (d, dh), torch.bfloat16),
+        "b1": (b1, (dh,), torch.float32),
+        "w2": (w2, (dh, d), torch.bfloat16),
+        "b2": (b2, (d,), torch.float32),
+        "ls2": (ls2, (d,), torch.float32),
+    })
+
+
+def slab_mlp_block(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    w2: torch.Tensor,
+    b2: torch.Tensor,
+    ls2: torch.Tensor,
+    activation: str,
+    eps: float,
+) -> torch.Tensor:
+    """x + ls2 * (fc2(act(fc1(LN(x)) + b1)) + b2): x (B, T, D); w1 (D, DH)
+    and w2 (DH, D) stored (in, out); ln_scale, ln_bias, b2, ls2 (D,) and b1
+    (DH,) in f32; activation "gelu_tanh_f16" | "gelu_erf" | "gelu_tanh". The
+    (T, DH) hidden activation never reaches device memory.
+
+    CPU tensors run the plain version. CUDA tensors launch the K5 kernel
+    (bf16, D in MLP_KERNEL_WIDTHS, DH = 4 D, any T; anything else raises) and
+    add one to `slab_mlp_block.launches`."""
+    if activation is None or activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    if x.device.type == "cpu":
+        return slab_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, activation, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no slab_mlp_block for device {x.device}")
+    check_slab_mlp_args(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
+    b, t, d = x.shape
+    dh = 4 * d
+    out = torch.empty_like(x)
+    if b * t == 0:
+        return out
+    from dinov2_tpu_torch.ops._kernels import check_status, slab_mlp_lib
+
+    lib = slab_mlp_lib()
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        code = lib.dinov2_slab_mlp_bf16(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), ls2.data_ptr(), out.data_ptr(), b * t, d, dh,
+            ACTIVATIONS[activation], eps, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    check_status(lib, code, "slab_mlp_block")
+    slab_mlp_block.launches += 1
+    return out
+
+
+slab_mlp_block.launches = 0  # kernel launches on CUDA tensors

@@ -26,7 +26,7 @@ import torch
 
 from dinov2_tpu_torch.ops.qmatmul import apply_activation, dequant_weight
 
-# activation name -> the kernel's code
+# activation name -> the kernels' code (csrc/activation.cuh; K5 takes them too)
 ACTIVATIONS = {None: 0, "gelu_tanh_f16": 1, "gelu_erf": 2, "gelu_tanh": 3}
 K_TILE = 64  # the kernels' k-step: a packed weight's planes must hold whole steps
 

@@ -16,7 +16,9 @@ resolve_attention_path); "auto" takes K1 below 1024 tokens and K4 from
 there on. A ggml-quantized checkpoint loads with `quant_mode` "dequant"
 (dense weights decoded at load) or "fused" (the blocks stay on the device
 and run through K8 and K7; `quant_slab` and `quant_backend` pick their
-routes, models/vit.py). `device="cuda"` runs the CUDA kernels and needs a GPU: with none,
+routes, models/vit.py). `slab_fusion` picks the level of the slab route
+("layer" K1/K8, "proj" K2, "core" K3; "auto" is "layer") and `fuse_mlp` runs
+the MLP half-layer as the K5 kernel (off by default). `device="cuda"` runs the CUDA kernels and needs a GPU: with none,
 the constructor raises; it never falls back to the CPU. `device="cpu"` runs
 the plain PyTorch versions.
 """
@@ -61,6 +63,8 @@ class DinoEngine:
         quant_mode: str = "dequant",
         quant_slab: str = "auto",
         quant_backend: str = "auto",
+        slab_fusion: str = "auto",
+        fuse_mlp: bool = False,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -73,6 +77,7 @@ class DinoEngine:
         self.opts = ModelOptions(
             parity=parity, flash_attention=flash_attention, compute_dtype=dtype,
             quant_slab=quant_slab, quant_backend=quant_backend,
+            slab_fusion=slab_fusion, fuse_mlp=fuse_mlp,
         )
         self.loaded = load_params(model_path, dtype=dtype, device=self.device, quant_mode=quant_mode)
         self.config = self.loaded.config

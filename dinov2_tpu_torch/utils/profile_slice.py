@@ -1,7 +1,8 @@
 """Where the time goes in the port's classify or feature path on one CUDA GPU.
 
     python3 -m dinov2_tpu_torch.utils.profile_slice [--mode classify|features]
-        [--quant q4_0|q4_1|q5_0|q5_1|q8_0]
+        [--quant q4_0|q4_1|q5_0|q5_1|q8_0] [--model giant]
+        [--slab-fusion layer|proj|core] [--fuse-mlp]
 
 classify (the default): a random-weight ViT-B/14 at its published widths
 (PRESETS["base"], 1000 classes, img_size 518, f16 weights from seed 0) in
@@ -13,6 +14,10 @@ route), as chip_smoke.py runs it.
 --quant FMT: the same checkpoint quantized with quantize_gguf and loaded
 with quant_mode="fused" (K8 for the attention half-layer, K7 for the other
 linears), as chip_smoke.py's quantized slice runs it.
+--model giant (classify): a random-weight ViT-g/14 (PRESETS["giant"], 40
+layers, SwiGLU, 1000 classes) on 16 images, as chip_smoke.py's ViT-g slice
+runs it. --slab-fusion picks the level of the slab route (K1 | K2 | K3) and
+--fuse-mlp runs the MLP half-layer as the K5 kernel (models/vit.py).
 
 Each mode makes two warm-up calls, 10 calls on the host clock without the
 profiler, then 3 calls under torch.profiler. It prints the card, the median
@@ -20,7 +25,7 @@ wall ms per call, the device time per call (the sum of every kernel's and
 copy's own device time, one stream, so nothing overlaps), the idle share
 1 - device/wall, and every device op with its launches, ms per call and ms
 per launch. The profiler's full table and a Chrome trace go into
-OUT/<mode>[_<quant>]/ under the working directory (.gitignore lists OUT).
+OUT/<mode>[_<model>][_<quant>][_<slab fusion>][_fuse_mlp]/ under the working directory (.gitignore lists OUT).
 """
 
 from __future__ import annotations
@@ -48,9 +53,10 @@ MODES = {
                  "classify_probs", "ViT-B/14 classify_probs"),
     "features": ("large", {}, 8, 512, "extract_features", "ViT-L/14 extract_features"),
 }
+GIANT_BATCH = 16  # the ViT-g/14 classify slice's batch
 
 
-def _engine(preset: str, overrides: dict, seed: int, quant: str | None):
+def _engine(preset: str, overrides: dict, seed: int, quant: str | None, **options):
     from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
     from dinov2_tpu_torch.models.config import PRESETS, DinoConfig
     from dinov2_tpu_torch.quant import quantize_gguf
@@ -62,7 +68,7 @@ def _engine(preset: str, overrides: dict, seed: int, quant: str | None):
         if quant:
             path = quantize_gguf(path, Path(tmp) / f"{preset}.{quant}.gguf", quant)
         return DinoEngine(path, dtype=torch.bfloat16, parity="reference", device="cuda",
-                          quant_mode="fused" if quant else "dequant")
+                          quant_mode="fused" if quant else "dequant", **options)
 
 
 def main(argv=()) -> int:
@@ -72,11 +78,30 @@ def main(argv=()) -> int:
     parser = argparse.ArgumentParser(prog="profile_slice")
     parser.add_argument("--mode", choices=sorted(MODES), default="classify")
     parser.add_argument("--quant", choices=sorted(QUANT_TYPE_NAMES), default=None)
+    parser.add_argument("--model", choices=["giant"], default=None)
+    parser.add_argument("--slab-fusion", choices=["layer", "proj", "core"], default=None)
+    parser.add_argument("--fuse-mlp", action="store_true")
     args = parser.parse_args(list(argv))
     mode, quant = args.mode, args.quant
     preset, overrides, batch, px, call, label = MODES[mode]
+    tags = [mode]
+    options = {}
+    if args.model == "giant":
+        if mode != "classify":
+            parser.error("--model giant goes with --mode classify")
+        preset, batch, label = "giant", GIANT_BATCH, "ViT-g/14 classify_probs"
+        tags.append("giant")
     if quant:
         label = f"{label}, {quant} fused"
+        tags.append(quant)
+    if args.slab_fusion:
+        options["slab_fusion"] = args.slab_fusion
+        label = f'{label}, slab_fusion="{args.slab_fusion}"'
+        tags.append(args.slab_fusion)
+    if args.fuse_mlp:
+        options["fuse_mlp"] = True
+        label = f"{label}, fuse_mlp"
+        tags.append("fuse_mlp")
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -84,7 +109,7 @@ def main(argv=()) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    run = getattr(_engine(preset, overrides, SEED, quant), call)
+    run = getattr(_engine(preset, overrides, SEED, quant, **options), call)
     images = np.random.default_rng(SEED + 1).integers(0, 256, (batch, px, px, 3), dtype=np.uint8)
     for _ in range(2):
         run(images)
@@ -127,7 +152,7 @@ def main(argv=()) -> int:
     for e in sorted(host, key=lambda e: -e.device_time_total)[:15]:
         print(f"| `{e.key}` | {e.count / PROFILED_CALLS:g} | {e.device_time_total / 1e3 / PROFILED_CALLS:.4f} |")
 
-    out = OUT / (f"{mode}_{quant}" if quant else mode)
+    out = OUT / "_".join(tags)
     out.mkdir(parents=True, exist_ok=True)
     (out / "key_averages.txt").write_text(
         averages.table(sort_by="self_device_time_total", row_limit=-1, max_name_column_width=120)

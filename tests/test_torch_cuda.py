@@ -14,7 +14,17 @@ from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
 from dinov2_tpu_torch.models.config import DinoConfig
 from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
 from dinov2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_slab
-from dinov2_tpu_torch.ops.fused_attention import slab_layer_block, slab_layer_reference
+from dinov2_tpu_torch.ops.fused_attention import (
+    _slab_block_reference,
+    _slab_reference,
+    slab_attention,
+    slab_attention_block,
+    slab_layer_block,
+    slab_layer_buffers,
+    slab_layer_reference,
+    slab_mlp_block,
+    slab_mlp_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -346,3 +356,168 @@ def test_engine_quant_classify_on_cuda_close_to_cpu_f32(cuda, tmp_path, fmt):
     want = DinoEngine(path, dtype=torch.float32, device="cpu", quant_mode="dequant").classify_probs(imgs)
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-2, atol=0)
+
+
+def _bound_holds(got, plain, want):
+    """K1's bound: at most twice the plain bf16 version's distance from f32,
+    plus 1e-3 of the output's scale."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    err = (got.float() - want).abs().max().item()
+    err_plain = (plain.float() - want).abs().max().item()
+    assert err <= 2 * err_plain + 1e-3 * want.abs().max().item()
+
+
+@pytest.mark.parametrize(
+    "b, t, heads",
+    [(1, 1, 1), (2, 5, 2), (3, 64, 6), (2, 65, 12), (2, 257, 16), (2, 257, 24), (1, 1370, 6)],
+)
+def test_slab_attention_kernels_match_plain(cuda, b, t, heads):
+    """K3 and K2 against their plain versions in bf16 and f32 on the same
+    slab, with K1's bound; H covers ViT-S, B, L and g; T one row, ragged key
+    tiles, an exact tile, T=257 and many tiles."""
+    d = 64 * heads
+    x, _, _, _, _, wp, bp, ls = _half_layer_args(b, t, d, seed=t, device=cuda)
+    qkv = _slab(b, t, heads, seed=t + heads, device=cuda)
+    _bound_holds(slab_attention(qkv, heads, 0.125), _slab_reference(qkv, heads, 0.125),
+                 _slab_reference(qkv.float(), heads, 0.125))
+    block = (x, qkv, wp, bp, ls)
+    _bound_holds(slab_attention_block(*block, heads, 0.125),
+                 _slab_block_reference(*block, heads, 0.125),
+                 _slab_block_reference(*[a.float() for a in block], heads, 0.125))
+
+
+@pytest.mark.parametrize("b, t, heads", [(2, 37, 2), (4, 257, 12), (2, 257, 24)])
+def test_slab_attention_kernels_equal_k1_on_its_slab(cuda, b, t, heads):
+    """On the qkv slab K1 makes, K3 is K1's attention output and K2 K1's
+    output, bit for bit: they run K1's second and third launches."""
+    args = _half_layer_args(b, t, 64 * heads, seed=heads, device=cuda)
+    x, _, _, _, _, wp, bp, ls = args
+    out, qkv, attn = slab_layer_buffers(*args, heads, 0.125, 1e-6)
+    assert torch.equal(out, slab_layer_block(*args, heads, 0.125, 1e-6))
+    assert torch.equal(slab_attention(qkv, heads, 0.125), attn)
+    assert torch.equal(slab_attention_block(x, qkv, wp, bp, ls, heads, 0.125), out)
+
+
+def _mlp_args(b, t, d, seed, device, dh=None):
+    dh = 4 * d if dh is None else dh
+    rng = np.random.default_rng(seed)
+    arrays = [
+        (rng.standard_normal((b, t, d)), torch.bfloat16),
+        (rng.uniform(0.5, 1.5, d), torch.float32),
+        (rng.standard_normal(d) * 0.1, torch.float32),
+        (rng.standard_normal((d, dh)) * 0.05, torch.bfloat16),
+        (rng.standard_normal(dh) * 0.1, torch.float32),
+        (rng.standard_normal((dh, d)) * 0.05, torch.bfloat16),
+        (rng.standard_normal(d) * 0.1, torch.float32),
+        (rng.uniform(0.1, 1.0, d), torch.float32),
+    ]
+    return [torch.from_numpy(a).to(device, dt) for a, dt in arrays]
+
+
+@pytest.mark.parametrize("activation", ["gelu_tanh_f16", "gelu_erf", "gelu_tanh"])
+@pytest.mark.parametrize(
+    "b, t, d", [(1, 1, 384), (2, 37, 384), (3, 32, 768), (2, 257, 768), (1, 1370, 1024), (5, 33, 1024)]
+)
+def test_slab_mlp_kernel_matches_plain(cuda, b, t, d, activation):
+    """K5 against its plain version in bf16 and f32 on the same inputs, with
+    K1's bound; every width it is built for, row counts of one row, a ragged
+    last tile, an exact tile (96 rows) and many tiles."""
+    args = _mlp_args(b, t, d, seed=t + d, device=cuda)
+    _bound_holds(slab_mlp_block(*args, activation, 1e-6),
+                 slab_mlp_reference(*args, activation, 1e-6),
+                 slab_mlp_reference(*[a.float() for a in args], activation, 1e-6))
+
+
+def test_slab_launch_counters_count_kernel_calls_only(cuda):
+    qkv = _slab(2, 37, 2, seed=0, device=cuda)
+    x, _, _, _, _, wp, bp, ls = _half_layer_args(2, 37, 128, seed=0, device=cuda)
+    mlp = _mlp_args(2, 37, 384, seed=0, device=cuda)
+    before = (slab_attention.launches, slab_attention_block.launches, slab_mlp_block.launches)
+    slab_attention(qkv, 2, 0.125)
+    slab_attention(qkv.cpu(), 2, 0.125)
+    _slab_reference(qkv, 2, 0.125)
+    slab_attention_block(x, qkv, wp, bp, ls, 2, 0.125)
+    slab_attention_block(*[a.cpu() for a in (x, qkv, wp, bp, ls)], 2, 0.125)
+    slab_mlp_block(*mlp, "gelu_erf", 1e-6)
+    slab_mlp_block(*mlp, "gelu_tanh", 1e-6)
+    slab_mlp_block(*[a.cpu() for a in mlp], "gelu_erf", 1e-6)
+    slab_mlp_reference(*mlp, "gelu_erf", 1e-6)
+    assert (slab_attention.launches, slab_attention_block.launches,
+            slab_mlp_block.launches) == (before[0] + 1, before[1] + 1, before[2] + 2)
+
+
+@pytest.mark.parametrize("case", ["K3 f32", "K3 head_dim 32", "K2 f32", "K5 f32", "K5 DH = 2 D",
+                                  "K5 D=128"])
+def test_slab_kernels_refuse(cuda, case):
+    counts = (slab_attention.launches, slab_attention_block.launches, slab_mlp_block.launches)
+    with pytest.raises(NotImplementedError):
+        if case == "K3 f32":
+            slab_attention(_slab(1, 5, 2, seed=0, device=cuda, dtype=torch.float32), 2, 0.125)
+        elif case == "K3 head_dim 32":
+            slab_attention(_slab(1, 5, 2, seed=0, device=cuda, hd=32), 2, 0.125)
+        elif case == "K2 f32":
+            x, _, _, _, _, wp, bp, ls = _half_layer_args(1, 5, 128, seed=0, device=cuda)
+            qkv = _slab(1, 5, 2, seed=0, device=cuda, dtype=torch.float32)
+            slab_attention_block(x.float(), qkv, wp, bp, ls, 2, 0.125)
+        elif case == "K5 f32":
+            args = _mlp_args(1, 5, 384, seed=0, device=cuda)
+            slab_mlp_block(args[0].float(), *args[1:], "gelu_erf", 1e-6)
+        elif case == "K5 DH = 2 D":
+            slab_mlp_block(*_mlp_args(1, 5, 384, seed=0, device=cuda, dh=768), "gelu_erf", 1e-6)
+        else:
+            slab_mlp_block(*_mlp_args(1, 5, 128, seed=0, device=cuda), "gelu_erf", 1e-6)
+    assert (slab_attention.launches, slab_attention_block.launches,
+            slab_mlp_block.launches) == counts
+
+
+@pytest.mark.parametrize("options, kernels", [
+    ({"slab_fusion": "core"}, {"K3": 2}),
+    ({"slab_fusion": "proj"}, {"K2": 2}),
+    ({"slab_fusion": "layer"}, {"K1": 2}),
+])
+def test_engine_swiglu_on_cuda_close_to_cpu_f32(cuda, tmp_path, options, kernels):
+    """A tiny SwiGLU model (ViT-g/14's FFN) in bf16 on the card at each level
+    of the slab route against the same file in f32 on the CPU, with the
+    dense engine test's bound; each level launches its kernel once a layer."""
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    config = DinoConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                        num_classes=4, patch_size=14, img_size=70, use_swiglu_ffn=True,
+                        swiglu_hidden=160)
+    path = write_synthetic_gguf(tmp_path / "tiny_g.gguf", config, seed=3)
+    imgs = np.random.default_rng(0).integers(0, 256, (3, 90, 100, 3), dtype=np.uint8)
+    gpu = DinoEngine(path, dtype=torch.bfloat16, device="cuda", **options)
+    counters = {"K1": slab_layer_block, "K2": slab_attention_block, "K3": slab_attention}
+    before = {k: c.launches for k, c in counters.items()}
+    got = gpu.classify_probs(imgs)
+    assert {k: c.launches - before[k] for k, c in counters.items()} == {
+        k: kernels.get(k, 0) for k in counters}
+    want = DinoEngine(path, dtype=torch.float32, device="cpu").classify_probs(imgs)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-2, atol=0)
+
+
+def test_engine_fuse_mlp_on_cuda_close_to_cpu_f32(cuda, tmp_path):
+    """fuse_mlp=True at D=384 in bf16 on the card: K1 and K5 once a layer;
+    probs within the dense engine test's bound (1e-2 relative) of the same
+    engine with fuse_mlp=False on the card, which differs only in summation
+    order, and within twice that of the CPU f32 engine's: the bf16 token
+    noise grows with the width (D=384 against that test's D=128; one prob
+    read 1.002e-2 here)."""
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    config = DinoConfig(hidden_size=384, num_hidden_layers=2, num_attention_heads=6,
+                        num_classes=4, patch_size=14, img_size=70)
+    path = write_synthetic_gguf(tmp_path / "tiny_s.gguf", config, seed=3)
+    imgs = np.random.default_rng(0).integers(0, 256, (3, 90, 100, 3), dtype=np.uint8)
+    gpu = DinoEngine(path, dtype=torch.bfloat16, device="cuda", fuse_mlp=True)
+    before = slab_layer_block.launches, slab_mlp_block.launches
+    got = gpu.classify_probs(imgs)
+    assert (slab_layer_block.launches, slab_mlp_block.launches) == (before[0] + 2, before[1] + 2)
+    assert np.isfinite(got).all()
+    unfused = DinoEngine(path, dtype=torch.bfloat16, device="cuda").classify_probs(imgs)
+    assert slab_mlp_block.launches == before[1] + 2
+    np.testing.assert_allclose(got, unfused, rtol=1e-2, atol=0)
+    want = DinoEngine(path, dtype=torch.float32, device="cpu").classify_probs(imgs)
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=0)

@@ -58,7 +58,7 @@ def test_load_params_equals_jax(tmp_path, jdt, tdt):
     path = write_synthetic_gguf(tmp_path / "m.gguf", config, seed=3)
     want = jparams.load_params(path, dtype=jdt)
     got = params.load_params(path, dtype=tdt)
-    assert got.config == want.config
+    assert got.config.__dict__ == want.config.__dict__  # the port's own DinoConfig class
     assert got.id2label == want.id2label
     assert got.has_classifier == want.has_classifier
     _assert_same_tree(got.params, want.params)
@@ -72,8 +72,8 @@ def test_load_params_without_classifier(tmp_path):
 
 def test_load_params_refuses_quantized_and_swiglu(tmp_path):
     """Quantized files load in "dequant" and "fused" mode
-    (tests/test_torch_quant.py); the W8A8 "int8" mode and SwiGLU are not
-    ported."""
+    (tests/test_torch_quant.py) and SwiGLU loads (tests/test_torch_giant.py);
+    the W8A8 "int8" mode is not ported."""
     dense = write_synthetic_gguf(tmp_path / "m.gguf", TINY, seed=3)
     q8 = tmp_path / "q8.gguf"
     quantize_gguf(dense, q8, "q8_0")
@@ -84,10 +84,9 @@ def test_load_params_refuses_quantized_and_swiglu(tmp_path):
         params.load_params(q8, quant_mode="pallas")
     swiglu = DinoConfig(**{**TINY.__dict__, "use_swiglu_ffn": True})
     path = write_synthetic_gguf(tmp_path / "sw.gguf", swiglu, seed=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        params.load_params(path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        params.init_params(swiglu)
+    loaded = params.load_params(path, dtype=torch.float32)
+    assert loaded.config.swiglu and set(loaded.params["layers"]["mlp"]) == {"win", "wout"}
+    assert set(params.init_params(swiglu)["layers"]["mlp"]) == {"win", "wout"}
 
 
 @pytest.mark.parametrize("jdt", [jnp.float32, jnp.bfloat16])

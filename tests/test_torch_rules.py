@@ -1,6 +1,5 @@
-"""Rules of the port: it never imports jax, it reaches the JAX package only
-through its three re-export modules, and importing its kernel module builds
-nothing."""
+"""Rules of the port: it never imports jax nor the JAX package, and importing
+its kernel module builds nothing."""
 
 import importlib
 import os
@@ -21,23 +20,26 @@ def test_no_source_file_imports_jax():
 
 
 def test_only_the_reexport_modules_name_the_jax_package():
-    """chip_smoke.py and the port's modules import `dinov2_tpu_torch` only;
-    the JAX package's jax-free host modules come in through models/config.py,
-    io/gguf.py, io/synthetic.py and quant/__init__.py."""
+    """No file of the port, and not chip_smoke.py, imports the JAX package,
+    not even one of its jax-free host modules: the port keeps its own copies
+    (models/config.py, io/gguf.py, io/synthetic.py, quant/, utils/native.py;
+    tests/test_torch_host_copies.py holds them against the originals)."""
     pattern = re.compile(r"^\s*(import|from) dinov2_tpu(\.|\s|$)", re.MULTILINE)
-    reexports = {"models/config.py", "io/gguf.py", "io/synthetic.py", "quant/__init__.py"}
-    naming = {
-        str(p.relative_to(PACKAGE)) for p in PACKAGE.rglob("*.py") if pattern.search(p.read_text())
-    }
-    assert naming == reexports
-    assert not pattern.search((ROOT / "chip_smoke.py").read_text())
+    files = [*sorted(PACKAGE.rglob("*.py")), ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    assert [str(p.relative_to(ROOT)) for p in files if pattern.search(p.read_text())] == []
 
 
 def test_forward_runs_without_jax_in_a_fresh_process():
-    """With JAX_PLATFORMS unset (so dinov2_tpu/__init__.py imports no jax),
-    the port loads, runs a tiny forward and leaves jax out of sys.modules."""
+    """With JAX_PLATFORMS=cpu set (which makes `import dinov2_tpu` import
+    jax), the port writes, quantizes, loads and runs a tiny GGUF and leaves
+    both jax and dinov2_tpu out of sys.modules."""
     code = (
-        "import sys, torch\n"
+        "import sys, tempfile, numpy as np, torch\n"
+        "from pathlib import Path\n"
+        "from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf\n"
+        "from dinov2_tpu_torch.quant import quantize_gguf\n"
+        "from dinov2_tpu_torch.runtime.engine import DinoEngine\n"
         "from dinov2_tpu_torch.models.config import DinoConfig\n"
         "from dinov2_tpu_torch.models.params import init_params\n"
         "from dinov2_tpu_torch.models.vit import ModelOptions, forward\n"
@@ -48,10 +50,19 @@ def test_forward_runs_without_jax_in_a_fresh_process():
         "out = forward(init_params(c, dtype=torch.float32), torch.zeros(1, 28, 28, 3), c,"
         " ModelOptions(compute_dtype=torch.float32), classify=True)\n"
         "assert out['probs'].shape == (1, 3)\n"
+        "with tempfile.TemporaryDirectory() as tmp:\n"
+        "    c = DinoConfig(hidden_size=64, num_hidden_layers=1, num_attention_heads=1,"
+        " num_classes=3, patch_size=14, img_size=28)\n"
+        "    dense = write_synthetic_gguf(Path(tmp) / 'm.gguf', c, seed=1)\n"
+        "    q = quantize_gguf(dense, Path(tmp) / 'q.gguf', 'q4_0')\n"
+        "    e = DinoEngine(q, dtype=torch.float32, device='cpu', quant_mode='fused')\n"
+        "    probs = e.classify_probs(np.zeros((1, 30, 30, 3), np.uint8))\n"
+        "assert probs.shape == (1, 3) and np.isfinite(probs).all()\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert 'dinov2_tpu' not in sys.modules, 'the JAX package was imported'\n"
         "print('ok')\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=120,
@@ -69,7 +80,8 @@ def test_importing_the_kernel_module_runs_no_compiler(monkeypatch):
     from dinov2_tpu_torch.ops import _kernels
 
     module = importlib.reload(_kernels)
-    for lib in ("slab_layer_lib", "flash_attention_lib", "quant_matmul_lib", "quant_layer_lib"):
+    for lib in ("slab_layer_lib", "slab_attention_lib", "slab_mlp_lib", "flash_attention_lib",
+                "quant_matmul_lib", "quant_layer_lib"):
         assert getattr(module, lib).cache_info().currsize == 0, lib
 
 

@@ -149,7 +149,17 @@ def test_dino_vit_module_owns_the_weights():
 
 
 def test_swiglu_forward_not_ported():
-    config = DinoConfig(**{**_config(0).__dict__, "use_swiglu_ffn": True})
-    x = torch.zeros((1, 3, 64))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        vit._mlp_half_layer(x, {}, config, vit.ModelOptions())
+    """SwiGLU once raised here; it is ported now, and the MLP half-layer of a
+    SwiGLU layer matches the JAX one (whole forwards: tests/test_torch_giant.py)."""
+    config = DinoConfig(**{**_config(0).__dict__, "use_swiglu_ffn": True, "swiglu_hidden": 96})
+    tree = jparams.init_params(config, seed=5, dtype=jnp.float32)
+    layer = jax.tree_util.tree_map(lambda a: a[0], tree["layers"])
+    x = np.random.default_rng(5).standard_normal((2, 7, 64)).astype(np.float32)
+    want = jvit._mlp_half_layer(
+        jnp.asarray(x), layer, config, jvit.ModelOptions(compute_dtype=jnp.float32)
+    )
+    got = vit._mlp_half_layer(
+        torch.from_numpy(x), params_from_numpy(jax.tree_util.tree_map(np.asarray, layer)),
+        config, vit.ModelOptions(compute_dtype=torch.float32),
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6, rtol=0)
