@@ -14,11 +14,20 @@ with random f16 weights from a seed, bf16, parity="reference":
   - features and PCA: DinoEngine.extract_features and pca_visualizations on
     8 RGB images of 512x512 (518 px in, a 37x37 grid, T=1370) with a
     full-width ViT-L/14; its attention core is K4;
-  - ViT-g/14 classify: DinoEngine.classify on 16 images of 256x256 with the
-    full ViT-g/14 (D=1536, 40 layers, 24 heads, SwiGLU hidden 4096, 1000
-    classes, ~1.1 B parameters) from a synthetic f16 GGUF, at each level of
-    the slab route: slab_fusion="core" (K3, the JAX package's route for this
-    model), "proj" (K2) and "layer" (K1) on the same device weights.
+  - ViT-g/14 classify: DinoEngine.classify on 16 images of 256x256 with
+    ViT-g/14 at full width (D=1536, 24 heads, SwiGLU hidden 4096, 1000
+    classes) from a synthetic f16 GGUF, depth cut to 20 of its 40 layers, at
+    each level of the slab route: slab_fusion="core" (K3, the JAX package's
+    route for this model), "proj" (K2) and "layer" (K1) on the same device
+    weights;
+  - training: make_trainer(...).place and five Trainer.step calls on one
+    batch of 32 uint8 images of 256x256 with a full-width ViT-B/14 (12
+    layers, 1000 classes, init_params seed 0), parity="hf", bf16 compute
+    over f32 masters, remat, AdamW: with flash_attention=True (the K4
+    with_lse forward and K6, the flash backward) and with "auto" (K1
+    forward, recompute backward); the model exported with export_gguf after
+    step 5 classifies through DinoEngine; then two steps at batch 8 on
+    518 px preprocessed input (T=1370, "auto" takes the flash route).
 On the way it builds every hand-written kernel of those paths from the
 sources in this checkout (one nvcc per source, all at once) and holds each
 against its plain PyTorch version on the card, with its time beside its
@@ -28,11 +37,13 @@ calls). Each path runs with the launch counts set to 0 just before it and
 read just after.
 
 Phases, one line each (or one per format or shape), each with its seconds:
-device, build, kernel checks (K1, K3 and K2, K5, K4, K7, K8), classify slice,
+device, build, kernel checks (K1, K3 and K2, K5, K4, K4 with lse and K6, the
+autograd Functions of K1, K2, K3 and K5, K7, K8), classify slice,
 its cross-check and the fuse_mlp slice with its own, quantized classify
 slice, its cross-check and its findings (other routes, weight memory),
 feature slice, PCA, feature cross-check, ViT-g/14 slice at its three levels
-and its cross-check. Any failure exits non-zero. The line before the last is
+and its cross-check, training slice on both routes with its cross-check and
+export, long-sequence training. Any failure exits non-zero. The line before the last is
 a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. With no CUDA device, or run from a directory
 that holds only this file, it exits non-zero and prints no result.
@@ -49,6 +60,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
+from typing import Any
 
 import numpy as np
 import torch
@@ -71,11 +83,13 @@ FEATURE_TIMED_CALLS = 10
 # PCA images from the same tokens on the card and on the CPU: at most one u8
 # level apart (an f32 rounding across a .5 boundary) on >= 99% of pixels
 PCA_AGREE = 0.99
-KERNELS = ("slab_layer", "slab_attention", "slab_mlp", "flash_attention", "quant_matmul",
-           "quant_layer")
+KERNELS = ("slab_layer", "slab_attention", "slab_mlp", "flash_attention", "flash_backward",
+           "quant_matmul", "quant_layer")
 QUANT_FORMATS = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0")
 QUANT_SLICE_FORMAT = "q4_0"
-# the ViT-g/14 slice: all 40 layers at full width
+# the ViT-g/14 slice: full width, 20 of the 40 layers (the file to write and
+# load twice is 1.2 GB instead of 2.3 GB)
+GIANT_LAYERS = 20
 GIANT_BATCH = 16
 GIANT_CROSS_CHECK_IMAGES = 2
 # bf16 error grows with depth: docs/PARITY.md measured 2.5e-1 on the 40-layer
@@ -83,6 +97,17 @@ GIANT_CROSS_CHECK_IMAGES = 2
 # it. The token bound is relative to max|token| and stays; the probs bound
 # scales with the tokens' envelope, 3 x 3e-4 ~ 1e-3 (this slice reads 3.2e-4).
 GIANT_PROB_ABS_BOUND = 1e-3
+# the training slice: the train CLI's default batch of 256 px images (224 px
+# in the model, T=257), five steps on one batch; then T=1370 at batch 8
+TRAIN_BATCH = 32
+TRAIN_STEPS = 5
+TRAIN_CROSS_CHECK_IMAGES = 4
+# the loss of a batch in bf16 on the card against f32 on the CPU: logits of a
+# random-weight model are O(1) and carry the bf16 token envelope above
+TRAIN_LOSS_ABS_BOUND = 2e-2
+TRAIN_LONG_BATCH = 8
+TRAIN_LONG_STEPS = 2
+LSE_ABS_BOUND = 1e-3  # the kernel's f32 row logsumexp against the plain f32 one
 # H100 SXM peaks (NVIDIA's data sheet, dense): a kernel's bound is the larger
 # of its operations over the first and its bytes over the second
 PEAK_BF16_FLOPS = 989e12
@@ -364,6 +389,250 @@ def phase_flash_check(card: str) -> dict:
     for key in ("ms", "plain_ms", "library_ms"):
         main[f"{key}_t4226"] = measured[4226][key]
     return main
+
+
+def sdpa_backward(q, k, v, g, scale):
+    """The library yardstick for K6: the backward of one
+    scaled_dot_product_attention call on the (B, T, H, 64) head views (its
+    forward is run once, outside the timed call)."""
+    leaves = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, scale=scale)
+    grad = g.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+
+def phase_flash_backward_check(card: str) -> tuple[dict, dict]:
+    """K4's with_lse forward and K6 at the training slice's shape and at the
+    long-sequence one. The lse variant's out must equal K4's without lse bit
+    for bit and its lse the plain f32 one within LSE_ABS_BOUND; dq, dk and dv
+    are held to check_kernel's rule, each against the plain version in bf16
+    and in f32 on the same inputs. Beside K6, the backward of one
+    scaled_dot_product_attention call. Returns K6's numbers and the lse
+    variant's (for K4's entry)."""
+    from dinov2_tpu_torch.ops.attention import split_heads
+    from dinov2_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_backward,
+        flash_backward_reference,
+        flash_forward_lse,
+        flash_forward_reference,
+    )
+
+    scale = 0.125
+    k6, lse_variant = {"max_abs_err": 0.0}, {}
+    for b, t, heads in ((TRAIN_BATCH, 257, 12), (TRAIN_LONG_BATCH, 1370, 16)):
+        rng = np.random.default_rng(SEED + t + heads)
+        qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * 64 * heads)) * 1.5)
+        qkv = qkv.to("cuda", torch.bfloat16)
+        g = torch.from_numpy(rng.standard_normal((b, t, heads, 64))).to("cuda", torch.bfloat16)
+        q, k, v = split_heads(qkv, heads)
+        shape = f"B={b} T={t} H={heads} hd=64"
+
+        without = partial(flash_attention, q, k, v, scale)
+        with_lse = partial(flash_forward_lse, q, k, v, scale)
+        out, lse = with_lse()
+        out32, lse32 = flash_forward_reference(q.float(), k.float(), v.float(), scale)
+        same_out = torch.equal(out, without())
+        lse_err = (lse - lse32).abs().max().item()
+        ms = [cuda_median_ms(fn) for fn in (without, with_lse, with_lse, without)]
+        lse_variant[t] = {"lse_max_abs_err": lse_err, "lse_ms": min(ms[1:3]),
+                          "ms_beside_lse": min(ms[0], ms[3])}
+        print(
+            f"kernel check: flash_forward_lse {shape}: out equals K4's without lse bit for bit: "
+            f"{same_out}; max|lse-lse f32| {lse_err:.3g} (bound {LSE_ABS_BOUND}); median ms without "
+            f"lse {ms[0]:.4f} and {ms[3]:.4f}, with lse {ms[1]:.4f} and {ms[2]:.4f} (in that "
+            f"order: without, with, with, without) ({card})"
+        )
+        require(same_out, f"the with_lse forward's out differs from K4's at {shape}")
+        require(lse_err <= LSE_ABS_BOUND, f"lse error {lse_err} at {shape}")
+
+        kernel = partial(flash_backward, q, k, v, out, lse, g, scale)
+        plain = partial(flash_backward_reference, q, k, v, out, lse, g, scale)
+        got, ref = kernel(), plain()
+        want = flash_backward_reference(q.float(), k.float(), v.float(), out32, lse32, g.float(),
+                                        scale)
+        torch.cuda.synchronize()
+        errors = []
+        for name, a, r, w in zip(("dq", "dk", "dv"), got, ref, want):
+            err_kernel = (a.float() - w).abs().max().item()
+            err_plain = (r.float() - w).abs().max().item()
+            bound = 2 * err_plain + 1e-3 * w.abs().max().item()
+            errors.append(f"{name} max|K6-f32| {err_kernel:.6g}, max|plain-f32| {err_plain:.6g}, "
+                          f"bound {bound:.6g}")
+            require(bool(torch.isfinite(a).all()), f"flash_backward {shape}: {name} is not finite")
+            require(err_kernel <= bound,
+                    f"flash_backward {shape}: {name} error {err_kernel} exceeds {bound}")
+            k6["max_abs_err"] = max(k6["max_abs_err"], err_kernel)
+        del ref, want
+        measured = {
+            "ms": cuda_median_ms(kernel),
+            "plain_ms": cuda_median_ms(plain, reps=10),
+            **roofline(10.0 * b * heads * t * t * 64, nbytes(q, k, v, out, g, lse, *got)),
+            "library_ms": cuda_median_ms(sdpa_backward(q, k, v, g, scale)),
+        }
+        print(
+            f"kernel check: flash_backward {shape}: {'; '.join(errors)}; median K6 "
+            f"{measured['ms']:.4f} ms, plain {measured['plain_ms']:.4f} ms, roofline "
+            f"{measured['bound_ms']:.4f} ms ({measured['bound_by']}), "
+            f"scaled_dot_product_attention backward {measured['library_ms']:.4f} ms ({card})"
+        )
+        if t == 257:  # the JSON line's numbers are the training slice's shape's
+            k6.update(measured)
+        else:
+            k6.update({f"{key}_t1370": value for key, value in measured.items()})
+    lse = {**lse_variant[257],
+           **{f"{key}_t1370": value for key, value in lse_variant[1370].items()}}
+    return k6, lse
+
+
+def phase_function_checks(card: str) -> dict:
+    """The autograd Functions of K1, K2, K3 and K5 on the card, at the
+    training slice's shape, bf16 activations over f32 master weights: the
+    output has a grad_fn, every input gets a finite gradient of its own
+    dtype, and the gradients agree with autograd through the plain version
+    on the same CUDA tensors (K1, K2, K5 and K3's plain route recompute
+    through that very version: within 1e-3 of the gradient's scale; K3's
+    flash route, K4 with lse and K6, by check_kernel's rule against f32).
+    Then K3's two backward routes timed at T=257 and T=1370, the reading
+    behind ops/fused_attention.py::SLAB_BWD_FLASH_MIN_T."""
+    from dinov2_tpu_torch.ops.fused_attention import (
+        _slab_block_reference,
+        _slab_reference,
+        slab_attention,
+        slab_attention_backward,
+        slab_attention_block,
+        slab_layer_block,
+        slab_layer_reference,
+        slab_mlp_block,
+        slab_mlp_reference,
+    )
+
+    b, t, d, heads = TRAIN_BATCH, 257, 768, 12
+    scale, eps = 0.125, 1e-6
+    rng = np.random.default_rng(SEED + 5)
+    x, lns, lnb, wq, bq, wp, bp, ls = _half_layer_args(rng, b, t, d)
+    wq, wp = wq.float(), wp.float()  # f32 masters: the Functions cast on the way in
+    w1 = torch.from_numpy(rng.standard_normal((d, 4 * d)) * 0.05).to("cuda", torch.float32)
+    b1 = torch.from_numpy(rng.standard_normal(4 * d) * 0.1).to("cuda", torch.float32)
+    w2 = torch.from_numpy(rng.standard_normal((4 * d, d)) * 0.05).to("cuda", torch.float32)
+    qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * d))).to("cuda", torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal((b, t, d))).to("cuda", torch.bfloat16)
+
+    def gradients(fn, tensors):
+        leaves = [a.detach().clone().requires_grad_() for a in tensors]
+        out = fn(*leaves)
+        require(out.grad_fn is not None, "a Function's output is cut from the graph")
+        return torch.autograd.grad(out, leaves, g)
+
+    cases = {
+        "K1 slab_layer_block": (
+            lambda *a: slab_layer_block(*a, heads, scale, eps),
+            lambda *a: slab_layer_reference(*a, heads, scale, eps),
+            (x, lns, lnb, wq, bq, wp, bp, ls)),
+        "K2 slab_attention_block": (
+            lambda *a: slab_attention_block(*a, heads, scale),
+            lambda *a: _slab_block_reference(*a, heads, scale),
+            (x, qkv, wp, bp, ls)),
+        "K5 slab_mlp_block": (
+            lambda *a: slab_mlp_block(*a, "gelu_erf", eps),
+            lambda *a: slab_mlp_reference(*a, "gelu_erf", eps),
+            (x, lns, lnb, w1, b1, w2, bp, ls)),
+    }
+    for label, (kernel, plain, tensors) in cases.items():
+        got, want = gradients(kernel, tensors), gradients(plain, tensors)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for i, (a, w, inp) in enumerate(zip(got, want, tensors)):
+            require(a is not None and a.dtype == inp.dtype and bool(torch.isfinite(a).all()),
+                    f"{label}: gradient of input {i} is missing, of another dtype or not finite")
+            rel = ((a.float() - w.float()).abs().max() / w.float().abs().max()).item()
+            worst = max(worst, rel)
+        print(f"function check: {label} B={b} T={t} D={d}: {len(got)} input gradients finite, "
+              f"each of its input's dtype; max|d-d plain|/max|d plain| {worst:.3g} (bound 1e-3)")
+        require(worst <= 1e-3, f"{label}: gradients differ from autograd through the plain version")
+
+    leaf = qkv.detach().clone().requires_grad_()
+    out = slab_attention(leaf, heads, scale)
+    require(out.grad_fn is not None, "K3: the output is cut from the graph")
+    (through_function,) = torch.autograd.grad(out, leaf, g)
+    timings = {}
+    for bb, tt, hh in ((b, t, heads), (TRAIN_LONG_BATCH, 1370, 16)):
+        rng = np.random.default_rng(SEED + tt)
+        slab = torch.from_numpy(rng.standard_normal((bb, tt, 3 * 64 * hh))).to("cuda", torch.bfloat16)
+        gg = torch.from_numpy(rng.standard_normal((bb, tt, 64 * hh))).to("cuda", torch.bfloat16)
+        routes = {route: partial(slab_attention_backward, slab, gg, hh, scale, route)
+                  for route in ("plain", "flash")}
+        want = slab_attention_backward(slab.float(), gg.float(), hh, scale, "plain")
+        err = {route: (fn().float() - want).abs().max().item() for route, fn in routes.items()}
+        bound = 2 * err["plain"] + 1e-3 * want.abs().max().item()
+        del want
+        ms = {route: cuda_median_ms(fn, reps=10) for route, fn in routes.items()}
+        timings[tt] = ms
+        print(
+            f"function check: K3 slab_attention backward B={bb} T={tt} H={hh}: flash route (K4 "
+            f"with lse + K6) max|d-f32| {err['flash']:.6g}, plain route {err['plain']:.6g}, bound "
+            f"{bound:.6g}; median ms of one backward (recompute and gradient): plain "
+            f"{ms['plain']:.4f}, flash {ms['flash']:.4f} ({card})"
+        )
+        require(err["flash"] <= bound, f"K3's flash backward route differs at T={tt}")
+    auto = slab_attention_backward(qkv, g, heads, scale)
+    require(torch.equal(through_function, auto), "K3's Function does not take the auto route")
+    return {"backward_plain_ms": timings[257]["plain"], "backward_flash_ms": timings[257]["flash"],
+            "backward_plain_ms_t1370": timings[1370]["plain"],
+            "backward_flash_ms_t1370": timings[1370]["flash"]}
+
+
+# sha256 of each inference kernel's output bytes on phase_output_digests'
+# seeded inputs, recorded on an NVIDIA H100 80GB HBM3 with CUDA 12.8 from a
+# build of the sources as they were before the with_lse variant entered the
+# shared attention core (csrc/attention_core.cuh)
+RECORDED_DIGESTS = {"K1": "867f80bd9af52824", "K2": "7de1ddce09564e6c", "K3": "7e73001d935cec19",
+                    "K4": "fedb833cf86a345f", "K8": "d4a00e2c9c944476"}
+
+
+def phase_output_digests() -> dict:
+    """K1 (its three launches' buffers), K2, K3, K4 without lse and K8 on
+    small seeded inputs at real widths: the outputs' sha256 against the
+    digests recorded from the sources before the attention core gained its
+    with_lse variant, so that a change to the shared core that alters an
+    inference kernel's output shows. A finding, not a check: another
+    compiler version may order sums otherwise."""
+    import hashlib
+
+    from dinov2_tpu_torch.models.params import quantize_linear
+    from dinov2_tpu_torch.ops.flash_attention import flash_attention_slab
+    from dinov2_tpu_torch.ops.fused_attention import (
+        slab_attention,
+        slab_attention_block,
+        slab_layer_buffers,
+    )
+    from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
+
+    b, t, d, heads = 4, 257, 768, 12
+    rng = np.random.default_rng(SEED + 6)
+    args = _half_layer_args(rng, b, t, d)
+    x, lns, lnb, _, bq, wp, bp, ls = args
+    qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * d))).to("cuda", torch.bfloat16)
+    wq4 = quantize_linear(rng.standard_normal((3 * d, d)) * 0.05, "q4_0", device="cuda")
+    wp4 = quantize_linear(rng.standard_normal((d, d)) * 0.05, "q4_0", device="cuda")
+    long_qkv = torch.from_numpy(rng.standard_normal((1, 1370, 3 * 1024)) * 1.5)
+    long_qkv = long_qkv.to("cuda", torch.bfloat16)
+    with torch.inference_mode():
+        outputs = {
+            "K1": torch.cat([a.flatten() for a in slab_layer_buffers(*args, heads, 0.125, 1e-6)]),
+            "K2": slab_attention_block(x, qkv, wp, bp, ls, heads, 0.125),
+            "K3": slab_attention(qkv, heads, 0.125),
+            "K4": flash_attention_slab(long_qkv, 16, 0.125),
+            "K8": slab_layer_block_quant(x, lns, lnb, wq4, bq, wp4, bp, ls, heads, 0.125, 1e-6),
+        }
+    digests = {
+        name: hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+        for name, out in outputs.items()
+    }
+    same = {name: RECORDED_DIGESTS.get(name) == digest for name, digest in digests.items()}
+    print(f"output digests (a finding, not a check): {digests}; equal to the digests recorded "
+          f"before the with_lse variant: {same}")
+    return digests
 
 
 def _vit_b14_config():
@@ -682,8 +951,8 @@ def phase_slice(card: str) -> tuple[int, float, int]:
 
 
 def phase_giant(card: str) -> tuple[int, int]:
-    """The full ViT-g/14 (40 layers, SwiGLU) through DinoEngine.classify from
-    a synthetic f16 GGUF, slab_fusion="core": returns the K3 launches of that
+    """ViT-g/14 at full width (SwiGLU; GIANT_LAYERS of its 40 layers) through
+    DinoEngine.classify from a synthetic f16 GGUF, slab_fusion="core": returns the K3 launches of that
     run and, from the same device weights at "proj", the K2 launches; then
     "layer" (K1), each level timed as a finding; and the "core" forward held
     against the port's plain f32 forward on the CPU."""
@@ -697,7 +966,7 @@ def phase_giant(card: str) -> tuple[int, int]:
         slab_mlp_block,
     )
 
-    config = PRESETS["giant"]
+    config = dataclasses.replace(PRESETS["giant"], num_hidden_layers=GIANT_LAYERS)
     images = np.random.default_rng(SEED + 3).integers(
         0, 256, (GIANT_BATCH, IMAGE_PX, IMAGE_PX, 3), dtype=np.uint8
     )
@@ -894,6 +1163,192 @@ def phase_features(card: str) -> int:
     return launches
 
 
+def _train_counters():
+    from dinov2_tpu_torch.ops.flash_attention import flash_attention, flash_backward
+    from dinov2_tpu_torch.ops.fused_attention import (
+        slab_attention,
+        slab_attention_block,
+        slab_layer_block,
+        slab_mlp_block,
+    )
+
+    return {"K4": flash_attention, "K6": flash_backward, "K1": slab_layer_block,
+            "K2": slab_attention_block, "K3": slab_attention, "K5": slab_mlp_block}
+
+
+def _timed_steps(trainer, params, opt_state, images, labels, steps):
+    """`steps` Trainer.step calls with the launch counts at 0 just before and
+    read just after: (params, opt_state, losses, seconds per step, launches,
+    peak device bytes)."""
+    counters = _train_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counter in counters.values():
+        counter.launches = 0
+    losses, seconds = [], []
+    for _ in range(steps):
+        start = time.perf_counter()
+        params, opt_state, metrics = trainer.step(params, opt_state, images, labels)
+        losses.append(float(metrics["loss"]))  # waits for the device
+        seconds.append(time.perf_counter() - start)
+    launches = {name: counter.launches for name, counter in counters.items()}
+    return params, opt_state, losses, seconds, launches, torch.cuda.max_memory_allocated()
+
+
+def phase_train(card: str) -> tuple[dict, Any]:
+    """The training slice: make_trainer -> place -> five Trainer.step calls
+    on one batch, full-width ViT-B/14, bf16 compute over f32 masters, remat,
+    on the flash route (K4 with lse, K6) and on "auto" (K1 forward, recompute
+    backward). Returns the flash route's launches and the f32 source
+    parameters (for the long-sequence phase)."""
+    from dinov2_tpu_torch.io.export import export_gguf
+    from dinov2_tpu_torch.models.params import init_params, tree_leaves
+    from dinov2_tpu_torch.models.vit import ModelOptions
+    from dinov2_tpu_torch.parallel.train import make_trainer
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    config = _vit_b14_config()
+    layers = config.num_hidden_layers
+    rng = np.random.default_rng(SEED)
+    images = rng.integers(0, 256, (TRAIN_BATCH, IMAGE_PX, IMAGE_PX, 3), dtype=np.uint8)
+    labels = rng.integers(0, config.num_classes, TRAIN_BATCH)
+    start = time.perf_counter()
+    source = init_params(config, seed=SEED, dtype=torch.float32)
+    init_s = time.perf_counter() - start
+
+    def options(route, compute_dtype=torch.bfloat16, remat=True):
+        return ModelOptions(parity="hf", flash_attention=route, compute_dtype=compute_dtype,
+                            remat=remat)
+
+    # the reference: one f32 step of the same model on the CPU, on 4 of the images
+    n = TRAIN_CROSS_CHECK_IMAGES
+    start = time.perf_counter()
+    cpu_trainer = make_trainer(config, opts=options("auto", torch.float32), device="cpu")
+    cpu_state = cpu_trainer.place(source)
+    cpu_loss = float(cpu_trainer.step(*cpu_state, images[:n], labels[:n])[2]["loss"])
+    del cpu_state
+    print(f"train cross-check reference: one f32 Trainer.step on the CPU on {n} images, loss "
+          f"{cpu_loss:.6f}, in {time.perf_counter() - start:.1f} s (init_params {init_s:.1f} s)")
+
+    expected = {
+        True: {"K4": 2 * layers * TRAIN_STEPS, "K6": layers * TRAIN_STEPS},
+        "auto": {"K1": 2 * layers * TRAIN_STEPS},
+    }
+    flash_launches = {}
+    for route in (True, "auto"):
+        name = "flash_attention=True (K4 with lse + K6)" if route is True else \
+            'flash_attention="auto" (K1, recompute backward)'
+        trainer = make_trainer(config, learning_rate=1e-4, weight_decay=0.05, opts=options(route))
+        require(trainer.device.type == "cuda", "the Trainer does not default to the card")
+        params, opt_state = trainer.place(source)
+        dev_images, dev_labels = trainer.shard_batch(images, labels)
+
+        # step 1's gradients, leaf by leaf, and the loss of the 4 cross-check images
+        leaves = tree_leaves(params)
+        loss, _ = trainer.loss_fn(params, dev_images, dev_labels)
+        grads = torch.autograd.grad(loss, leaves)
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        require(len(grads) == len(leaves) and finite,
+                f"train {name}: a leaf's gradient is missing or not finite at step 1")
+        reached = sum(bool(g.abs().max() > 0) for g in grads)
+        with torch.no_grad():
+            loss_n = float(trainer.loss_fn(params, dev_images[:n], dev_labels[:n])[0])
+        del grads, loss
+        require(abs(loss_n - cpu_loss) <= TRAIN_LOSS_ABS_BOUND,
+                f"train {name}: step-1 loss {loss_n} against {cpu_loss} on the CPU in f32")
+
+        params, opt_state, losses, seconds, launches, peak = _timed_steps(
+            trainer, params, opt_state, images, labels, TRAIN_STEPS)
+        want = {key: expected[route].get(key, 0) for key in launches}
+        require(launches == want, f"train {name}: launches {launches}, expected {want}")
+        require(all(np.isfinite(losses)) and all(b < a for a, b in zip(losses, losses[1:])),
+                f"train {name}: losses {losses} are not finite and falling")
+        step_ms = 1e3 * statistics.median(seconds[1:])
+        print(
+            f"train slice: ViT-B/14 {name}, {TRAIN_BATCH}x{IMAGE_PX}px uint8, bf16 over f32 "
+            f"masters, remat, AdamW lr 1e-4 wd 0.05 on {card}: losses "
+            f"{', '.join(f'{v:.4f}' for v in losses)} (falling); step-1 loss on {n} images "
+            f"{loss_n:.6f} against {cpu_loss:.6f} on the CPU in f32 (bound {TRAIN_LOSS_ABS_BOUND}); "
+            f"{len(leaves)} leaves with a finite gradient at step 1 ({reached} nonzero); launches "
+            f"in {TRAIN_STEPS} steps {launches}; median step {step_ms:.2f} ms "
+            f"({TRAIN_BATCH / step_ms * 1e3:.1f} img/s, steps 2-{TRAIN_STEPS}; first step "
+            f"{1e3 * seconds[0]:.1f} ms), peak memory {peak / 1e6:.0f} MB"
+        )
+
+        plain = make_trainer(config, opts=options(route, remat=False))
+        params, opt_state, _, seconds, _, peak_plain = _timed_steps(
+            plain, params, opt_state, images, labels, 4)
+        plain_ms = 1e3 * statistics.median(seconds[1:])
+        print(
+            f"train finding, not a check: {name} with remat=False: median step {plain_ms:.2f} ms "
+            f"({TRAIN_BATCH / plain_ms * 1e3:.1f} img/s), peak memory {peak_plain / 1e6:.0f} MB, "
+            f"against {step_ms:.2f} ms and {peak / 1e6:.0f} MB with remat ({card})"
+        )
+        if route is True:
+            flash_launches = launches
+            with tempfile.TemporaryDirectory() as tmp:
+                path = export_gguf(Path(tmp) / "tuned.gguf", params, config)
+                engine = DinoEngine(path, dtype=torch.bfloat16, parity="hf", device="cuda")
+            top5 = engine.classify(images[:8], topk=5)
+            probs = engine.classify_probs(images[:8])
+            row_err = _check_probs(top5, probs, config)
+            with torch.no_grad():
+                x = torch.from_numpy(images[:8]).cuda()
+                from dinov2_tpu_torch.image.preprocess import classify_preprocess
+                from dinov2_tpu_torch.models.vit import forward_features, head_logits
+
+                tokens = forward_features(params, classify_preprocess(x), config, trainer.opts)
+                own = torch.softmax(head_logits(params, tokens, config, trainer.opts), dim=-1)
+            drift = float(np.abs(own.cpu().numpy() - probs).max())
+            print(
+                f"train export: the model after step {opt_state['count']} through export_gguf "
+                f"-> DinoEngine(device=\"cuda\", parity=\"hf\").classify on 8 images: probs "
+                f"finite, max|row sum - 1| {row_err:.3g}; max|dprobs| against the trainer's own "
+                f"f32 masters {drift:.3g} (the file holds f16 weights; a finding, not a check)"
+            )
+            del engine
+        del params, opt_state
+    return flash_launches, source
+
+
+def phase_train_long(card: str, source) -> None:
+    """Long sequences, the case the flash backward is for: two steps of the
+    same ViT-B/14 at batch 8 on 518 px preprocessed input (T=1370), where
+    "auto" takes the flash route; preprocess_in_step=False."""
+    from dinov2_tpu_torch.image.preprocess import feature_preprocess
+    from dinov2_tpu_torch.models.vit import ModelOptions
+    from dinov2_tpu_torch.parallel.train import make_trainer
+
+    config = _vit_b14_config()
+    layers = config.num_hidden_layers
+    rng = np.random.default_rng(SEED + 4)
+    images = rng.integers(0, 256, (TRAIN_LONG_BATCH, FEATURE_PX, FEATURE_PX, 3), dtype=np.uint8)
+    labels = rng.integers(0, config.num_classes, TRAIN_LONG_BATCH)
+    x = feature_preprocess(torch.from_numpy(images).cuda(), config.patch_size)
+    trainer = make_trainer(
+        config, preprocess_in_step=False,
+        opts=ModelOptions(parity="hf", flash_attention="auto", compute_dtype=torch.bfloat16,
+                          remat=True),
+    )
+    params, opt_state = trainer.place(source)
+    params, opt_state, losses, seconds, launches, peak = _timed_steps(
+        trainer, params, opt_state, x, labels, TRAIN_LONG_STEPS)
+    want = {key: 0 for key in launches}
+    want.update({"K4": 2 * layers * TRAIN_LONG_STEPS, "K6": layers * TRAIN_LONG_STEPS})
+    require(launches == want, f"long-sequence training: launches {launches}, expected {want}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"long-sequence training: losses {losses} are not finite and falling")
+    tokens = (x.shape[1] // config.patch_size) * (x.shape[2] // config.patch_size) + 1
+    print(
+        f"train long T: ViT-B/14, {TRAIN_LONG_BATCH} preprocessed images of "
+        f"{x.shape[1]}x{x.shape[2]} (T={tokens}), flash_attention=\"auto\" -> flash, bf16 over "
+        f"f32 masters, remat on {card}: losses {', '.join(f'{v:.4f}' for v in losses)}; "
+        f"launches in {TRAIN_LONG_STEPS} steps {launches}; steps "
+        f"{', '.join(f'{1e3 * v:.1f}' for v in seconds)} ms "
+        f"({TRAIN_LONG_BATCH / seconds[-1]:.1f} img/s in the last), peak memory {peak / 1e6:.0f} MB"
+    )
+
+
 def timed_phase(name: str, phase, *args):
     """Run one phase and print the seconds it took."""
     start = time.perf_counter()
@@ -916,12 +1371,18 @@ def main() -> int:
     k3_measured, k2_measured = timed_phase("K3 and K2 checks", phase_slab_attention_check, card)
     k5_measured = timed_phase("K5 check", phase_slab_mlp_check, card)
     k4_measured = timed_phase("K4 check", phase_flash_check, card)
+    k6_measured, lse_measured = timed_phase(
+        "K4 with lse and K6 checks", phase_flash_backward_check, card)
+    k3_backward = timed_phase("autograd Function checks", phase_function_checks, card)
     k7_measured = timed_phase("K7 check", phase_quant_matmul_check, card)
     k8_measured = timed_phase("K8 check", phase_quant_layer_check, card)
+    timed_phase("output digests", phase_output_digests)
     k1_launches, dense_rate, k5_launches = timed_phase("classify slices", phase_slice, card)
     k7_launches, k8_launches = timed_phase("quantized slice", phase_quant_slice, card, dense_rate)
     k4_launches = timed_phase("feature slice", phase_features, card)
     k3_launches, k2_launches = timed_phase("ViT-g/14 slice", phase_giant, card)
+    train_launches, source = timed_phase("training slice", phase_train, card)
+    timed_phase("long-sequence training", phase_train_long, card, source)
     print(f"phase time: all {time.perf_counter() - start:.1f} s")
     fused = "dinov2_tpu/ops/fused_attention.py"
     kernels = [
@@ -948,6 +1409,7 @@ def main() -> int:
             "replaces": f"{fused}:331",
             "launches": k3_launches,
             **k3_measured,
+            **k3_backward,
         },
         {
             "name": "flash_attention",
@@ -957,6 +1419,17 @@ def main() -> int:
             "also_replaces": "dinov2_tpu/ops/flash_attention.py:34",
             "launches": k4_launches,
             **k4_measured,
+            "lse_launches": train_launches["K4"],
+            **lse_measured,
+        },
+        {
+            "name": "flash_backward",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/flash_backward.cu",
+            "replaces": "dinov2_tpu/ops/flash_attention.py:468",
+            "also_replaces": "dinov2_tpu/ops/flash_attention.py:499",
+            "launches": train_launches["K6"],
+            **k6_measured,
         },
         {
             "name": "slab_mlp_block",

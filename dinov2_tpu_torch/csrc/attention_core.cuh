@@ -1,6 +1,6 @@
 // Shared pieces of the port's hand-written Hopper kernels: mma.sync
-// helpers and the attention core that K1 (slab_layer.cu) and K4
-// (flash_attention.cu) both run.
+// helpers (K6, flash_backward.cu, takes them too) and the attention core
+// that K1, K2, K3, K8 (half_layer.cuh) and K4 (flash_attention.cu) run.
 //
 // attention_tile computes, for one (image, head) pair and a tile of 64
 // queries, out = softmax(q k^T * scale) v with head_dim 64 and bf16 q/k/v
@@ -74,11 +74,17 @@ __device__ __forceinline__ float warp_sum(float v) {
 // accumulator is reused directly as the A operand of the P.V product.
 // Needs 16-byte aligned rows: ld, out_ld and the pointers' offsets are
 // multiples of 8 elements.
+// With kWithLse (the training forward) it also writes each row's logsumexp
+// of the scaled scores, m + log(max(l, 1e-30)), to lse[row] (f32, token 0 of
+// this head first). It is a compile-time variant: without it the code is the
+// inference kernels', instruction for instruction.
+template <bool kWithLse = false>
 __device__ __forceinline__ void attention_tile(const bf16* __restrict__ q,
                                                const bf16* __restrict__ k,
                                                const bf16* __restrict__ v, size_t ld,
                                                bf16* __restrict__ out, size_t out_ld,
-                                               int t, int q0, float scale) {
+                                               int t, int q0, float scale,
+                                               float* __restrict__ lse = nullptr) {
   __shared__ __align__(16) bf16 qs[kTile][kLds];
   __shared__ __align__(16) bf16 ks[kTile][kLds];
   __shared__ __align__(16) bf16 vs[kTile][kLds];
@@ -213,6 +219,9 @@ __device__ __forceinline__ void attention_tile(const bf16* __restrict__ q,
     for (int nt = 0; nt < 8; ++nt) {
       *reinterpret_cast<uint32_t*>(dst + nt * 8) =
           pack_floats(o[nt][2 * h] / l_run[h], o[nt][2 * h + 1] / l_run[h]);
+    }
+    if constexpr (kWithLse) {
+      if (tig == 0) lse[row] = m_run[h] + logf(fmaxf(l_run[h], 1e-30f));
     }
   }
 }

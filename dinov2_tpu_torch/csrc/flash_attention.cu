@@ -33,6 +33,12 @@
 // ceil(T/64) query tiles of a head; wgmma, TMA and a deeper pipeline are left
 // for later work.
 //
+// The training forward (_attn_kernel with with_lse=True, reached from
+// _flash_fwd) is the kernel's compile-time variant kWithLse: it also writes
+// the row logsumexp m + log(max(l, 1e-30)) of the scaled scores as f32,
+// (B, H, T) contiguous; the TPU's (b*h, tp, 8) replicated layout is a Mosaic
+// tiling rule and does not carry over.
+//
 // Shared memory is static (27 KB per block); 128 registers a thread
 // (kAttentionBlocksPerSm), no spills. Every entry point returns
 // cudaGetLastError() after its launch.
@@ -43,18 +49,28 @@ namespace {
 
 using namespace dinov2;
 
+// kWithLse: the training forward, which also writes the (B, H, T) f32 row
+// logsumexp that K6 (flash_backward.cu) reads; `out` is the same bit for bit.
+template <bool kWithLse>
 __global__ void __launch_bounds__(kThreads, kAttentionBlocksPerSm)
     flash_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, long long batch_stride,
                            long long token_stride, long long head_stride,
-                           bf16* __restrict__ out, int t, int heads, float scale) {
+                           bf16* __restrict__ out, float* __restrict__ lse, int t, int heads,
+                           float scale) {
   const int img = blockIdx.x / heads, head = blockIdx.x % heads;
   const size_t in = static_cast<size_t>(img) * batch_stride +
                     static_cast<size_t>(head) * head_stride;
   const size_t out_ld = static_cast<size_t>(heads) * kHeadDim;
-  attention_tile(q + in, k + in, v + in, static_cast<size_t>(token_stride),
-                 out + static_cast<size_t>(img) * t * out_ld + head * kHeadDim, out_ld, t,
-                 blockIdx.y * kTile, scale);
+  bf16* dst = out + static_cast<size_t>(img) * t * out_ld + head * kHeadDim;
+  if constexpr (kWithLse) {
+    attention_tile<true>(q + in, k + in, v + in, static_cast<size_t>(token_stride), dst,
+                         out_ld, t, blockIdx.y * kTile, scale,
+                         lse + static_cast<size_t>(blockIdx.x) * t);
+  } else {
+    attention_tile(q + in, k + in, v + in, static_cast<size_t>(token_stride), dst, out_ld, t,
+                   blockIdx.y * kTile, scale);
+  }
 }
 
 }  // namespace
@@ -69,10 +85,25 @@ int dinov2_flash_attention_bf16(const void* q, const void* k, const void* v, voi
                                 int b, int t, int heads, long long batch_stride,
                                 long long token_stride, long long head_stride, float scale,
                                 void* stream) {
-  flash_attention_kernel<<<dim3(b * heads, (t + kTile - 1) / kTile), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  flash_attention_kernel<false><<<dim3(b * heads, (t + kTile - 1) / kTile), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      batch_stride, token_stride, head_stride, static_cast<bf16*>(out), t, heads, scale);
+      batch_stride, token_stride, head_stride, static_cast<bf16*>(out), nullptr, t, heads,
+      scale);
+  return cudaGetLastError();
+}
+
+// The same launch with the row logsumexp: lse (B, H, T) contiguous f32,
+// lse[b, h, i] = log sum_k exp(scale * q[b, i, h] . k[b, k, h]).
+int dinov2_flash_attention_lse_bf16(const void* q, const void* k, const void* v, void* out,
+                                    void* lse, int b, int t, int heads, long long batch_stride,
+                                    long long token_stride, long long head_stride, float scale,
+                                    void* stream) {
+  flash_attention_kernel<true><<<dim3(b * heads, (t + kTile - 1) / kTile), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      batch_stride, token_stride, head_stride, static_cast<bf16*>(out),
+      static_cast<float*>(lse), t, heads, scale);
   return cudaGetLastError();
 }
 

@@ -196,6 +196,57 @@ def params_from_numpy(tree: Any, device="cpu") -> Any:
     return torch.from_numpy(arr.copy()).to(device)
 
 
+def params_to_numpy(tree: Any) -> Any:
+    """The inverse of `params_from_numpy`: a tree of torch tensors -> the same
+    tree of numpy arrays on the host, dtypes kept (detached from any graph).
+    bfloat16 goes bit for bit into numpy's `ml_dtypes.bfloat16` where that
+    package is installed, else to float32 (exact). A QuantLinear keeps its
+    class, its tensor fields as arrays."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, QuantLinear):
+        return tree.map(params_to_numpy)
+    tensor = tree.detach().cpu()
+    if tensor.dtype != torch.bfloat16:
+        return tensor.numpy()
+    try:
+        import ml_dtypes
+    except ImportError:
+        return tensor.float().numpy()
+    return tensor.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+
+def tree_leaves(tree: Any) -> list[Any]:
+    """The leaves of a parameter tree in its (insertion) order; a QuantLinear
+    is one leaf."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """fn over the leaves of one or more identically-structured trees."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def trainable_params(tree: Any, device="cpu") -> Any:
+    """The tree as training holds it: every leaf an f32 master tensor on
+    `device` that requires grad (its own storage, never a view of the
+    input), the stacked-layer layout kept. Quantized leaves are refused:
+    fused-quant weights aren't trainable."""
+    def leaf(t):
+        if isinstance(t, QuantLinear):
+            raise ValueError(
+                "fused-quant weights aren't trainable: load the checkpoint with "
+                "quant_mode='dequant'"
+            )
+        return t.detach().to(device=device, dtype=torch.float32, copy=True).requires_grad_(True)
+
+    return tree_map(leaf, tree)
+
+
 # the formats that load packed; q8_0 loads as int8 SoA (its codes are bytes)
 _PACKED_TYPES = (GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0, GGMLType.Q5_1)
 

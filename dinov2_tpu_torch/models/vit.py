@@ -52,9 +52,17 @@ in f32 and cast once; the final LN and the head run in f32. Quirks kept:
 registers spliced after the pos-embed add (C8), classify pooling
 sum(patches)/n_img_embd² with registers included in reference mode (Q3, Q5).
 
+Training: the forward is differentiable on the tree's dense leaves, on a
+card through the kernels' autograd Functions (ops/fused_attention.py,
+ops/flash_attention.py); a QuantLinear path raises where an input requires
+grad. `remat` (off by default) runs each encoder layer under
+`torch.utils.checkpoint` (non-reentrant): only the layer's input is kept
+and the layer runs again in the backward, so its forward kernels launch
+twice a step; it does nothing where grad is disabled.
+
 Left out: the JAX CLS-shift overflow rescue (the port's softmax takes the
-exact row max), batch chunking (TPU scheduling), remat, sequence
-parallelism and the W8A8 Int8Linear.
+exact row max), batch chunking (TPU scheduling), sequence parallelism and
+the W8A8 Int8Linear.
 """
 
 from __future__ import annotations
@@ -65,14 +73,20 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dinov2_tpu_torch.models.config import DinoConfig
-from dinov2_tpu_torch.models.params import QUANT_FIELDS, QuantLinear
+from dinov2_tpu_torch.models.params import QUANT_FIELDS, QuantLinear, tree_leaves
 from dinov2_tpu_torch.image.posembed import interpolate_pos_embed
 from dinov2_tpu_torch.ops.attention import resolve_attention_path, self_attention_block
 from dinov2_tpu_torch.ops.fused_attention import slab_layer_block, slab_mlp_block
 from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
-from dinov2_tpu_torch.ops.qmatmul import QUANT_BACKENDS, apply_linear, dequant_weight
+from dinov2_tpu_torch.ops.qmatmul import (
+    QUANT_BACKENDS,
+    apply_linear,
+    dequant_weight,
+    refuse_quant_grad,
+)
 
 QUANT_SLAB_MODES = ("auto", "kernel", "dequant", "off")
 SLAB_FUSION_LEVELS = ("auto", "layer", "proj", "core")
@@ -87,6 +101,7 @@ class ModelOptions:
     quant_backend: str = "auto"  # "auto" | "kernel" | "dequant"
     slab_fusion: str = "auto"  # "auto" | "layer" | "proj" | "core" (module docstring)
     fuse_mlp: bool = False  # the MLP half-layer as the K5 kernel, where it applies
+    remat: bool = False  # rematerialize encoder layers in the backward (training memory/FLOPs trade)
 
     def __post_init__(self):
         if self.slab_fusion not in SLAB_FUSION_LEVELS:
@@ -151,6 +166,7 @@ def _attention_half_layer(
             w_proj, layer["proj"]["bias"], layer["ls1"], heads, scale, config.eps,
         )
     if whole and all(quantized) and opts.quant_slab == "dequant":
+        refuse_quant_grad("the quantized attention half-layer", x, *_tensor_leaves(layer))
         # the layer's weights dequantized into K1's dense (in, out) layout
         w_qkv = dequant_weight(w_qkv, x.dtype).T.contiguous()
         w_proj = dequant_weight(w_proj, x.dtype).T.contiguous()
@@ -184,6 +200,7 @@ def _mlp_half_layer(
         w1, w2 = mlp["fc1"]["kernel"], mlp["fc2"]["kernel"]
         quantized = isinstance(w1, QuantLinear), isinstance(w2, QuantLinear)
         if all(quantized) and opts.quant_slab != "off":
+            refuse_quant_grad("the quantized MLP half-layer", x, *_tensor_leaves(layer))
             w1 = dequant_weight(w1, x.dtype).T.contiguous()
             w2 = dequant_weight(w2, x.dtype).T.contiguous()
             quantized = False, False
@@ -204,6 +221,11 @@ def encoder_layer(
     x: torch.Tensor, layer: dict, config: DinoConfig, opts: ModelOptions
 ) -> torch.Tensor:
     return _mlp_half_layer(_attention_half_layer(x, layer, config, opts), layer, config, opts)
+
+
+def _tensor_leaves(tree: Any) -> list[torch.Tensor]:
+    """The dense tensors of a parameter (sub)tree; QuantLinears are skipped."""
+    return [leaf for leaf in tree_leaves(tree) if torch.is_tensor(leaf)]
 
 
 def _layer(layers: Any, i: int) -> Any:
@@ -247,8 +269,18 @@ def forward_features(
 ) -> torch.Tensor:
     """(B, H, W, 3) preprocessed -> final-normed tokens (B, 1+R+N, D) in f32."""
     tokens = embed_tokens(params, x, config, opts)
+    remat = opts.remat and torch.is_grad_enabled()
     for i in range(config.num_hidden_layers):
-        tokens = encoder_layer(tokens, _layer(params["layers"], i), config, opts)
+        # the slices of the stacked leaves are views taken outside the
+        # checkpoint, so gradients land in the stacked leaf either way
+        layer = _layer(params["layers"], i)
+        if remat:
+            tokens = checkpoint(
+                encoder_layer, tokens, layer, config, opts,
+                use_reentrant=False, preserve_rng_state=False,
+            )
+        else:
+            tokens = encoder_layer(tokens, layer, config, opts)
     return layer_norm(tokens.float(), params["final_norm"], config.eps)
 
 

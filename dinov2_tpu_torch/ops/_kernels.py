@@ -122,6 +122,20 @@ def flash_attention_lib() -> ctypes.CDLL:
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.dinov2_flash_attention_bf16.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 3 + [f32, ptr]
     lib.dinov2_flash_attention_bf16.restype = i32
+    lib.dinov2_flash_attention_lse_bf16.argtypes = (
+        [ptr] * 5 + [i32] * 3 + [i64] * 3 + [f32, ptr]
+    )
+    lib.dinov2_flash_attention_lse_bf16.restype = i32
+    return lib
+
+
+@functools.cache
+def flash_backward_lib() -> ctypes.CDLL:
+    """The K6 library (csrc/flash_backward.cu), built on first use."""
+    lib = _load("flash_backward")
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.dinov2_flash_backward_bf16.argtypes = [ptr] * 10 + [i32] * 3 + [i64] * 6 + [f32, ptr]
+    lib.dinov2_flash_backward_bf16.restype = i32
     return lib
 
 

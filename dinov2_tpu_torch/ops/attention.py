@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from dinov2_tpu_torch.models.params import QuantLinear
-from dinov2_tpu_torch.ops.qmatmul import apply_linear, dequant_weight
+from dinov2_tpu_torch.ops.qmatmul import apply_linear, dequant_weight, refuse_quant_grad
 
 # "auto" takes the flash kernel (K4) from this many tokens on: the JAX
 # package's long-sequence threshold (ops/attention.py::resolve_attention_path)
@@ -76,7 +76,8 @@ def self_attention(
 
     The slab route runs the K3 core (ops/fused_attention.py::slab_attention)
     and the flash route K4 (flash_attention_slab); both read q/k/v straight
-    out of the qkv slab, with no head transposes."""
+    out of the qkv slab, with no head transposes, and both carry their
+    gradient (K3's recompute routes; K4 with lse and K6)."""
     b, t, d = x.shape
     scale = 1.0 / (d // num_heads) ** 0.5
     path = resolve_attention_path(flash, t)
@@ -120,6 +121,7 @@ def self_attention_block(
     if fuse_proj and "bias" in proj_params and resolve_attention_path(flash, t) == "slab":
         proj_kernel = proj_params["kernel"]
         if isinstance(proj_kernel, QuantLinear):
+            refuse_quant_grad("self_attention_block", x_res, x_norm, proj_params["bias"], ls1)
             proj_kernel = (
                 dequant_weight(proj_kernel, x_norm.dtype).T.contiguous() if dequant_proj else None
             )

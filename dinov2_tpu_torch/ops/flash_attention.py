@@ -1,4 +1,5 @@
-"""Flash attention, K4 (port of dinov2_tpu/ops/flash_attention.py, forward).
+"""Flash attention, K4 forward and K6 backward (port of
+dinov2_tpu/ops/flash_attention.py).
 
     flash_attention(q, k, v, scale)          (B, T, H, hd) -> (B, T, H, hd)
     flash_attention_slab(qkv, heads, scale)  (B, T, 3D)   -> (B, T, D)
@@ -15,33 +16,87 @@ product with f32 accumulation.
 
 The kernel streams 64-key tiles with an exact online softmax (running row
 max, f32 statistics), so the TPU kernels' block picking, their CLS-shift
-core and its overflow rescue have no counterpart here. The `with_lse`
-forward belongs to training and the K6 backward, which are not ported.
+core and its overflow rescue have no counterpart here.
+
+Both are differentiable, as the JAX functions are through their custom_vjp.
+When an input requires grad the forward is the kernel's `with_lse` variant
+(`flash_forward_lse`: the same `out` bit for bit, and the f32 row logsumexp
+of the scaled scores, (B, H, T)), which saves q, k, v, out and lse; the
+backward is K6 (`flash_backward`, csrc/flash_backward.cu), which replaces
+`_dkv_kernel` and `_dq_kernel`: no (T, T) tensor reaches HBM, and the slab
+variant's gradient is written as one (B, T, 3D) slab through strides. On CPU
+tensors the same Functions run the plain versions `flash_forward_reference`
+and `flash_backward_reference`, which follow the kernels' math from lse and
+delta = rowsum(dO * O), not autograd through `vanilla_attention`.
+
+Rounding contract of the backward: p = exp(s * scale - lse) and dS =
+p * (dO v^T - delta) * scale are computed in f32 and rounded to the inputs'
+dtype before the products p^T dO, dS^T q and dS k, which accumulate in f32
+(the JAX kernels multiply them as f32; tensor cores take bf16 operands, as
+the forward's P.V does). In f32 nothing rounds and the plain version meets
+the JAX kernels'. dS carries `scale`; dQ and dK take no second one.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
+from dinov2_tpu_torch.ops.qmatmul import needs_grad
 
-HEAD_DIM = 64  # the kernel's head_dim: every DINOv2 preset has it
+HEAD_DIM = 64  # the kernels' head_dim: every DINOv2 preset has it
 
 
-def _check_cuda_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple[int, ...]:
-    """What the kernel takes; returns the (batch, token, head) strides in
-    elements that q, k and v share."""
-    for name, tensor in (("q", q), ("k", k), ("v", v)):
+def flash_forward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the `with_lse` forward: (out, lse) with
+    out `vanilla_attention`'s and lse[b, h, i] = logsumexp_k(scale * q_i . k_k)
+    in f32, (B, H, T)."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    lse = torch.logsumexp(scores, dim=-1)
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v), lse
+
+
+def flash_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    g: torch.Tensor, scale: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of K6: (dq, dk, dv) from q, k, v, the
+    forward's output o and row logsumexp lse (B, H, T), and the output's
+    gradient g, with the rounding contract of the module docstring."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
+    delta = (g.float() * o.float()).sum(dim=-1).permute(0, 2, 1)  # (B, H, T)
+    ds = p * (dp - delta[..., None]) * scale
+    p, ds = p.to(q.dtype), ds.to(q.dtype)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, g.to(q.dtype))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    return dq, dk, dv
+
+
+def _check_cuda_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     names=("q", "k", "v")) -> tuple[int, ...]:
+    """What the kernels take of three tensors read (or written) through one
+    set of strides; returns the (batch, token, head) strides in elements that
+    they share."""
+    named = tuple(zip(names, (q, k, v)))
+    for name, tensor in named:
         if tensor.dtype != torch.bfloat16:
             raise NotImplementedError(
                 f"the CUDA flash attention kernel takes bf16, got {name} {tensor.dtype}"
             )
         if tensor.dim() != 4 or tensor.shape != q.shape:
             raise ValueError(
-                f"q, k and v must share one (B, T, H, hd) shape, got {name} {tuple(tensor.shape)}"
+                f"{', '.join(names)} must share one (B, T, H, hd) shape, "
+                f"got {name} {tuple(tensor.shape)}"
             )
         if tensor.device != q.device:
-            raise ValueError(f"{name} is on {tensor.device}, q on {q.device}")
+            raise ValueError(f"{name} is on {tensor.device}, {names[0]} on {q.device}")
     if q.shape[-1] != HEAD_DIM:
         raise NotImplementedError(
             f"the CUDA flash attention kernel needs head_dim {HEAD_DIM}, got {q.shape[-1]}"
@@ -52,11 +107,11 @@ def _check_cuda_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple
         return tuple(s if n > 1 else 0 for s, n in zip(tensor.stride(), tensor.shape))
 
     shared = strides(q)
-    for name, tensor in (("q", q), ("k", k), ("v", v)):
+    for name, tensor in named:
         if strides(tensor) != shared or shared[3] != 1:
             raise ValueError(
-                f"q, k and v must share their strides with unit stride over head_dim, "
-                f"got {name} {tensor.stride()} against q {q.stride()}"
+                f"{', '.join(names)} must share their strides with unit stride over head_dim, "
+                f"got {name} {tensor.stride()} against {names[0]} {q.stride()}"
             )
         if any(s % 8 for s in shared[:3]) or tensor.data_ptr() % 16:
             raise ValueError(
@@ -64,6 +119,155 @@ def _check_cuda_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple
                 "and the data 16-byte aligned"
             )
     return shared[:3]
+
+
+def _launch_forward(q, k, v, scale: float, with_lse: bool):
+    """One K4 launch on CUDA tensors: out, or (out, lse) from the kernel's
+    `with_lse` variant. Adds one to `flash_attention.launches`."""
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_attention for device {q.device}")
+    batch_stride, token_stride, head_stride = _check_cuda_args(q, k, v)
+    b, t, heads, hd = q.shape
+    out = torch.empty((b, t, heads, hd), dtype=q.dtype, device=q.device)
+    from dinov2_tpu_torch.ops._kernels import check_status, flash_attention_lib
+
+    lib = flash_attention_lib()
+    shape_and_strides = (b, t, heads, batch_stride, token_stride, head_stride, scale)
+    with torch.cuda.device(q.device):  # the launch goes to the current device
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if with_lse:
+            lse = torch.empty((b, heads, t), dtype=torch.float32, device=q.device)
+            code = lib.dinov2_flash_attention_lse_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                *shape_and_strides, stream,
+            )
+        else:
+            code = lib.dinov2_flash_attention_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *shape_and_strides, stream,
+            )
+    check_status(lib, code, "flash_attention")
+    flash_attention.launches += 1
+    return (out, lse) if with_lse else out
+
+
+def flash_forward_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: (out, lse), out as `flash_attention`'s bit for
+    bit and lse the (B, H, T) f32 row logsumexp of the scaled scores. CPU
+    tensors run `flash_forward_reference`; CUDA tensors launch the K4
+    kernel's `with_lse` variant (counted in `flash_attention.launches`)."""
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, scale)
+    return _launch_forward(q, k, v, scale, with_lse=True)
+
+
+def flash_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
+    g: torch.Tensor, scale: float, into: tuple[torch.Tensor, ...] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of softmax(q kᵀ · scale) v from the saved forward: o and
+    lse as `flash_forward_lse` returns them, g the gradient of o. `into`
+    gives three (B, T, H, hd) tensors (e.g. the head views of one gradient
+    slab) to write them to; otherwise they are new and contiguous.
+
+    CPU tensors run `flash_backward_reference`. CUDA tensors launch the K6
+    kernels (bf16 and head_dim 64 only; anything else raises) and add one to
+    `flash_backward.launches`; q, k, v and the outputs may be strided views
+    and are never copied."""
+    if q.device.type == "cpu":
+        grads = flash_backward_reference(q, k, v, o, lse, g, scale)
+        if into is None:
+            return grads
+        for dst, src in zip(into, grads):
+            dst.copy_(src)
+        return tuple(into)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash_backward for device {q.device}")
+    strides = _check_cuda_args(q, k, v)
+    b, t, heads, hd = q.shape
+    g = g.contiguous()
+    for name, tensor in (("o", o), ("g", g)):
+        if (tensor.dtype != torch.bfloat16 or tensor.shape != q.shape
+                or tensor.device != q.device or not tensor.is_contiguous()
+                or tensor.data_ptr() % 16):
+            raise ValueError(
+                f"{name} must be a contiguous bf16 {tuple(q.shape)} tensor on {q.device}, got "
+                f"{tensor.dtype} {tuple(tensor.shape)} on {tensor.device}"
+            )
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, heads, t)
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(
+            f"lse must be a contiguous f32 {(b, heads, t)} tensor on {q.device}, got "
+            f"{lse.dtype} {tuple(lse.shape)} on {lse.device}"
+        )
+    if into is None:
+        into = tuple(torch.empty_like(o) for _ in range(3))
+    out_strides = _check_cuda_args(*into, names=("dq", "dk", "dv"))
+    if into[0].shape != q.shape:
+        raise ValueError(f"dq, dk, dv must be {tuple(q.shape)}, got {tuple(into[0].shape)}")
+    if q.numel() == 0:
+        return tuple(into)
+    delta = torch.empty((b, heads, t), dtype=torch.float32, device=q.device)
+    from dinov2_tpu_torch.ops._kernels import check_status, flash_backward_lib
+
+    lib = flash_backward_lib()
+    with torch.cuda.device(q.device):  # the launches go to the current device
+        code = lib.dinov2_flash_backward_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(d.data_ptr() for d in into),
+            b, t, heads, *strides, *out_strides, scale,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    check_status(lib, code, "flash_backward")
+    flash_backward.launches += 1
+    return tuple(into)
+
+
+flash_backward.launches = 0  # K6 calls on CUDA tensors (three kernel launches each)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """flash_attention with its gradient: the `with_lse` forward saves q, k,
+    v, out and lse; the backward is K6."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_forward_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_backward(q, k, v, out, lse, g, ctx.scale), None)
+
+
+class _FlashAttentionSlab(torch.autograd.Function):
+    """flash_attention_slab with its gradient as one (B, T, 3D) slab: K6
+    writes dq, dk and dv into the slab's head views."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale):
+        b, t, three_d = qkv.shape
+        out, lse = flash_forward_lse(*split_heads(qkv, num_heads), scale)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out.reshape(b, t, three_d // 3)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        qkv, out, lse = ctx.saved_tensors
+        d_qkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+        flash_backward(
+            *split_heads(qkv, ctx.num_heads), out, lse, g.reshape(out.shape), ctx.scale,
+            into=split_heads(d_qkv, ctx.num_heads),
+        )
+        return d_qkv, None, None
 
 
 def flash_attention(
@@ -75,34 +279,25 @@ def flash_attention(
     CPU tensors run the plain version. CUDA tensors launch the K4 kernel
     (bf16 and head_dim 64 only; anything else raises) and add one to
     `flash_attention.launches`. q, k and v may be strided views (e.g. of a
-    qkv slab); they are never copied."""
+    qkv slab); they are never copied. Where an input requires grad the
+    result carries the gradient of the module docstring (the `with_lse`
+    forward, K6 backward)."""
+    if needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, scale)
     if q.device.type == "cpu":
         return vanilla_attention(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_attention for device {q.device}")
-    batch_stride, token_stride, head_stride = _check_cuda_args(q, k, v)
-    b, t, heads, hd = q.shape
-    out = torch.empty((b, t, heads, hd), dtype=q.dtype, device=q.device)
-    from dinov2_tpu_torch.ops._kernels import check_status, flash_attention_lib
-
-    lib = flash_attention_lib()
-    with torch.cuda.device(q.device):  # the launch goes to the current device
-        code = lib.dinov2_flash_attention_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, heads,
-            batch_stride, token_stride, head_stride, scale,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    check_status(lib, code, "flash_attention")
-    flash_attention.launches += 1
-    return out
+    return _launch_forward(q, k, v, scale, with_lse=False)
 
 
-flash_attention.launches = 0  # kernel launches on CUDA tensors, from either entry
+flash_attention.launches = 0  # K4 launches on CUDA tensors, from any entry, with lse or without
 
 
 def flash_attention_slab(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     """(B, T, 3D) fused qkv slab, laid out [q | k | v] -> (B, T, D): the K4
-    kernel on the slab's head views, with no transposes in HBM."""
+    kernel on the slab's head views, with no transposes in HBM; differentiable
+    as `flash_attention` is, the gradient one (B, T, 3D) slab."""
+    if needs_grad(qkv):
+        return _FlashAttentionSlab.apply(qkv, num_heads, scale)
     b, t, three_d = qkv.shape
     q, k, v = split_heads(qkv, num_heads)
     return flash_attention(q, k, v, scale).reshape(b, t, three_d // 3)

@@ -28,14 +28,29 @@ slab on chip, wgmma and TMA are later work (ROADMAP.md).
 
 The kernel's softmax takes the exact running row max, so the JAX package's
 CLS-shift overflow rescue has no counterpart here.
+
+Gradients, as the JAX functions' custom_vjp: where an input requires grad,
+each wrapper runs as a `torch.autograd.Function` whose forward is the same
+dispatch (kernel on a card, plain version on the CPU) and which saves its
+inputs. K1, K2 and K5 recompute: the backward is autograd through the plain
+version under `torch.enable_grad()` (`_slab_layer_bwd`, `_slab_block_bwd`,
+`_slab_mlp_bwd` there). K3's backward (`slab_attention_backward`, the JAX
+`_slab_bwd_fn`) recomputes through the plain attention below
+`SLAB_BWD_FLASH_MIN_T` tokens and through `flash_attention_slab` from there
+on: the K4 `with_lse` forward and the K6 backward, with no (T, T) tensor in
+HBM. The kernels take bf16 weights and training holds f32 masters: the
+wrappers cast weights to x's dtype on the way in, the plain versions cast
+inside the differentiated function, so every gradient comes back in its
+input's own dtype.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
-from dinov2_tpu_torch.ops.qmatmul import apply_activation
+from dinov2_tpu_torch.ops.qmatmul import apply_activation, needs_grad
 from dinov2_tpu_torch.ops.qmatmul_kernel import ACTIVATIONS
 
 
@@ -80,6 +95,82 @@ def slab_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, activation, ep
     g = apply_activation(a1, activation)
     y = torch.matmul(g, w2.to(h.dtype)).to(x.dtype) + b2.to(x.dtype)
     return x + y * ls2.to(x.dtype)
+
+
+class _RecomputeFunction(torch.autograd.Function):
+    """forward = `launch(*tensors)` (the wrapper's own dispatch, run without
+    grad), inputs saved; backward = autograd through `reference(*tensors)`,
+    the plain version, recomputed under enable_grad. Runs on any device."""
+
+    @staticmethod
+    def forward(ctx, launch, reference, *tensors):
+        ctx.reference = reference
+        ctx.save_for_backward(*tensors)
+        return launch(*tensors)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
+            out = ctx.reference(*inputs)
+            grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad], g))
+        return (None, None, *(next(grads) if need else None for need in needs))
+
+
+# K3's backward goes through flash attention (the K4 `with_lse` forward and
+# K6) from this many tokens on, and recomputes through the plain attention
+# below it. Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 (700 W),
+# one backward (recompute and gradient) in bf16, in two runs: at B=32, T=257,
+# H=12 plain 1.53 and 1.54 ms against flash 0.79 and 0.46 ms; at B=8, T=1370,
+# H=16 plain 9.31 and 9.34 ms against flash 2.63 and 2.62 ms. The flash route
+# wins at both (the JAX package's 512 was a TPU crossover), so the threshold
+# sits just under the shortest sequence it was measured at; below that the
+# plain recompute's (T, T) tensors are small and its gradients are those of
+# the reference math, bit for bit.
+SLAB_BWD_FLASH_MIN_T = 256
+SLAB_BWD_ROUTES = ("auto", "plain", "flash")
+
+
+def slab_attention_backward(
+    qkv: torch.Tensor, g: torch.Tensor, num_heads: int, scale: float, route: str = "auto"
+) -> torch.Tensor:
+    """The gradient of slab_attention(qkv) for an output gradient g, as one
+    (B, T, 3D) slab: "plain" recomputes through `_slab_reference`, "flash"
+    through `flash_attention_slab` (K4 with lse and K6 on a card, their plain
+    versions on the CPU); "auto" takes "flash" from SLAB_BWD_FLASH_MIN_T
+    tokens on."""
+    if route not in SLAB_BWD_ROUTES:
+        raise ValueError(f"route must be one of {SLAB_BWD_ROUTES}, got {route!r}")
+    if route == "auto":
+        route = "flash" if qkv.shape[1] >= SLAB_BWD_FLASH_MIN_T else "plain"
+    with torch.enable_grad():
+        slab = qkv.detach().requires_grad_(True)
+        if route == "flash":
+            from dinov2_tpu_torch.ops.flash_attention import flash_attention_slab
+
+            out = flash_attention_slab(slab, num_heads, scale)
+        else:
+            out = _slab_reference(slab, num_heads, scale)
+        (d_qkv,) = torch.autograd.grad(out, slab, g)
+    return d_qkv
+
+
+class _SlabAttention(torch.autograd.Function):
+    """slab_attention with the backward of `slab_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return _slab_attention_forward(qkv, num_heads, scale)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        return slab_attention_backward(qkv, g, ctx.num_heads, ctx.scale), None, None
 
 
 def _check_tensors(x: torch.Tensor, expected: dict) -> None:
@@ -148,8 +239,17 @@ def slab_layer_block(
     b_qkv (3D,) in f32.
 
     CPU tensors run the plain version. CUDA tensors launch the K1 kernel
-    (bf16 only; anything else raises) and add one to
-    `slab_layer_block.launches`."""
+    (bf16 activations only; anything else raises; weights are cast to x's
+    dtype) and add one to `slab_layer_block.launches`. Where an input
+    requires grad the result carries the recompute gradient of the module
+    docstring."""
+    tensors = (x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, ls1)
+    if needs_grad(*tensors):
+        return _RecomputeFunction.apply(
+            lambda *a: slab_layer_block(*a, num_heads, scale, eps),
+            lambda *a: slab_layer_reference(*a, num_heads, scale, eps),
+            *tensors,
+        )
     if x.device.type == "cpu":
         return slab_layer_reference(
             x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, ls1,
@@ -158,7 +258,8 @@ def slab_layer_block(
     if x.device.type != "cuda":
         raise ValueError(f"no slab_layer_block for device {x.device}")
     return slab_layer_buffers(
-        x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, ls1, num_heads, scale, eps
+        x, ln_scale, ln_bias, w_qkv.to(x.dtype), b_qkv, w_proj.to(x.dtype), b_proj, ls1,
+        num_heads, scale, eps,
     )[0]
 
 
@@ -221,7 +322,15 @@ def slab_attention(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Ten
 
     CPU tensors run the plain version. CUDA tensors launch the K3 kernel
     (bf16, head_dim 64; anything else raises) and add one to
-    `slab_attention.launches`."""
+    `slab_attention.launches`. Where qkv requires grad the result carries
+    the gradient of `slab_attention_backward`."""
+    if needs_grad(qkv):
+        return _SlabAttention.apply(qkv, num_heads, scale)
+    return _slab_attention_forward(qkv, num_heads, scale)
+
+
+def _slab_attention_forward(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """slab_attention's dispatch: plain on the CPU, the K3 launch on a card."""
     if qkv.device.type == "cpu":
         return _slab_reference(qkv, num_heads, scale)
     if qkv.device.type != "cuda":
@@ -262,11 +371,21 @@ def slab_attention_block(
     CPU tensors run the plain version. CUDA tensors launch the K2 kernel
     (bf16, head_dim 64; anything else raises) and add one to
     `slab_attention_block.launches`. On the slab K1 makes, the output is
-    K1's bit for bit: both run the same two launches on it."""
+    K1's bit for bit: both run the same two launches on it. Where an input
+    requires grad the result carries the recompute gradient of the module
+    docstring."""
+    tensors = (x, qkv, w_proj, b_proj, ls1)
+    if needs_grad(*tensors):
+        return _RecomputeFunction.apply(
+            lambda *a: slab_attention_block(*a, num_heads, scale),
+            lambda *a: _slab_block_reference(*a, num_heads, scale),
+            *tensors,
+        )
     if x.device.type == "cpu":
         return _slab_block_reference(x, qkv, w_proj, b_proj, ls1, num_heads, scale)
     if x.device.type != "cuda":
         raise ValueError(f"no slab_attention_block for device {x.device}")
+    w_proj = w_proj.to(x.dtype)
     check_slab_attention_args(qkv, num_heads, x, w_proj, b_proj, ls1)
     b, t, d = x.shape
     from dinov2_tpu_torch.ops._kernels import check_status, slab_attention_lib
@@ -334,13 +453,22 @@ def slab_mlp_block(
 
     CPU tensors run the plain version. CUDA tensors launch the K5 kernel
     (bf16, D in MLP_KERNEL_WIDTHS, DH = 4 D, any T; anything else raises) and
-    add one to `slab_mlp_block.launches`."""
+    add one to `slab_mlp_block.launches`. Where an input requires grad the
+    result carries the recompute gradient of the module docstring."""
     if activation is None or activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
+    tensors = (x, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
+    if needs_grad(*tensors):
+        return _RecomputeFunction.apply(
+            lambda *a: slab_mlp_block(*a, activation, eps),
+            lambda *a: slab_mlp_reference(*a, activation, eps),
+            *tensors,
+        )
     if x.device.type == "cpu":
         return slab_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, activation, eps)
     if x.device.type != "cuda":
         raise ValueError(f"no slab_mlp_block for device {x.device}")
+    w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
     check_slab_mlp_args(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
     b, t, d = x.shape
     dh = 4 * d

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from dinov2_tpu_torch.ops.fused_attention import check_half_layer_args, slab_layer_reference
-from dinov2_tpu_torch.ops.qmatmul import dequant_weight
+from dinov2_tpu_torch.ops.qmatmul import dequant_weight, refuse_quant_grad
 from dinov2_tpu_torch.ops.qmatmul_kernel import check_quant_weight, quant_weight_args
 
 
@@ -57,7 +57,9 @@ def slab_layer_block_quant(
 
     CPU tensors run the plain version. CUDA tensors launch the K8 kernel
     (bf16 only; anything else raises) and add one to
-    `slab_layer_block_quant.launches`."""
+    `slab_layer_block_quant.launches`. An input that requires grad raises:
+    the quantized weights are not trainable and the kernel has no backward."""
+    refuse_quant_grad("slab_layer_block_quant", x, ln_scale, ln_bias, b_qkv, b_proj, ls1)
     if x.device.type == "cpu":
         return quant_layer_reference(
             x, ln_scale, ln_bias, qkv_ql, b_qkv, proj_ql, b_proj, ls1, num_heads, scale, eps

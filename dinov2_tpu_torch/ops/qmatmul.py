@@ -60,6 +60,24 @@ def apply_activation(y: torch.Tensor, activation: str | None) -> torch.Tensor:
 QUANT_BACKENDS = ("auto", "kernel", "dequant")
 
 
+def needs_grad(*tensors: torch.Tensor | None) -> bool:
+    """Whether autograd is recording and one of the tensors (None is skipped)
+    requires grad: where the kernel wrappers take their autograd Functions."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_quant_grad(what: str, *tensors: torch.Tensor | None) -> None:
+    """Raise where a tensor that requires grad meets a QuantLinear path: the
+    quantized kernels have no backward, and returning their result would
+    cut the graph without a word (the JAX package: "fused-quant weights
+    aren't trainable")."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{what}: fused-quant weights aren't trainable, and an input requires grad; "
+            "load the checkpoint with quant_mode='dequant' to train, or run under torch.no_grad()"
+        )
+
+
 def dequant_weight(ql, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """A QuantLinear -> its dense (out, in) weight in `dtype`, in the JAX
     package's order: integer codes -> f32, times d, plus m for q4_1/q5_1,
@@ -90,6 +108,7 @@ def quant_matmul(
 
     if backend not in QUANT_BACKENDS:
         raise ValueError(f"quant backend must be one of {QUANT_BACKENDS}, got {backend!r}")
+    refuse_quant_grad("quant_matmul", x, bias)
     if backend == "dequant":
         return quant_matmul_reference(x, ql, bias, activation)
     return quant_matmul_kernel(x, ql, bias, activation)

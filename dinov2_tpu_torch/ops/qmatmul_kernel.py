@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from dinov2_tpu_torch.ops.qmatmul import apply_activation, dequant_weight
+from dinov2_tpu_torch.ops.qmatmul import apply_activation, dequant_weight, refuse_quant_grad
 
 # activation name -> the kernels' code (csrc/activation.cuh; K5 takes them too)
 ACTIVATIONS = {None: 0, "gelu_tanh_f16": 1, "gelu_erf": 2, "gelu_tanh": 3}
@@ -99,7 +99,9 @@ def quant_matmul_kernel(
 
     CPU tensors run the plain version. CUDA tensors launch the K7 kernel
     (bf16 or f32 x; anything else raises) and add one to
-    `quant_matmul_kernel.launches`."""
+    `quant_matmul_kernel.launches`. An input that requires grad raises: the
+    quantized weights are not trainable and the kernel has no backward."""
+    refuse_quant_grad("quant_matmul_kernel", x, bias)
     if x.device.type == "cpu":
         return quant_matmul_reference(x, ql, bias, activation)
     if x.device.type != "cuda":

@@ -1,8 +1,10 @@
-"""Where the time goes in the port's classify or feature path on one CUDA GPU.
+"""Where the time goes in the port's classify, feature or training path on
+one CUDA GPU.
 
-    python3 -m dinov2_tpu_torch.utils.profile_slice [--mode classify|features]
+    python3 -m dinov2_tpu_torch.utils.profile_slice [--mode classify|features|train]
         [--quant q4_0|q4_1|q5_0|q5_1|q8_0] [--model giant]
         [--slab-fusion layer|proj|core] [--fuse-mlp]
+        [--flash-attn] [--no-remat] [--long]
 
 classify (the default): a random-weight ViT-B/14 at its published widths
 (PRESETS["base"], 1000 classes, img_size 518, f16 weights from seed 0) in
@@ -18,6 +20,12 @@ linears), as chip_smoke.py's quantized slice runs it.
 layers, SwiGLU, 1000 classes) on 16 images, as chip_smoke.py's ViT-g slice
 runs it. --slab-fusion picks the level of the slab route (K1 | K2 | K3) and
 --fuse-mlp runs the MLP half-layer as the K5 kernel (models/vit.py).
+train: `Trainer.step` (parallel/train.py) on one batch of 32 random 256x256
+uint8 images with a ViT-B/14 from init_params seed 0 (1000 classes),
+parity="hf", bf16 compute over f32 masters, remat, AdamW, as chip_smoke.py's
+training slice runs it: on the "auto" route (K1 forward, recompute backward)
+or with --flash-attn (the K4 with_lse forward and K6); --no-remat turns
+remat off; --long takes 8 preprocessed images of 518 px (T=1370).
 
 Each mode makes two warm-up calls, 10 calls on the host clock without the
 profiler, then 3 calls under torch.profiler. It prints the card, the median
@@ -25,7 +33,8 @@ wall ms per call, the device time per call (the sum of every kernel's and
 copy's own device time, one stream, so nothing overlaps), the idle share
 1 - device/wall, and every device op with its launches, ms per call and ms
 per launch. The profiler's full table and a Chrome trace go into
-OUT/<mode>[_<model>][_<quant>][_<slab fusion>][_fuse_mlp]/ under the working directory (.gitignore lists OUT).
+OUT/<mode>[_<model>][_<quant>][_<slab fusion>][_fuse_mlp][_flash][_no_remat][_long]/
+under the working directory (.gitignore lists OUT).
 """
 
 from __future__ import annotations
@@ -52,7 +61,10 @@ MODES = {
     "classify": ("base", {"num_classes": 1000, "img_size": 518}, 64, 256,
                  "classify_probs", "ViT-B/14 classify_probs"),
     "features": ("large", {}, 8, 512, "extract_features", "ViT-L/14 extract_features"),
+    "train": ("base", {"num_classes": 1000, "img_size": 518}, 32, 256, None,
+              "ViT-B/14 Trainer.step"),
 }
+TRAIN_LONG_BATCH = 8  # --long: 512 px images preprocessed to 518 px, T=1370
 GIANT_BATCH = 16  # the ViT-g/14 classify slice's batch
 
 
@@ -71,6 +83,36 @@ def _engine(preset: str, overrides: dict, seed: int, quant: str | None, **option
                           quant_mode="fused" if quant else "dequant", **options)
 
 
+def _train_step(overrides: dict, seed: int, batch: int, px: int, flash: bool, remat: bool,
+                long: bool):
+    """A closure that takes one Trainer.step on a fixed batch and waits for
+    it, the state carried from call to call."""
+    from dinov2_tpu_torch.image.preprocess import feature_preprocess
+    from dinov2_tpu_torch.models.config import PRESETS, DinoConfig
+    from dinov2_tpu_torch.models.params import init_params
+    from dinov2_tpu_torch.models.vit import ModelOptions
+    from dinov2_tpu_torch.parallel.train import make_trainer
+
+    config = DinoConfig(**{**PRESETS["base"].__dict__, **overrides})
+    trainer = make_trainer(
+        config, preprocess_in_step=not long,
+        opts=ModelOptions(parity="hf", compute_dtype=torch.bfloat16, remat=remat,
+                          flash_attention=True if flash else "auto"),
+    )
+    state = list(trainer.place(init_params(config, seed=seed, dtype=torch.float32)))
+    rng = np.random.default_rng(seed + 1)
+    images = rng.integers(0, 256, (batch, px, px, 3), dtype=np.uint8)
+    labels = rng.integers(0, config.num_classes, batch)
+    if long:
+        images = feature_preprocess(torch.from_numpy(images).cuda(), config.patch_size)
+
+    def step(_):
+        state[0], state[1], metrics = trainer.step(*state, images, labels)
+        return float(metrics["loss"])  # waits for the device
+
+    return step
+
+
 def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device available", file=sys.stderr)
@@ -81,6 +123,9 @@ def main(argv=()) -> int:
     parser.add_argument("--model", choices=["giant"], default=None)
     parser.add_argument("--slab-fusion", choices=["layer", "proj", "core"], default=None)
     parser.add_argument("--fuse-mlp", action="store_true")
+    parser.add_argument("--flash-attn", action="store_true", help="train: the flash route")
+    parser.add_argument("--no-remat", action="store_true", help="train: remat off")
+    parser.add_argument("--long", action="store_true", help="train: T=1370 at batch 8")
     args = parser.parse_args(list(argv))
     mode, quant = args.mode, args.quant
     preset, overrides, batch, px, call, label = MODES[mode]
@@ -102,6 +147,19 @@ def main(argv=()) -> int:
         options["fuse_mlp"] = True
         label = f"{label}, fuse_mlp"
         tags.append("fuse_mlp")
+    if mode == "train":
+        if quant or args.model or options:
+            parser.error("--mode train takes only --flash-attn, --no-remat and --long")
+        if args.long:
+            batch, px = TRAIN_LONG_BATCH, 512
+        for flag, tag in ((args.flash_attn, "flash"), (args.no_remat, "no_remat"),
+                          (args.long, "long")):
+            if flag:
+                tags.append(tag)
+        label = (f"{label}, {'flash_attention=True' if args.flash_attn else 'auto route'}, "
+                 f"remat {'off' if args.no_remat else 'on'}" + (", T=1370" if args.long else ""))
+    elif args.flash_attn or args.no_remat or args.long:
+        parser.error("--flash-attn, --no-remat and --long go with --mode train")
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -109,8 +167,11 @@ def main(argv=()) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    run = getattr(_engine(preset, overrides, SEED, quant, **options), call)
     images = np.random.default_rng(SEED + 1).integers(0, 256, (batch, px, px, 3), dtype=np.uint8)
+    if mode == "train":
+        run = _train_step(overrides, SEED, batch, px, args.flash_attn, not args.no_remat, args.long)
+    else:
+        run = getattr(_engine(preset, overrides, SEED, quant, **options), call)
     for _ in range(2):
         run(images)
     seconds = []

@@ -1,5 +1,5 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions,
-on the card. Every test here is marked `cuda` and skips without a GPU.
+their autograd Functions and a trainer step per route, on the card. Every test here is marked `cuda` and skips without a GPU.
 
 The GPU machine has no jax, and tests/conftest.py imports it, so run there:
 
@@ -521,3 +521,244 @@ def test_engine_fuse_mlp_on_cuda_close_to_cpu_f32(cuda, tmp_path):
     np.testing.assert_allclose(got, unfused, rtol=1e-2, atol=0)
     want = DinoEngine(path, dtype=torch.float32, device="cpu").classify_probs(imgs)
     np.testing.assert_allclose(got, want, rtol=2e-2, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# Training: K4 with lse, K6, the autograd Functions and the trainer
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "b, t, heads", [(1, 1, 1), (2, 5, 2), (3, 64, 2), (2, 65, 3), (2, 257, 12), (1, 1370, 4)]
+)
+def test_flash_forward_lse_matches_plain(cuda, b, t, heads):
+    """K4's with_lse variant: out equal to the kernel without lse bit for
+    bit, lse within 1e-3 of the plain f32 logsumexp of the same bf16 inputs."""
+    from dinov2_tpu_torch.ops.flash_attention import flash_forward_lse, flash_forward_reference
+
+    q, k, v = split_heads(_slab(b, t, heads, seed=t, device=cuda), heads)
+    before = flash_attention.launches
+    out, lse = flash_forward_lse(q, k, v, 0.125)
+    assert flash_attention.launches == before + 1
+    _, want = flash_forward_reference(q.float(), k.float(), v.float(), 0.125)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, heads, t) and lse.dtype == torch.float32
+    assert torch.equal(out, flash_attention(q, k, v, 0.125))
+    assert (lse - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("slab", [False, True])
+@pytest.mark.parametrize(
+    "b, t, heads", [(1, 1, 1), (2, 5, 2), (3, 64, 2), (2, 65, 3), (2, 257, 12), (1, 1370, 4)]
+)
+def test_flash_backward_kernel_matches_plain(cuda, b, t, heads, slab):
+    """K6 against its plain version in bf16 and in f32 on the same inputs,
+    with K1's bound for each of dq, dk, dv, plus 1e-5: dS = p (dP - delta)
+    cancels two f32 sums that the kernel takes in other orders than the
+    plain version (at T=1 they cancel to exactly 0 there and to ~2e-6 here).
+    T covers one row, ragged tiles, an exact tile and many tiles. With `slab`, q/k/v are the strided head
+    views of a qkv slab and the gradients are written into the head views of
+    one (B, T, 3D) slab."""
+    from dinov2_tpu_torch.ops.flash_attention import (
+        flash_backward,
+        flash_backward_reference,
+        flash_forward_lse,
+        flash_forward_reference,
+    )
+
+    qkv = _slab(b, t, heads, seed=t + 1, device=cuda)
+    g = _slab(b, t, heads, seed=t + 2, device=cuda)[..., : 64 * heads].reshape(b, t, heads, 64)
+    q, k, v = split_heads(qkv, heads)
+    if not slab:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out, lse = flash_forward_lse(q, k, v, 0.125)
+    before = flash_backward.launches
+    if slab:
+        d_qkv = torch.full_like(qkv, float("nan"))
+        got = flash_backward(q, k, v, out, lse, g, 0.125, into=split_heads(d_qkv, heads))
+        assert all(a.data_ptr() == view.data_ptr() for a, view in zip(got, split_heads(d_qkv, heads)))
+    else:
+        got = flash_backward(q, k, v, out, lse, g, 0.125)
+        assert all(a.is_contiguous() for a in got)
+    assert flash_backward.launches == before + 1
+    plain = flash_backward_reference(q, k, v, out, lse, g, 0.125)
+    out32, lse32 = flash_forward_reference(q.float(), k.float(), v.float(), 0.125)
+    want = flash_backward_reference(q.float(), k.float(), v.float(), out32, lse32, g.float(), 0.125)
+    torch.cuda.synchronize()
+    for a, p, w in zip(got, plain, want):
+        assert a.shape == (b, t, heads, 64) and a.dtype == torch.bfloat16
+        assert torch.isfinite(a).all()
+        err = (a.float() - w).abs().max().item()
+        err_plain = (p.float() - w).abs().max().item()
+        assert err <= 2 * err_plain + 1e-3 * w.abs().max().item() + 1e-5
+
+
+@pytest.mark.parametrize("case", ["f32", "head_dim 32", "lse shape", "o strided"])
+def test_flash_backward_refuses(cuda, case):
+    from dinov2_tpu_torch.ops.flash_attention import flash_backward
+
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    hd = 32 if case == "head_dim 32" else 64
+    q, k, v = split_heads(_slab(1, 5, 2, seed=0, device=cuda, dtype=dtype, hd=hd), 2)
+    o = torch.zeros((1, 5, 2, hd), dtype=dtype, device=cuda)
+    lse = torch.zeros((1, 2, 5) if case != "lse shape" else (1, 5, 2), device=cuda)
+    if case == "o strided":
+        o = torch.zeros((1, 2, 5, hd), dtype=dtype, device=cuda).transpose(1, 2)
+    before = flash_backward.launches
+    with pytest.raises((NotImplementedError, ValueError)):
+        flash_backward(q, k, v, o, lse, torch.zeros_like(q), 0.125)
+    assert flash_backward.launches == before
+
+
+def _leaves(tensors):
+    return [a.detach().clone().requires_grad_() for a in tensors]
+
+
+def _assert_grads(out, leaves, what):
+    """No silent detach: the output is in the graph and every input gets a
+    finite gradient of its own shape and dtype."""
+    assert out.grad_fn is not None, f"{what}: the output is cut from the graph"
+    grads = torch.autograd.grad(out.float().sum(), leaves)
+    torch.cuda.synchronize()
+    for leaf, grad in zip(leaves, grads):
+        assert grad is not None and grad.shape == leaf.shape and grad.dtype == leaf.dtype, what
+        assert torch.isfinite(grad).all(), what
+    return grads
+
+
+@pytest.mark.parametrize("wrapper", ["K1", "K2", "K3", "K4", "K4 slab", "K5"])
+def test_no_wrapper_detaches_silently(cuda, wrapper):
+    """Every kernel wrapper on CUDA tensors that require grad returns a tensor
+    with a grad_fn, and every input's gradient is present and finite; f32
+    master weights get f32 gradients."""
+    b, t, heads = 2, 70, 6
+    d = 64 * heads
+    x, lns, lnb, wq, bq, wp, bp, ls = _half_layer_args(b, t, d, seed=3, device=cuda)
+    wq, wp = wq.float(), wp.float()
+    qkv = _slab(b, t, heads, seed=4, device=cuda)
+    if wrapper == "K1":
+        leaves = _leaves((x, lns, lnb, wq, bq, wp, bp, ls))
+        out = slab_layer_block(*leaves, heads, 0.125, 1e-6)
+    elif wrapper == "K2":
+        leaves = _leaves((x, qkv, wp, bp, ls))
+        out = slab_attention_block(*leaves, heads, 0.125)
+    elif wrapper == "K3":
+        leaves = _leaves((qkv,))
+        out = slab_attention(*leaves, heads, 0.125)
+    elif wrapper == "K4":
+        leaves = _leaves(t.contiguous() for t in split_heads(qkv, heads))
+        out = flash_attention(*leaves, 0.125)
+    elif wrapper == "K4 slab":
+        leaves = _leaves((qkv,))
+        out = flash_attention_slab(*leaves, heads, 0.125)
+    else:
+        leaves = _leaves(a if i not in (3, 5) else a.float()
+                         for i, a in enumerate(_mlp_args(b, t, d, seed=5, device=cuda)))
+        out = slab_mlp_block(*leaves, "gelu_erf", 1e-6)
+    _assert_grads(out, leaves, wrapper)
+
+
+@pytest.mark.parametrize("wrapper", ["K7", "K8", "apply_linear"])
+def test_quant_wrappers_refuse_inputs_that_require_grad(cuda, wrapper):
+    """The quantized kernels have no backward: an input that requires grad
+    raises instead of coming back cut from the graph."""
+    from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
+    from dinov2_tpu_torch.ops.qmatmul import apply_linear
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel
+
+    d = 128
+    x, lns, lnb, _, bq, _, bp, ls = _half_layer_args(1, 5, d, seed=0, device=cuda)
+    x.requires_grad_()
+    with pytest.raises(RuntimeError, match="aren't trainable"):
+        if wrapper == "K7":
+            quant_matmul_kernel(x, _ql("q4_0", d, d, 0, cuda), bp)
+        elif wrapper == "apply_linear":
+            apply_linear(x, {"kernel": _ql("q4_0", d, d, 0, cuda), "bias": bp})
+        else:
+            slab_layer_block_quant(x, lns, lnb, _ql("q4_0", 3 * d, d, 1, cuda), bq,
+                                   _ql("q4_0", d, d, 2, cuda), bp, ls, 2, 0.125, 1e-6)
+
+
+@pytest.mark.parametrize("t", [70, 300])
+def test_flash_function_gradients_match_plain_autograd(cuda, t):
+    """The gradient through flash_attention_slab's Function (K4 with lse, K6)
+    against autograd through the plain attention in bf16 and in f32."""
+    heads = 3
+    qkv = _slab(2, t, heads, seed=t, device=cuda)
+    g = _slab(2, t, heads, seed=t + 1, device=cuda)[..., : 64 * heads]
+
+    def grad_of(fn, slab):
+        leaf = slab.detach().clone().requires_grad_()
+        return torch.autograd.grad(fn(leaf), leaf, g.to(slab.dtype))[0]
+
+    got = grad_of(lambda s: flash_attention_slab(s, heads, 0.125), qkv)
+    plain = grad_of(lambda s: _slab_reference(s, heads, 0.125), qkv)
+    want = grad_of(lambda s: _slab_reference(s, heads, 0.125), qkv.float())
+    torch.cuda.synchronize()
+    assert got.shape == qkv.shape
+    _bound_holds(got, plain, want)
+
+
+@pytest.mark.parametrize("route", ["plain", "flash"])
+def test_slab_attention_backward_routes(cuda, route):
+    from dinov2_tpu_torch.ops.flash_attention import flash_backward
+    from dinov2_tpu_torch.ops.fused_attention import slab_attention_backward
+
+    heads = 2
+    qkv = _slab(2, 130, heads, seed=0, device=cuda)
+    g = _slab(2, 130, heads, seed=1, device=cuda)[..., : 64 * heads]
+    before = flash_backward.launches
+    got = slab_attention_backward(qkv, g, heads, 0.125, route)
+    plain = slab_attention_backward(qkv, g, heads, 0.125, "plain")
+    want = slab_attention_backward(qkv.float(), g.float(), heads, 0.125, "plain")
+    torch.cuda.synchronize()
+    assert flash_backward.launches == before + (route == "flash")
+    _bound_holds(got, plain, want)
+
+
+@pytest.mark.parametrize("route", [True, "auto", "slab-core", "fuse_mlp"])
+def test_trainer_step_on_cuda(cuda, route):
+    """One Trainer.step per route on the card, tiny model, bf16 over f32
+    masters with remat: the loss is finite and within 2e-2 of the CPU f32
+    step's, every leaf moved, and the route's kernels launched (with remat
+    the forward kernels run twice a step)."""
+    from dinov2_tpu_torch.models.params import init_params, tree_leaves
+    from dinov2_tpu_torch.models.vit import ModelOptions
+    from dinov2_tpu_torch.ops.flash_attention import flash_backward
+    from dinov2_tpu_torch.parallel.train import make_trainer
+
+    config = DinoConfig(hidden_size=384, num_hidden_layers=2, num_attention_heads=6,
+                        num_classes=7, patch_size=14, img_size=70)
+    source = init_params(config, seed=0, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+    labels = rng.integers(0, 7, 4)
+    extra = {"slab-core": dict(flash_attention="auto", slab_fusion="core"),
+             "fuse_mlp": dict(flash_attention="auto", fuse_mlp=True)}.get(
+                 route, dict(flash_attention=route))
+    counters = {True: (flash_attention, flash_backward), "auto": (slab_layer_block,),
+                "slab-core": (slab_attention, flash_backward),
+                "fuse_mlp": (slab_layer_block, slab_mlp_block)}[route]
+    before = [c.launches for c in counters]
+
+    trainer = make_trainer(config, opts=ModelOptions(
+        parity="hf", compute_dtype=torch.bfloat16, remat=True, **extra))
+    assert trainer.device.type == "cuda"
+    params, opt_state = trainer.place(source)
+    start = [p.detach().clone() for p in tree_leaves(params)]
+    params, opt_state, metrics = trainer.step(params, opt_state, images, labels)
+    torch.cuda.synchronize()
+
+    cpu = make_trainer(config, device="cpu")
+    _, _, cpu_metrics = cpu.step(*cpu.place(source), images, labels)
+    assert torch.isfinite(metrics["loss"])
+    assert abs(float(metrics["loss"]) - float(cpu_metrics["loss"])) <= 2e-2
+    assert all(p.device.type == "cuda" and not torch.equal(p, s)
+               for p, s in zip(tree_leaves(params), start))
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    layers = config.num_hidden_layers
+    # forward kernels run twice a step under remat; K6 once a layer (T=257 is
+    # at or above SLAB_BWD_FLASH_MIN_T, so K3's backward takes the flash route)
+    expected = {True: [2 * layers, layers], "auto": [2 * layers],
+                "slab-core": [2 * layers, layers], "fuse_mlp": [2 * layers, 2 * layers]}[route]
+    assert launched == expected

@@ -1,5 +1,5 @@
-"""Rules of the port: it never imports jax nor the JAX package, and importing
-its kernel module builds nothing."""
+"""Rules of the port: it never imports jax, optax, orbax nor the JAX package,
+and importing its kernel module builds nothing."""
 
 import importlib
 import os
@@ -13,7 +13,9 @@ PACKAGE = ROOT / "dinov2_tpu_torch"
 
 
 def test_no_source_file_imports_jax():
-    pattern = re.compile(r"^\s*(import jax\b|from jax\b)", re.MULTILINE)
+    """Nor optax or orbax, which the JAX package's trainer and checkpoint
+    module use and the card's machine does not have."""
+    pattern = re.compile(r"^\s*(import|from) (jax|optax|orbax)\b", re.MULTILINE)
     files = [*sorted(PACKAGE.rglob("*.py")), ROOT / "chip_smoke.py"]
     assert len(files) > 10
     assert [str(p.relative_to(ROOT)) for p in files if pattern.search(p.read_text())] == []
@@ -58,7 +60,18 @@ def test_forward_runs_without_jax_in_a_fresh_process():
         "    e = DinoEngine(q, dtype=torch.float32, device='cpu', quant_mode='fused')\n"
         "    probs = e.classify_probs(np.zeros((1, 30, 30, 3), np.uint8))\n"
         "assert probs.shape == (1, 3) and np.isfinite(probs).all()\n"
+        "from dinov2_tpu_torch.parallel.train import make_trainer\n"
+        "from dinov2_tpu_torch.parallel import checkpoint\n"
+        "from dinov2_tpu_torch.io import export\n"
+        "from dinov2_tpu_torch.cli import train\n"
+        "c = DinoConfig(hidden_size=64, num_hidden_layers=1, num_attention_heads=1,"
+        " num_classes=3, patch_size=14, img_size=28)\n"
+        "t = make_trainer(c, device='cpu')\n"
+        "p, s = t.place(init_params(c, dtype=torch.float32))\n"
+        "p, s, m = t.step(p, s, np.zeros((2, 30, 30, 3), np.uint8), np.array([0, 2]))\n"
+        "assert np.isfinite(float(m['loss']))\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert 'optax' not in sys.modules and 'orbax' not in sys.modules\n"
         "assert 'dinov2_tpu' not in sys.modules, 'the JAX package was imported'\n"
         "print('ok')\n"
     )
@@ -81,7 +94,7 @@ def test_importing_the_kernel_module_runs_no_compiler(monkeypatch):
 
     module = importlib.reload(_kernels)
     for lib in ("slab_layer_lib", "slab_attention_lib", "slab_mlp_lib", "flash_attention_lib",
-                "quant_matmul_lib", "quant_layer_lib"):
+                "flash_backward_lib", "quant_matmul_lib", "quant_layer_lib"):
         assert getattr(module, lib).cache_info().currsize == 0, lib
 
 
