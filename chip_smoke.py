@@ -16,7 +16,7 @@ with random f16 weights from a seed, bf16, parity="reference":
     full-width ViT-L/14; its attention core is K4;
   - ViT-g/14 classify: DinoEngine.classify on 16 images of 256x256 with
     ViT-g/14 at full width (D=1536, 24 heads, SwiGLU hidden 4096, 1000
-    classes) from a synthetic f16 GGUF, depth cut to 20 of its 40 layers, at
+    classes) from a synthetic f16 GGUF, depth cut to 12 of its 40 layers, at
     each level of the slab route: slab_fusion="core" (K3, the JAX package's
     route for this model), "proj" (K2) and "layer" (K1) on the same device
     weights;
@@ -43,8 +43,9 @@ its cross-check and the fuse_mlp slice with its own, quantized classify
 slice, its cross-check and its findings (other routes, weight memory),
 feature slice, PCA, feature cross-check, ViT-g/14 slice at its three levels
 and its cross-check, training slice on both routes with its cross-check and
-export, long-sequence training. Any failure exits non-zero. The line before the last is
-a JSON object with one entry per kernel; the last line is
+export, long-sequence training; then a check that no "auto" attention route
+of these bf16 paths fell to plain PyTorch on the card. Any failure exits
+non-zero. The line before the last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. With no CUDA device, or run from a directory
 that holds only this file, it exits non-zero and prints no result.
 """
@@ -87,9 +88,10 @@ KERNELS = ("slab_layer", "slab_attention", "slab_mlp", "flash_attention", "flash
            "quant_matmul", "quant_layer")
 QUANT_FORMATS = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0")
 QUANT_SLICE_FORMAT = "q4_0"
-# the ViT-g/14 slice: full width, 20 of the 40 layers (the file to write and
-# load twice is 1.2 GB instead of 2.3 GB)
-GIANT_LAYERS = 20
+# the ViT-g/14 slice: full width, 12 of the 40 layers (the file to write and
+# load twice is 0.7 GB instead of 2.3 GB: writing and loading it, not the
+# forwards, is most of the phase's time)
+GIANT_LAYERS = 12
 GIANT_BATCH = 16
 GIANT_CROSS_CHECK_IMAGES = 2
 # bf16 error grows with depth: docs/PARITY.md measured 2.5e-1 on the 40-layer
@@ -363,11 +365,17 @@ def phase_flash_check(card: str) -> dict:
     (T=4226, which the TPU runs as multi-KV online softmax) through
     flash_attention; scaled_dot_product_attention beside both."""
     from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
-    from dinov2_tpu_torch.ops.flash_attention import flash_attention, flash_attention_slab
+    from dinov2_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_slab,
+        kernel_tile_rows,
+    )
 
     heads, scale = 16, 0.125
     measured = {}
     for b, t, slab in ((FEATURE_BATCH, 1370, True), (1, 4226, False)):
+        print(f"kernel check: K4 at B={b} T={t} H={heads} takes "
+              f"{kernel_tile_rows(b, t, heads)['forward']}-query blocks")
         rng = np.random.default_rng(SEED + t)
         qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * 64 * heads)) * 1.5)
         qkv = qkv.to("cuda", torch.bfloat16)
@@ -402,8 +410,8 @@ def sdpa_backward(q, k, v, g, scale):
 
 
 def phase_flash_backward_check(card: str) -> tuple[dict, dict]:
-    """K4's with_lse forward and K6 at the training slice's shape and at the
-    long-sequence one. The lse variant's out must equal K4's without lse bit
+    """K4's with_lse forward and K6 at the training slice's shape (B=32,
+    T=257, H=12) and at the long-sequence one (B=8, T=1370, H=16). The lse variant's out must equal K4's without lse bit
     for bit and its lse the plain f32 one within LSE_ABS_BOUND; dq, dk and dv
     are held to check_kernel's rule, each against the plain version in bf16
     and in f32 on the same inputs. Beside K6, the backward of one
@@ -416,11 +424,16 @@ def phase_flash_backward_check(card: str) -> tuple[dict, dict]:
         flash_backward_reference,
         flash_forward_lse,
         flash_forward_reference,
+        kernel_tile_rows,
     )
 
     scale = 0.125
     k6, lse_variant = {"max_abs_err": 0.0}, {}
     for b, t, heads in ((TRAIN_BATCH, 257, 12), (TRAIN_LONG_BATCH, 1370, 16)):
+        rows = kernel_tile_rows(b, t, heads)
+        print(f"kernel check: at B={b} T={t} H={heads} K4 with lse takes {rows['forward']}-query "
+              f"blocks, K6 {rows['backward_keys']}-key blocks (dK/dV) and "
+              f"{rows['backward_queries']}-query blocks (dQ)")
         rng = np.random.default_rng(SEED + t + heads)
         qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * 64 * heads)) * 1.5)
         qkv = qkv.to("cuda", torch.bfloat16)
@@ -583,20 +596,25 @@ def phase_function_checks(card: str) -> dict:
 
 
 # sha256 of each inference kernel's output bytes on phase_output_digests'
-# seeded inputs, recorded on an NVIDIA H100 80GB HBM3 with CUDA 12.8 from a
-# build of the sources as they were before the with_lse variant entered the
-# shared attention core (csrc/attention_core.cuh)
+# seeded inputs, recorded on an NVIDIA H100 80GB HBM3 with CUDA 12.8: K1, K2,
+# K3 and K8 from a build of the sources as they were before the with_lse
+# variant entered the shared attention core (csrc/attention_core.cuh), K4
+# from its wgmma kernel (csrc/flash_attention.cu; the mma.sync kernel before
+# it gave fedb833cf86a345f)
 RECORDED_DIGESTS = {"K1": "867f80bd9af52824", "K2": "7de1ddce09564e6c", "K3": "7e73001d935cec19",
-                    "K4": "fedb833cf86a345f", "K8": "d4a00e2c9c944476"}
+                    "K4": "db6c0a22b377b664", "K8": "d4a00e2c9c944476"}
 
 
 def phase_output_digests() -> dict:
     """K1 (its three launches' buffers), K2, K3, K4 without lse and K8 on
     small seeded inputs at real widths: the outputs' sha256 against the
-    digests recorded from the sources before the attention core gained its
-    with_lse variant, so that a change to the shared core that alters an
-    inference kernel's output shows. A finding, not a check: another
-    compiler version may order sums otherwise."""
+    recorded digests, so that a change to the shared attention core
+    (csrc/attention_core.cuh, which K1, K2, K3 and K8 run) or to K4's own
+    kernel that alters an inference kernel's output shows. K4's digest is
+    its wgmma kernel's: that kernel sums and rounds in another order than
+    the mma.sync one before it, so its recorded digest changed with it. A
+    finding, not a check: another compiler version may order sums
+    otherwise."""
     import hashlib
 
     from dinov2_tpu_torch.models.params import quantize_linear
@@ -630,8 +648,8 @@ def phase_output_digests() -> dict:
         for name, out in outputs.items()
     }
     same = {name: RECORDED_DIGESTS.get(name) == digest for name, digest in digests.items()}
-    print(f"output digests (a finding, not a check): {digests}; equal to the digests recorded "
-          f"before the with_lse variant: {same}")
+    print(f"output digests (a finding, not a check): {digests}; equal to the recorded "
+          f"digests: {same}")
     return digests
 
 
@@ -1383,6 +1401,11 @@ def main() -> int:
     k3_launches, k2_launches = timed_phase("ViT-g/14 slice", phase_giant, card)
     train_launches, source = timed_phase("training slice", phase_train, card)
     timed_phase("long-sequence training", phase_train_long, card, source)
+    from dinov2_tpu_torch.ops.attention import vanilla_route_warnings
+
+    require(vanilla_route_warnings() == 0,
+            'an "auto" attention route took plain PyTorch on the card (see the warning above)')
+    print('attention routes: no "auto" route on the card fell to plain PyTorch in this run')
     print(f"phase time: all {time.perf_counter() - start:.1f} s")
     fused = "dinov2_tpu/ops/fused_attention.py"
     kernels = [

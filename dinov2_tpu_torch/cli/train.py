@@ -42,7 +42,7 @@ def _folder_dataset(root: Path):
     return classes, samples
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     add_common_args(p)
@@ -59,9 +59,14 @@ def main(argv=None) -> int:
     # (true-mean pooling; the reference divisor quirk Q3 is an
     # inference-compat behavior, not a training semantic) and the default
     # compute dtype is f32 (opt into bf16 compute with --dtype bf16;
-    # master weights are f32 either way)
+    # master weights are f32 either way); on a card f32 activations take
+    # the plain PyTorch attention route (ops/attention.py)
     p.set_defaults(parity="hf", dtype="f32")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     import torch
 

@@ -1,6 +1,7 @@
-// Shared pieces of the port's hand-written Hopper kernels: mma.sync
-// helpers (K6, flash_backward.cu, takes them too) and the attention core
-// that K1, K2, K3, K8 (half_layer.cuh) and K4 (flash_attention.cu) run.
+// Shared pieces of the port's hand-written Hopper kernels: small helpers
+// (wgmma_tiles.cuh, and through it K4 and K6, takes them too), mma.sync, and
+// the attention core that K1, K2, K3 and K8 run (half_layer.cuh). K4
+// (flash_attention.cu) has its own wgmma tile loop.
 //
 // attention_tile computes, for one (image, head) pair and a tile of 64
 // queries, out = softmax(q k^T * scale) v with head_dim 64 and bf16 q/k/v

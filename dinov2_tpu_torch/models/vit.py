@@ -3,7 +3,8 @@
 Functional and batch-first, with the JAX signatures: `forward(params, x,
 config, opts, classify)` on a parameter tree whose encoder layers are
 stacked on axis 0. The attention half-layer of every layer takes the route
-`resolve_attention_path(opts.flash_attention, T)` picks (ops/attention.py):
+`resolve_attention_path` picks from opts.flash_attention, T, the activations'
+dtype and device and the head_dim (ops/attention.py):
 "slab" is one of the slab kernels of ops/fused_attention.py (below), "flash"
 is LN1 then the unfused half-layer around the K4 kernel
 (ops/flash_attention.py), "vanilla" the same around plain PyTorch. Each
@@ -143,6 +144,15 @@ def swiglu_block(x: torch.Tensor, p: dict, backend: str = "auto") -> torch.Tenso
     return apply_linear(F.silu(x1) * x2, p["wout"], backend=backend)
 
 
+def _attention_path(x: torch.Tensor, config: DinoConfig, opts: ModelOptions) -> str:
+    """The route of (B, T, D) activations x: by the option, T, x's dtype and
+    device and the model's head_dim (ops/attention.py)."""
+    return resolve_attention_path(
+        opts.flash_attention, x.shape[1], x.dtype,
+        config.hidden_size // config.num_attention_heads, x.device.type,
+    )
+
+
 def _attention_half_layer(
     x: torch.Tensor, layer: dict, config: DinoConfig, opts: ModelOptions
 ) -> torch.Tensor:
@@ -153,7 +163,7 @@ def _attention_half_layer(
     ordering."""
     heads = config.num_attention_heads
     scale = 1.0 / (config.hidden_size // heads) ** 0.5
-    path = resolve_attention_path(opts.flash_attention, x.shape[1])
+    path = _attention_path(x, config, opts)
     w_qkv, w_proj = layer["qkv"]["kernel"], layer["proj"]["kernel"]
     quantized = isinstance(w_qkv, QuantLinear), isinstance(w_proj, QuantLinear)
     whole = (
@@ -194,7 +204,7 @@ def _mlp_half_layer(
     mlp = layer["mlp"]
     if (
         opts.fuse_mlp and not config.swiglu
-        and resolve_attention_path(opts.flash_attention, x.shape[1]) == "slab"
+        and _attention_path(x, config, opts) == "slab"
         and "bias" in mlp["fc1"] and "bias" in mlp["fc2"]
     ):
         w1, w2 = mlp["fc1"]["kernel"], mlp["fc2"]["kernel"]

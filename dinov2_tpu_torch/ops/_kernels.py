@@ -120,11 +120,10 @@ def flash_attention_lib() -> ctypes.CDLL:
     """The K4 library (csrc/flash_attention.cu), built on first use."""
     lib = _load("flash_attention")
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.dinov2_flash_attention_bf16.argtypes = [ptr] * 4 + [i32] * 3 + [i64] * 3 + [f32, ptr]
+    shape_and_strides = [i32] * 3 + [i64] * 3 + [f32]
+    lib.dinov2_flash_attention_bf16.argtypes = [ptr] * 4 + shape_and_strides + [ptr]
     lib.dinov2_flash_attention_bf16.restype = i32
-    lib.dinov2_flash_attention_lse_bf16.argtypes = (
-        [ptr] * 5 + [i32] * 3 + [i64] * 3 + [f32, ptr]
-    )
+    lib.dinov2_flash_attention_lse_bf16.argtypes = [ptr] * 5 + shape_and_strides + [ptr]
     lib.dinov2_flash_attention_lse_bf16.restype = i32
     return lib
 

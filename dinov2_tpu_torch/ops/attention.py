@@ -12,10 +12,13 @@ ops/qmatmul.py::quant_matmul with `backend`.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from dinov2_tpu_torch.models.params import QuantLinear
 from dinov2_tpu_torch.ops.qmatmul import apply_linear, dequant_weight, refuse_quant_grad
+from dinov2_tpu_torch.utils.logging import get_logger
 
 # "auto" takes the flash kernel (K4) from this many tokens on: the JAX
 # package's long-sequence threshold (ops/attention.py::resolve_attention_path)
@@ -23,6 +26,23 @@ from dinov2_tpu_torch.ops.qmatmul import apply_linear, dequant_weight, refuse_qu
 # (T=257) on the slab route and 518 px feature mode (T=1370) on flash, as the
 # JAX package routes them for every preset.
 FLASH_MIN_TOKENS = 1024
+KERNEL_DTYPE = torch.bfloat16  # what the CUDA attention kernels (K1 to K4, K6, K8) take
+KERNEL_HEAD_DIM = 64
+
+
+@functools.cache
+def _warn_vanilla_route(reason: str) -> None:
+    """One warning per reason for the life of the process."""
+    get_logger().warning(
+        'attention route "auto": %s, which the CUDA attention kernels do not take (they take '
+        "bf16 at head_dim 64); taking the plain PyTorch route (\"vanilla\")", reason,
+    )
+
+
+def vanilla_route_warnings() -> int:
+    """How many reasons "auto" has given so far in this process for taking
+    the plain route on a card: 0 says every "auto" there took a kernel."""
+    return _warn_vanilla_route.cache_info().currsize
 
 
 def split_heads(qkv: torch.Tensor, num_heads: int) -> tuple[torch.Tensor, ...]:
@@ -46,13 +66,23 @@ def vanilla_attention(
     return torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
 
 
-def resolve_attention_path(flash, t: int) -> str:
-    """The attention route, "slab" | "flash" | "vanilla", for T tokens.
+def resolve_attention_path(
+    flash, t: int, dtype: torch.dtype | None = None, head_dim: int | None = None,
+    device_type: str | None = None,
+) -> str:
+    """The attention route, "slab" | "flash" | "vanilla", for T tokens of
+    activations of `dtype` at `head_dim` on a device of `device_type`.
 
     True is the reference's `-fa` flag (the flash kernel), False the plain
-    einsum; the three names select themselves; "auto" takes "flash" from
-    FLASH_MIN_TOKENS tokens on and "slab" (the K1 half-layer, which takes any
-    T) below. On a CUDA device "auto" therefore always reaches a kernel."""
+    einsum; the three names select themselves, whatever the input (a kernel
+    route with an input its kernel does not take raises in the wrapper).
+    "auto" takes "flash" from FLASH_MIN_TOKENS tokens on and "slab" (the K1
+    half-layer, which takes any T) below; on a CUDA device it takes "vanilla"
+    instead for an input the kernels do not take (not bf16, or head_dim other
+    than 64), with one warning, as the JAX package's resolver takes the item
+    size and the backend into account and lands on its plain route. The
+    arguments left None are not considered. Plain f32 attention on the card
+    runs its products in full f32 (TF32 stays off)."""
     if flash is True:
         return "flash"
     if flash is False:
@@ -61,6 +91,13 @@ def resolve_attention_path(flash, t: int) -> str:
         return flash
     if flash != "auto":
         raise ValueError(f"unknown attention route {flash!r}")
+    if device_type == "cuda":
+        if dtype is not None and dtype != KERNEL_DTYPE:
+            _warn_vanilla_route(f"activations are {dtype}")
+            return "vanilla"
+        if head_dim is not None and head_dim != KERNEL_HEAD_DIM:
+            _warn_vanilla_route(f"head_dim is {head_dim}")
+            return "vanilla"
     return "flash" if t >= FLASH_MIN_TOKENS else "slab"
 
 
@@ -80,7 +117,7 @@ def self_attention(
     gradient (K3's recompute routes; K4 with lse and K6)."""
     b, t, d = x.shape
     scale = 1.0 / (d // num_heads) ** 0.5
-    path = resolve_attention_path(flash, t)
+    path = resolve_attention_path(flash, t, x.dtype, d // num_heads, x.device.type)
     qkv = apply_linear(x, qkv_params, backend=backend)
     if path == "slab":
         from dinov2_tpu_torch.ops.fused_attention import slab_attention
@@ -118,7 +155,8 @@ def self_attention_block(
     and without `fuse_proj`, the unfused order runs: the K3 core, then proj
     through apply_linear. Same numerics ordering either way."""
     b, t, d = x_norm.shape
-    if fuse_proj and "bias" in proj_params and resolve_attention_path(flash, t) == "slab":
+    flash = resolve_attention_path(flash, t, x_norm.dtype, d // num_heads, x_norm.device.type)
+    if fuse_proj and "bias" in proj_params and flash == "slab":
         proj_kernel = proj_params["kernel"]
         if isinstance(proj_kernel, QuantLinear):
             refuse_quant_grad("self_attention_block", x_res, x_norm, proj_params["bias"], ls1)

@@ -16,7 +16,10 @@ product with f32 accumulation.
 
 The kernel streams 64-key tiles with an exact online softmax (running row
 max, f32 statistics), so the TPU kernels' block picking, their CLS-shift
-core and its overflow rescue have no counterpart here.
+core and its overflow rescue have no counterpart here. K4 and K6 run their
+products as wgmma on 128-byte-swizzled shared tiles filled by a cp.async
+ring (csrc/wgmma_tiles.cuh); a block's rows (64 or 128) are picked by shape
+in the C entry points (`kernel_tile_rows` reports them).
 
 Both are differentiable, as the JAX functions are through their custom_vjp.
 When an input requires grad the forward is the kernel's `with_lse` variant
@@ -34,7 +37,9 @@ p * (dO v^T - delta) * scale are computed in f32 and rounded to the inputs'
 dtype before the products p^T dO, dS^T q and dS k, which accumulate in f32
 (the JAX kernels multiply them as f32; tensor cores take bf16 operands, as
 the forward's P.V does). In f32 nothing rounds and the plain version meets
-the JAX kernels'. dS carries `scale`; dQ and dK take no second one.
+the JAX kernels'. dS carries `scale`; dQ and dK take no second one. K6 is
+two deterministic kernels (dK/dV over query tiles, dQ over key tiles) and a
+delta prologue, no atomics: the same inputs give the same bits every run.
 """
 
 from __future__ import annotations
@@ -46,6 +51,22 @@ from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
 from dinov2_tpu_torch.ops.qmatmul import needs_grad
 
 HEAD_DIM = 64  # the kernels' head_dim: every DINOv2 preset has it
+
+
+def kernel_tile_rows(b: int, t: int, heads: int) -> dict:
+    """Rows a block of the variants the C entries take at this shape:
+    {"forward": K4's query rows, "backward_keys": the dK/dV kernel's,
+    "backward_queries": the dQ kernel's}. Builds the libraries, so it needs
+    the card's machine. A report for checks and scripts: no path calls it."""
+    from dinov2_tpu_torch.ops._kernels import flash_attention_lib, flash_backward_lib
+
+    # the two report entries take and return C ints, ctypes' defaults
+    keys, queries = divmod(flash_backward_lib().dinov2_flash_backward_rows(), 1000)
+    return {
+        "forward": flash_attention_lib().dinov2_flash_attention_query_rows(b, t, heads),
+        "backward_keys": keys,
+        "backward_queries": queries,
+    }
 
 
 def flash_forward_reference(

@@ -165,6 +165,14 @@ def make_trainer(
     preprocess_in_step: bool = True,
     device="cuda",
 ) -> Trainer:
+    """A Trainer with the JAX package's defaults: parity "hf", f32 compute,
+    remat, AdamW, attention route "auto", on the card unless `device` says
+    otherwise. On a CUDA device "auto" sends f32 activations to the plain
+    PyTorch attention (ops/attention.py::resolve_attention_path: the CUDA
+    attention kernels take bf16 only), so the defaults take a step there as
+    they do on the CPU; its f32 products run in full f32, TF32 stays off
+    (ops/qmatmul.py::set_cuda_matmul_precision). Pass
+    `ModelOptions(compute_dtype=torch.bfloat16, ...)` for the kernels."""
     opts = opts or ModelOptions(parity="hf", compute_dtype=torch.float32, remat=True)
     return Trainer(
         config=config,

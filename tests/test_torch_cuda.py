@@ -762,3 +762,114 @@ def test_trainer_step_on_cuda(cuda, route):
     expected = {True: [2 * layers, layers], "auto": [2 * layers],
                 "slab-core": [2 * layers, layers], "fuse_mlp": [2 * layers, 2 * layers]}[route]
     assert launched == expected
+
+
+# ---------------------------------------------------------------------------
+# The wgmma flash kernels over ragged lengths and widths; the default trainer
+# ---------------------------------------------------------------------------
+
+RAGGED_T = (1, 63, 64, 65, 127, 128, 129, 257, 300, 1370)
+
+
+@pytest.mark.parametrize("slab", [False, True], ids=["contiguous", "slab"])
+@pytest.mark.parametrize("b, heads", [(1, 6), (2, 12), (1, 16), (2, 24)])
+@pytest.mark.parametrize("t", RAGGED_T)
+def test_flash_kernels_over_ragged_lengths(cuda, t, b, heads, slab):
+    """K4, K4 with lse and K6 against their plain versions where a tile is
+    one row, one short of full, full, one over, and many tiles with a ragged
+    tail, at the presets' head counts: out and each of dq, dk, dv within
+    twice the plain bf16 version's distance from f32 plus 1e-3 of the
+    output's scale (plus 1e-5 where the exact gradient is 0, T=1); the lse
+    variant's out bit for bit K4's; K6 run twice gives the same bits (two
+    deterministic kernels, no atomics). With `slab`, q/k/v are the strided
+    head views of a qkv slab and the gradients go into the head views of one
+    (B, T, 3D) slab through `into=`."""
+    from dinov2_tpu_torch.ops.flash_attention import (
+        flash_backward,
+        flash_backward_reference,
+        flash_forward_lse,
+        flash_forward_reference,
+    )
+
+    qkv = _slab(b, t, heads, seed=t + heads, device=cuda)
+    g = _slab(b, t, heads, seed=t + heads + 1, device=cuda)[..., : 64 * heads]
+    g = g.reshape(b, t, heads, 64)
+    q, k, v = split_heads(qkv, heads)
+    if not slab:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out, lse = flash_forward_lse(q, k, v, 0.125)
+    assert torch.equal(out, flash_attention(q, k, v, 0.125))
+    out32, lse32 = flash_forward_reference(q.float(), k.float(), v.float(), 0.125)
+    _bound_holds(out, vanilla_attention(q, k, v, 0.125), out32)
+    assert (lse - lse32).abs().max().item() <= 1e-3
+
+    def run():
+        if not slab:
+            return flash_backward(q, k, v, out, lse, g, 0.125)
+        d_qkv = torch.full_like(qkv, float("nan"))
+        flash_backward(q, k, v, out, lse, g, 0.125, into=split_heads(d_qkv, heads))
+        assert torch.isfinite(d_qkv).all()
+        return split_heads(d_qkv, heads)
+
+    got, again = run(), run()
+    plain = flash_backward_reference(q, k, v, out, lse, g, 0.125)
+    want = flash_backward_reference(q.float(), k.float(), v.float(), out32, lse32, g.float(), 0.125)
+    torch.cuda.synchronize()
+    for a, a2, p, w in zip(got, again, plain, want):
+        assert torch.equal(a, a2)
+        assert torch.isfinite(a).all()
+        err = (a.float() - w).abs().max().item()
+        err_plain = (p.float() - w).abs().max().item()
+        assert err <= 2 * err_plain + 1e-3 * w.abs().max().item() + 1e-5
+
+
+def test_flash_kernels_report_their_tile_rows(cuda):
+    """The C entries pick a block's rows by shape: 128-query forward blocks
+    once the grid fills the card twice over (eight times for a short ragged
+    T), 64 otherwise; K6 always 64 keys and 128 queries."""
+    from dinov2_tpu_torch.ops.flash_attention import kernel_tile_rows
+
+    assert kernel_tile_rows(8, 1370, 16) == {
+        "forward": 128, "backward_keys": 64, "backward_queries": 128}
+    assert kernel_tile_rows(32, 257, 12)["forward"] == 64
+    assert kernel_tile_rows(64, 257, 12)["forward"] == 128
+    assert kernel_tile_rows(1, 1370, 16)["forward"] == 64
+    assert kernel_tile_rows(1, 4226, 16)["forward"] == 128
+
+
+def test_default_trainer_takes_a_step_on_cuda(cuda):
+    """`make_trainer(config)` with its own options (f32 compute, route
+    "auto", device "cuda") takes a step on the card: f32 activations go to
+    the plain attention route, no kernel launches, and the loss equals the
+    CPU's f32 step within f32 summation noise. An explicit kernel route with
+    f32 activations still raises in the wrapper."""
+    from dinov2_tpu_torch.models.params import init_params
+    from dinov2_tpu_torch.models.vit import ModelOptions
+    from dinov2_tpu_torch.ops.flash_attention import flash_backward
+    from dinov2_tpu_torch.parallel.train import make_trainer
+
+    config = DinoConfig(hidden_size=384, num_hidden_layers=2, num_attention_heads=6,
+                        num_classes=7, patch_size=14, img_size=70)
+    source = init_params(config, seed=0, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+    labels = rng.integers(0, 7, 4)
+    counters = (slab_layer_block, slab_attention, flash_attention, flash_backward)
+    before = [c.launches for c in counters]
+
+    trainer = make_trainer(config)
+    assert trainer.device.type == "cuda" and trainer.opts.compute_dtype == torch.float32
+    assert trainer.opts.flash_attention == "auto"
+    _, _, metrics = trainer.step(*trainer.place(source), images, labels)
+    torch.cuda.synchronize()
+    cpu = make_trainer(config, device="cpu")
+    _, _, cpu_metrics = cpu.step(*cpu.place(source), images, labels)
+    assert torch.isfinite(metrics["loss"])
+    assert abs(float(metrics["loss"]) - float(cpu_metrics["loss"])) <= 1e-4
+    assert [c.launches for c in counters] == before
+
+    for route in ("slab", True):
+        forced = make_trainer(config, opts=ModelOptions(
+            parity="hf", compute_dtype=torch.float32, remat=True, flash_attention=route))
+        with pytest.raises(NotImplementedError):
+            forced.step(*forced.place(source), images, labels)

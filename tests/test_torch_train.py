@@ -441,10 +441,17 @@ def test_train_refuses_a_mesh(dataset, backbone):
 
 
 def test_train_defaults_to_the_card():
-    """The CLI and the Trainer run on the card unless the caller asks for the CPU."""
+    """The CLIs and the Trainer run on the card unless the caller asks for the
+    CPU, and the defaults resolve together to something that runs there: the
+    train CLI's and `make_trainer`'s f32 compute with the route "auto" takes
+    the plain attention on a card (the CUDA kernels take bf16), the slab route
+    on the CPU, and bf16 the kernels."""
     import argparse
+    import inspect
 
+    from dinov2_tpu_torch.cli import train as train_cli
     from dinov2_tpu_torch.cli._common import add_common_args, dtype_of, mesh_axes_of
+    from dinov2_tpu_torch.ops.attention import resolve_attention_path
 
     p = argparse.ArgumentParser()
     add_common_args(p)
@@ -453,3 +460,19 @@ def test_train_defaults_to_the_card():
     assert mesh_axes_of(args) is None
     assert mesh_axes_of(p.parse_args(["--mesh", "2,4"])) == {"data": 2, "model": 4}
     assert Trainer.__dataclass_fields__["device"].default == "cuda"
+    assert inspect.signature(make_trainer).parameters["device"].default == "cuda"
+
+    args = train_cli.build_parser().parse_args(["--data", "x"])
+    assert (args.device, args.parity, args.flash_attn) == ("cuda", "hf", False)
+    assert dtype_of(args) == torch.float32
+    config = DinoConfig(**TINY)
+    opts = make_trainer(config, device="cpu").opts
+    assert (opts.compute_dtype, opts.flash_attention) == (torch.float32, "auto")
+    head_dim = config.hidden_size // config.num_attention_heads
+    assert resolve_attention_path("auto", 257, dtype_of(args), head_dim, args.device) == "vanilla"
+    assert resolve_attention_path(
+        opts.flash_attention, 257, opts.compute_dtype, head_dim, "cuda") == "vanilla"
+    assert resolve_attention_path(
+        opts.flash_attention, 257, opts.compute_dtype, head_dim, "cpu") == "slab"
+    assert resolve_attention_path(
+        opts.flash_attention, 257, torch.bfloat16, head_dim, "cuda") == "slab"
