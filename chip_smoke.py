@@ -37,7 +37,9 @@ calls). Each path runs with the launch counts set to 0 just before it and
 read just after.
 
 Phases, one line each (or one per format or shape), each with its seconds:
-device, build, kernel checks (K1, K3 and K2, K5, K4, K4 with lse and K6, the
+device, which image decoders import (a finding), build, kernel checks (K1,
+then K1 launch by launch beside torch.nn.functional.linear on the two GEMMs'
+operands, K3 and K2, K5, K4, K4 with lse and K6, the
 autograd Functions of K1, K2, K3 and K5, K7, K8), classify slice,
 its cross-check and the fuse_mlp slice with its own, quantized classify
 slice, its cross-check and its findings (other routes, weight memory),
@@ -241,6 +243,20 @@ def phase_device() -> str:
     return smi
 
 
+def phase_image_decoders() -> None:
+    """Which image decoders import on this machine: the port's CLIs decode
+    with cv2 and have no other way in yet. A finding, never a failure."""
+    import importlib
+
+    found = {}
+    for name in ("cv2", "PIL", "torchvision.io"):
+        try:
+            found[name] = getattr(importlib.import_module(name), "__version__", "imports")
+        except ImportError:
+            found[name] = "no"
+    print(f"image decoders on this machine (a finding, not a check): {found}")
+
+
 def phase_build() -> None:
     """Every kernel library, one nvcc each, started together."""
     from dinov2_tpu_torch.ops import _kernels
@@ -269,6 +285,59 @@ def phase_kernel_check(card: str) -> dict:
         lambda: slab_layer_reference(*args32, heads, scale, eps),
         card, half_layer_flops(b, t, d, heads), nbytes(*args, args[0]),
     )
+
+
+def phase_half_layer_split(card: str) -> dict:
+    """K1's launches one by one, at the main path's shape and at the training
+    slice's batch: torch.profiler's device time of each of its kernels over
+    ten calls (layer norm, QKV, attention, proj). Beside the
+    two GEMM launches, one torch.nn.functional.linear call each on the same
+    operands (the normalized rows, the attention output), a yardstick the
+    port never calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dinov2_tpu_torch.ops.fused_attention import slab_layer_buffers
+
+    d, heads, calls = 768, 12, 10
+    kernels = {"layer_norm_rows_kernel": "layer_norm", "BiasEpilogue": "qkv",
+               "flash_forward_kernel": "attention", "ResidualEpilogue": "proj"}
+    measured = {}
+    for b in (BATCH, TRAIN_BATCH):
+        args = _half_layer_args(np.random.default_rng(SEED), b, 257, d)
+        x, lns, lnb, wq, bq, wp, bp, _ = args
+        run = partial(slab_layer_buffers, *args, heads, 0.125, 1e-6)
+        _, _, attn = run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        ms = {}
+        for event in prof.key_averages():
+            for word, name in kernels.items():
+                if word in event.key:
+                    require(event.count == calls, f"K1 launched {event.key} {event.count} times")
+                    ms[name] = event.device_time_total / event.count / 1e3
+        require(set(ms) == set(kernels.values()), f"K1's kernels in the profile: {sorted(ms)}")
+        h = torch.nn.functional.layer_norm(x.float(), (d,), lns, lnb, 1e-6).to(x.dtype)
+        wq_t, wp_t = wq.T.contiguous(), wp.T.contiguous()  # linear takes (out, in)
+        linear = torch.nn.functional.linear
+        library = {"qkv": cuda_median_ms(partial(linear, h, wq_t, bq.to(x.dtype))),
+                   "proj": cuda_median_ms(partial(linear, attn, wp_t, bp.to(x.dtype)))}
+        tflops = {name: 2e-9 * b * 257 * d * n / ms[name]
+                  for name, n in (("qkv", 3 * d), ("proj", d))}
+        print(
+            f"K1 launch by launch, B={b} T=257 D={d}: device ms of a launch (torch.profiler, "
+            f"{calls} calls): layer norm {ms['layer_norm']:.4f}, QKV {ms['qkv']:.4f} "
+            f"({tflops['qkv']:.0f} TFLOP/s), attention {ms['attention']:.4f}, proj "
+            f"{ms['proj']:.4f} ({tflops['proj']:.0f} TFLOP/s), sum {sum(ms.values()):.4f}; one "
+            f"torch.nn.functional.linear call on the same operands: qkv {library['qkv']:.4f}, "
+            f"proj {library['proj']:.4f} ({card})"
+        )
+        suffix = "" if b == BATCH else f"_b{b}"
+        measured.update({f"ms_{name}{suffix}": value for name, value in ms.items()})
+        measured.update({f"library_ms_{name}{suffix}": value for name, value in library.items()})
+    return measured
 
 
 def phase_slab_attention_check(card: str) -> tuple[dict, dict]:
@@ -596,25 +665,24 @@ def phase_function_checks(card: str) -> dict:
 
 
 # sha256 of each inference kernel's output bytes on phase_output_digests'
-# seeded inputs, recorded on an NVIDIA H100 80GB HBM3 with CUDA 12.8: K1, K2,
-# K3 and K8 from a build of the sources as they were before the with_lse
-# variant entered the shared attention core (csrc/attention_core.cuh), K4
-# from its wgmma kernel (csrc/flash_attention.cu; the mma.sync kernel before
-# it gave fedb833cf86a345f)
-RECORDED_DIGESTS = {"K1": "867f80bd9af52824", "K2": "7de1ddce09564e6c", "K3": "7e73001d935cec19",
-                    "K4": "db6c0a22b377b664", "K8": "d4a00e2c9c944476"}
+# seeded inputs, recorded on an NVIDIA H100 80GB HBM3 with CUDA 12.8: K1, K2
+# and K3 from the wgmma kernels (csrc/wgmma_gemm.cuh's GEMMs and
+# csrc/flash_forward.cuh's tile loop on the slab's head views), K8 from
+# csrc/gemm_core.cuh's mma.sync GEMMs around that tile loop, K4 from its
+# wgmma kernel (the same tile loop; the mma.sync kernel before it gave
+# fedb833cf86a345f). Before K1, K2, K3 and K8 took the wgmma kernels they
+# gave 867f80bd9af52824, 7de1ddce09564e6c, 7e73001d935cec19, d4a00e2c9c944476.
+RECORDED_DIGESTS = {"K1": "cf2cbe3a19ddb848", "K2": "d179e4ab67c501f0", "K3": "a9ec9a1f534f1636",
+                    "K4": "db6c0a22b377b664", "K8": "c2b29f319d066d94"}
 
 
 def phase_output_digests() -> dict:
     """K1 (its three launches' buffers), K2, K3, K4 without lse and K8 on
     small seeded inputs at real widths: the outputs' sha256 against the
-    recorded digests, so that a change to the shared attention core
-    (csrc/attention_core.cuh, which K1, K2, K3 and K8 run) or to K4's own
-    kernel that alters an inference kernel's output shows. K4's digest is
-    its wgmma kernel's: that kernel sums and rounds in another order than
-    the mma.sync one before it, so its recorded digest changed with it. A
-    finding, not a check: another compiler version may order sums
-    otherwise."""
+    recorded digests, so that a change to the shared attention tile loop
+    (csrc/flash_forward.cuh, which K1, K2, K3, K4 and K8 run) or to a GEMM
+    core that alters an inference kernel's output shows. A finding, not a
+    check: another compiler version may order sums otherwise."""
     import hashlib
 
     from dinov2_tpu_torch.models.params import quantize_linear
@@ -1384,8 +1452,10 @@ def main() -> int:
     start = time.perf_counter()
     smi = phase_device()
     card = smi.replace(",", "")
+    phase_image_decoders()
     timed_phase("build", phase_build)
     k1_measured = timed_phase("K1 check", phase_kernel_check, card)
+    k1_measured.update(timed_phase("K1 launch by launch", phase_half_layer_split, card))
     k3_measured, k2_measured = timed_phase("K3 and K2 checks", phase_slab_attention_check, card)
     k5_measured = timed_phase("K5 check", phase_slab_mlp_check, card)
     k4_measured = timed_phase("K4 check", phase_flash_check, card)

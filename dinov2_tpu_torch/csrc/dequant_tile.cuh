@@ -92,7 +92,6 @@ inline QuantWeight quant_weight(const void* codes, const void* d, const void* mi
 // column col0 + r (zero past N), staged as ws[n][k] in bf16.
 struct QuantWeightTile {
   QuantWeight w;
-  static constexpr bool kNMajor = true;
 
   __device__ __forceinline__ void store8(bf16 (&ws)[kTile][kLds], int r, int c, int k0,
                                          int col0) const {

@@ -1,23 +1,22 @@
-// The port's shared bf16 GEMM core: one 64x64 output tile per block, four
+// The port's mma.sync bf16 GEMM core: one 64x64 output tile per block, four
 // warps, mma.sync m16n8k16 (bf16 in, f32 accumulate), 64-deep k-steps staged
-// in shared memory. K1 (slab_layer.cu), K7 (quant_matmul.cu) and K8
-// (quant_layer.cu) run it; they differ only in how a weight tile reaches
-// shared memory and in the epilogue, which are template parameters:
+// in shared memory. K7 (quant_matmul.cu) and K8 (quant_layer.cu) run it; how
+// a weight tile reaches shared memory and the epilogue are template
+// parameters (K1's and K2's dense GEMMs run on wgmma_gemm.cuh and take only
+// the epilogues from here, K5 the residual epilogue):
 //
-//   Weight: kNMajor says how the tile sits in shared memory, ws[k][n]
-//     (false) or ws[n][k] (true); store8(ws, r, c, k0, col0) writes the 8
-//     values at tile row r, columns c..c+7 (c % 8 == 0) for the k-step at
-//     k0 of the block at output column col0.
-//       DenseWeightTile (here): W (K, N) row-major bf16, ws[k][n].
+//   Weight: the tile sits in shared memory as ws[n][k]; store8(ws, r, c, k0,
+//     col0) writes the 8 values at tile row r, columns c..c+7 (c % 8 == 0)
+//     for the k-step at k0 of the block at output column col0.
 //       QuantWeightTile (dequant_tile.cuh): a ggml QuantLinear (N, K)
-//       dequantized on the way in, ws[n][k].
+//       dequantized on the way in.
 //   Epilogue: col = ep.column(c) reads what the output columns c and c + 1
 //     (c even) share across rows (their bias), once per warp tile; then
 //     ep(row, c, col, acc_c, acc_c1) for each row < M. It masks columns >= N
 //     itself.
 //
 // The tile loads are not pipelined (no cp.async, TMA or wgmma yet): this is
-// K1's simple first GEMM, lifted out of slab_layer.cu unchanged.
+// the port's simple first GEMM.
 
 #pragma once
 
@@ -28,24 +27,11 @@ namespace dinov2 {
 // minimum resident blocks per SM for gemm_kernel (no LN): caps it at 64
 // registers a thread, so eight 128-thread blocks share an SM. Without it the
 // residual epilogue's instantiation took 72 registers (seven blocks) and
-// K1's proj launch ran 8% slower than before the core was lifted out of
-// slab_layer.cu. gemm_ln_kernel keeps the compiler's own choice (56
-// registers): under this cap it took 64 and ran 1.5% slower, and with an
-// explicit minimum of 1 block it took 86 and ran 9% slower.
+// the half-layer's proj launch ran 8% slower. gemm_ln_kernel keeps the
+// compiler's own choice (56 registers): under this cap it took 64 and ran
+// 1.5% slower, and with an explicit minimum of 1 block it took 86 and ran 9%
+// slower.
 constexpr int kGemmBlocksPerSm = 8;
-
-// W (K, N) row-major bf16 with N a multiple of 64, staged as ws[k][n].
-struct DenseWeightTile {
-  const bf16* w;
-  int n;
-  static constexpr bool kNMajor = false;
-
-  __device__ __forceinline__ void store8(bf16 (&ws)[kTile][kLds], int r, int c, int k0,
-                                         int col0) const {
-    *reinterpret_cast<uint4*>(&ws[r][c]) = __ldg(
-        reinterpret_cast<const uint4*>(w + static_cast<size_t>(k0 + r) * n + col0 + c));
-  }
-};
 
 // bf16(bias) of the columns c and c + 1
 struct BiasPair {
@@ -67,6 +53,18 @@ struct BiasEpilogue {
     const float y0 = round_bf16(round_bf16(a0) + col.b0);
     const float y1 = round_bf16(round_bf16(a1) + col.b1);
     *reinterpret_cast<uint32_t*>(out + static_cast<size_t>(row) * n + c) = pack_floats(y0, y1);
+  }
+
+  // The same in two steps, for a kernel that gathers whole 16-byte pieces of
+  // a row before it writes (wgmma_gemm.cuh): the finished pair of columns c
+  // and c + 1, then eight finished values at row `row`, columns c..c + 7
+  // (c % 8 == 0).
+  __device__ __forceinline__ uint32_t pair(int, const BiasPair& col, float a0, float a1) const {
+    return pack_floats(round_bf16(a0) + col.b0, round_bf16(a1) + col.b1);
+  }
+
+  __device__ __forceinline__ void store8(int row, int c, uint4 v) const {
+    *reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * n + c) = v;
   }
 };
 
@@ -91,6 +89,29 @@ struct ResidualEpilogue {
     y0 = __bfloat162float(resid[at]) + round_bf16(y0 * round_bf16(ls[c]));
     y1 = __bfloat162float(resid[at + 1]) + round_bf16(y1 * round_bf16(ls[c + 1]));
     *reinterpret_cast<uint32_t*>(out + at) = pack_floats(y0, y1);
+  }
+
+  // The same in two steps (see BiasEpilogue): bf16(y * bf16(ls)) of the
+  // columns c and c + 1, then the residual added to eight of them.
+  __device__ __forceinline__ uint32_t pair(int c, const BiasPair& col, float a0, float a1) const {
+    const float y0 = round_bf16(round_bf16(a0) + col.b0);
+    const float y1 = round_bf16(round_bf16(a1) + col.b1);
+    return pack_floats(y0 * round_bf16(ls[c]), y1 * round_bf16(ls[c + 1]));
+  }
+
+  __device__ __forceinline__ void store8(int row, int c, uint4 v) const {
+    const size_t at = static_cast<size_t>(row) * n + c;
+    const uint4 x = *reinterpret_cast<const uint4*>(resid + at);
+    const bf16* xe = reinterpret_cast<const bf16*>(&x);
+    const bf16* ve = reinterpret_cast<const bf16*>(&v);
+    uint4 y;
+    uint32_t* ye = reinterpret_cast<uint32_t*>(&y);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ye[i] = pack_floats(__bfloat162float(xe[2 * i]) + __bfloat162float(ve[2 * i]),
+                          __bfloat162float(xe[2 * i + 1]) + __bfloat162float(ve[2 * i + 1]));
+    }
+    *reinterpret_cast<uint4*>(out + at) = y;
   }
 };
 
@@ -185,14 +206,8 @@ __device__ __forceinline__ void gemm_tile(const bf16* __restrict__ a, const Weig
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
         const int c = warp_n * 32 + ni * 8 + g;
-        uint32_t b0, b1;
-        if constexpr (Weight::kNMajor) {
-          b0 = ld_pair(&ws[c][kk + 2 * tig]);
-          b1 = ld_pair(&ws[c][kk + 8 + 2 * tig]);
-        } else {
-          b0 = pack_pair(ws[kk + 2 * tig][c], ws[kk + 2 * tig + 1][c]);
-          b1 = pack_pair(ws[kk + 8 + 2 * tig][c], ws[kk + 9 + 2 * tig][c]);
-        }
+        const uint32_t b0 = ld_pair(&ws[c][kk + 2 * tig]);
+        const uint32_t b1 = ld_pair(&ws[c][kk + 8 + 2 * tig]);
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) mma_16816(acc[mi][ni], af[mi], b0, b1);
       }

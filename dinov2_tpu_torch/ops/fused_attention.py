@@ -19,12 +19,14 @@ sources' notes.
 
 What bounds K1 on an H100, at the main path's shape (B=64, T=257,
 D=768, H=12): ~91 GFLOP per call (58 in the QKV GEMM, 19 in proj, 13 in
-attention), 1.1 of the forward's 2.9 TFLOP over 12 layers. This first
-version runs in three launches (LN+QKV GEMM, attention, proj GEMM with the
-bias/LayerScale/residual epilogue) and so writes and re-reads the 76 MB qkv
-slab and the 25 MB attention output in HBM each call, which the TPU kernel
-keeps on chip. Its GEMMs use mma.sync without pipelined loads. Keeping the
-slab on chip, wgmma and TMA are later work (ROADMAP.md).
+attention), 1.1 of the forward's 2.9 TFLOP over 12 layers. It runs in four
+launches: LN1 of every row, the QKV GEMM and the proj GEMM with the
+bias/LayerScale/residual epilogue on a pipelined wgmma GEMM core
+(csrc/wgmma_gemm.cuh), and between them the flash-attention tile loop on the
+slab's head views (csrc/flash_forward.cuh), which is K3's kernel and K4's.
+It writes and re-reads LN1's rows, the 76 MB qkv slab and the 25 MB attention
+output in HBM each call, which the TPU kernel keeps on chip: later work
+(ROADMAP.md).
 
 The kernel's softmax takes the exact running row max, so the JAX package's
 CLS-shift overflow rescue has no counterpart here.

@@ -1,5 +1,7 @@
 """Check and time each tile-size variant of the flash-attention kernels
-(K4, csrc/flash_attention.cu; K6, csrc/flash_backward.cu) on one GPU.
+(K4, csrc/flash_attention.cu; K6, csrc/flash_backward.cu) on one GPU. K4's
+tile loop (csrc/flash_forward.cuh) is K3's kernel too: the forward shapes
+are timed on the head views of a qkv slab, K3's two shapes among them.
 
     python3 scripts/tune_flash_tiles.py [--ptxas] [--quick]
 
@@ -11,11 +13,16 @@ turns at the shapes the paths use, beside one scaled_dot_product_attention
 call (forward, and its backward), and holds each variant against the plain
 PyTorch version over ragged sequence lengths. With --profile it ends with
 torch.profiler's device time of each kernel of one K4 (with lse) and one K6
-call at the backward shapes. With --ptxas it first prints what
-`nvcc -Xptxas -v` says of both sources (registers, spills, shared memory)
-and the count of HGMMA (wgmma) and LDGSTS (cp.async) instructions in their
-SASS. --quick skips the timing. Exits non-zero if a variant disagrees with
-the plain version. Needs a CUDA device and nvcc.
+call at the backward shapes. K1's GEMM core (csrc/wgmma_gemm.cuh) has its
+block shape and ring depth as macros too (-DDINOV2_GEMM_COLUMNS=,
+-DDINOV2_GEMM_STAGES=): each variant is held against K1's plain version at
+the same ragged lengths and K1 is timed on each at its shapes. With --ptxas
+it first prints what `nvcc -Xptxas -v` says of both sources and of
+csrc/slab_layer.cu (K1: the wgmma GEMM kernels of csrc/wgmma_gemm.cuh and
+the attention kernel as the slab kernels instantiate it): registers, spills,
+shared memory, and the count of HGMMA (wgmma) and LDGSTS (cp.async)
+instructions in their SASS. --quick skips the timing. Exits non-zero if a
+variant disagrees with the plain version. Needs a CUDA device and nvcc.
 """
 
 import argparse
@@ -38,9 +45,15 @@ from dinov2_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_backward_reference,
     flash_forward_reference,
 )
+from dinov2_tpu_torch.ops.fused_attention import (  # noqa: E402
+    slab_layer_buffers,
+    slab_layer_reference,
+)
 
 RAGGED_T = (1, 63, 64, 65, 127, 128, 129, 257, 300)
-FORWARD_SHAPES = ((8, 1370, 16), (8, 1370, 12), (1, 4226, 16), (32, 257, 12), (64, 257, 12))
+FORWARD_SHAPES = (
+    (8, 1370, 16), (8, 1370, 12), (1, 4226, 16), (8, 257, 12), (16, 257, 12), (32, 257, 12),
+    (64, 257, 12), (16, 257, 24))
 BACKWARD_SHAPES = ((8, 1370, 16), (32, 257, 12))
 SCALE = 0.125
 # a variant: the -D macros its build takes; () is the build the port loads
@@ -50,6 +63,11 @@ FORWARD_VARIANTS = {
 BACKWARD_VARIANTS = {  # (the dK/dV kernel's keys, the dQ kernel's queries)
     (keys, queries): (f"DINOV2_BACKWARD_KEY_ROWS={keys}", f"DINOV2_BACKWARD_QUERY_ROWS={queries}")
     for keys in (64, 128) for queries in (64, 128)}
+# K1's GEMM core (csrc/wgmma_gemm.cuh): (a block's columns, ring stages)
+GEMM_VARIANTS = {
+    (columns, stages): (f"DINOV2_GEMM_COLUMNS={columns}", f"DINOV2_GEMM_STAGES={stages}")
+    for columns, stages in ((128, 3), (256, 3), (256, 4))}
+GEMM_SHAPES = ((64, 257, 12), (32, 257, 12), (16, 257, 24))  # K1 at (B, T, heads), D = 64 heads
 _BUILD_ONE = (
     "import sys; from dinov2_tpu_torch.ops import _kernels; "
     "_kernels.NVCC_FLAGS += tuple(sys.argv[2:]); _kernels.build(sys.argv[1])")
@@ -64,6 +82,7 @@ def build_all() -> None:
     ops/_kernels.py reads its flags from the module)."""
     jobs = [("flash_attention", d) for d in (BY_SHAPE, *FORWARD_VARIANTS.values())]
     jobs += [("flash_backward", d) for d in (BY_SHAPE, *BACKWARD_VARIANTS.values())]
+    jobs += [("slab_layer", d) for d in (BY_SHAPE, *GEMM_VARIANTS.values())]
     procs = [subprocess.Popen([sys.executable, "-c", _BUILD_ONE, name, *flags(defines)], cwd=ROOT)
              for name, defines in jobs]
     if any(proc.wait() for proc in procs):
@@ -72,18 +91,20 @@ def build_all() -> None:
 
 @contextlib.contextmanager
 def variant(defines):
-    """Inside the block the two flash libraries are the ones built with these
-    macros (built by build_all; ops/_kernels.py names a library by its flags)."""
+    """Inside the block the flash libraries and K1's are the ones built with
+    these macros (built by build_all; ops/_kernels.py names a library by its
+    flags)."""
+    libs = (_kernels.flash_attention_lib, _kernels.flash_backward_lib, _kernels.slab_layer_lib)
     saved = _kernels.NVCC_FLAGS
     _kernels.NVCC_FLAGS = saved + flags(defines)
-    _kernels.flash_attention_lib.cache_clear()
-    _kernels.flash_backward_lib.cache_clear()
+    for lib in libs:
+        lib.cache_clear()
     try:
         yield
     finally:
         _kernels.NVCC_FLAGS = saved
-        _kernels.flash_attention_lib.cache_clear()
-        _kernels.flash_backward_lib.cache_clear()
+        for lib in libs:
+            lib.cache_clear()
 
 
 def median_ms(fn, reps: int = 20) -> float:
@@ -221,6 +242,35 @@ def check_variants(b, t, heads) -> bool:
     return ok
 
 
+def half_layer_args(b, t, d, seed):
+    rng = np.random.default_rng(seed)
+    arrays = [
+        (rng.standard_normal((b, t, d)), torch.bfloat16),
+        (rng.uniform(0.5, 1.5, d), torch.float32),
+        (rng.standard_normal(d) * 0.1, torch.float32),
+        (rng.standard_normal((d, 3 * d)) * 0.05, torch.bfloat16),
+        (rng.standard_normal(3 * d) * 0.1, torch.float32),
+        (rng.standard_normal((d, d)) * 0.05, torch.bfloat16),
+        (rng.standard_normal(d) * 0.1, torch.float32),
+        (rng.uniform(0.1, 1.0, d), torch.float32),
+    ]
+    return [torch.from_numpy(a).to("cuda", dt) for a, dt in arrays]
+
+
+def check_gemm_variants(b, t, heads) -> bool:
+    """K1 on each variant of its GEMM core against the plain version."""
+    args = half_layer_args(b, t, 64 * heads, seed=t + heads)
+    plain = slab_layer_reference(*args, heads, SCALE, 1e-6)
+    want = slab_layer_reference(*[a.float() for a in args], heads, SCALE, 1e-6)
+    ok = True
+    for pair, defines in GEMM_VARIANTS.items():
+        with variant(defines):
+            got = slab_layer_buffers(*args, heads, SCALE, 1e-6)[0]
+        torch.cuda.synchronize()
+        ok &= held(f"K1 (columns, stages)={pair} B={b} T={t} H={heads}", got, plain, want)
+    return ok
+
+
 def sdpa_pair(q, k, v, g):
     leaves = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -267,8 +317,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card)
-    with ThreadPoolExecutor(2) as pool:
-        names = ("flash_attention", "flash_backward")
+    with ThreadPoolExecutor(3) as pool:
+        names = ("flash_attention", "flash_backward", "slab_layer")
         reports = pool.map(ptxas_report, names) if opts.ptxas else ()
         build_all()
         for report in reports:
@@ -277,9 +327,10 @@ def main() -> int:
     ok = True
     for t in RAGGED_T + (1370,):
         for b, heads in ((2, 3), (1, 1)):
-            good = check_variants(b, t, heads)
+            good = check_variants(b, t, heads) & check_gemm_variants(b, t, heads)
             ok &= good
-            print(f"check B={b} T={t} H={heads}: both variants of K4, K4-lse and K6 "
+            print(f"check B={b} T={t} H={heads}: both variants of K4, K4-lse and K6, and K1 on "
+                  f"every variant of its GEMM core, "
                   f"{'agree with' if good else 'DISAGREE with'} the plain versions")
     if opts.quick:
         return 0 if ok else 1
@@ -310,6 +361,17 @@ def main() -> int:
         shown = "; ".join(f"keys {kr} queries {qr} {min(x):.4f}" for (kr, qr), x in ms.items())
         print(f"K6 B={b} T={t} H={heads}: ms (best of two medians) {shown}; SDPA's backward "
               f"{sdpa_ms:.4f}; the entry takes keys, queries {picked} ({card})")
+    for b, t, heads in GEMM_SHAPES:
+        args = half_layer_args(b, t, 64 * heads, seed=t)
+        ms = {}
+        order = list(GEMM_VARIANTS)
+        for pair in order + order[::-1]:
+            with variant(GEMM_VARIANTS[pair]):
+                ms.setdefault(pair, []).append(
+                    median_ms(lambda: slab_layer_buffers(*args, heads, SCALE, 1e-6)))
+        shown = "; ".join(f"{w}-column blocks, {st} stages {min(x):.4f}" for (w, st), x in ms.items())
+        print(f"K1 B={b} T={t} D={64 * heads}: ms of the four launches (best of two medians) "
+              f"{shown} ({card})")
     if opts.profile:
         profile_kernels(card)
     return 0 if ok else 1

@@ -256,11 +256,22 @@ def test_quant_matmul_kernel_matches_plain(cuda, fmt, m, k, n, activation, dtype
         assert err <= 2 * (plain.float() - want).abs().max().item() + 1e-3 * scale
 
 
+# K8 against K1 on the dequantized weights, in bf16 steps of the output's
+# scale. Measured on an NVIDIA H100 80GB HBM3: 0 at every shape and format of
+# the test below and at B=64, T=257, D=768 (both GEMM cores add the k16
+# products into f32 in k order). Nothing promises that mma.sync and wgmma
+# round alike, so one step is allowed.
+K8_K1_ULPS = 1
+
+
 @pytest.mark.parametrize("b, t, heads", [(1, 1, 2), (2, 37, 2), (3, 65, 4), (2, 257, 12)])
 @pytest.mark.parametrize("fmt, packed", [(f, True) for f in QUANT_FORMATS] + [("q4_1", False)])
 def test_quant_layer_kernel_matches_plain(cuda, fmt, packed, b, t, heads):
-    """K8 against its plain version with K1's bound, and bit for bit K1 on
-    the dequantized weights (the two differ only in their weight loader)."""
+    """K8 against its plain version with K1's bound, and against K1 on the
+    dequantized weights within K8_K1_ULPS bf16 steps of the output's scale:
+    the two share the attention kernel, but K8's GEMMs are mma.sync and K1's
+    wgmma on other tiles, and a bf16 rounding of the qkv slab or of the proj
+    output that fell the other way would move the result a step."""
     from dinov2_tpu_torch.ops.fused_quant_attention import (
         quant_layer_reference,
         slab_layer_block_quant,
@@ -280,7 +291,8 @@ def test_quant_layer_kernel_matches_plain(cuda, fmt, packed, b, t, heads):
     assert got.shape == (b, t, d) and torch.isfinite(got).all()
     err = (got.float() - want).abs().max().item()
     assert err <= 2 * (plain.float() - want).abs().max().item() + 1e-3 * want.abs().max().item()
-    assert torch.equal(got, k1)
+    step = want.abs().max().item() * 2.0 ** -8  # one bf16 step at the output's scale
+    assert (got.float() - k1.float()).abs().max().item() <= K8_K1_ULPS * step
 
 
 def test_quant_launch_counters_count_kernel_calls_only(cuda):
@@ -390,13 +402,48 @@ def test_slab_attention_kernels_match_plain(cuda, b, t, heads):
 @pytest.mark.parametrize("b, t, heads", [(2, 37, 2), (4, 257, 12), (2, 257, 24)])
 def test_slab_attention_kernels_equal_k1_on_its_slab(cuda, b, t, heads):
     """On the qkv slab K1 makes, K3 is K1's attention output and K2 K1's
-    output, bit for bit: they run K1's second and third launches."""
+    output, bit for bit: they run K1's attention and proj launches."""
     args = _half_layer_args(b, t, 64 * heads, seed=heads, device=cuda)
     x, _, _, _, _, wp, bp, ls = args
     out, qkv, attn = slab_layer_buffers(*args, heads, 0.125, 1e-6)
     assert torch.equal(out, slab_layer_block(*args, heads, 0.125, 1e-6))
     assert torch.equal(slab_attention(qkv, heads, 0.125), attn)
     assert torch.equal(slab_attention_block(x, qkv, wp, bp, ls, heads, 0.125), out)
+
+
+RAGGED_T = (1, 63, 64, 65, 127, 128, 129, 257, 300)
+
+
+@pytest.mark.parametrize("heads", [1, 3, 12])
+@pytest.mark.parametrize("t", RAGGED_T)
+def test_slab_kernels_match_plain_over_ragged_shapes(cuda, t, heads):
+    """K1, K2 and K3 each against its plain version with K1's bound, over
+    sequence lengths around the 64-key tiles and row counts M = 3 T around
+    the GEMM's 128-row tiles, at D = 64, 192 (N = 64 * odd: a last column
+    tile with one or three of its four swizzle atoms) and 768; K1 twice
+    gives equal bits."""
+    b, d = 3, 64 * heads
+    args = _half_layer_args(b, t, d, seed=t + heads, device=cuda)
+    x, _, _, _, _, wp, bp, ls = args
+    got = slab_layer_block(*args, heads, 0.125, 1e-6)
+    _bound_holds(got, slab_layer_reference(*args, heads, 0.125, 1e-6),
+                 slab_layer_reference(*[a.float() for a in args], heads, 0.125, 1e-6))
+    assert torch.equal(got, slab_layer_block(*args, heads, 0.125, 1e-6))
+    qkv = _slab(b, t, heads, seed=t + heads, device=cuda)
+    _bound_holds(slab_attention(qkv, heads, 0.125), _slab_reference(qkv, heads, 0.125),
+                 _slab_reference(qkv.float(), heads, 0.125))
+    block = (x, qkv, wp, bp, ls)
+    _bound_holds(slab_attention_block(*block, heads, 0.125),
+                 _slab_block_reference(*block, heads, 0.125),
+                 _slab_block_reference(*[a.float() for a in block], heads, 0.125))
+
+
+@pytest.mark.parametrize("b, t, heads", [(2, 37, 3), (4, 257, 12), (16, 257, 24), (1, 1370, 6)])
+def test_flash_slab_and_slab_attention_give_equal_bits(cuda, b, t, heads):
+    """flash_attention_slab and slab_attention on one slab: one kernel behind
+    both, so equal bits."""
+    qkv = _slab(b, t, heads, seed=t, device=cuda)
+    assert torch.equal(flash_attention_slab(qkv, heads, 0.125), slab_attention(qkv, heads, 0.125))
 
 
 def _mlp_args(b, t, d, seed, device, dh=None):
@@ -825,13 +872,16 @@ def test_flash_kernels_over_ragged_lengths(cuda, t, b, heads, slab):
 
 def test_flash_kernels_report_their_tile_rows(cuda):
     """The C entries pick a block's rows by shape: 128-query forward blocks
-    once the grid fills the card twice over (eight times for a short ragged
-    T), 64 otherwise; K6 always 64 keys and 128 queries."""
+    once the grid fills the card twice over (four times for a short ragged
+    T: both K3 shapes, B=64, H=12 and B=16, H=24 at T=257, and the training
+    batch), 64 otherwise; K6 always 64 keys and 128 queries."""
     from dinov2_tpu_torch.ops.flash_attention import kernel_tile_rows
 
     assert kernel_tile_rows(8, 1370, 16) == {
         "forward": 128, "backward_keys": 64, "backward_queries": 128}
-    assert kernel_tile_rows(32, 257, 12)["forward"] == 64
+    assert kernel_tile_rows(16, 257, 12)["forward"] == 64
+    assert kernel_tile_rows(32, 257, 12)["forward"] == 128
+    assert kernel_tile_rows(16, 257, 24)["forward"] == 128
     assert kernel_tile_rows(64, 257, 12)["forward"] == 128
     assert kernel_tile_rows(1, 1370, 16)["forward"] == 64
     assert kernel_tile_rows(1, 4226, 16)["forward"] == 128

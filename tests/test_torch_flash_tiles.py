@@ -176,7 +176,7 @@ def _held(got, plain, want, what):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("slab", [False, True], ids=["contiguous", "slab"])
-@pytest.mark.parametrize("heads", [1, 3])
+@pytest.mark.parametrize("heads", [1, 3, 12, 24])  # 12 and 24: K3's shapes (ViT-B, ViT-g)
 @pytest.mark.parametrize("t", RAGGED_T)
 def test_forward_tile_loops_match_plain_version(t, heads, slab, dtype):
     q, k, v, _ = _inputs(t, heads, slab, dtype, seed=t + heads)
