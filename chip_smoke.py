@@ -39,10 +39,13 @@ read just after.
 Phases, one line each (or one per format or shape), each with its seconds:
 device, which image decoders import (a finding), build, kernel checks (K1,
 then K1 launch by launch beside torch.nn.functional.linear on the two GEMMs'
-operands, K3 and K2, K5, K4, K4 with lse and K6, the
-autograd Functions of K1, K2, K3 and K5, K7, K8), classify slice,
+operands, K3 and K2, K5 and its three launches likewise, K4, K4 with lse and
+K6, the autograd Functions of K1, K2, K3 and K5, K7 with its dequantize and
+GEMM launches at fc1 and fc2 beside one linear call on the decoded weight,
+K8), classify slice,
 its cross-check and the fuse_mlp slice with its own, quantized classify
-slice, its cross-check and its findings (other routes, weight memory),
+slice, its cross-check and its findings (other routes, weight memory, the
+peak device memory of one call),
 feature slice, PCA, feature cross-check, ViT-g/14 slice at its three levels
 and its cross-check, training slice on both routes with its cross-check and
 export, long-sequence training; then a check that no "auto" attention route
@@ -287,6 +290,32 @@ def phase_kernel_check(card: str) -> dict:
     )
 
 
+def device_ms_by_launch(run, kernels: dict, what: str, calls: int = 10) -> dict:
+    """torch.profiler's device ms of one launch of each kernel of `kernels`
+    (a word of its name -> a label) over `calls` calls of run, each kernel
+    launched once a call. The profile may miss a record: on an H100 it once
+    held 9 of K7's 10 dequantize launches, the GEMM after each all 10. A
+    kernel's ms is the mean over the records it has, and it needs all but
+    one of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    totals = {name: [0, 0.0] for name in kernels.values()}  # records, device us
+    for event in prof.key_averages():
+        for word, name in kernels.items():
+            if word in event.key:
+                totals[name][0] += event.count
+                totals[name][1] += event.device_time_total
+    for name, (count, _) in totals.items():
+        require(calls - 1 <= count <= calls, f"{what}'s {name} kernel: {count} records of {calls}")
+    return {name: us / count / 1e3 for name, (count, us) in totals.items()}
+
+
 def phase_half_layer_split(card: str) -> dict:
     """K1's launches one by one, at the main path's shape and at the training
     slice's batch: torch.profiler's device time of each of its kernels over
@@ -294,8 +323,6 @@ def phase_half_layer_split(card: str) -> dict:
     two GEMM launches, one torch.nn.functional.linear call each on the same
     operands (the normalized rows, the attention output), a yardstick the
     port never calls."""
-    from torch.profiler import ProfilerActivity, profile
-
     from dinov2_tpu_torch.ops.fused_attention import slab_layer_buffers
 
     d, heads, calls = 768, 12, 10
@@ -307,18 +334,7 @@ def phase_half_layer_split(card: str) -> dict:
         x, lns, lnb, wq, bq, wp, bp, _ = args
         run = partial(slab_layer_buffers, *args, heads, 0.125, 1e-6)
         _, _, attn = run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                run()
-            torch.cuda.synchronize()
-        ms = {}
-        for event in prof.key_averages():
-            for word, name in kernels.items():
-                if word in event.key:
-                    require(event.count == calls, f"K1 launched {event.key} {event.count} times")
-                    ms[name] = event.device_time_total / event.count / 1e3
-        require(set(ms) == set(kernels.values()), f"K1's kernels in the profile: {sorted(ms)}")
+        ms = device_ms_by_launch(run, kernels, "K1", calls)
         h = torch.nn.functional.layer_norm(x.float(), (d,), lns, lnb, 1e-6).to(x.dtype)
         wq_t, wp_t = wq.T.contiguous(), wp.T.contiguous()  # linear takes (out, in)
         linear = torch.nn.functional.linear
@@ -392,6 +408,22 @@ def phase_slab_attention_check(card: str) -> tuple[dict, dict]:
     return k3, k2
 
 
+def _mlp_args(b, t, d) -> list:
+    """x, LN scale and bias, w1, b1, w2, b2, ls2 on the card."""
+    rng = np.random.default_rng(SEED + d)
+    arrays = [
+        (rng.standard_normal((b, t, d)), torch.bfloat16),  # x
+        (rng.uniform(0.5, 1.5, d), torch.float32),  # ln scale
+        (rng.standard_normal(d) * 0.1, torch.float32),  # ln bias
+        (rng.standard_normal((d, 4 * d)) * 0.05, torch.bfloat16),  # w1
+        (rng.standard_normal(4 * d) * 0.1, torch.float32),  # b1
+        (rng.standard_normal((4 * d, d)) * 0.05, torch.bfloat16),  # w2
+        (rng.standard_normal(d) * 0.1, torch.float32),  # b2
+        (rng.uniform(0.1, 1.0, d), torch.float32),  # ls2
+    ]
+    return [torch.from_numpy(a).to("cuda", dt) for a, dt in arrays]
+
+
 def phase_slab_mlp_check(card: str) -> dict:
     """K5 against its plain version at the fuse_mlp slice's shape for both
     parity modes' activations, and at ViT-L/14's 518 px shape."""
@@ -400,18 +432,7 @@ def phase_slab_mlp_check(card: str) -> dict:
     measured = {}
     for b, t, d, act in ((BATCH, 257, 768, "gelu_tanh_f16"), (BATCH, 257, 768, "gelu_erf"),
                          (FEATURE_BATCH, 1370, 1024, "gelu_tanh_f16")):
-        rng = np.random.default_rng(SEED + d)
-        arrays = [
-            (rng.standard_normal((b, t, d)), torch.bfloat16),  # x
-            (rng.uniform(0.5, 1.5, d), torch.float32),  # ln scale
-            (rng.standard_normal(d) * 0.1, torch.float32),  # ln bias
-            (rng.standard_normal((d, 4 * d)) * 0.05, torch.bfloat16),  # w1
-            (rng.standard_normal(4 * d) * 0.1, torch.float32),  # b1
-            (rng.standard_normal((4 * d, d)) * 0.05, torch.bfloat16),  # w2
-            (rng.standard_normal(d) * 0.1, torch.float32),  # b2
-            (rng.uniform(0.1, 1.0, d), torch.float32),  # ls2
-        ]
-        args = [torch.from_numpy(a).to("cuda", dt) for a, dt in arrays]
+        args = _mlp_args(b, t, d)
         args32 = [a.float() for a in args]
         measured[d, act] = check_kernel(
             f"slab_mlp_block B={b} T={t} D={d} DH={4 * d} {act}", "K5",
@@ -426,6 +447,40 @@ def phase_slab_mlp_check(card: str) -> dict:
         main[f"{key}_gelu_erf"] = measured[768, "gelu_erf"][key]
         main[f"{key}_vit_l_518"] = measured[1024, "gelu_tanh_f16"][key]
     return main
+
+
+def phase_mlp_split(card: str) -> dict:
+    """K5's three launches one by one at the fuse_mlp slice's shape (layer
+    norm, fc1 with the GELU, fc2 with the residual), by torch.profiler over
+    ten calls; beside each GEMM one torch.nn.functional.linear call on the
+    same operands (the normalized rows; the hidden activation), a yardstick
+    the port never calls."""
+    from dinov2_tpu_torch.ops.fused_attention import slab_mlp_block
+    from dinov2_tpu_torch.ops.qmatmul import apply_activation
+
+    b, t, d, act = BATCH, 257, 768, "gelu_tanh_f16"
+    args = _mlp_args(b, t, d)
+    x, lns, lnb, w1, b1, w2, b2, _ = args
+    ms = device_ms_by_launch(
+        partial(slab_mlp_block, *args, act, 1e-6),
+        {"layer_norm_rows_kernel": "layer_norm", "ActEpilogue": "fc1",
+         "ResidualEpilogue": "fc2"}, "K5")
+    linear = torch.nn.functional.linear
+    h = torch.nn.functional.layer_norm(x.float(), (d,), lns, lnb, 1e-6).to(x.dtype)
+    w1_t, w2_t = w1.T.contiguous(), w2.T.contiguous()  # linear takes (out, in)
+    hidden = apply_activation(linear(h, w1_t, b1.to(x.dtype)), act)
+    library = {"fc1": cuda_median_ms(partial(linear, h, w1_t, b1.to(x.dtype))),
+               "fc2": cuda_median_ms(partial(linear, hidden, w2_t, b2.to(x.dtype)))}
+    tflops = {name: 2e-9 * b * t * d * 4 * d / ms[name] for name in ("fc1", "fc2")}
+    print(
+        f"K5 launch by launch, B={b} T={t} D={d} {act}: device ms of a launch (torch.profiler, "
+        f"10 calls): layer norm {ms['layer_norm']:.4f}, fc1 {ms['fc1']:.4f} "
+        f"({tflops['fc1']:.0f} TFLOP/s), fc2 {ms['fc2']:.4f} ({tflops['fc2']:.0f} TFLOP/s), sum "
+        f"{sum(ms.values()):.4f}; one torch.nn.functional.linear call on the same operands: fc1 "
+        f"{library['fc1']:.4f}, fc2 {library['fc2']:.4f} ({card})"
+    )
+    return {**{f"ms_{name}": value for name, value in ms.items()},
+            **{f"library_ms_{name}": value for name, value in library.items()}}
 
 
 def phase_flash_check(card: str) -> dict:
@@ -816,11 +871,45 @@ def phase_quant_matmul_check(card: str) -> dict:
             )
     q = {name: measured[QUANT_SLICE_FORMAT, name] for name in shapes}
     return {
+        # the dequantize and GEMM launches of fc1 and fc2 one by one
+        **phase_quant_matmul_split(card, {name: shapes[name] for name in ("fc1", "fc2")}),
         # q4_0's numbers at fc1 (and the other shapes' times beside); the worst error
         **q["fc1"],
         "max_abs_err": max(v["max_abs_err"] for v in measured.values()),
         **{f"{key}_{name}": q[name][key] for name in ("fc2", "head") for key in ("ms", "plain_ms")},
     }
+
+
+def phase_quant_matmul_split(card: str, shapes: dict) -> dict:
+    """K7's two bf16 launches one by one for the quantized slice's format
+    (dequantize, then the GEMM on the k-major weight), by torch.profiler over
+    ten calls; beside the GEMM one torch.nn.functional.linear call on x and
+    the decoded weight, a yardstick the port never calls."""
+    from dinov2_tpu_torch.models.params import quantize_linear
+    from dinov2_tpu_torch.ops.qmatmul import dequant_weight
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel
+
+    measured = {}
+    for name, (m, k, n, act, dtype) in shapes.items():
+        rng = np.random.default_rng(SEED + k)
+        ql = quantize_linear(rng.standard_normal((n, k)) * 0.05, QUANT_SLICE_FORMAT, device="cuda")
+        x = torch.from_numpy(rng.standard_normal((m, k))).to("cuda", dtype)
+        bias = torch.from_numpy(rng.standard_normal(n) * 0.1).to("cuda", torch.float32)
+        ms = device_ms_by_launch(
+            partial(quant_matmul_kernel, x, ql, bias, act),
+            {"dequant_weight_kernel": "dequantize", "ActEpilogue": "gemm"}, "K7")
+        library = cuda_median_ms(partial(torch.nn.functional.linear, x,
+                                         dequant_weight(ql, dtype), bias.to(dtype)))
+        print(
+            f"K7 launch by launch, {QUANT_SLICE_FORMAT} {name} M={m} K={k} N={n} {act}: device ms "
+            f"of a launch (torch.profiler, 10 calls): dequantize {ms['dequantize']:.4f}, GEMM "
+            f"{ms['gemm']:.4f} ({2e-9 * m * k * n / ms['gemm']:.0f} TFLOP/s), sum "
+            f"{sum(ms.values()):.4f}; one torch.nn.functional.linear call on x and the decoded "
+            f"weight {library:.4f} ({card})"
+        )
+        measured.update({f"ms_{key}_{name}": value for key, value in ms.items()})
+        measured[f"library_ms_{name}"] = library
+    return measured
 
 
 def phase_quant_layer_check(card: str) -> dict:
@@ -916,6 +1005,13 @@ def phase_quant_slice(card: str, dense_rate: float) -> tuple[int, int]:
     forwards = 2 + TIMED_CALLS
     layers = config.num_hidden_layers
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine.classify_probs(images)
+    torch.cuda.synchronize()
+    call_peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+
     row_err = _check_probs(top5, probs, config)
     require(k8 == layers * forwards, f"K8 launched {k8} times in {forwards} forwards")
     require(k7 == (2 * layers + 1) * forwards, f"K7 launched {k7} times in {forwards} forwards")
@@ -952,7 +1048,9 @@ def phase_quant_slice(card: str, dense_rate: float) -> tuple[int, int]:
         f"quant finding, not a check: device memory of the load, {QUANT_SLICE_FORMAT} ViT-B/14: "
         f"fused {fused_mb:.1f} MB held ({weight_mb:.1f} MB of model buffers, peak "
         f"{fused_peak_mb:.1f} MB), dequant {dequant_mb:.1f} MB held (peak "
-        f"{dequant_peak_mb:.1f} MB) (torch.cuda memory stats, {card})"
+        f"{dequant_peak_mb:.1f} MB); one fused classify_probs call of {BATCH} images peaks "
+        f"{call_peak_mb:.1f} MB above what it starts from (activations and K7's transient "
+        f"bf16 weight scratch, one layer's weight at a time) (torch.cuda memory stats, {card})"
     )
     return k7, k8
 
@@ -1458,6 +1556,7 @@ def main() -> int:
     k1_measured.update(timed_phase("K1 launch by launch", phase_half_layer_split, card))
     k3_measured, k2_measured = timed_phase("K3 and K2 checks", phase_slab_attention_check, card)
     k5_measured = timed_phase("K5 check", phase_slab_mlp_check, card)
+    k5_measured.update(timed_phase("K5 launch by launch", phase_mlp_split, card))
     k4_measured = timed_phase("K4 check", phase_flash_check, card)
     k6_measured, lse_measured = timed_phase(
         "K4 with lse and K6 checks", phase_flash_backward_check, card)

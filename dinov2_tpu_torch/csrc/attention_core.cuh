@@ -1,8 +1,8 @@
 // Shared pieces of the port's hand-written Hopper kernels: the element type,
 // the 64-wide tile constants, bf16 packing and rounding helpers, a warp sum
 // and mma.sync m16n8k16. wgmma_tiles.cuh (and through it the attention
-// kernels K1 to K4, K6 and K8), gemm_core.cuh (K7, K8) and slab_mlp.cu (K5)
-// take them from here.
+// kernels K1 to K4, K6 and K8 and the wgmma GEMM of K1, K2, K5 and K7) and
+// gemm_core.cuh (K8's mma.sync GEMM) take them from here.
 
 #pragma once
 

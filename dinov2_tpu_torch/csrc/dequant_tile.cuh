@@ -1,6 +1,6 @@
 // Reading a ggml-quantized linear weight (models/params.py::QuantLinear)
-// straight from its packed form, for K7 (quant_matmul.cu) and K8
-// (quant_layer.cu).
+// straight from its packed form, for K7 (quant_matmul.cu: its dequantize
+// kernel and its f32 kernel) and K8 (quant_layer.cu: its GEMMs' loader).
 //
 // Layouts, as the loader writes them (QuantLinear's docstring):
 //   packed (q4_0/q4_1/q5_0/q5_1): codes (N, K/2) u8 natural-order planes,
@@ -88,7 +88,7 @@ inline QuantWeight quant_weight(const void* codes, const void* d, const void* mi
           static_cast<const uint8_t*>(qh_hi), n, k, packed, zero};
 }
 
-// gemm_core.cuh's weight loader for a QuantWeight: tile row r is output
+// gemm_core.cuh's weight loader for a QuantWeight (K8): tile row r is output
 // column col0 + r (zero past N), staged as ws[n][k] in bf16.
 struct QuantWeightTile {
   QuantWeight w;

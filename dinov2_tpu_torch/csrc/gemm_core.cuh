@@ -1,9 +1,10 @@
 // The port's mma.sync bf16 GEMM core: one 64x64 output tile per block, four
 // warps, mma.sync m16n8k16 (bf16 in, f32 accumulate), 64-deep k-steps staged
-// in shared memory. K7 (quant_matmul.cu) and K8 (quant_layer.cu) run it; how
-// a weight tile reaches shared memory and the epilogue are template
-// parameters (K1's and K2's dense GEMMs run on wgmma_gemm.cuh and take only
-// the epilogues from here, K5 the residual epilogue):
+// in shared memory. K8 (quant_layer.cu) runs it; how a weight tile reaches
+// shared memory and the epilogue are template parameters. The GEMMs of K1,
+// K2, K5 and K7 run on wgmma_gemm.cuh and take only the epilogues from here
+// (BiasEpilogue: K1's QKV; ResidualEpilogue: K1's and K2's proj, K5's fc2;
+// ActEpilogue: K5's fc1, K7):
 //
 //   Weight: the tile sits in shared memory as ws[n][k]; store8(ws, r, c, k0,
 //     col0) writes the 8 values at tile row r, columns c..c+7 (c % 8 == 0)
@@ -20,6 +21,7 @@
 
 #pragma once
 
+#include "activation.cuh"
 #include "attention_core.cuh"
 
 namespace dinov2 {
@@ -112,6 +114,53 @@ struct ResidualEpilogue {
                           __bfloat162float(xe[2 * i + 1]) + __bfloat162float(ve[2 * i + 1]));
     }
     *reinterpret_cast<uint4*>(out + at) = y;
+  }
+};
+
+// out (M, N) = act(bf16(acc) + bf16(bias)), the activation kAct
+// (activation.cuh) in f32 on the bf16 value and rounded once more; bias may
+// be null (no add). Any N >= 1: the columns past N are computed and not
+// written, and a row of a width N % 8 != 0 is not 16-byte aligned, so it is
+// written value by value. For wgmma_gemm.cuh only (pair / store8). The
+// activation is a template parameter, and the C entries switch on the
+// runtime code once per launch: the activation's code as a runtime switch
+// inside the epilogue's loop over 64 accumulator values made K5 14% and K7
+// at fc1 20% slower than with it fixed at compile time, on an H100
+// (scripts/compare_kernel_builds.py against a copy so changed).
+template <int kAct>
+struct ActEpilogue {
+  const float* bias;
+  bf16* out;
+  int n;
+
+  // bf16(bias) of the columns c and c + 1 that exist, else 0 (no bias add)
+  __device__ __forceinline__ BiasPair column(int c) const {
+    BiasPair col{0.f, 0.f};
+    if (bias && c < n) col.b0 = round_bf16(bias[c]);
+    if (bias && c + 1 < n) col.b1 = round_bf16(bias[c + 1]);
+    return col;
+  }
+
+  __device__ __forceinline__ uint32_t pair(int, const BiasPair& col, float a0, float a1) const {
+    float y0 = round_bf16(a0), y1 = round_bf16(a1);
+    if (bias) {
+      y0 = round_bf16(y0 + col.b0);
+      y1 = round_bf16(y1 + col.b1);
+    }
+    return pack_floats(activate(y0, kAct), activate(y1, kAct));
+  }
+
+  __device__ __forceinline__ void store8(int row, int c, uint4 v) const {
+    bf16* dst = out + static_cast<size_t>(row) * n + c;
+    if ((n & 7) == 0) {
+      if (c < n) *reinterpret_cast<uint4*>(dst) = v;
+      return;
+    }
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (c + i < n) dst[i] = e[i];
+    }
   }
 };
 

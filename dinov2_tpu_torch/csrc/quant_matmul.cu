@@ -9,72 +9,117 @@
 // _make_kernel_sym, _make_kernel_affine and _make_packed_kernel, reached
 // through quant_matmul_pallas.
 //
-// Two kernels, picked by x's type:
-//   - bf16 x (fc1, fc2; qkv and proj on the flash route): gemm_core.cuh's
-//     GEMM with the quant weight loader (dequant_tile.cuh). Each block
-//     dequantizes the 64x64 weight tiles of its output tile as it stages
-//     them (code -> f32, * d, + m, one bf16 cast: dequant_weight's order);
-//     mma.sync bf16 with f32 accumulation. Epilogue, the TPU kernel's
-//     _epilogue order: bf16(acc), + bf16(bias), then the activation in f32
-//     on the bf16 value, rounded to bf16. gelu_tanh_f16 rounds its input and
-//     its output to f16 (__float2half_rn) around PyTorch's tanh formula.
+// Picked by x's type:
+//   - bf16 x (fc1, fc2; qkv and proj on the flash route): two launches.
+//       1. dequant_weight_kernel turns the whole weight into W (N, K) bf16
+//          once per call, in a scratch buffer the caller allocated (at most
+//          one layer's weight: 4.7 MB at ViT-B's fc1), in dequant_weight's
+//          order (code -> f32, * d, + m, one bf16 cast; QuantWeight), bit
+//          for bit dequant_weight(W, bf16). A thread reads 16 bytes of codes
+//          and writes 16-byte pieces of W.
+//       2. wgmma_gemm.cuh's GEMM on that (N, K) weight as the k-major B
+//          operand (the layout of a QuantLinear: no transposed copy), 128 x
+//          256 output tiles on a 4-stage cp.async ring, with ActEpilogue
+//          (gemm_core.cuh; one instantiation per activation, picked once a
+//          launch), the TPU kernel's _epilogue order: bf16(acc),
+//          + bf16(bias), then the activation in f32 on the bf16 value,
+//          rounded to bf16. gelu_tanh_f16 rounds its input and its output to
+//          f16 around PyTorch's tanh formula. Any N: the weight's rows past
+//          N are zero-filled in shared memory and the epilogue writes only
+//          the columns < N (value by value where N % 8 != 0).
+//     The TPU kernel likewise dequantizes each weight tile once and reuses
+//     it across all of M. The held weights stay packed; the scratch lives
+//     for one call.
 //   - f32 x (the classifier head on f32 features): a plain FMA kernel on
 //     f32 tiles, the weight dequantized to f32, as dequant_weight(W, f32)
-//     and an f32 matmul compute it; epilogue acc + bias, then the activation.
-// M and N are masked at the edges (the head has N = 1000); K is a multiple
-// of 64, and of 128 for packed weights (a k-step lies inside one plane).
+//     and an f32 matmul compute it; epilogue acc + bias, then the
+//     activation. M and N are masked at the edges (the head has N = 1000).
+// K is a multiple of 64, and of 128 for packed weights (a k-step lies inside
+// one plane).
 //
 // What bounds it on an H100: at the classify path's fc1 (M=16448, K=768,
 // N=3072) a call is 78 GFLOP and reads 1.2 MB of q4_0 weight (4.7 MB in
 // bf16), 25 MB of x and writes 101 MB of y: compute-bound, ~0.08 ms at the
-// card's bf16 peak. This first version inherits K1's unpipelined GEMM
-// (~130 TFLOP/s in K1's proj launch) and adds the dequant work, ~4 integer
-// and 2 f32 operations per weight element per 64-row tile of x. The TPU
-// kernel dequantizes each weight tile once and reuses it across all M;
-// here every row tile repeats it, which keeps the blocks independent.
+// card's bf16 peak. Dequantizing once adds 1.2 MB read and 4.7 MB written
+// and read again (~5 us of HBM time).
 
-#include "activation.cuh"
 #include "dequant_tile.cuh"
+#include "wgmma_gemm.cuh"
 
+// Kernels sit in dinov2's unnamed namespace, as the headers' do: kernels in a
+// second unnamed namespace at file scope make nvcc's host stubs ambiguous.
+namespace dinov2 {
 namespace {
 
-using namespace dinov2;
+constexpr int kDequantThreads = 256;
 
-// out (M, N) bf16 = act(bf16(acc) + bf16(bias)); bias may be null. Masks
-// columns >= N; pairs are stored as one 32-bit word when N is even.
-struct ActEpilogue {
-  const float* bias;
-  int act;
-  bf16* out;
-  int n;
-
-  // bf16(bias) of the columns c and c + 1 that exist, else 0 (no bias add)
-  __device__ __forceinline__ BiasPair column(int c) const {
-    BiasPair col{0.f, 0.f};
-    if (bias && c < n) col.b0 = round_bf16(bias[c]);
-    if (bias && c + 1 < n) col.b1 = round_bf16(bias[c + 1]);
-    return col;
+// dst[0..15] = bf16 of 16 codes, each code * scale (+ mn where the format
+// has m), rounded in f32 without fused multiply-add: QuantWeight::dequant8's
+// arithmetic, written as two 16-byte pieces.
+__device__ __forceinline__ void store_dequant16(bf16* dst, const int (&q)[16], float scale,
+                                                const float* mins, size_t blk) {
+  const float mn = mins ? __ldg(mins + blk) : 0.f;
+  uint4 piece[2];
+  bf16* e = reinterpret_cast<bf16*>(piece);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    float v = __fmul_rn(static_cast<float>(q[i]), scale);
+    if (mins) v = __fadd_rn(v, mn);
+    e[i] = __float2bfloat16(v);
   }
+  reinterpret_cast<uint4*>(dst)[0] = piece[0];
+  reinterpret_cast<uint4*>(dst)[1] = piece[1];
+}
 
-  __device__ __forceinline__ void operator()(int row, int c, const BiasPair& col, float a0,
-                                             float a1) const {
-    if (c >= n) return;
-    float y0 = round_bf16(a0), y1 = round_bf16(a1);
-    if (bias) {
-      y0 = round_bf16(y0 + col.b0);
-      y1 = round_bf16(y1 + col.b1);
-    }
-    y0 = activate(y0, act);
-    y1 = activate(y1, act);
-    bf16* dst = out + static_cast<size_t>(row) * n + c;
-    if (c + 1 < n && (n & 1) == 0) {
-      *reinterpret_cast<uint32_t*>(dst) = pack_floats(y0, y1);
-    } else {
-      dst[0] = __float2bfloat16(y0);
-      if (c + 1 < n) dst[1] = __float2bfloat16(y1);
-    }
+// W (N, K) bf16 = dequant(W): a thread a 16-byte piece of codes, that is 16
+// values of an int8 SoA row, or 16 bytes of a packed row, whose low nibbles
+// are values j0..j0+15 and high nibbles values K/2+j0..K/2+j0+15.
+__global__ void __launch_bounds__(kDequantThreads)
+    dequant_weight_kernel(QuantWeight w, bf16* __restrict__ out) {
+  const int row_bytes = w.packed ? w.k / 2 : w.k;
+  const int pieces = row_bytes / 16;
+  const size_t piece = static_cast<size_t>(blockIdx.x) * kDequantThreads + threadIdx.x;
+  if (piece >= static_cast<size_t>(w.n) * pieces) return;
+  const int row = static_cast<int>(piece / pieces);
+  const int j0 = static_cast<int>(piece % pieces) * 16;
+  const uint4 raw =
+      __ldg(reinterpret_cast<const uint4*>(w.codes + static_cast<size_t>(row) * row_bytes + j0));
+  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&raw);
+  const size_t row_blocks = static_cast<size_t>(row) * (w.k >> 5);
+  bf16* dst = out + static_cast<size_t>(row) * w.k;
+  int q[16];
+  if (!w.packed) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) q[i] = static_cast<int8_t>(bytes[i]);
+    const size_t blk = row_blocks + (j0 >> 5);
+    store_dequant16(dst + j0, q, __ldg(w.d + blk), w.m, blk);
+    return;
   }
-};
+#pragma unroll
+  for (int high = 0; high < 2; ++high) {
+    uint32_t bits = 0;  // the 5th bits of the 16 values, bit i for value i
+    if (w.qh_lo) {
+      const uint8_t* qh =
+          (high ? w.qh_hi : w.qh_lo) + static_cast<size_t>(row) * (row_bytes >> 3) + (j0 >> 3);
+      bits = __ldg(qh) | (static_cast<uint32_t>(__ldg(qh + 1)) << 8);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t nibble = high ? bytes[i] >> 4 : bytes[i] & 0xFu;
+      q[i] = static_cast<int>(nibble | (((bits >> i) & 1u) << 4)) - w.zero;
+    }
+    const int k0 = j0 + high * row_bytes;
+    const size_t blk = row_blocks + (k0 >> 5);
+    store_dequant16(dst + k0, q, __ldg(w.d + blk), w.m, blk);
+  }
+}
+
+cudaError_t launch_dequant_weight(const QuantWeight& w, bf16* out, cudaStream_t s) {
+  const size_t pieces = static_cast<size_t>(w.n) * ((w.packed ? w.k / 2 : w.k) / 16);
+  const unsigned blocks = static_cast<unsigned>((pieces + kDequantThreads - 1) / kDequantThreads);
+  dequant_weight_kernel<<<blocks, kDequantThreads, 0, s>>>(w, out);
+  return cudaGetLastError();
+}
 
 constexpr int kF32Threads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kF32TileK = 32;     // one ggml block of k per step
@@ -146,34 +191,65 @@ __global__ void __launch_bounds__(kF32Threads)
 }
 
 }  // namespace
+}  // namespace dinov2
 
 extern "C" {
 
-// y = act(x @ dequant(W)^T + bias), one launch on `stream`. x (M, K) is bf16
-// (x_f32 == 0) or f32, y (M, N) the same type. W comes as codes, d, m (null
-// for q4_0/q5_0/q8_0), qh_lo and qh_hi (null but for packed q5), its layout
+// y = act(x @ dequant(W)^T + bias) on `stream`. x (M, K) is bf16 (x_f32 ==
+// 0) or f32, y (M, N) the same type. W comes as codes, d, m (null for
+// q4_0/q5_0/q8_0), qh_lo and qh_hi (null but for packed q5), its layout
 // (packed) and zero point. bias (N,) f32 may be null; activation is 0 none,
-// 1 gelu_tanh_f16, 2 gelu_erf, 3 gelu_tanh. Requires K % 64 == 0 (packed:
+// 1 gelu_tanh_f16, 2 gelu_erf, 3 gelu_tanh (another code returns
+// cudaErrorInvalidValue before any launch). weight_scratch: for bf16 x an
+// (N, K) bf16 buffer the caller allocated (dequantize, then the GEMM: two
+// launches), ignored for f32 x (one launch). Requires K % 64 == 0 (packed:
 // K/2 % 64 == 0), 16-byte aligned pointers, and the tensors' device current
-// on the calling thread.
+// on the calling thread. Returns the first launch's error, else
+// cudaGetLastError() after the last.
 int dinov2_quant_matmul(const void* x, int x_f32, const void* codes, const void* d,
                         const void* mins, const void* qh_lo, const void* qh_hi, int packed,
                         int zero, const void* bias, int activation, void* out, int m, int n,
-                        int k, void* stream) {
+                        int k, void* stream, void* weight_scratch) {
+  using namespace dinov2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const QuantWeight w = quant_weight(codes, d, mins, qh_lo, qh_hi, packed, zero, n, k);
-  const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
   if (x_f32) {
+    const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
     quant_matmul_f32_kernel<<<grid, kF32Threads, 0, s>>>(
         static_cast<const float*>(x), w, static_cast<const float*>(bias), activation,
         static_cast<float*>(out), m);
-  } else {
-    gemm_kernel<QuantWeightTile, ActEpilogue><<<grid, kThreads, 0, s>>>(
-        static_cast<const bf16*>(x), QuantWeightTile{w},
-        ActEpilogue{static_cast<const float*>(bias), activation, static_cast<bf16*>(out), n}, m,
-        k);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  if (activation < kNone || activation > kGeluTanh) return cudaErrorInvalidValue;
+  bf16* dense = static_cast<bf16*>(weight_scratch);
+  const cudaError_t err = launch_dequant_weight(w, dense, s);
+  if (err != cudaSuccess) return err;
+  const float* bias_ = static_cast<const float*>(bias);
+  bf16* out_ = static_cast<bf16*>(out);
+  auto gemm = [&](auto ep) {
+    return launch_wgmma_gemm<true>(static_cast<const bf16*>(x), dense, ep, m, n, k, s);
+  };
+  switch (activation) {
+    case kGeluTanhF16:
+      return gemm(ActEpilogue<kGeluTanhF16>{bias_, out_, n});
+    case kGeluErf:
+      return gemm(ActEpilogue<kGeluErf>{bias_, out_, n});
+    case kGeluTanh:
+      return gemm(ActEpilogue<kGeluTanh>{bias_, out_, n});
+    default:
+      return gemm(ActEpilogue<kNone>{bias_, out_, n});
+  }
+}
+
+// W (N, K) bf16 = dequant_weight(W, bf16), bit for bit: the first of the bf16
+// path's two launches alone, on `stream`. The arguments as above; out is an
+// (N, K) bf16 buffer.
+int dinov2_dequant_weight_bf16(const void* codes, const void* d, const void* mins,
+                               const void* qh_lo, const void* qh_hi, int packed, int zero,
+                               void* out, int n, int k, void* stream) {
+  using namespace dinov2;
+  return launch_dequant_weight(quant_weight(codes, d, mins, qh_lo, qh_hi, packed, zero, n, k),
+                               static_cast<bf16*>(out), static_cast<cudaStream_t>(stream));
 }
 
 const char* dinov2_cuda_error_string(int code) {

@@ -1,13 +1,17 @@
-// The dense bf16 GEMM of the attention half-layer on Hopper, K1's QKV and
-// proj launches (slab_layer.cu) and K2's proj (slab_attention.cu), and the
-// layer norm in front of K1's,
+// The port's dense bf16 GEMM on Hopper: K1's QKV and proj launches
+// (slab_layer.cu), K2's proj (slab_attention.cu), K5's fc1 and fc2
+// (slab_mlp.cu) and K7's product on its dequantized weight (quant_matmul.cu);
+// and the layer norm in front of K1's and K5's,
 //
 //     h (M, K) = bf16(LN(x))                       layer_norm_rows_kernel
 //     out (M, N) = ep(A @ W)                       wgmma_gemm_kernel
 //
-// for A (M, K) and W (K, N) bf16 row-major, with gemm_core.cuh's epilogues
-// (BiasEpilogue, ResidualEpilogue) and their rounding points. K % 64 == 0,
-// N % 64 == 0, any M >= 1.
+// for A (M, K) bf16 row-major and W bf16 either (K, N) row-major, the (in,
+// out) layout of the dense weights, or (N, K) row-major (kKMajorWeight), the
+// (out, in) layout of a dequantized QuantLinear; with gemm_core.cuh's
+// epilogues (BiasEpilogue, ResidualEpilogue, ActEpilogue) and their rounding
+// points. K % 64 == 0, any M >= 1; N % 64 == 0 for a (K, N) weight, any
+// N >= 1 for an (N, K) one with ActEpilogue, which masks its columns.
 //
 // What bounds it on an H100: at K1's shape (M = 64*257 = 16448, K = 768) the
 // QKV product is 58.2 GFLOP over 25 MB in, 76 MB out and 3.5 MB of weight,
@@ -27,9 +31,12 @@
 // transposed copy of W exists anywhere. A warpgroup's B operand is two of
 // those 64-column swizzle atoms, and its descriptor's leading byte offset is
 // the distance between them (8 KB), which an operand wider than one atom
-// needs. One k-step is four wgmma m64n128k16 a warpgroup (m64n64k16 with
-// both operands in shared memory would read 4 KB for 32 tensor clocks, the
-// whole shared-memory rate). A step's products are committed and left
+// needs. An (N, K) weight is staged as the A tile is, kGemmCols k-major rows
+// of 128 bytes (rows past N zero-filled), and read without the transpose bit
+// (as K is in the attention kernels): a warpgroup's 128 rows are 16 groups
+// of eight, 1024 bytes apart. One k-step is four wgmma m64n128k16 a
+// warpgroup (m64n64k16 with both operands in shared memory would read 4 KB
+// for 32 tensor clocks, the whole shared-memory rate). A step's products are committed and left
 // running while the next step lands; a step waits only for the products of
 // the step before it, whose stage the step after refills. No branch goes
 // around a wgmma and the accumulators are touched by nothing else inside the
@@ -55,7 +62,9 @@
 //
 // The ragged edges are masked, never padded in memory: rows past M are
 // zero-filled in shared memory and not written; 64-column atoms past N
-// (N = 64 * odd) are zero-filled and not written.
+// (N = 64 * odd) are zero-filled and not written, and inside the last atom
+// an (N, K) weight's rows past N are zero and the epilogue drops their
+// columns.
 
 #pragma once
 
@@ -106,19 +115,21 @@ static_assert(kGemmThreads / 32 * kStripBytes <= kGemmStages * kGemmStageBytes,
   "%55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
 // d (64 x 128 of this warpgroup) += A . B for one k16 step: A (64 x 16)
-// k-major and B (16 x 128) mn-major, both in shared memory. d is float[64]:
-// element 4*nt + j is row 16*w + g + 8*(j >> 1), column 8*nt + 2*tig + (j & 1)
-// (the layout of wgmma_tiles.cuh, 16 n-tiles wide).
+// k-major and B (16 x 128) mn-major (kTransposeB) or k-major, both in shared
+// memory. d is float[64]: element 4*nt + j is row 16*w + g + 8*(j >> 1),
+// column 8*nt + 2*tig + (j & 1) (the layout of wgmma_tiles.cuh, 16 n-tiles
+// wide).
+template <bool kTransposeB>
 __device__ __forceinline__ void wgmma_64x128x16_ss(float (&d)[64], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " DINOV2_ACC64_LIST
-      ", %64, %65, p, 1, 1, 0, 1;\n"
+      ", %64, %65, p, 1, 1, 0, %67;\n"
       "}\n"
       : DINOV2_ACC64(d)
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(kTransposeB ? 1 : 0));
 }
 
 // The descriptor of an mn-major operand made of 64-column swizzled tiles
@@ -169,8 +180,9 @@ __global__ void __launch_bounds__(kLayerNormThreads)
   }
 }
 
-// One block's 128 x kGemmCols output tile of ep(A @ W); see the note above.
-template <class Epilogue>
+// One block's 128 x kGemmCols output tile of ep(A @ W), W (K, N) or, with
+// kKMajorWeight, (N, K); see the note above.
+template <class Epilogue, bool kKMajorWeight = false>
 __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSm)
     wgmma_gemm_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w, Epilogue ep, int m,
                       int n, int k) {
@@ -183,20 +195,25 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSm)
   const int wg_row = wg & 1, wg_col = wg >> 1;  // this warpgroup's 64 rows, 128 columns
   const int g = lane >> 2, tig = lane & 3;
   const int row0 = blockIdx.y * kGemmRows, col0 = blockIdx.x * kGemmCols;
-  const int atoms = min(kAtoms, (n - col0) / kTile);  // those that N has
+  const int atoms = min(kAtoms, (n - col0 + kTile - 1) / kTile);  // those that N reaches
   const int steps = k / kTile;
-  const size_t ld_w = static_cast<size_t>(n);
+  const size_t ld_w = static_cast<size_t>(kKMajorWeight ? k : n);
 
-  // step j's A rows and its W rows, the atoms past N zero-filled
+  // step j's A rows and its W rows, the atoms (rows) past N zero-filled
   auto load_step = [&](int stage, int j) {
     const uint32_t a_s = ring + stage * kGemmStageBytes, w_s = a_s + kGemmRows * kRowBytes;
-    const bf16* w_j = w + static_cast<size_t>(j) * kTile * ld_w + col0;
     load_tile_async<kGemmRows, kGemmThreads>(a_s, a + j * kTile, static_cast<size_t>(k), row0, m);
+    if constexpr (kKMajorWeight) {
+      load_tile_async<kGemmCols, kGemmThreads>(w_s, w + j * kTile, ld_w, col0, n);
+    } else {
+      const bf16* w_j = w + static_cast<size_t>(j) * kTile * ld_w + col0;
 #pragma unroll
-    for (int atom = 0; atom < kAtoms; ++atom) {
-      const bool has = atom < atoms;
-      load_tile_async<kTile, kGemmThreads>(w_s + atom * kTileBytes, has ? w_j + atom * kTile : w_j,
-                                           ld_w, 0, has ? kTile : 0);
+      for (int atom = 0; atom < kAtoms; ++atom) {
+        const bool has = atom < atoms;
+        load_tile_async<kTile, kGemmThreads>(w_s + atom * kTileBytes,
+                                             has ? w_j + atom * kTile : w_j, ld_w, 0,
+                                             has ? kTile : 0);
+      }
     }
   };
 
@@ -222,13 +239,17 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSm)
     if (j + kGemmStages - 2 < steps) load_step(fill, j + kGemmStages - 2);
     cp_async_commit();
 
+    // this warpgroup's 128 weight columns: two atoms, or 128 k-major rows,
+    // 16 KB in either case; a k16 step is 16 rows (2048 bytes) or 32 bytes on
+    const uint32_t w_s = a_s + kGemmRows * kRowBytes + wg_col * 2 * kTileBytes;
     const uint64_t da = tile_descriptor(a_s + wg_row * kTileBytes);
-    const uint64_t db =
-        wide_tile_descriptor(a_s + kGemmRows * kRowBytes + wg_col * 2 * kTileBytes);
+    const uint64_t db = kKMajorWeight ? tile_descriptor(w_s) : wide_tile_descriptor(w_s);
     fence_registers(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) wgmma_64x128x16_ss(acc, da + 2 * kc, db + 128 * kc);
+    for (int kc = 0; kc < 4; ++kc) {
+      wgmma_64x128x16_ss<!kKMajorWeight>(acc, da + 2 * kc, db + (kKMajorWeight ? 2 : 128) * kc);
+    }
     wgmma_commit();
     wgmma_wait<1>();  // step j - 1's products
     stage = stage + 1 == kGemmStages ? 0 : stage + 1;
@@ -278,11 +299,11 @@ inline cudaError_t launch_layer_norm_rows(const bf16* x, const float* ln_scale,
   return cudaGetLastError();
 }
 
-// ep(A @ W) on stream s.
-template <class Epilogue>
+// ep(A @ W) on stream s, W (K, N) or, with kKMajorWeight, (N, K).
+template <bool kKMajorWeight = false, class Epilogue>
 cudaError_t launch_wgmma_gemm(const bf16* a, const bf16* w, Epilogue ep, int m, int n, int k,
                               cudaStream_t s) {
-  auto kernel = wgmma_gemm_kernel<Epilogue>;
+  auto kernel = wgmma_gemm_kernel<Epilogue, kKMajorWeight>;
   static SharedMemoryGrant grant;
   const cudaError_t err = grant(kernel, kGemmSharedBytes);
   if (err != cudaSuccess) return err;

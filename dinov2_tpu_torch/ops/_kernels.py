@@ -110,7 +110,7 @@ def slab_mlp_lib() -> ctypes.CDLL:
     """The K5 library (csrc/slab_mlp.cu), built on first use."""
     lib = _load("slab_mlp")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dinov2_slab_mlp_bf16.argtypes = [ptr] * 9 + [i32] * 4 + [f32, ptr]
+    lib.dinov2_slab_mlp_bf16.argtypes = [ptr] * 9 + [i32] * 4 + [f32, ptr, ptr]
     lib.dinov2_slab_mlp_bf16.restype = i32
     return lib
 
@@ -149,10 +149,21 @@ def quant_matmul_lib() -> ctypes.CDLL:
     lib = _load("quant_matmul")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.dinov2_quant_matmul.argtypes = (
-        [ptr, i32] + _QUANT_WEIGHT_ARGS + [ptr, i32, ptr] + [i32] * 3 + [ptr]
+        [ptr, i32] + _QUANT_WEIGHT_ARGS + [ptr, i32, ptr] + [i32] * 3 + [ptr, ptr]
     )
     lib.dinov2_quant_matmul.restype = i32
     return lib
+
+
+@functools.cache
+def dequant_weight_entry():
+    """K7's dequantize launch alone (csrc/quant_matmul.cu's
+    dinov2_dequant_weight_bf16), bound on first use: tests and timing call
+    it, the port's paths reach the kernel through dinov2_quant_matmul."""
+    fn = quant_matmul_lib().dinov2_dequant_weight_bf16
+    fn.argtypes = _QUANT_WEIGHT_ARGS + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache

@@ -13,9 +13,10 @@ and `_slab_mlp_kernel`/`_slab_mlp_flat_kernel` of
 `dinov2_tpu/ops/fused_attention.py`; bf16 only, anything else raises. On a
 CPU tensor each runs its plain PyTorch version (`slab_layer_reference`,
 `_slab_block_reference`, `_slab_reference`, `slab_mlp_reference`), which
-keeps the JAX package's unfused ordering. Every wrapper counts its kernel
-launches in `.launches`. What bounds K2, K3 and K5 on the card is in their
-sources' notes.
+keeps the JAX package's unfused ordering. Every wrapper counts its calls
+that launch kernels in `.launches` (one a call, however many launches the
+entry makes). What bounds K2, K3 and K5 on the card is in their sources'
+notes.
 
 What bounds K1 on an H100, at the main path's shape (B=64, T=257,
 D=768, H=12): ~91 GFLOP per call (58 in the QKV GEMM, 19 in proj, 13 in
@@ -26,7 +27,9 @@ bias/LayerScale/residual epilogue on a pipelined wgmma GEMM core
 slab's head views (csrc/flash_forward.cuh), which is K3's kernel and K4's.
 It writes and re-reads LN1's rows, the 76 MB qkv slab and the 25 MB attention
 output in HBM each call, which the TPU kernel keeps on chip: later work
-(ROADMAP.md).
+(ROADMAP.md). K5 is three launches on the same blocks: LN2 of every row, fc1
+with the activation epilogue into an (M, 4D) hidden buffer in HBM, and fc2
+with the bias/LayerScale/residual epilogue.
 
 The kernel's softmax takes the exact running row max, so the JAX package's
 CLS-shift overflow rescue has no counterpart here.
@@ -450,13 +453,15 @@ def slab_mlp_block(
 ) -> torch.Tensor:
     """x + ls2 * (fc2(act(fc1(LN(x)) + b1)) + b2): x (B, T, D); w1 (D, DH)
     and w2 (DH, D) stored (in, out); ln_scale, ln_bias, b2, ls2 (D,) and b1
-    (DH,) in f32; activation "gelu_tanh_f16" | "gelu_erf" | "gelu_tanh". The
-    (T, DH) hidden activation never reaches device memory.
+    (DH,) in f32; activation "gelu_tanh_f16" | "gelu_erf" | "gelu_tanh".
 
-    CPU tensors run the plain version. CUDA tensors launch the K5 kernel
-    (bf16, D in MLP_KERNEL_WIDTHS, DH = 4 D, any T; anything else raises) and
-    add one to `slab_mlp_block.launches`. Where an input requires grad the
-    result carries the recompute gradient of the module docstring."""
+    CPU tensors run the plain version. CUDA tensors launch the K5 kernels
+    (bf16, D in MLP_KERNEL_WIDTHS, DH = 4 D, any T; anything else raises):
+    LN2, fc1 with the activation into a (B*T, DH) bf16 hidden buffer
+    allocated here for the call (it goes through device memory, written once
+    and read once), fc2 with the residual; and add one to
+    `slab_mlp_block.launches`. Where an input requires grad the result
+    carries the recompute gradient of the module docstring."""
     if activation is None or activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
     tensors = (x, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
@@ -480,11 +485,13 @@ def slab_mlp_block(
     from dinov2_tpu_torch.ops._kernels import check_status, slab_mlp_lib
 
     lib = slab_mlp_lib()
-    with torch.cuda.device(x.device):  # the launch goes to the current device
+    hidden = torch.empty((b * t, dh), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):  # the launches go to the current device
         code = lib.dinov2_slab_mlp_bf16(
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), ls2.data_ptr(), out.data_ptr(), b * t, d, dh,
             ACTIVATIONS[activation], eps, torch.cuda.current_stream(x.device).cuda_stream,
+            hidden.data_ptr(),
         )
     check_status(lib, code, "slab_mlp_block")
     slab_mlp_block.launches += 1

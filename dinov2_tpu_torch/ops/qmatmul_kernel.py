@@ -5,12 +5,15 @@
 
 for x (..., K) bf16 or f32 and an (N, K) QuantLinear (models/params.py) in
 any of the five ggml formats and either layout. On a CUDA tensor it launches
-the hand-written kernel in csrc/quant_matmul.cu, which replaces the Pallas
+the hand-written kernels in csrc/quant_matmul.cu, which replace the Pallas
 TPU kernels `_make_kernel_sym`, `_make_kernel_affine` and
-`_make_packed_kernel` (`quant_matmul_pallas`) and reads the weight straight
-from its ggml blocks: bf16 x runs mma.sync on bf16 weight tiles, f32 x (the
-classifier head) an f32 FMA kernel on f32 tiles. On a CPU tensor it runs the
-plain PyTorch version, `quant_matmul_reference`.
+`_make_packed_kernel` (`quant_matmul_pallas`) and read the weight from its
+ggml blocks: for bf16 x a kernel dequantizes the whole weight once into an
+(N, K) bf16 buffer that lives for the call (`dequant_weight_kernel` is that
+launch alone), then the wgmma GEMM of csrc/wgmma_gemm.cuh takes it with the
+bias/activation epilogue; f32 x (the classifier head) runs an f32 FMA kernel
+on f32 tiles dequantized as they are staged. The held weights stay packed.
+On a CPU tensor it runs the plain PyTorch version, `quant_matmul_reference`.
 
 Numerics: the kernel dequantizes in `dequant_weight`'s order (code -> f32,
 x d, + m, one cast), the JAX package's "xla" backend and K8's contract. The
@@ -97,8 +100,9 @@ def quant_matmul_kernel(
     """act(x @ dequant(W)^T + bias): x (..., K), W an (N, K) QuantLinear,
     bias (N,) f32 or None -> (..., N) in x's dtype.
 
-    CPU tensors run the plain version. CUDA tensors launch the K7 kernel
-    (bf16 or f32 x; anything else raises) and add one to
+    CPU tensors run the plain version. CUDA tensors launch the K7 kernels
+    (bf16 or f32 x; anything else raises; bf16 x: the dequantize kernel into
+    an (N, K) bf16 scratch allocated here, then the GEMM) and add one to
     `quant_matmul_kernel.launches`. An input that requires grad raises: the
     quantized weights are not trainable and the kernel has no backward."""
     refuse_quant_grad("quant_matmul_kernel", x, bias)
@@ -126,11 +130,14 @@ def quant_matmul_kernel(
     m = x.numel() // k
     out = torch.empty((*lead, n), dtype=x.dtype, device=x.device)
     if m:
-        with torch.cuda.device(x.device):  # the launch goes to the current device
+        f32 = x.dtype == torch.float32
+        scratch = None if f32 else torch.empty((n, k), dtype=x.dtype, device=x.device)
+        with torch.cuda.device(x.device):  # the launches go to the current device
             code = lib.dinov2_quant_matmul(
-                x.data_ptr(), int(x.dtype == torch.float32), *quant_weight_args(ql),
+                x.data_ptr(), int(f32), *quant_weight_args(ql),
                 None if bias is None else bias.data_ptr(), ACTIVATIONS[activation],
                 out.data_ptr(), m, n, k, torch.cuda.current_stream(x.device).cuda_stream,
+                None if scratch is None else scratch.data_ptr(),
             )
         check_status(lib, code, "quant_matmul_kernel")
         quant_matmul_kernel.launches += 1
@@ -138,3 +145,33 @@ def quant_matmul_kernel(
 
 
 quant_matmul_kernel.launches = 0  # kernel launches on CUDA tensors
+
+
+def dequant_weight_kernel(ql) -> torch.Tensor:
+    """dequant_weight(ql, torch.bfloat16), (N, K): the first of K7's two
+    bf16 launches alone (the port's paths reach it only through
+    quant_matmul_kernel; tests and timing call it here).
+
+    A weight on the CPU runs the plain version, dequant_weight. On a card
+    the kernel launches and `dequant_weight_kernel.launches` gains one."""
+    device = ql.codes.device
+    if device.type == "cpu":
+        return dequant_weight(ql, torch.bfloat16)
+    if device.type != "cuda":
+        raise ValueError(f"no dequant_weight_kernel for device {device}")
+    n, k = check_quant_weight(ql, "weight", device)
+    from dinov2_tpu_torch.ops._kernels import check_status, dequant_weight_entry, quant_matmul_lib
+
+    entry = dequant_weight_entry()
+    out = torch.empty((n, k), dtype=torch.bfloat16, device=device)
+    with torch.cuda.device(device):  # the launch goes to the current device
+        code = entry(
+            *quant_weight_args(ql), out.data_ptr(), n, k,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    check_status(quant_matmul_lib(), code, "dequant_weight_kernel")
+    dequant_weight_kernel.launches += 1
+    return out
+
+
+dequant_weight_kernel.launches = 0  # kernel launches on CUDA tensors

@@ -4,19 +4,24 @@
 
 DIR holds another version of dinov2_tpu_torch/csrc/ (e.g. the parent
 commit's: `git archive <commit> dinov2_tpu_torch/csrc | tar -x -C <dir>`).
-For K1, K2, K3, K4 (with and without lse), K6 (dq, dk, dv) and K8, at the
-shapes chip_smoke.py checks them at, it builds both versions, runs both
-wrappers on the same seeded inputs, and times them in turns (other, this,
-this, other; median CUDA-event ms, and the host's microseconds to issue one
-call with the card never waited for). K4 (with and without lse) and K6 must
-be equal bit for bit; so must K3's backward on its flash route, which is K4
-with lse and K6 behind autograd (four launches: where the event time is the
-host time, the host binds it). K1, K2, K3 and K8, whose kernels differ
-between the versions (K3's tile loop with a base-2 exponent on raw scores,
-K1's and K2's GEMMs on wgmma with another order of the f32 sums, K8 with the
-new attention launch), must be equal within TOLERANCE of the output's scale
-(bf16 outputs: an ulp of the largest values is 0.4% of them). Exits non-zero
-otherwise. Needs a CUDA device and nvcc.
+For K1, K2, K3, K4 (with and without lse), K5, K6 (dq, dk, dv), K7 (bf16
+fc1 and fc2, f32 head) and K8, at the shapes chip_smoke.py checks them at,
+it builds both versions, runs both wrappers on the same seeded inputs, and
+times them in turns (other, this, this, other; median CUDA-event ms, and the
+host's microseconds to issue one call with the card never waited for). K4
+(with and without lse), K6 and K7's f32 head kernel must be equal bit for
+bit; so must K3's backward on its flash route, which is K4 with lse and K6
+behind autograd (four launches: where the event time is the host time, the
+host binds it). The kernels whose f32 sums run in another order in the two
+versions (REDESIGNED: K1, K2, K3, K8 against a tree before their wgmma
+kernels; K5 and K7's bf16 path against one before theirs) must be equal
+within TOLERANCE of the output's scale (bf16 outputs: an ulp of the largest
+values is 0.4% of them). Exits non-zero otherwise. Needs a CUDA device and
+nvcc.
+
+The wrappers pass K5's hidden buffer and K7's weight scratch as the last
+argument of their C entries, so an entry from before those buffers, which
+takes one argument fewer, runs with the same wrapper and never reads it.
 """
 
 import argparse
@@ -48,12 +53,15 @@ from dinov2_tpu_torch.ops.fused_attention import (  # noqa: E402
     slab_attention_backward,
     slab_attention_block,
     slab_layer_block,
+    slab_mlp_block,
 )
 from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant  # noqa: E402
+from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel  # noqa: E402
 
-LIBS = ("slab_layer_lib", "slab_attention_lib", "flash_attention_lib", "flash_backward_lib",
-        "quant_layer_lib")
-REDESIGNED = ("K1", "K2", "K3", "K8")  # held within tolerance; every other kernel bit for bit
+LIBS = ("slab_layer_lib", "slab_attention_lib", "slab_mlp_lib", "flash_attention_lib",
+        "flash_backward_lib", "quant_matmul_lib", "quant_layer_lib")
+# held within tolerance; every other kernel bit for bit
+REDESIGNED = ("K1", "K2", "K3", "K5", "K7 bf16", "K8")
 TOLERANCE = 1e-2  # of max|other|, plus 1e-5
 
 
@@ -112,6 +120,20 @@ def half_layer_args(rng, b, t, d):
     return [torch.from_numpy(a).to("cuda", dt) for a, dt in arrays]
 
 
+def mlp_args(rng, b, t, d):
+    arrays = [
+        (rng.standard_normal((b, t, d)), torch.bfloat16),
+        (rng.uniform(0.5, 1.5, d), torch.float32),
+        (rng.standard_normal(d) * 0.1, torch.float32),
+        (rng.standard_normal((d, 4 * d)) * 0.05, torch.bfloat16),
+        (rng.standard_normal(4 * d) * 0.1, torch.float32),
+        (rng.standard_normal((4 * d, d)) * 0.05, torch.bfloat16),
+        (rng.standard_normal(d) * 0.1, torch.float32),
+        (rng.uniform(0.1, 1.0, d), torch.float32),
+    ]
+    return [torch.from_numpy(a).to("cuda", dt) for a, dt in arrays]
+
+
 def cases():
     """name -> a call of the wrapper on seeded inputs on the card."""
     rng = np.random.default_rng(0)
@@ -131,6 +153,23 @@ def cases():
         "K8 slab_layer_block_quant q4_0 B=64 T=257 D=768":
             lambda: slab_layer_block_quant(x, lns, lnb, wq4, bq, wp4, bp, ls, heads, 0.125, 1e-6),
     }
+    for bb, tt, dd in ((64, 257, 768), (8, 1370, 1024)):
+        mlp = mlp_args(rng, bb, tt, dd)
+        calls[f"K5 slab_mlp_block B={bb} T={tt} D={dd} gelu_tanh_f16"] = partial(
+            slab_mlp_block, *mlp, "gelu_tanh_f16", 1e-6)
+    quant_shapes = {  # (x dtype, layer) -> (M, K, N, activation), chip_smoke.py's
+        ("bf16", "fc1"): (b * t, d, 4 * d, "gelu_tanh_f16"),
+        ("bf16", "fc2"): (b * t, 4 * d, d, None),
+        ("f32", "head"): (b, 2 * d, 1000, None),
+    }
+    for (kind, layer), (m, k, n, act) in quant_shapes.items():
+        name = f"K7 {kind} quant_matmul_kernel q4_0 {layer}"
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        ql = quantize_linear(rng.standard_normal((n, k)) * 0.05, "q4_0", device="cuda")
+        xq = torch.from_numpy(rng.standard_normal((m, k))).to("cuda", dtype)
+        bias = torch.from_numpy(rng.standard_normal(n) * 0.1).to("cuda", torch.float32)
+        calls[f"{name} M={m} K={k} N={n} {act}"] = partial(
+            quant_matmul_kernel, xq, ql, bias, act)
     slab_g = torch.from_numpy(rng.standard_normal((16, 257, 3 * 1536))).to("cuda", torch.bfloat16)
     calls["K3 slab_attention B=16 T=257 H=24"] = lambda: slab_attention(slab_g, 24, 0.125)
     for bb, tt, hh in ((8, 1370, 16), (1, 4226, 16), (32, 257, 12)):

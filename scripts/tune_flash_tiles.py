@@ -15,14 +15,19 @@ PyTorch version over ragged sequence lengths. With --profile it ends with
 torch.profiler's device time of each kernel of one K4 (with lse) and one K6
 call at the backward shapes. K1's GEMM core (csrc/wgmma_gemm.cuh) has its
 block shape and ring depth as macros too (-DDINOV2_GEMM_COLUMNS=,
--DDINOV2_GEMM_STAGES=): each variant is held against K1's plain version at
-the same ragged lengths and K1 is timed on each at its shapes. With --ptxas
-it first prints what `nvcc -Xptxas -v` says of both sources and of
-csrc/slab_layer.cu (K1: the wgmma GEMM kernels of csrc/wgmma_gemm.cuh and
-the attention kernel as the slab kernels instantiate it): registers, spills,
-shared memory, and the count of HGMMA (wgmma) and LDGSTS (cp.async)
-instructions in their SASS. --quick skips the timing. Exits non-zero if a
-variant disagrees with the plain version. Needs a CUDA device and nvcc.
+-DDINOV2_GEMM_STAGES=), and K5 (csrc/slab_mlp.cu) and K7
+(csrc/quant_matmul.cu) run on it: each variant is held against K1's, K5's
+and K7's plain versions at the same ragged lengths, and K1, K5 and K7's fc1
+and fc2 are timed on each at their shapes. With --ptxas it first prints
+what `nvcc -Xptxas -v` says of both sources and of csrc/slab_layer.cu (K1:
+the wgmma GEMM kernels of csrc/wgmma_gemm.cuh and the attention kernel as
+the slab kernels instantiate it), csrc/slab_mlp.cu (K5: the layer norm and
+the GEMM with the activation and with the residual epilogue) and
+csrc/quant_matmul.cu (K7: the dequantize kernel, the GEMM on a k-major
+weight, the f32 kernel): registers, spills, shared memory, and the count of
+HGMMA (wgmma), HMMA (mma.sync) and LDGSTS (cp.async) instructions in their
+SASS. --quick skips the timing. Exits non-zero if a variant disagrees with
+the plain version. Needs a CUDA device and nvcc.
 """
 
 import argparse
@@ -39,6 +44,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from dinov2_tpu_torch.models.params import quantize_linear  # noqa: E402
 from dinov2_tpu_torch.ops import _kernels  # noqa: E402
 from dinov2_tpu_torch.ops.attention import split_heads  # noqa: E402
 from dinov2_tpu_torch.ops.flash_attention import (  # noqa: E402
@@ -48,6 +54,12 @@ from dinov2_tpu_torch.ops.flash_attention import (  # noqa: E402
 from dinov2_tpu_torch.ops.fused_attention import (  # noqa: E402
     slab_layer_buffers,
     slab_layer_reference,
+    slab_mlp_block,
+    slab_mlp_reference,
+)
+from dinov2_tpu_torch.ops.qmatmul_kernel import (  # noqa: E402
+    quant_matmul_kernel,
+    quant_matmul_reference,
 )
 
 RAGGED_T = (1, 63, 64, 65, 127, 128, 129, 257, 300)
@@ -68,6 +80,9 @@ GEMM_VARIANTS = {
     (columns, stages): (f"DINOV2_GEMM_COLUMNS={columns}", f"DINOV2_GEMM_STAGES={stages}")
     for columns, stages in ((128, 3), (256, 3), (256, 4))}
 GEMM_SHAPES = ((64, 257, 12), (32, 257, 12), (16, 257, 24))  # K1 at (B, T, heads), D = 64 heads
+GEMM_LIBS = ("slab_layer", "slab_mlp", "quant_matmul")  # built on the GEMM core's variants
+MLP_SHAPES = ((64, 257, 768), (8, 1370, 1024))  # K5 at (B, T, D)
+QUANT_SHAPES = {"fc1": (64 * 257, 768, 3072, "gelu_tanh_f16"), "fc2": (64 * 257, 3072, 768, None)}
 _BUILD_ONE = (
     "import sys; from dinov2_tpu_torch.ops import _kernels; "
     "_kernels.NVCC_FLAGS += tuple(sys.argv[2:]); _kernels.build(sys.argv[1])")
@@ -82,7 +97,7 @@ def build_all() -> None:
     ops/_kernels.py reads its flags from the module)."""
     jobs = [("flash_attention", d) for d in (BY_SHAPE, *FORWARD_VARIANTS.values())]
     jobs += [("flash_backward", d) for d in (BY_SHAPE, *BACKWARD_VARIANTS.values())]
-    jobs += [("slab_layer", d) for d in (BY_SHAPE, *GEMM_VARIANTS.values())]
+    jobs += [(lib, d) for lib in GEMM_LIBS for d in (BY_SHAPE, *GEMM_VARIANTS.values())]
     procs = [subprocess.Popen([sys.executable, "-c", _BUILD_ONE, name, *flags(defines)], cwd=ROOT)
              for name, defines in jobs]
     if any(proc.wait() for proc in procs):
@@ -91,10 +106,11 @@ def build_all() -> None:
 
 @contextlib.contextmanager
 def variant(defines):
-    """Inside the block the flash libraries and K1's are the ones built with
-    these macros (built by build_all; ops/_kernels.py names a library by its
-    flags)."""
-    libs = (_kernels.flash_attention_lib, _kernels.flash_backward_lib, _kernels.slab_layer_lib)
+    """Inside the block the flash libraries and the GEMM core's (K1, K5,
+    K7) are the ones built with these macros (built by build_all;
+    ops/_kernels.py names a library by its flags)."""
+    libs = (_kernels.flash_attention_lib, _kernels.flash_backward_lib, _kernels.slab_layer_lib,
+            _kernels.slab_mlp_lib, _kernels.quant_matmul_lib, _kernels.dequant_weight_entry)
     saved = _kernels.NVCC_FLAGS
     _kernels.NVCC_FLAGS = saved + flags(defines)
     for lib in libs:
@@ -146,7 +162,7 @@ def ptxas_report(name: str) -> str:
         [str(Path(nvcc).with_name("cuobjdump")), "-sass", str(cubin)],
         capture_output=True, text=True,
     ).stdout
-    for word in ("HGMMA", "LDGSTS", "WARPGROUP", "MUFU.EX2", "STL", "LDL"):
+    for word in ("HGMMA", "HMMA", "LDGSTS", "WARPGROUP", "MUFU.EX2", "STL", "LDL"):
         lines.append(f"SASS lines with {word}: {sum(word in row for row in sass.splitlines())}")
     return "\n".join(lines)
 
@@ -257,17 +273,53 @@ def half_layer_args(b, t, d, seed):
     return [torch.from_numpy(a).to("cuda", dt) for a, dt in arrays]
 
 
+def mlp_args(b, t, d, seed):
+    rng = np.random.default_rng(seed)
+    arrays = [
+        (rng.standard_normal((b, t, d)), torch.bfloat16),
+        (rng.uniform(0.5, 1.5, d), torch.float32),
+        (rng.standard_normal(d) * 0.1, torch.float32),
+        (rng.standard_normal((d, 4 * d)) * 0.05, torch.bfloat16),
+        (rng.standard_normal(4 * d) * 0.1, torch.float32),
+        (rng.standard_normal((4 * d, d)) * 0.05, torch.bfloat16),
+        (rng.standard_normal(d) * 0.1, torch.float32),
+        (rng.uniform(0.1, 1.0, d), torch.float32),
+    ]
+    return [torch.from_numpy(a).to("cuda", dt) for a, dt in arrays]
+
+
+def quant_args(m, k, n, seed, fmt="q4_0"):
+    """x (M, K) bf16, an (N, K) QuantLinear, bias (N,) f32 on the card."""
+    rng = np.random.default_rng(seed)
+    ql = quantize_linear(rng.standard_normal((n, k)) * 0.05, fmt, device="cuda")
+    x = torch.from_numpy(rng.standard_normal((m, k))).to("cuda", torch.bfloat16)
+    return x, ql, torch.from_numpy(rng.standard_normal(n) * 0.1).to("cuda", torch.float32)
+
+
 def check_gemm_variants(b, t, heads) -> bool:
-    """K1 on each variant of its GEMM core against the plain version."""
+    """K1 (D = 64 heads), K5 (D = 384) and K7 (q5_1, N = 70, M = B T) on each
+    variant of their GEMM core against the plain versions."""
     args = half_layer_args(b, t, 64 * heads, seed=t + heads)
-    plain = slab_layer_reference(*args, heads, SCALE, 1e-6)
-    want = slab_layer_reference(*[a.float() for a in args], heads, SCALE, 1e-6)
+    mlp = mlp_args(b, t, 384, seed=t)
+    x, ql, bias = quant_args(b * t, 256, 70, seed=t, fmt="q5_1")
+    cases = {
+        "K1": (lambda: slab_layer_buffers(*args, heads, SCALE, 1e-6)[0],
+               slab_layer_reference(*args, heads, SCALE, 1e-6),
+               slab_layer_reference(*[a.float() for a in args], heads, SCALE, 1e-6)),
+        "K5": (lambda: slab_mlp_block(*mlp, "gelu_erf", 1e-6),
+               slab_mlp_reference(*mlp, "gelu_erf", 1e-6),
+               slab_mlp_reference(*[a.float() for a in mlp], "gelu_erf", 1e-6)),
+        "K7": (lambda: quant_matmul_kernel(x, ql, bias, "gelu_tanh"),
+               quant_matmul_reference(x, ql, bias, "gelu_tanh"),
+               quant_matmul_reference(x.float(), ql, bias, "gelu_tanh")),
+    }
     ok = True
     for pair, defines in GEMM_VARIANTS.items():
-        with variant(defines):
-            got = slab_layer_buffers(*args, heads, SCALE, 1e-6)[0]
-        torch.cuda.synchronize()
-        ok &= held(f"K1 (columns, stages)={pair} B={b} T={t} H={heads}", got, plain, want)
+        for name, (kernel, plain, want) in cases.items():
+            with variant(defines):
+                got = kernel()
+            torch.cuda.synchronize()
+            ok &= held(f"{name} (columns, stages)={pair} B={b} T={t} H={heads}", got, plain, want)
     return ok
 
 
@@ -317,8 +369,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card)
-    with ThreadPoolExecutor(3) as pool:
-        names = ("flash_attention", "flash_backward", "slab_layer")
+    names = ("flash_attention", "flash_backward", "slab_layer", "slab_mlp", "quant_matmul")
+    with ThreadPoolExecutor(len(names)) as pool:
         reports = pool.map(ptxas_report, names) if opts.ptxas else ()
         build_all()
         for report in reports:
@@ -329,8 +381,8 @@ def main() -> int:
         for b, heads in ((2, 3), (1, 1)):
             good = check_variants(b, t, heads) & check_gemm_variants(b, t, heads)
             ok &= good
-            print(f"check B={b} T={t} H={heads}: both variants of K4, K4-lse and K6, and K1 on "
-                  f"every variant of its GEMM core, "
+            print(f"check B={b} T={t} H={heads}: both variants of K4, K4-lse and K6, and K1, K5 "
+                  f"and K7 on every variant of their GEMM core, "
                   f"{'agree with' if good else 'DISAGREE with'} the plain versions")
     if opts.quick:
         return 0 if ok else 1
@@ -372,6 +424,20 @@ def main() -> int:
         shown = "; ".join(f"{w}-column blocks, {st} stages {min(x):.4f}" for (w, st), x in ms.items())
         print(f"K1 B={b} T={t} D={64 * heads}: ms of the four launches (best of two medians) "
               f"{shown} ({card})")
+    timed = {f"K5 B={b} T={t} D={d} gelu_tanh_f16, its three launches":
+             (slab_mlp_block, (*mlp_args(b, t, d, seed=t), "gelu_tanh_f16", 1e-6))
+             for b, t, d in MLP_SHAPES}
+    for name, (m, k, n, act) in QUANT_SHAPES.items():
+        timed[f"K7 q4_0 {name} M={m} K={k} N={n} {act}, its two launches"] = (
+            quant_matmul_kernel, (*quant_args(m, k, n, seed=k), act))
+    for label, (fn, args) in timed.items():
+        ms = {}
+        order = list(GEMM_VARIANTS)
+        for pair in order + order[::-1]:
+            with variant(GEMM_VARIANTS[pair]):
+                ms.setdefault(pair, []).append(median_ms(lambda: fn(*args)))
+        shown = "; ".join(f"{w}-column blocks, {st} stages {min(x):.4f}" for (w, st), x in ms.items())
+        print(f"{label}: ms (best of two medians) {shown} ({card})")
     if opts.profile:
         profile_kernels(card)
     return 0 if ok else 1

@@ -221,6 +221,26 @@ def test_quant_matmul_kernel_dequantizes_exactly(cuda, fmt, packed):
         assert torch.equal(got, dequant_weight(ql, dtype).T)
 
 
+@pytest.mark.parametrize("n, k", [(200, 256), (33, 768), (3072, 768)])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("fmt", QUANT_FORMATS)
+def test_dequant_weight_kernel_equals_dequant_weight(cuda, fmt, packed, n, k):
+    """The first of K7's two bf16 launches alone: the (N, K) bf16 weight it
+    writes is dequant_weight(W, bf16) bit for bit, in every format and
+    layout, at a ragged N and at ViT-B's fc1; it counts its launch and takes
+    the plain version for a weight on the CPU."""
+    from dinov2_tpu_torch.ops.qmatmul import dequant_weight
+    from dinov2_tpu_torch.ops.qmatmul_kernel import dequant_weight_kernel
+
+    ql = _ql(fmt, n, k, seed=n, device=cuda, packed=packed, scale=0.5)
+    before = dequant_weight_kernel.launches
+    got = dequant_weight_kernel(ql)
+    assert got.shape == (n, k) and got.dtype == torch.bfloat16
+    assert torch.equal(got, dequant_weight(ql, torch.bfloat16))
+    assert torch.equal(dequant_weight_kernel(ql.map(torch.Tensor.cpu)), got.cpu())
+    assert dequant_weight_kernel.launches == before + 1
+
+
 @pytest.mark.parametrize(
     "m, k, n, activation, dtype, packed",
     [
@@ -471,6 +491,18 @@ def test_slab_mlp_kernel_matches_plain(cuda, b, t, d, activation):
     K1's bound; every width it is built for, row counts of one row, a ragged
     last tile, an exact tile (96 rows) and many tiles."""
     args = _mlp_args(b, t, d, seed=t + d, device=cuda)
+    _bound_holds(slab_mlp_block(*args, activation, 1e-6),
+                 slab_mlp_reference(*args, activation, 1e-6),
+                 slab_mlp_reference(*[a.float() for a in args], activation, 1e-6))
+
+
+@pytest.mark.parametrize("activation", ["gelu_tanh_f16", "gelu_erf", "gelu_tanh"])
+@pytest.mark.parametrize("b, t, d", [(64, 1, 768), (1, 129, 384), (3, 43, 1024), (7, 300, 384)])
+def test_slab_mlp_kernel_over_ragged_rows(cuda, b, t, d, activation):
+    """K5's three launches where M = B T is no multiple of the GEMM's
+    128-row tile (T = 1 at B = 64 is one tile exactly, the rest ragged: 129,
+    129 and 2100 rows), against the plain version with K1's bound."""
+    args = _mlp_args(b, t, d, seed=b + t + d, device=cuda)
     _bound_holds(slab_mlp_block(*args, activation, 1e-6),
                  slab_mlp_reference(*args, activation, 1e-6),
                  slab_mlp_reference(*[a.float() for a in args], activation, 1e-6))
