@@ -42,7 +42,8 @@ then K1 launch by launch beside torch.nn.functional.linear on the two GEMMs'
 operands, K3 and K2, K5 and its three launches likewise, K4, K4 with lse and
 K6, the autograd Functions of K1, K2, K3 and K5, K7 with its dequantize and
 GEMM launches at fc1 and fc2 beside one linear call on the decoded weight,
-K8), classify slice,
+K8 at ViT-B's and ViT-g's widths, then its six launches in order and one by
+one beside one linear call on each GEMM's operands), classify slice,
 its cross-check and the fuse_mlp slice with its own, quantized classify
 slice, its cross-check and its findings (other routes, weight memory, the
 peak device memory of one call),
@@ -290,13 +291,16 @@ def phase_kernel_check(card: str) -> dict:
     )
 
 
-def device_ms_by_launch(run, kernels: dict, what: str, calls: int = 10) -> dict:
+def device_ms_by_launch(run, kernels: dict, what: str, calls: int = 10,
+                        per_call: dict | None = None) -> dict:
     """torch.profiler's device ms of one launch of each kernel of `kernels`
     (a word of its name -> a label) over `calls` calls of run, each kernel
-    launched once a call. The profile may miss a record: on an H100 it once
-    held 9 of K7's 10 dequantize launches, the GEMM after each all 10. A
-    kernel's ms is the mean over the records it has, and it needs all but
-    one of them."""
+    launched once a call, or per_call[label] times (its ms is then that of
+    its launches of one call together). The profile may miss a record: on
+    an H100 it once held 9 of K7's 10 dequantize launches, the GEMM after
+    each all 10. A kernel's ms is the mean over the records it has, and it
+    needs all but one call's worth of them."""
+    per_call = per_call or {}
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -312,8 +316,32 @@ def device_ms_by_launch(run, kernels: dict, what: str, calls: int = 10) -> dict:
                 totals[name][0] += event.count
                 totals[name][1] += event.device_time_total
     for name, (count, _) in totals.items():
-        require(calls - 1 <= count <= calls, f"{what}'s {name} kernel: {count} records of {calls}")
-    return {name: us / count / 1e3 for name, (count, us) in totals.items()}
+        n = per_call.get(name, 1)
+        require((calls - 1) * n <= count <= calls * n,
+                f"{what}'s {name} kernel: {count} records of {calls * n}")
+    return {name: us / count * per_call.get(name, 1) / 1e3
+            for name, (count, us) in totals.items()}
+
+
+def launch_order(run, count: int, calls: int = 3) -> list:
+    """The names of the last `count` kernels of `calls` calls of run, the
+    kernels of its last call when one call launches `count`, in the order
+    they started on the card (torch.profiler). On an H100 the profile has
+    lost records at the start of its window (one of K8's two dequantize
+    launches in one run, two fill kernels put before them in another), so
+    only the last call is read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                      and "Memcpy" not in e.name and "Memset" not in e.name),
+                     key=lambda e: e.time_range.start)
+    return [e.name for e in kernels[-count:]]
 
 
 def phase_half_layer_split(card: str) -> dict:
@@ -720,13 +748,14 @@ def phase_function_checks(card: str) -> dict:
 
 
 # sha256 of each inference kernel's output bytes on phase_output_digests'
-# seeded inputs, recorded on an NVIDIA H100 80GB HBM3 with CUDA 12.8: K1, K2
-# and K3 from the wgmma kernels (csrc/wgmma_gemm.cuh's GEMMs and
-# csrc/flash_forward.cuh's tile loop on the slab's head views), K8 from
-# csrc/gemm_core.cuh's mma.sync GEMMs around that tile loop, K4 from its
-# wgmma kernel (the same tile loop; the mma.sync kernel before it gave
-# fedb833cf86a345f). Before K1, K2, K3 and K8 took the wgmma kernels they
-# gave 867f80bd9af52824, 7de1ddce09564e6c, 7e73001d935cec19, d4a00e2c9c944476.
+# seeded inputs, recorded on an NVIDIA H100 80GB HBM3 with CUDA 12.8: K1, K2,
+# K3 and K8 from the wgmma kernels (csrc/wgmma_gemm.cuh's GEMMs, K8's on its
+# dequantized weights, and csrc/flash_forward.cuh's tile loop on the slab's
+# head views), K4 from its wgmma kernel (the same tile loop; the mma.sync
+# kernel before it gave fedb833cf86a345f). K8's mma.sync GEMMs around that
+# tile loop gave the same c2b29f319d066d94. Before K1, K2 and K3 took their
+# wgmma kernels and K8 the wgmma tile loop, they gave 867f80bd9af52824,
+# 7de1ddce09564e6c, 7e73001d935cec19, d4a00e2c9c944476.
 RECORDED_DIGESTS = {"K1": "cf2cbe3a19ddb848", "K2": "d179e4ab67c501f0", "K3": "a9ec9a1f534f1636",
                     "K4": "db6c0a22b377b664", "K8": "c2b29f319d066d94"}
 
@@ -915,23 +944,25 @@ def phase_quant_matmul_split(card: str, shapes: dict) -> dict:
 def phase_quant_layer_check(card: str) -> dict:
     """K8 at the main path's shape against its plain version in bf16 and
     f32, for q4_0 and q5_1 (packed planes, q5_1 with m and 5th bits) and
-    q8_0 (int8 SoA)."""
+    q8_0 (int8 SoA); and q4_0 at ViT-g/14's width (B=16, D=1536, H=24)."""
     from dinov2_tpu_torch.models.params import quantize_linear
     from dinov2_tpu_torch.ops.fused_quant_attention import (
         quant_layer_reference,
         slab_layer_block_quant,
     )
 
-    b, t, d, heads = BATCH, 257, 768, 12
-    scale, eps = 1.0 / (d // heads) ** 0.5, 1e-6
+    t, eps = 257, 1e-6
     measured = {}
-    for fmt in ("q4_0", "q5_1", "q8_0"):
+    for fmt, b, heads in (("q4_0", BATCH, 12), ("q5_1", BATCH, 12), ("q8_0", BATCH, 12),
+                          ("q4_0", GIANT_BATCH, 24)):
+        d = 64 * heads
+        scale = 1.0 / 64**0.5
         rng = np.random.default_rng(SEED)
         x, lns, lnb, _, bq, _, bp, ls = _half_layer_args(rng, b, t, d)
         wq = quantize_linear(rng.standard_normal((3 * d, d)) * 0.05, fmt, device="cuda")
         wp = quantize_linear(rng.standard_normal((d, d)) * 0.05, fmt, device="cuda")
         rest = (lns, lnb, wq, bq, wp, bp, ls, heads, scale, eps)
-        measured[fmt] = check_kernel(
+        measured[fmt, d] = check_kernel(
             f"slab_layer_block_quant {fmt} ({'packed' if wq.packed else 'int8 SoA'}) "
             f"B={b} T={t} D={d} H={heads}", "K8",
             lambda: slab_layer_block_quant(x, *rest),
@@ -939,11 +970,62 @@ def phase_quant_layer_check(card: str) -> dict:
             lambda: quant_layer_reference(x.float(), *rest),
             card, half_layer_flops(b, t, d, heads), nbytes(x, lns, lnb, wq, bq, wp, bp, ls, x),
         )
+    giant = measured["q4_0", 1536]
     return {
-        **measured[QUANT_SLICE_FORMAT],
+        **measured[QUANT_SLICE_FORMAT, 768],
         "max_abs_err": max(v["max_abs_err"] for v in measured.values()),
-        **{f"ms_{fmt}": measured[fmt]["ms"] for fmt in ("q5_1", "q8_0")},
+        **{f"ms_{fmt}": measured[fmt, 768]["ms"] for fmt in ("q5_1", "q8_0")},
+        **{f"{key}_vit_g": giant[key] for key in ("ms", "plain_ms", "bound_ms")},
     }
+
+
+def phase_quant_layer_split(card: str) -> dict:
+    """K8's six launches one by one at the main path's shape for the
+    quantized slice's format, by torch.profiler over ten calls (the two
+    dequantize launches together, layer norm, QKV, attention, proj), after a
+    check that one call launches them in that order. Beside each GEMM, one
+    torch.nn.functional.linear call on the same operands and the decoded
+    weight, a yardstick the port never calls."""
+    from dinov2_tpu_torch.models.params import quantize_linear
+    from dinov2_tpu_torch.ops.fused_attention import slab_layer_buffers
+    from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
+    from dinov2_tpu_torch.ops.qmatmul import dequant_weight
+
+    b, t, d, heads, eps = BATCH, 257, 768, 12, 1e-6
+    scale = 1.0 / 64**0.5
+    rng = np.random.default_rng(SEED)
+    x, lns, lnb, _, bq, _, bp, ls = _half_layer_args(rng, b, t, d)
+    wq = quantize_linear(rng.standard_normal((3 * d, d)) * 0.05, QUANT_SLICE_FORMAT, device="cuda")
+    wp = quantize_linear(rng.standard_normal((d, d)) * 0.05, QUANT_SLICE_FORMAT, device="cuda")
+    run = partial(slab_layer_block_quant, x, lns, lnb, wq, bq, wp, bp, ls, heads, scale, eps)
+    words = ("dequant_weight_kernel", "dequant_weight_kernel", "layer_norm_rows_kernel",
+             "BiasEpilogue", "flash_forward_kernel", "ResidualEpilogue")
+    order = launch_order(run, len(words))
+    require(len(order) == len(words) and all(w in n for w, n in zip(words, order)),
+            f"K8's launches: {order}")
+    ms = device_ms_by_launch(
+        run, {"dequant_weight_kernel": "dequantize", "layer_norm_rows_kernel": "layer_norm",
+              "BiasEpilogue": "qkv", "flash_forward_kernel": "attention",
+              "ResidualEpilogue": "proj"}, "K8", per_call={"dequantize": 2})
+    dense = [dequant_weight(w, torch.bfloat16) for w in (wq, wp)]  # (out, in), as linear takes
+    _, _, attn = slab_layer_buffers(x, lns, lnb, dense[0].T.contiguous(), bq,
+                                    dense[1].T.contiguous(), bp, ls, heads, scale, eps)
+    h = torch.nn.functional.layer_norm(x.float(), (d,), lns, lnb, eps).to(x.dtype)
+    linear = torch.nn.functional.linear
+    library = {"qkv": cuda_median_ms(partial(linear, h, dense[0], bq.to(x.dtype))),
+               "proj": cuda_median_ms(partial(linear, attn, dense[1], bp.to(x.dtype)))}
+    tflops = {name: 2e-9 * b * t * d * n / ms[name] for name, n in (("qkv", 3 * d), ("proj", d))}
+    print(
+        f"K8 launch by launch, {QUANT_SLICE_FORMAT} B={b} T={t} D={d}: launches in order "
+        f"{', '.join(w.removesuffix('_kernel') for w in words)}; device ms (torch.profiler, "
+        f"10 calls): dequantize (both weights) {ms['dequantize']:.4f}, layer norm "
+        f"{ms['layer_norm']:.4f}, QKV {ms['qkv']:.4f} ({tflops['qkv']:.0f} TFLOP/s), attention "
+        f"{ms['attention']:.4f}, proj {ms['proj']:.4f} ({tflops['proj']:.0f} TFLOP/s), sum "
+        f"{sum(ms.values()):.4f}; one torch.nn.functional.linear call on the same operands and "
+        f"the decoded weight: qkv {library['qkv']:.4f}, proj {library['proj']:.4f} ({card})"
+    )
+    return {**{f"ms_{name}": value for name, value in ms.items()},
+            **{f"library_ms_{name}": value for name, value in library.items()}}
 
 
 def _load_engine(path, **quant):
@@ -1049,8 +1131,9 @@ def phase_quant_slice(card: str, dense_rate: float) -> tuple[int, int]:
         f"fused {fused_mb:.1f} MB held ({weight_mb:.1f} MB of model buffers, peak "
         f"{fused_peak_mb:.1f} MB), dequant {dequant_mb:.1f} MB held (peak "
         f"{dequant_peak_mb:.1f} MB); one fused classify_probs call of {BATCH} images peaks "
-        f"{call_peak_mb:.1f} MB above what it starts from (activations and K7's transient "
-        f"bf16 weight scratch, one layer's weight at a time) (torch.cuda memory stats, {card})"
+        f"{call_peak_mb:.1f} MB above what it starts from (activations and K7's and K8's "
+        f"transient bf16 weight scratch, one launch's weights at a time) (torch.cuda memory "
+        f"stats, {card})"
     )
     return k7, k8
 
@@ -1563,6 +1646,7 @@ def main() -> int:
     k3_backward = timed_phase("autograd Function checks", phase_function_checks, card)
     k7_measured = timed_phase("K7 check", phase_quant_matmul_check, card)
     k8_measured = timed_phase("K8 check", phase_quant_layer_check, card)
+    k8_measured.update(timed_phase("K8 launch by launch", phase_quant_layer_split, card))
     timed_phase("output digests", phase_output_digests)
     k1_launches, dense_rate, k5_launches = timed_phase("classify slices", phase_slice, card)
     k7_launches, k8_launches = timed_phase("quantized slice", phase_quant_slice, card, dense_rate)

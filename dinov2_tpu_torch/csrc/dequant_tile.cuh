@@ -1,6 +1,7 @@
 // Reading a ggml-quantized linear weight (models/params.py::QuantLinear)
 // straight from its packed form, for K7 (quant_matmul.cu: its dequantize
-// kernel and its f32 kernel) and K8 (quant_layer.cu: its GEMMs' loader).
+// launch and its f32 kernel) and K8 (quant_layer.cu: its two dequantize
+// launches).
 //
 // Layouts, as the loader writes them (QuantLinear's docstring):
 //   packed (q4_0/q4_1/q5_0/q5_1): codes (N, K/2) u8 natural-order planes,
@@ -19,13 +20,14 @@
 // blocksums(x)·mᵀ correction (dinov2_tpu/ops/pallas_qmatmul.py) are MXU
 // artefacts and are not copied.
 //
-// A 64-wide k-step must lie inside one plane, so packed weights need
-// K/2 % 64 == 0 (every DINOv2 width has it); SoA weights need K % 64 == 0.
-// The Python wrappers check both.
+// The Python wrappers ask packed weights for K/2 % 64 == 0 (every DINOv2
+// width has it) and SoA weights for K % 64 == 0: a 16-byte piece of codes
+// (dequant_weight_kernel) or 8 values (dequant8) then lie inside one plane,
+// and K is a whole number of the GEMMs' 64-deep k-steps.
 
 #pragma once
 
-#include "gemm_core.cuh"
+#include "attention_core.cuh"
 
 namespace dinov2 {
 
@@ -88,24 +90,81 @@ inline QuantWeight quant_weight(const void* codes, const void* d, const void* mi
           static_cast<const uint8_t*>(qh_hi), n, k, packed, zero};
 }
 
-// gemm_core.cuh's weight loader for a QuantWeight (K8): tile row r is output
-// column col0 + r (zero past N), staged as ws[n][k] in bf16.
-struct QuantWeightTile {
-  QuantWeight w;
+// In dinov2's unnamed namespace, as every kernel in a header: each library
+// that includes it gets its own copy, and a .cu's own kernels go in the same
+// namespace (a second unnamed namespace at file scope makes nvcc's host
+// stubs ambiguous).
+namespace {
 
-  __device__ __forceinline__ void store8(bf16 (&ws)[kTile][kLds], int r, int c, int k0,
-                                         int col0) const {
-    uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    const int row = col0 + r;
-    if (row < w.n) {
-      float v[8];
-      w.dequant8(row, k0 + c, v);
-      bf16* e = reinterpret_cast<bf16*>(&out);
+constexpr int kDequantThreads = 256;
+
+// dst[0..15] = bf16 of 16 codes, each code * scale (+ mn where the format
+// has m), rounded in f32 without fused multiply-add: QuantWeight::dequant8's
+// arithmetic, written as two 16-byte pieces.
+__device__ __forceinline__ void store_dequant16(bf16* dst, const int (&q)[16], float scale,
+                                                const float* mins, size_t blk) {
+  const float mn = mins ? __ldg(mins + blk) : 0.f;
+  uint4 piece[2];
+  bf16* e = reinterpret_cast<bf16*>(piece);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(v[j]);
-    }
-    *reinterpret_cast<uint4*>(&ws[r][c]) = out;
+  for (int i = 0; i < 16; ++i) {
+    float v = __fmul_rn(static_cast<float>(q[i]), scale);
+    if (mins) v = __fadd_rn(v, mn);
+    e[i] = __float2bfloat16(v);
   }
-};
+  reinterpret_cast<uint4*>(dst)[0] = piece[0];
+  reinterpret_cast<uint4*>(dst)[1] = piece[1];
+}
 
+// W (N, K) bf16 = dequant(W): a thread a 16-byte piece of codes, that is 16
+// values of an int8 SoA row, or 16 bytes of a packed row, whose low nibbles
+// are values j0..j0+15 and high nibbles values K/2+j0..K/2+j0+15.
+__global__ void __launch_bounds__(kDequantThreads)
+    dequant_weight_kernel(QuantWeight w, bf16* __restrict__ out) {
+  const int row_bytes = w.packed ? w.k / 2 : w.k;
+  const int pieces = row_bytes / 16;
+  const size_t piece = static_cast<size_t>(blockIdx.x) * kDequantThreads + threadIdx.x;
+  if (piece >= static_cast<size_t>(w.n) * pieces) return;
+  const int row = static_cast<int>(piece / pieces);
+  const int j0 = static_cast<int>(piece % pieces) * 16;
+  const uint4 raw =
+      __ldg(reinterpret_cast<const uint4*>(w.codes + static_cast<size_t>(row) * row_bytes + j0));
+  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&raw);
+  const size_t row_blocks = static_cast<size_t>(row) * (w.k >> 5);
+  bf16* dst = out + static_cast<size_t>(row) * w.k;
+  int q[16];
+  if (!w.packed) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) q[i] = static_cast<int8_t>(bytes[i]);
+    const size_t blk = row_blocks + (j0 >> 5);
+    store_dequant16(dst + j0, q, __ldg(w.d + blk), w.m, blk);
+    return;
+  }
+#pragma unroll
+  for (int high = 0; high < 2; ++high) {
+    uint32_t bits = 0;  // the 5th bits of the 16 values, bit i for value i
+    if (w.qh_lo) {
+      const uint8_t* qh =
+          (high ? w.qh_hi : w.qh_lo) + static_cast<size_t>(row) * (row_bytes >> 3) + (j0 >> 3);
+      bits = __ldg(qh) | (static_cast<uint32_t>(__ldg(qh + 1)) << 8);
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t nibble = high ? bytes[i] >> 4 : bytes[i] & 0xFu;
+      q[i] = static_cast<int>(nibble | (((bits >> i) & 1u) << 4)) - w.zero;
+    }
+    const int k0 = j0 + high * row_bytes;
+    const size_t blk = row_blocks + (k0 >> 5);
+    store_dequant16(dst + k0, q, __ldg(w.d + blk), w.m, blk);
+  }
+}
+
+cudaError_t launch_dequant_weight(const QuantWeight& w, bf16* out, cudaStream_t s) {
+  const size_t pieces = static_cast<size_t>(w.n) * ((w.packed ? w.k / 2 : w.k) / 16);
+  const unsigned blocks = static_cast<unsigned>((pieces + kDequantThreads - 1) / kDequantThreads);
+  dequant_weight_kernel<<<blocks, kDequantThreads, 0, s>>>(w, out);
+  return cudaGetLastError();
+}
+
+}  // namespace
 }  // namespace dinov2

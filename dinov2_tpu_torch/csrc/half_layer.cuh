@@ -1,23 +1,29 @@
-// The attention launch of the attention half-layer,
+// The attention half-layer,
 //
 //     out = x + ls1 * (proj(attention(qkv(LN1(x)))) + b_proj)
 //
-// shared by K1 (slab_layer.cu, dense bf16 weights), K2 and K3
-// (slab_attention.cu) and K8 (quant_layer.cu, ggml-quantized weights). Each
-// half-layer is three launches with the (B, T, 3D) qkv slab and the (B, T, D)
-// attention output in HBM between them:
-//   1. LN1 and the QKV GEMM, epilogue bf16(acc) + bf16(b_qkv) -> qkv slab;
-//   2. launch_slab_attention below -> attention output;
-//   3. the proj GEMM with the bias/LayerScale/residual epilogue.
-// Launch 2 is all that K8 shares with K1: K1 and K2 run their GEMMs on
-// wgmma_gemm.cuh (wgmma from pipelined swizzled tiles), K8 on gemm_core.cuh
-// (mma.sync, with dequant_tile.cuh's loader). Both add the k16 products into
-// f32 in k order and gave equal bits on an H100 wherever they were compared,
-// but nothing promises it: K8 is held to K1 within one bf16 step.
+// as four launches on one stream, shared by K1 (slab_layer.cu, dense bf16
+// weights) and K8 (quant_layer.cu, ggml-quantized weights dequantized into a
+// scratch first); K2 and K3 (slab_attention.cu) run launch 3 alone, K2 launch
+// 4 behind it. The (B, T, 3D) qkv slab and the (B, T, D) attention output go
+// through HBM between the launches:
+//   1. launch_layer_norm_rows (wgmma_gemm.cuh): LN1 of every row into the
+//      attention buffer, which is free until launch 3;
+//   2. the QKV GEMM (wgmma_gemm.cuh) with BiasEpilogue: bf16(acc) +
+//      bf16(b_qkv) -> qkv slab;
+//   3. launch_slab_attention below -> attention output;
+//   4. the proj GEMM with ResidualEpilogue: bf16(acc) + bf16(b_proj),
+//      * bf16(ls1), + x, each step rounded to bf16.
+// The GEMMs take the weights either (in, out) row-major, the dense layout,
+// as the mn-major operand through the descriptor's transpose bit, or
+// (kKMajorWeight) (out, in) row-major, the layout of a dequantized
+// QuantLinear, as the k-major operand. Both add the same k16 products into
+// f32 in the same order.
 
 #pragma once
 
 #include "flash_forward.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace dinov2 {
 namespace {
@@ -33,6 +39,27 @@ inline cudaError_t launch_slab_attention(const bf16* qkv, bf16* out, int b, int 
   return static_cast<cudaError_t>(launch_forward_by_shape<false>(
       qkv, qkv + d, qkv + 2 * d, out, nullptr, b, t, heads, t * token_stride, token_stride,
       kHeadDim, scale, s));
+}
+
+// The four launches on s. w_qkv and w_proj are (D, 3D) and (D, D) or, with
+// kKMajorWeight, (3D, D) and (D, D); qkv (B, T, 3D) and attn (B, T, D) are
+// scratch the caller allocated. Returns the first launch error.
+template <bool kKMajorWeight>
+cudaError_t launch_half_layer(const bf16* x, const float* ln_scale, const float* ln_bias,
+                              const bf16* w_qkv, const float* b_qkv, const bf16* w_proj,
+                              const float* b_proj, const float* ls1, bf16* qkv, bf16* attn,
+                              bf16* out, int b, int t, int d, int heads, float scale, float eps,
+                              cudaStream_t s) {
+  const int m = b * t;
+  cudaError_t err = launch_layer_norm_rows(x, ln_scale, ln_bias, attn, m, d, eps, s);
+  if (err != cudaSuccess) return err;
+  err = launch_wgmma_gemm<kKMajorWeight>(attn, w_qkv, BiasEpilogue{b_qkv, qkv, 3 * d}, m, 3 * d,
+                                         d, s);
+  if (err != cudaSuccess) return err;
+  err = launch_slab_attention(qkv, attn, b, t, d, heads, scale, s);
+  if (err != cudaSuccess) return err;
+  return launch_wgmma_gemm<kKMajorWeight>(attn, w_proj,
+                                          ResidualEpilogue{b_proj, ls1, x, out, d}, m, d, d, s);
 }
 
 }  // namespace

@@ -8,71 +8,43 @@
 // rows; head_dim 64.
 //
 // Replaces the Pallas TPU kernel dinov2_tpu/ops/fused_quant_attention.py::
-// _quant_layer_kernel, reached through slab_layer_block_quant.
+// _quant_layer_kernel, reached through slab_layer_block_quant. That kernel
+// dequantizes both weights once per call into VMEM scratch and then runs
+// the body of the dense half-layer's kernel on them; this one does the same
+// with HBM for VMEM:
+//   1, 2. dequant_weight_kernel (dequant_tile.cuh, K7's dequantize launch):
+//      qkv into rows 0..3D-1 of a (4D, D) bf16 scratch the caller allocated,
+//      then proj into rows 3D..4D-1, in dequant_weight's order (code -> f32,
+//      * d, + m, one bf16 cast), bit for bit dequant_weight(W, bf16);
+//   3-6. K1's four launches (half_layer.cuh::launch_half_layer): LN1, the
+//      QKV GEMM, the attention launch, the proj GEMM, on wgmma_gemm.cuh's
+//      core with the scratch's two weights as the k-major (out, in) operand,
+//      the layout K7 reads too (no transposed copy).
+// So K8 computes K1's function on dequant_weight(W, bf16)^T with K1's cast
+// points; the two differ only in how a weight tile is staged (k-major rows
+// against mn-major atoms through the descriptor's transpose bit).
 //
-// It is the half-layer's three launches (half_layer.cuh) with gemm_core.cuh's
-// mma.sync GEMM and the quant weight loader (dequant_tile.cuh) in launches 1
-// and 3: each 64x64 weight tile is dequantized from the ggml blocks as it is
-// staged into shared memory, in dequant_weight's order (code -> f32, * d,
-// + m, one bf16 cast), so the kernel computes K1's function on
-// dequant_weight(W, bf16) and the dense weight never exists in HBM. Launch 2
-// is K1's and K3's attention kernel (launch_slab_attention) and is all the
-// code K8 shares with K1: K1's GEMMs run on wgmma_gemm.cuh, so K8 is held to
-// K1 on dequantized weights within one bf16 step of the output's scale (on
-// an H100 the two gave equal bits wherever they were compared). The TPU kernel instead dequantizes both weights once per
-// call into VMEM scratch; a block here dequantizes its tiles once per row
-// tile, which re-reads the packed weight (0.56-1.06 B per weight against
-// bf16's 2) from L2 many times but keeps the blocks independent.
-//
-// What bounds it on an H100: the two GEMMs (unpipelined mma.sync, ~78 of the
-// ~91 GFLOP per call at B=64, T=257, D=768, H=12), plus the dequant work, ~4 integer and
-// 2 f32 operations per weight element per 64-row tile. The weights are
-// 1.3-2.5 MB against K1's 4.7 MB; the qkv slab (76 MB) and the attention
-// output (25 MB) go through HBM as in K1.
+// What bounds it on an H100: at the main path's shape (B=64, T=257, D=768,
+// H=12) K1's ~91 GFLOP, ~0.09 ms at 989 TFLOP/s bf16; the packed weights
+// are 1.3-2.5 MB against K1's 4.7 MB of bf16. Dequantizing writes the 4.7 MB
+// scratch once and the GEMMs read it from L2; the qkv slab (76 MB) and the
+// attention output (25 MB) go through HBM as in K1.
 
 #include "dequant_tile.cuh"
 #include "half_layer.cuh"
 
-namespace {
-
-using namespace dinov2;
-
-// The three launches on stream s; w_qkv and w_proj are the weight loaders for
-// (D -> 3D) and (D -> D). qkv (B, T, 3D) and attn (B, T, D) are scratch the
-// caller allocated. Returns the first launch error.
-cudaError_t launch_quant_layer(const bf16* x, const float* ln_scale, const float* ln_bias,
-                               QuantWeightTile w_qkv, const float* b_qkv, QuantWeightTile w_proj,
-                               const float* b_proj, const float* ls1, bf16* qkv, bf16* attn,
-                               bf16* out, int b, int t, int d, int heads, float scale, float eps,
-                               cudaStream_t s) {
-  const int m = b * t;
-  const int row_tiles = (m + kTile - 1) / kTile;
-
-  gemm_ln_kernel<QuantWeightTile, BiasEpilogue>
-      <<<dim3(3 * d / kTile, row_tiles), kThreads, 0, s>>>(
-          x, w_qkv, ln_scale, ln_bias, eps, BiasEpilogue{b_qkv, qkv, 3 * d}, m, d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  err = launch_slab_attention(qkv, attn, b, t, d, heads, scale, s);
-  if (err != cudaSuccess) return err;
-
-  gemm_kernel<QuantWeightTile, ResidualEpilogue><<<dim3(d / kTile, row_tiles), kThreads, 0, s>>>(
-      attn, w_proj, ResidualEpilogue{b_proj, ls1, x, out, d}, m, d);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 extern "C" {
 
-// The whole half-layer, three launches on `stream`. Each weight comes as
+// The whole half-layer, six launches on `stream`. Each weight comes as
 // codes, d, m (null for q4_0/q5_0/q8_0), qh_lo and qh_hi (null but for
 // packed q5), its layout (packed) and zero point; qkv is (3D, D), proj
-// (D, D). qkv_scratch (B, T, 3D) and attn_scratch (B, T, D) are bf16
-// buffers the caller allocated; out is (B, T, D). Requires D == 64 * heads,
-// D/2 % 64 == 0 for packed weights, 16-byte aligned pointers, and the
-// tensors' device current on the calling thread.
+// (D, D). qkv_scratch (B, T, 3D), attn_scratch (B, T, D) and weight_scratch
+// (4D, D) are bf16 buffers the caller allocated, weight_scratch apart from
+// the other two (attn_scratch holds LN1's rows while the QKV GEMM reads the
+// weights); out is (B, T, D). Requires D == 64 * heads, D/2 % 64 == 0 for
+// packed weights, 16-byte aligned pointers, and the tensors' device current
+// on the calling thread. Returns the first launch's error, else
+// cudaGetLastError() after the last.
 int dinov2_quant_layer_bf16(const void* x, const void* ln_scale, const void* ln_bias,
                             const void* qkv_codes, const void* qkv_d, const void* qkv_m,
                             const void* qkv_qh_lo, const void* qkv_qh_hi, int qkv_packed,
@@ -81,19 +53,25 @@ int dinov2_quant_layer_bf16(const void* x, const void* ln_scale, const void* ln_
                             const void* proj_qh_hi, int proj_packed, int proj_zero,
                             const void* b_proj, const void* ls1, void* qkv_scratch,
                             void* attn_scratch, void* out, int b, int t, int d, int heads,
-                            float scale, float eps, void* stream) {
-  return launch_quant_layer(
+                            float scale, float eps, void* stream, void* weight_scratch) {
+  using namespace dinov2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bf16* w_qkv = static_cast<bf16*>(weight_scratch);
+  bf16* w_proj = w_qkv + 3LL * d * d;
+  cudaError_t err = launch_dequant_weight(
+      quant_weight(qkv_codes, qkv_d, qkv_m, qkv_qh_lo, qkv_qh_hi, qkv_packed, qkv_zero, 3 * d, d),
+      w_qkv, s);
+  if (err != cudaSuccess) return err;
+  err = launch_dequant_weight(quant_weight(proj_codes, proj_d, proj_m, proj_qh_lo, proj_qh_hi,
+                                           proj_packed, proj_zero, d, d),
+                              w_proj, s);
+  if (err != cudaSuccess) return err;
+  return launch_half_layer<true>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias),
-      QuantWeightTile{
-          quant_weight(qkv_codes, qkv_d, qkv_m, qkv_qh_lo, qkv_qh_hi, qkv_packed, qkv_zero, 3 * d,
-                       d)},
-      static_cast<const float*>(b_qkv),
-      QuantWeightTile{quant_weight(proj_codes, proj_d, proj_m, proj_qh_lo, proj_qh_hi,
-                                   proj_packed, proj_zero, d, d)},
+      static_cast<const float*>(ln_bias), w_qkv, static_cast<const float*>(b_qkv), w_proj,
       static_cast<const float*>(b_proj), static_cast<const float*>(ls1),
       static_cast<bf16*>(qkv_scratch), static_cast<bf16*>(attn_scratch), static_cast<bf16*>(out),
-      b, t, d, heads, scale, eps, static_cast<cudaStream_t>(stream));
+      b, t, d, heads, scale, eps, s);
 }
 
 const char* dinov2_cuda_error_string(int code) {

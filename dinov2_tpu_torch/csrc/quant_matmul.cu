@@ -11,7 +11,8 @@
 //
 // Picked by x's type:
 //   - bf16 x (fc1, fc2; qkv and proj on the flash route): two launches.
-//       1. dequant_weight_kernel turns the whole weight into W (N, K) bf16
+//       1. dequant_weight_kernel (dequant_tile.cuh; K8 launches it too, once
+//          for each of its weights) turns the whole weight into W (N, K) bf16
 //          once per call, in a scratch buffer the caller allocated (at most
 //          one layer's weight: 4.7 MB at ViT-B's fc1), in dequant_weight's
 //          order (code -> f32, * d, + m, one bf16 cast; QuantWeight), bit
@@ -46,80 +47,11 @@
 #include "dequant_tile.cuh"
 #include "wgmma_gemm.cuh"
 
-// Kernels sit in dinov2's unnamed namespace, as the headers' do: kernels in a
-// second unnamed namespace at file scope make nvcc's host stubs ambiguous.
+// The f32 kernel sits in dinov2's unnamed namespace, as the headers' kernels
+// do: kernels in a second unnamed namespace at file scope make nvcc's host
+// stubs ambiguous.
 namespace dinov2 {
 namespace {
-
-constexpr int kDequantThreads = 256;
-
-// dst[0..15] = bf16 of 16 codes, each code * scale (+ mn where the format
-// has m), rounded in f32 without fused multiply-add: QuantWeight::dequant8's
-// arithmetic, written as two 16-byte pieces.
-__device__ __forceinline__ void store_dequant16(bf16* dst, const int (&q)[16], float scale,
-                                                const float* mins, size_t blk) {
-  const float mn = mins ? __ldg(mins + blk) : 0.f;
-  uint4 piece[2];
-  bf16* e = reinterpret_cast<bf16*>(piece);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    float v = __fmul_rn(static_cast<float>(q[i]), scale);
-    if (mins) v = __fadd_rn(v, mn);
-    e[i] = __float2bfloat16(v);
-  }
-  reinterpret_cast<uint4*>(dst)[0] = piece[0];
-  reinterpret_cast<uint4*>(dst)[1] = piece[1];
-}
-
-// W (N, K) bf16 = dequant(W): a thread a 16-byte piece of codes, that is 16
-// values of an int8 SoA row, or 16 bytes of a packed row, whose low nibbles
-// are values j0..j0+15 and high nibbles values K/2+j0..K/2+j0+15.
-__global__ void __launch_bounds__(kDequantThreads)
-    dequant_weight_kernel(QuantWeight w, bf16* __restrict__ out) {
-  const int row_bytes = w.packed ? w.k / 2 : w.k;
-  const int pieces = row_bytes / 16;
-  const size_t piece = static_cast<size_t>(blockIdx.x) * kDequantThreads + threadIdx.x;
-  if (piece >= static_cast<size_t>(w.n) * pieces) return;
-  const int row = static_cast<int>(piece / pieces);
-  const int j0 = static_cast<int>(piece % pieces) * 16;
-  const uint4 raw =
-      __ldg(reinterpret_cast<const uint4*>(w.codes + static_cast<size_t>(row) * row_bytes + j0));
-  const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&raw);
-  const size_t row_blocks = static_cast<size_t>(row) * (w.k >> 5);
-  bf16* dst = out + static_cast<size_t>(row) * w.k;
-  int q[16];
-  if (!w.packed) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) q[i] = static_cast<int8_t>(bytes[i]);
-    const size_t blk = row_blocks + (j0 >> 5);
-    store_dequant16(dst + j0, q, __ldg(w.d + blk), w.m, blk);
-    return;
-  }
-#pragma unroll
-  for (int high = 0; high < 2; ++high) {
-    uint32_t bits = 0;  // the 5th bits of the 16 values, bit i for value i
-    if (w.qh_lo) {
-      const uint8_t* qh =
-          (high ? w.qh_hi : w.qh_lo) + static_cast<size_t>(row) * (row_bytes >> 3) + (j0 >> 3);
-      bits = __ldg(qh) | (static_cast<uint32_t>(__ldg(qh + 1)) << 8);
-    }
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const uint32_t nibble = high ? bytes[i] >> 4 : bytes[i] & 0xFu;
-      q[i] = static_cast<int>(nibble | (((bits >> i) & 1u) << 4)) - w.zero;
-    }
-    const int k0 = j0 + high * row_bytes;
-    const size_t blk = row_blocks + (k0 >> 5);
-    store_dequant16(dst + k0, q, __ldg(w.d + blk), w.m, blk);
-  }
-}
-
-cudaError_t launch_dequant_weight(const QuantWeight& w, bf16* out, cudaStream_t s) {
-  const size_t pieces = static_cast<size_t>(w.n) * ((w.packed ? w.k / 2 : w.k) / 16);
-  const unsigned blocks = static_cast<unsigned>((pieces + kDequantThreads - 1) / kDequantThreads);
-  dequant_weight_kernel<<<blocks, kDequantThreads, 0, s>>>(w, out);
-  return cudaGetLastError();
-}
 
 constexpr int kF32Threads = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kF32TileK = 32;     // one ggml block of k per step

@@ -15,7 +15,8 @@
 // 989 TFLOP/s bf16 the floor is ~0.09 ms per call; the weights (4.7 MB) and x
 // (25 MB in, 25 MB out) are small next to that.
 //
-// Design: four launches on the caller's stream.
+// Design: four launches on the caller's stream (half_layer.cuh's
+// launch_half_layer, which K8 runs too on its dequantized weights).
 //   0. layer_norm_rows_kernel (wgmma_gemm.cuh): LN1 of every row, once, a
 //      warp a row, into the attention scratch buffer (free until launch 2).
 //   1. wgmma_gemm_kernel<BiasEpilogue>: 128 x 256 output tiles, a cp.async
@@ -26,7 +27,7 @@
 //      (flash_forward.cuh) on the slab's head views, column offsets h*64,
 //      D+h*64 and 2D+h*64 (no head transposes), the ragged tail (T=257 =
 //      4*64+1) masked, not padded. Output bf16 into the attention scratch
-//      (B, T, D) in HBM. It is K3's kernel and K8's launch 2.
+//      (B, T, D) in HBM. It is K3's kernel.
 //   3. wgmma_gemm_kernel<ResidualEpilogue>: attn @ w_proj, epilogue
 //      bf16(acc) + bf16(b_proj), * bf16(ls1), + x, each step rounded to bf16.
 // The TPU kernel keeps the qkv slab and the attention output on chip; this
@@ -45,7 +46,6 @@
 // cudaGetLastError() after the last.
 
 #include "half_layer.cuh"
-#include "wgmma_gemm.cuh"
 
 extern "C" {
 
@@ -59,27 +59,14 @@ int dinov2_slab_layer_bf16(const void* x, const void* ln_scale, const void* ln_b
                            const void* b_proj, const void* ls1, void* qkv_scratch,
                            void* attn_scratch, void* out, int b, int t, int d, int heads,
                            float scale, float eps, void* stream) {
-  using namespace dinov2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* x_ = static_cast<const bf16*>(x);
-  bf16* qkv = static_cast<bf16*>(qkv_scratch);
-  bf16* attn = static_cast<bf16*>(attn_scratch);
-  const int m = b * t;
-
-  cudaError_t err = launch_layer_norm_rows(x_, static_cast<const float*>(ln_scale),
-                                           static_cast<const float*>(ln_bias), attn, m, d, eps, s);
-  if (err != cudaSuccess) return err;
-  err = launch_wgmma_gemm(attn, static_cast<const bf16*>(w_qkv),
-                          BiasEpilogue{static_cast<const float*>(b_qkv), qkv, 3 * d}, m, 3 * d, d,
-                          s);
-  if (err != cudaSuccess) return err;
-  err = launch_slab_attention(qkv, attn, b, t, d, heads, scale, s);
-  if (err != cudaSuccess) return err;
-  return launch_wgmma_gemm(
-      attn, static_cast<const bf16*>(w_proj),
-      ResidualEpilogue{static_cast<const float*>(b_proj), static_cast<const float*>(ls1), x_,
-                       static_cast<bf16*>(out), d},
-      m, d, d, s);
+  using dinov2::bf16;
+  return dinov2::launch_half_layer<false>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), static_cast<const bf16*>(w_qkv),
+      static_cast<const float*>(b_qkv), static_cast<const bf16*>(w_proj),
+      static_cast<const float*>(b_proj), static_cast<const float*>(ls1),
+      static_cast<bf16*>(qkv_scratch), static_cast<bf16*>(attn_scratch), static_cast<bf16*>(out),
+      b, t, d, heads, scale, eps, static_cast<cudaStream_t>(stream));
 }
 
 const char* dinov2_cuda_error_string(int code) {

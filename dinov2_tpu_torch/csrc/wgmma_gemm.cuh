@@ -1,7 +1,8 @@
 // The port's dense bf16 GEMM on Hopper: K1's QKV and proj launches
-// (slab_layer.cu), K2's proj (slab_attention.cu), K5's fc1 and fc2
-// (slab_mlp.cu) and K7's product on its dequantized weight (quant_matmul.cu);
-// and the layer norm in front of K1's and K5's,
+// (slab_layer.cu, through half_layer.cuh), K2's proj (slab_attention.cu),
+// K5's fc1 and fc2 (slab_mlp.cu), K7's product on its dequantized weight
+// (quant_matmul.cu) and K8's QKV and proj on its two (quant_layer.cu); and
+// the layer norm in front of K1's, K5's and K8's,
 //
 //     h (M, K) = bf16(LN(x))                       layer_norm_rows_kernel
 //     out (M, N) = ep(A @ W)                       wgmma_gemm_kernel
@@ -10,8 +11,8 @@
 // out) layout of the dense weights, or (N, K) row-major (kKMajorWeight), the
 // (out, in) layout of a dequantized QuantLinear; with gemm_core.cuh's
 // epilogues (BiasEpilogue, ResidualEpilogue, ActEpilogue) and their rounding
-// points. K % 64 == 0, any M >= 1; N % 64 == 0 for a (K, N) weight, any
-// N >= 1 for an (N, K) one with ActEpilogue, which masks its columns.
+// points. K % 64 == 0, any M >= 1; N % 64 == 0, or any N >= 1 for an
+// (N, K) weight with ActEpilogue, which masks its columns.
 //
 // What bounds it on an H100: at K1's shape (M = 64*257 = 16448, K = 768) the
 // QKV product is 58.2 GFLOP over 25 MB in, 76 MB out and 3.5 MB of weight,
@@ -45,8 +46,8 @@
 //
 // Layer norm is a kernel of its own in front of the QKV product: a warp a
 // row, f32 statistics in two passes, (x - mu) * rstd * scale + bias in f32
-// without fused multiply-add and one bf16 cast (the numerics of
-// gemm_core.cuh), written once to a (M, K) bf16 buffer the caller gives.
+// without fused multiply-add and one bf16 cast (the JAX kernels' cast
+// points), written once to a (M, K) bf16 buffer the caller gives.
 // Normalizing the A tile in shared memory as it landed (statistics from a
 // prologue kernel, each thread on the pieces its own cp.async brought in)
 // gave the same bits but redid the work in each of the N / kGemmCols column
@@ -141,7 +142,7 @@ __device__ __forceinline__ uint64_t wide_tile_descriptor(uint32_t address) {
 }
 
 // h[row] = bf16(LN(x[row])) for x, h (M, K) bf16, one warp a row: f32
-// statistics in two passes (gemm_core.cuh's sums in its order), then 16-byte
+// statistics in two passes (lanes' sums, then a warp sum), then 16-byte
 // pieces of the row normalized and written.
 __global__ void __launch_bounds__(kLayerNormThreads)
     layer_norm_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_scale,

@@ -173,7 +173,7 @@ def quant_layer_lib() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dinov2_quant_layer_bf16.argtypes = (
         [ptr] * 3 + _QUANT_WEIGHT_ARGS + [ptr] + _QUANT_WEIGHT_ARGS + [ptr] * 5
-        + [i32] * 4 + [f32, f32, ptr]
+        + [i32] * 4 + [f32, f32, ptr, ptr]
     )
     lib.dinov2_quant_layer_bf16.restype = i32
     return lib

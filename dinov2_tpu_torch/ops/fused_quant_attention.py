@@ -7,15 +7,16 @@ with the qkv (3D, D) and proj (D, D) weights as QuantLinear (models/
 params.py), dequantized in `dequant_weight`'s order (code -> f32, x d, + m,
 one cast to x's dtype). On a CUDA tensor it launches the hand-written kernel
 in csrc/quant_layer.cu, which replaces the Pallas TPU kernel
-`_quant_layer_kernel`: K1's three launches (ops/fused_attention.py) with the
-weight tiles dequantized from the ggml blocks as they reach shared memory,
-so the dense weights never exist in HBM. On a CPU tensor it runs the plain
-PyTorch version, `quant_layer_reference`: dequant_weight, then K1's plain
-version, as the JAX package's reference does.
+`_quant_layer_kernel`: both weights dequantized once a call into a (4D, D)
+bf16 scratch buffer (K7's dequantize kernel, one launch each), then K1's
+four launches (ops/fused_attention.py) on that scratch. The dense weights
+exist only for the call, in that buffer: the TPU kernel's VMEM scratch, in
+HBM. On a CPU tensor it runs the plain PyTorch version,
+`quant_layer_reference`: dequant_weight, then K1's plain version, as the
+JAX package's reference does.
 
-The TPU kernel dequantizes both weights once per call into VMEM scratch and
-keeps the qkv slab and the attention output on chip; this first version
-writes and re-reads both through HBM, as K1 does.
+The TPU kernel keeps the qkv slab and the attention output on chip; this
+version writes and re-reads both through HBM, as K1 does.
 """
 
 from __future__ import annotations
@@ -56,7 +57,9 @@ def slab_layer_block_quant(
     (3D,) in f32.
 
     CPU tensors run the plain version. CUDA tensors launch the K8 kernel
-    (bf16 only; anything else raises) and add one to
+    (bf16 only; anything else raises; its six launches share scratch
+    allocated here for the call: the qkv slab, the attention output and the
+    (4D, D) dequantized weights) and add one to
     `slab_layer_block_quant.launches`. An input that requires grad raises:
     the quantized weights are not trainable and the kernel has no backward."""
     refuse_quant_grad("slab_layer_block_quant", x, ln_scale, ln_bias, b_qkv, b_proj, ls1)
@@ -75,6 +78,7 @@ def slab_layer_block_quant(
     lib = quant_layer_lib()
     qkv = torch.empty((b, t, 3 * d), dtype=x.dtype, device=x.device)
     attn = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
+    weights = torch.empty((4 * d, d), dtype=x.dtype, device=x.device)  # qkv's rows, then proj's
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):  # the launches go to the current device
         code = lib.dinov2_quant_layer_bf16(
@@ -83,6 +87,7 @@ def slab_layer_block_quant(
             *quant_weight_args(proj_ql), b_proj.data_ptr(), ls1.data_ptr(),
             qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
             b, t, d, num_heads, scale, eps, torch.cuda.current_stream(x.device).cuda_stream,
+            weights.data_ptr(),
         )
     check_status(lib, code, "slab_layer_block_quant")
     slab_layer_block_quant.launches += 1

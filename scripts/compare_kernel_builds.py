@@ -12,16 +12,18 @@ host's microseconds to issue one call with the card never waited for). K4
 (with and without lse), K6 and K7's f32 head kernel must be equal bit for
 bit; so must K3's backward on its flash route, which is K4 with lse and K6
 behind autograd (four launches: where the event time is the host time, the
-host binds it). The kernels whose f32 sums run in another order in the two
-versions (REDESIGNED: K1, K2, K3, K8 against a tree before their wgmma
-kernels; K5 and K7's bf16 path against one before theirs) must be equal
-within TOLERANCE of the output's scale (bf16 outputs: an ulp of the largest
-values is 0.4% of them). Exits non-zero otherwise. Needs a CUDA device and
-nvcc.
+host binds it). The kernels that REDESIGNED names, whose f32 sums may run in
+another order in the two versions, must be equal within TOLERANCE of the
+output's scale (bf16 outputs: an ulp of the largest values is 0.4% of
+them): against the parent of K8's wgmma redesign, K8 alone; against an
+older tree, add the kernels redesigned since (K1, K2, K3 against a tree
+before their wgmma kernels; K5 and K7's bf16 path against one before
+theirs). Exits non-zero otherwise. Needs a CUDA device and nvcc.
 
-The wrappers pass K5's hidden buffer and K7's weight scratch as the last
-argument of their C entries, so an entry from before those buffers, which
-takes one argument fewer, runs with the same wrapper and never reads it.
+The wrappers pass K5's hidden buffer and K7's and K8's weight scratch as
+the last argument of their C entries, so an entry from before those
+buffers, which takes one argument fewer, runs with the same wrapper and
+never reads it.
 """
 
 import argparse
@@ -61,7 +63,7 @@ from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel  # noqa: E40
 LIBS = ("slab_layer_lib", "slab_attention_lib", "slab_mlp_lib", "flash_attention_lib",
         "flash_backward_lib", "quant_matmul_lib", "quant_layer_lib")
 # held within tolerance; every other kernel bit for bit
-REDESIGNED = ("K1", "K2", "K3", "K5", "K7 bf16", "K8")
+REDESIGNED = ("K8",)
 TOLERANCE = 1e-2  # of max|other|, plus 1e-5
 
 
@@ -143,6 +145,8 @@ def cases():
     qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * d))).to("cuda", torch.bfloat16)
     wq4 = quantize_linear(rng.standard_normal((3 * d, d)) * 0.05, "q4_0", device="cuda")
     wp4 = quantize_linear(rng.standard_normal((d, d)) * 0.05, "q4_0", device="cuda")
+    wq8 = quantize_linear(rng.standard_normal((3 * d, d)) * 0.05, "q8_0", device="cuda")
+    wp8 = quantize_linear(rng.standard_normal((d, d)) * 0.05, "q8_0", device="cuda")
     calls = {
         "K1 slab_layer_block B=64 T=257 D=768":
             lambda: slab_layer_block(*args, heads, 0.125, 1e-6),
@@ -150,8 +154,10 @@ def cases():
             lambda: slab_attention_block(x, qkv, wp, bp, ls, heads, 0.125),
         "K3 slab_attention B=64 T=257 H=12":
             lambda: slab_attention(qkv, heads, 0.125),
-        "K8 slab_layer_block_quant q4_0 B=64 T=257 D=768":
+        "K8 slab_layer_block_quant q4_0 packed B=64 T=257 D=768":
             lambda: slab_layer_block_quant(x, lns, lnb, wq4, bq, wp4, bp, ls, heads, 0.125, 1e-6),
+        "K8 slab_layer_block_quant q8_0 int8 SoA B=64 T=257 D=768":
+            lambda: slab_layer_block_quant(x, lns, lnb, wq8, bq, wp8, bp, ls, heads, 0.125, 1e-6),
     }
     for bb, tt, dd in ((64, 257, 768), (8, 1370, 1024)):
         mlp = mlp_args(rng, bb, tt, dd)

@@ -15,18 +15,20 @@ PyTorch version over ragged sequence lengths. With --profile it ends with
 torch.profiler's device time of each kernel of one K4 (with lse) and one K6
 call at the backward shapes. K1's GEMM core (csrc/wgmma_gemm.cuh) has its
 block shape and ring depth as macros too (-DDINOV2_GEMM_COLUMNS=,
--DDINOV2_GEMM_STAGES=), and K5 (csrc/slab_mlp.cu) and K7
-(csrc/quant_matmul.cu) run on it: each variant is held against K1's, K5's
-and K7's plain versions at the same ragged lengths, and K1, K5 and K7's fc1
-and fc2 are timed on each at their shapes. With --ptxas it first prints
-what `nvcc -Xptxas -v` says of both sources and of csrc/slab_layer.cu (K1:
-the wgmma GEMM kernels of csrc/wgmma_gemm.cuh and the attention kernel as
-the slab kernels instantiate it), csrc/slab_mlp.cu (K5: the layer norm and
-the GEMM with the activation and with the residual epilogue) and
-csrc/quant_matmul.cu (K7: the dequantize kernel, the GEMM on a k-major
-weight, the f32 kernel): registers, spills, shared memory, and the count of
-HGMMA (wgmma), HMMA (mma.sync) and LDGSTS (cp.async) instructions in their
-SASS. --quick skips the timing. Exits non-zero if a variant disagrees with
+-DDINOV2_GEMM_STAGES=), and K5 (csrc/slab_mlp.cu), K7
+(csrc/quant_matmul.cu) and K8 (csrc/quant_layer.cu) run on it: each variant
+is held against K1's, K5's, K7's and K8's plain versions at the same ragged
+lengths, and K1, K5, K7's fc1 and fc2 and K8 are timed on each at their
+shapes. With --ptxas it first prints what `nvcc -Xptxas -v` says of the
+seven kernel sources: both flash sources, csrc/slab_layer.cu (K1: the wgmma
+GEMM kernels of csrc/wgmma_gemm.cuh and the attention kernel as the slab
+kernels instantiate it), csrc/slab_attention.cu (K3, K2), csrc/slab_mlp.cu
+(K5: the layer norm and the GEMM with the activation and with the residual
+epilogue), csrc/quant_matmul.cu (K7: the dequantize kernel, the GEMM on a
+k-major weight, the f32 kernel) and csrc/quant_layer.cu (K8: the dequantize
+kernel and K1's launches with the k-major weight): registers, spills,
+shared memory, and the count of HGMMA (wgmma), HMMA (mma.sync) and LDGSTS
+(cp.async) instructions in their SASS. --quick skips the timing. Exits non-zero if a variant disagrees with
 the plain version. Needs a CUDA device and nvcc.
 """
 
@@ -57,6 +59,10 @@ from dinov2_tpu_torch.ops.fused_attention import (  # noqa: E402
     slab_mlp_block,
     slab_mlp_reference,
 )
+from dinov2_tpu_torch.ops.fused_quant_attention import (  # noqa: E402
+    quant_layer_reference,
+    slab_layer_block_quant,
+)
 from dinov2_tpu_torch.ops.qmatmul_kernel import (  # noqa: E402
     quant_matmul_kernel,
     quant_matmul_reference,
@@ -80,7 +86,8 @@ GEMM_VARIANTS = {
     (columns, stages): (f"DINOV2_GEMM_COLUMNS={columns}", f"DINOV2_GEMM_STAGES={stages}")
     for columns, stages in ((128, 3), (256, 3), (256, 4))}
 GEMM_SHAPES = ((64, 257, 12), (32, 257, 12), (16, 257, 24))  # K1 at (B, T, heads), D = 64 heads
-GEMM_LIBS = ("slab_layer", "slab_mlp", "quant_matmul")  # built on the GEMM core's variants
+# built on the GEMM core's variants
+GEMM_LIBS = ("slab_layer", "slab_mlp", "quant_matmul", "quant_layer")
 MLP_SHAPES = ((64, 257, 768), (8, 1370, 1024))  # K5 at (B, T, D)
 QUANT_SHAPES = {"fc1": (64 * 257, 768, 3072, "gelu_tanh_f16"), "fc2": (64 * 257, 3072, 768, None)}
 _BUILD_ONE = (
@@ -107,10 +114,11 @@ def build_all() -> None:
 @contextlib.contextmanager
 def variant(defines):
     """Inside the block the flash libraries and the GEMM core's (K1, K5,
-    K7) are the ones built with these macros (built by build_all;
+    K7, K8) are the ones built with these macros (built by build_all;
     ops/_kernels.py names a library by its flags)."""
     libs = (_kernels.flash_attention_lib, _kernels.flash_backward_lib, _kernels.slab_layer_lib,
-            _kernels.slab_mlp_lib, _kernels.quant_matmul_lib, _kernels.dequant_weight_entry)
+            _kernels.slab_mlp_lib, _kernels.quant_matmul_lib, _kernels.dequant_weight_entry,
+            _kernels.quant_layer_lib)
     saved = _kernels.NVCC_FLAGS
     _kernels.NVCC_FLAGS = saved + flags(defines)
     for lib in libs:
@@ -296,12 +304,25 @@ def quant_args(m, k, n, seed, fmt="q4_0"):
     return x, ql, torch.from_numpy(rng.standard_normal(n) * 0.1).to("cuda", torch.float32)
 
 
+def quant_layer_args(b, t, heads, seed, fmt="q4_0", packed=True):
+    """K8's inputs on the card: x, LN rows, the qkv and proj QuantLinear
+    (the load path's layout, or int8 SoA), biases and LayerScale."""
+    d = 64 * heads
+    rng = np.random.default_rng(seed)
+    x, lns, lnb, _, bq, _, bp, ls = half_layer_args(b, t, d, seed)
+    wq = quantize_linear(rng.standard_normal((3 * d, d)) * 0.05, fmt, packed, device="cuda")
+    wp = quantize_linear(rng.standard_normal((d, d)) * 0.05, fmt, packed, device="cuda")
+    return x, lns, lnb, wq, bq, wp, bp, ls
+
+
 def check_gemm_variants(b, t, heads) -> bool:
-    """K1 (D = 64 heads), K5 (D = 384) and K7 (q5_1, N = 70, M = B T) on each
-    variant of their GEMM core against the plain versions."""
+    """K1 (D = 64 heads), K5 (D = 384), K7 (q5_1, N = 70, M = B T) and K8
+    (q5_1 int8 SoA, D = 64 heads) on each variant of their GEMM core against
+    the plain versions."""
     args = half_layer_args(b, t, 64 * heads, seed=t + heads)
     mlp = mlp_args(b, t, 384, seed=t)
     x, ql, bias = quant_args(b * t, 256, 70, seed=t, fmt="q5_1")
+    quant_layer = quant_layer_args(b, t, heads, seed=t, fmt="q5_1", packed=False)
     cases = {
         "K1": (lambda: slab_layer_buffers(*args, heads, SCALE, 1e-6)[0],
                slab_layer_reference(*args, heads, SCALE, 1e-6),
@@ -312,6 +333,10 @@ def check_gemm_variants(b, t, heads) -> bool:
         "K7": (lambda: quant_matmul_kernel(x, ql, bias, "gelu_tanh"),
                quant_matmul_reference(x, ql, bias, "gelu_tanh"),
                quant_matmul_reference(x.float(), ql, bias, "gelu_tanh")),
+        "K8": (lambda: slab_layer_block_quant(*quant_layer, heads, SCALE, 1e-6),
+               quant_layer_reference(*quant_layer, heads, SCALE, 1e-6),
+               quant_layer_reference(quant_layer[0].float(), *quant_layer[1:], heads, SCALE,
+                                     1e-6)),
     }
     ok = True
     for pair, defines in GEMM_VARIANTS.items():
@@ -369,7 +394,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card)
-    names = ("flash_attention", "flash_backward", "slab_layer", "slab_mlp", "quant_matmul")
+    names = ("flash_attention", "flash_backward", "slab_layer", "slab_attention", "slab_mlp",
+             "quant_matmul", "quant_layer")
     with ThreadPoolExecutor(len(names)) as pool:
         reports = pool.map(ptxas_report, names) if opts.ptxas else ()
         build_all()
@@ -381,8 +407,8 @@ def main() -> int:
         for b, heads in ((2, 3), (1, 1)):
             good = check_variants(b, t, heads) & check_gemm_variants(b, t, heads)
             ok &= good
-            print(f"check B={b} T={t} H={heads}: both variants of K4, K4-lse and K6, and K1, K5 "
-                  f"and K7 on every variant of their GEMM core, "
+            print(f"check B={b} T={t} H={heads}: both variants of K4, K4-lse and K6, and K1, K5, "
+                  f"K7 and K8 on every variant of their GEMM core, "
                   f"{'agree with' if good else 'DISAGREE with'} the plain versions")
     if opts.quick:
         return 0 if ok else 1
@@ -430,6 +456,8 @@ def main() -> int:
     for name, (m, k, n, act) in QUANT_SHAPES.items():
         timed[f"K7 q4_0 {name} M={m} K={k} N={n} {act}, its two launches"] = (
             quant_matmul_kernel, (*quant_args(m, k, n, seed=k), act))
+    timed["K8 q4_0 B=64 T=257 D=768, its six launches"] = (
+        slab_layer_block_quant, (*quant_layer_args(64, 257, 12, seed=0), 12, SCALE, 1e-6))
     for label, (fn, args) in timed.items():
         ms = {}
         order = list(GEMM_VARIANTS)
