@@ -7,6 +7,19 @@ with random f16 weights from a seed, bf16, parity="reference":
   - classify: DinoEngine.classify on 64 RGB images of 256x256 with a
     full-width ViT-B/14 (1000 classes); the attention half-layer is K1. Then
     the same weights with fuse_mlp=True: K1 and, for the MLP half-layer, K5;
+  - serving: a BatchingServer in this process on the same ViT-B/14 file,
+    with clients posting over localhost: 256 JPEG images of 256 px to
+    /classify (K1), 64 in flight from client processes that share no GIL
+    with the server, then 16 PNG images of 512 px to /features
+    and 8 to /pca (T=1370, K4), then /healthz; each reply held against the
+    engine called directly, with the requests/s, latencies and mean batch
+    beside the direct classify rate;
+  - the CLIs: subprocesses of `python3 -m dinov2_tpu_torch.cli.<name>` on
+    the card, each with a time limit: inference -c and its PCA mode, eval
+    over a directory, realtime --synthetic (854x480, T=2171, K4, its last
+    frame held against engine.pca_visualization of the same frame), benchmark
+    and serve (polled until it answers, one /classify, then SIGTERM), each
+    output held against the engine in this process;
   - quantized classify: the same ViT-B/14 quantized to q4_0 with
     quantize_gguf, through DinoEngine(quant_mode="fused").classify on the
     same images; K8 is the attention half-layer, K7 runs fc1, fc2 and the
@@ -39,14 +52,15 @@ read just after.
 Phases, one line each (or one per format or shape), each with its seconds:
 device, which image decoders import (a finding), build, kernel checks (K1,
 then K1 launch by launch beside torch.nn.functional.linear on the two GEMMs'
-operands, K3 and K2, K5 and its three launches likewise, K4, K4 with lse and
+operands, K3 and K2, K5 and its three launches likewise, K4 at the feature,
+realtime and 896 px shapes, K4 with lse and
 K6, the autograd Functions of K1, K2, K3 and K5, K7 with its dequantize and
 GEMM launches at fc1 and fc2 beside one linear call on the decoded weight,
 K8 at ViT-B's and ViT-g's widths, then its six launches in order and one by
 one beside one linear call on each GEMM's operands), classify slice,
-its cross-check and the fuse_mlp slice with its own, quantized classify
-slice, its cross-check and its findings (other routes, weight memory, the
-peak device memory of one call),
+its cross-check and the fuse_mlp slice with its own, serving slice, CLI
+slice, quantized classify slice, its cross-check and its findings (other
+routes, weight memory, the peak device memory of one call),
 feature slice, PCA, feature cross-check, ViT-g/14 slice at its three levels
 and its cross-check, training slice on both routes with its cross-check and
 export, long-sequence training; then a check that no "auto" attention route
@@ -59,6 +73,7 @@ that holds only this file, it exits non-zero and prints no result.
 import copy
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -83,6 +98,7 @@ CROSS_CHECK_IMAGES = 4
 # probs for ViT-S/B/L; the bounds leave 2.5x of room.
 TOKEN_REL_BOUND = 5e-2
 PROB_ABS_BOUND = 3e-4
+PRINTED_PROB_BOUND = 0.005 + PROB_ABS_BOUND  # a prob printed to two decimals
 # the feature slice: ViT-L/14 at 518 px, the JAX package's marquee feature shape
 FEATURE_BATCH = 8
 FEATURE_PX = 512  # quirk Q4: 512 px -> 518 px -> a 37x37 grid, T = 1370
@@ -90,8 +106,6 @@ FEATURE_TIMED_CALLS = 10
 # PCA images from the same tokens on the card and on the CPU: at most one u8
 # level apart (an f32 rounding across a .5 boundary) on >= 99% of pixels
 PCA_AGREE = 0.99
-KERNELS = ("slab_layer", "slab_attention", "slab_mlp", "flash_attention", "flash_backward",
-           "quant_matmul", "quant_layer")
 QUANT_FORMATS = ("q4_0", "q4_1", "q5_0", "q5_1", "q8_0")
 QUANT_SLICE_FORMAT = "q4_0"
 # the ViT-g/14 slice: full width, 12 of the 40 layers (the file to write and
@@ -116,6 +130,18 @@ TRAIN_LOSS_ABS_BOUND = 2e-2
 TRAIN_LONG_BATCH = 8
 TRAIN_LONG_STEPS = 2
 LSE_ABS_BOUND = 1e-3  # the kernel's f32 row logsumexp against the plain f32 one
+# the serving slice: a server in this process on the classify slice's
+# ViT-B/14, its batch cap the direct path's batch
+SERVE_MAX_BATCH = BATCH
+SERVE_CLASSIFY_REQUESTS = 256
+SERVE_IN_FLIGHT = 64
+SERVE_FEW_IN_FLIGHT = 8
+SERVE_FEATURE_REQUESTS = 16  # 512 px: T=1370, K4
+SERVE_PCA_REQUESTS = 8
+# the CLI slice: subprocesses on the card, each with this limit
+CLI_TIMEOUT_S = 300
+CLI_EVAL_IMAGES = 16
+CLI_REALTIME_FRAMES = 20
 # H100 SXM peaks (NVIDIA's data sheet, dense): a kernel's bound is the larger
 # of its operations over the first and its bytes over the second
 PEAK_BF16_FLOPS = 989e12
@@ -164,7 +190,8 @@ def roofline(flops: float, moved_bytes: int, peak_flops: float = PEAK_BF16_FLOPS
 
 
 def check_kernel(label, tag, kernel, plain, plain_f32, card, flops, moved_bytes,
-                 library=None, peak_flops=PEAK_BF16_FLOPS) -> dict:
+                 library=None, peak_flops=PEAK_BF16_FLOPS,
+                 library_name="scaled_dot_product_attention") -> dict:
     """One kernel call against its plain version in the same dtype and in
     f32 on the same inputs. The kernel and the plain bf16 version round to
     bf16 at the same points but sum in other orders, and the attention
@@ -194,7 +221,7 @@ def check_kernel(label, tag, kernel, plain, plain_f32, card, flops, moved_bytes,
         f"{measured['bound_ms']:.4f} ms ({measured['bound_by']})"
     )
     if library:
-        line += f", scaled_dot_product_attention {measured['library_ms']:.4f} ms"
+        line += f", {library_name} {measured['library_ms']:.4f} ms"
     print(f"{line} ({card})")
     require(bool(torch.isfinite(got).all()), f"{label}: output is not finite")
     require(err_kernel <= bound, f"{label}: error {err_kernel} exceeds {bound}")
@@ -266,10 +293,7 @@ def phase_build() -> None:
     from dinov2_tpu_torch.ops import _kernels
 
     start = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = list(pool.map(_kernels.build, KERNELS))
-    for name in KERNELS:
-        getattr(_kernels, f"{name}_lib")()
+    libs = _kernels.build_all()
     names = ", ".join(str(lib.relative_to(ROOT)) for lib in libs)
     print(f"build: {names} in {time.perf_counter() - start:.2f} s")
 
@@ -291,30 +315,68 @@ def phase_kernel_check(card: str) -> dict:
     )
 
 
+PROFILE_WINDOWS = 3
+
+
+def _card_kernels(prof) -> list:
+    """The kernel records of a profile (copies and fills left out), in the
+    order they started on the card."""
+    return sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "Memcpy" not in e.name and "Memset" not in e.name),
+                  key=lambda e: e.time_range.start)
+
+
+def profile_window(run, calls: int, complete):
+    """A torch.profiler window of the card's kernels over `calls` calls of
+    run, after one call in a warmup step of the profiler. On an H100 a window
+    has lost records at its start (9, once 8, of K7's 10 dequantize launches;
+    one of K8's two dequantize launches; two fill kernels put first), and
+    once every record of the window. So a window that complete(prof) refuses
+    is taken again, up to PROFILE_WINDOWS in all; the last one is returned
+    whatever it holds, for the caller's check to refuse."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    run()
+    torch.cuda.synchronize()
+    for window in range(1, PROFILE_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        if complete(prof) or window == PROFILE_WINDOWS:
+            return prof
+        print(f"torch.profiler window {window} of {PROFILE_WINDOWS} lost records "
+              f"({len(_card_kernels(prof))} kernel records); taking another")
+
+
 def device_ms_by_launch(run, kernels: dict, what: str, calls: int = 10,
                         per_call: dict | None = None) -> dict:
     """torch.profiler's device ms of one launch of each kernel of `kernels`
     (a word of its name -> a label) over `calls` calls of run, each kernel
     launched once a call, or per_call[label] times (its ms is then that of
-    its launches of one call together). The profile may miss a record: on
-    an H100 it once held 9 of K7's 10 dequantize launches, the GEMM after
-    each all 10. A kernel's ms is the mean over the records it has, and it
-    needs all but one call's worth of them."""
+    its launches of one call together). A kernel's ms is the mean over the
+    records it has, and it needs all but one call's worth of them (see
+    profile_window for the records a window loses)."""
     per_call = per_call or {}
-    from torch.profiler import ProfilerActivity, profile
 
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
-    totals = {name: [0, 0.0] for name in kernels.values()}  # records, device us
-    for event in prof.key_averages():
-        for word, name in kernels.items():
-            if word in event.key:
-                totals[name][0] += event.count
-                totals[name][1] += event.device_time_total
+    def totals_of(prof) -> dict:
+        totals = {name: [0, 0.0] for name in kernels.values()}  # records, device us
+        for event in prof.key_averages():
+            for word, name in kernels.items():
+                if word in event.key:
+                    totals[name][0] += event.count
+                    totals[name][1] += event.device_time_total
+        return totals
+
+    def enough(totals: dict) -> bool:
+        return all((calls - 1) * per_call.get(name, 1) <= count <= calls * per_call.get(name, 1)
+                   for name, (count, _) in totals.items())
+
+    totals = totals_of(profile_window(run, calls, lambda prof: enough(totals_of(prof))))
     for name, (count, _) in totals.items():
         n = per_call.get(name, 1)
         require((calls - 1) * n <= count <= calls * n,
@@ -323,25 +385,26 @@ def device_ms_by_launch(run, kernels: dict, what: str, calls: int = 10,
             for name, (count, us) in totals.items()}
 
 
+def device_ms_per_call(run, calls: int = 10) -> float:
+    """torch.profiler's device ms of all the kernels of one call of run
+    (copies and fills left out), over `calls` calls, for a call whose
+    kernels are not known by name."""
+    def device_us(prof) -> float:
+        return sum(e.time_range.elapsed_us() for e in _card_kernels(prof))
+
+    us = device_us(profile_window(run, calls, lambda prof: device_us(prof) > 0))
+    require(us > 0, "the profiler recorded no kernel")
+    return us / calls / 1e3
+
+
 def launch_order(run, count: int, calls: int = 3) -> list:
     """The names of the last `count` kernels of `calls` calls of run, the
     kernels of its last call when one call launches `count`, in the order
-    they started on the card (torch.profiler). On an H100 the profile has
-    lost records at the start of its window (one of K8's two dequantize
-    launches in one run, two fill kernels put before them in another), so
-    only the last call is read."""
-    from torch.profiler import ProfilerActivity, profile
-
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            run()
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                      and "Memcpy" not in e.name and "Memset" not in e.name),
-                     key=lambda e: e.time_range.start)
-    return [e.name for e in kernels[-count:]]
+    they started on the card (torch.profiler). A window loses records at its
+    start, so only the last call is read, from a window that holds at least
+    `count` kernel records (profile_window)."""
+    prof = profile_window(run, calls, lambda prof: len(_card_kernels(prof)) >= count)
+    return [e.name for e in _card_kernels(prof)[-count:]]
 
 
 def phase_half_layer_split(card: str) -> dict:
@@ -513,9 +576,12 @@ def phase_mlp_split(card: str) -> dict:
 
 def phase_flash_check(card: str) -> dict:
     """K4 against its plain version in bf16 and f32 at the feature slice's
-    shape through flash_attention_slab, and at an 896 px image's sequence
-    (T=4226, which the TPU runs as multi-KV online softmax) through
-    flash_attention; scaled_dot_product_attention beside both."""
+    shape through flash_attention_slab, at the realtime CLI's shape (one
+    854x480 frame of ViT-B, T=2171, H=12: few enough blocks that K4 takes
+    its 64-query variant) through flash_attention_slab as the model calls
+    it, and at an 896 px image's sequence (T=4226, which the TPU runs as
+    multi-KV online softmax) through flash_attention;
+    scaled_dot_product_attention beside each."""
     from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
     from dinov2_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -523,11 +589,12 @@ def phase_flash_check(card: str) -> dict:
         kernel_tile_rows,
     )
 
-    heads, scale = 16, 0.125
+    scale = 0.125
     measured = {}
-    for b, t, slab in ((FEATURE_BATCH, 1370, True), (1, 4226, False)):
-        print(f"kernel check: K4 at B={b} T={t} H={heads} takes "
-              f"{kernel_tile_rows(b, t, heads)['forward']}-query blocks")
+    for b, t, heads, slab in ((FEATURE_BATCH, 1370, 16, True), (1, 2171, 12, True),
+                              (1, 4226, 16, False)):
+        rows = kernel_tile_rows(b, t, heads)["forward"]
+        print(f"kernel check: K4 at B={b} T={t} H={heads} takes {rows}-query blocks")
         rng = np.random.default_rng(SEED + t)
         qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * 64 * heads)) * 1.5)
         qkv = qkv.to("cuda", torch.bfloat16)
@@ -544,10 +611,20 @@ def phase_flash_check(card: str) -> dict:
             card, attention_flops(b, t, heads), nbytes(q, k, v, q),
             library=partial(sdpa, q, k, v, scale),
         )
-    main = measured[1370]  # the JSON line's numbers are the slice shape's; the error is the worse
+        measured[t]["query_rows"] = rows
+        if t == 2171:  # under 0.1 ms a call the host's time shows: the device's alone
+            kernel_device = device_ms_by_launch(kernel, {"flash_forward": "K4"}, "K4")["K4"]
+            sdpa_device = device_ms_per_call(partial(sdpa, q, k, v, scale))
+            measured[t].update(device_ms=kernel_device, library_device_ms=sdpa_device)
+            print(f"kernel check, a finding: K4 at B={b} T={t} H={heads}, device ms of a call "
+                  f"(torch.profiler, 10 calls): K4 {kernel_device:.4f}, "
+                  f"scaled_dot_product_attention {sdpa_device:.4f} ({card})")
+    main = measured[1370]  # the JSON line's numbers are the slice shape's; the error is the worst
     main["max_abs_err"] = max(m["max_abs_err"] for m in measured.values())
-    for key in ("ms", "plain_ms", "library_ms"):
-        main[f"{key}_t4226"] = measured[4226][key]
+    for t in (2171, 4226):
+        for key, value in measured[t].items():
+            if key not in ("max_abs_err", "bound_by"):
+                main[f"{key}_t{t}"] = value
     return main
 
 
@@ -873,8 +950,11 @@ def _check_probs(top5, probs, config) -> float:
 def phase_quant_matmul_check(card: str) -> dict:
     """K7 in every format at the quantized slice's shapes against its plain
     version in x's dtype and in f32: fc1 with the GELU epilogue, fc2 with its
-    bias, and the head on f32 features (N=1000, the masked edge)."""
+    bias, and the head on f32 features (N=1000, the masked edge), the head
+    beside one f32 torch.nn.functional.linear call on the decoded weight (the
+    same function in one library call; a yardstick the port never calls)."""
     from dinov2_tpu_torch.models.params import quantize_linear
+    from dinov2_tpu_torch.ops.qmatmul import dequant_weight
     from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel, quant_matmul_reference
 
     shapes = {  # name -> (M, K, N, activation, x dtype)
@@ -889,6 +969,9 @@ def phase_quant_matmul_check(card: str) -> dict:
             ql = quantize_linear(rng.standard_normal((n, k)) * 0.05, fmt, device="cuda")
             x = torch.from_numpy(rng.standard_normal((m, k))).to("cuda", dtype)
             bias = torch.from_numpy(rng.standard_normal(n) * 0.1).to("cuda", torch.float32)
+            library = None
+            if name == "head":
+                library = partial(torch.nn.functional.linear, x, dequant_weight(ql, dtype), bias)
             measured[fmt, name] = check_kernel(
                 f"quant_matmul_kernel {fmt} {name} M={m} K={k} N={n} "
                 f"{str(dtype).removeprefix('torch.')} {act}", "K7",
@@ -897,6 +980,7 @@ def phase_quant_matmul_check(card: str) -> dict:
                 partial(quant_matmul_reference, x.float(), ql, bias, act),
                 card, 2.0 * m * k * n, nbytes(x, ql, bias) + m * n * x.element_size(),
                 peak_flops=PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS,
+                library=library, library_name="f32 linear on the decoded weight",
             )
     q = {name: measured[QUANT_SLICE_FORMAT, name] for name in shapes}
     return {
@@ -906,6 +990,7 @@ def phase_quant_matmul_check(card: str) -> dict:
         **q["fc1"],
         "max_abs_err": max(v["max_abs_err"] for v in measured.values()),
         **{f"{key}_{name}": q[name][key] for name in ("fc2", "head") for key in ("ms", "plain_ms")},
+        **{f"{key}_head": q["head"][key] for key in ("bound_ms", "library_ms")},
     }
 
 
@@ -1042,13 +1127,12 @@ def _load_engine(path, **quant):
             (torch.cuda.memory_allocated() - base) / 1e6)
 
 
-def phase_quant_slice(card: str, dense_rate: float) -> tuple[int, int]:
-    """The ViT-B/14 of the classify slice quantized to q4_0 through
+def phase_quant_slice(card: str, dense: Path, dense_rate: float) -> tuple[int, int]:
+    """The ViT-B/14 of the classify slice (the file `dense`) quantized to q4_0 through
     DinoEngine(quant_mode="fused").classify on the card; returns the K7 and
     K8 launches of that run (K1 and K4 must launch no time). Then, as
     findings and no checks, the other quantized routes' rates and the
     weights' device memory in fused and dequant mode."""
-    from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
     from dinov2_tpu_torch.models.params import load_params
     from dinov2_tpu_torch.ops.flash_attention import flash_attention
     from dinov2_tpu_torch.ops.fused_attention import slab_layer_block
@@ -1059,7 +1143,6 @@ def phase_quant_slice(card: str, dense_rate: float) -> tuple[int, int]:
     config = _vit_b14_config()
     images = _classify_images()
     with tempfile.TemporaryDirectory() as tmp:
-        dense = write_synthetic_gguf(Path(tmp) / "vit_b14.gguf", config, seed=SEED)
         start = time.perf_counter()
         path = quantize_gguf(dense, Path(tmp) / f"vit_b14.{QUANT_SLICE_FORMAT}.gguf",
                              QUANT_SLICE_FORMAT)
@@ -1138,13 +1221,20 @@ def phase_quant_slice(card: str, dense_rate: float) -> tuple[int, int]:
     return k7, k8
 
 
-def phase_slice(card: str) -> tuple[int, float, int]:
+def write_vit_b14(directory: Path) -> Path:
+    """The full-width ViT-B/14 GGUF of the classify, serving, CLI and
+    quantized slices (f16 weights from SEED), written once."""
+    from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
+
+    return write_synthetic_gguf(directory / "vit_b14.gguf", _vit_b14_config(), seed=SEED)
+
+
+def phase_slice(card: str, path: Path) -> tuple[int, float, int]:
     """DinoEngine.classify on the card; returns K1 launches of that run (no
     other kernel of the port may launch: T=257 takes the slab route and
     fuse_mlp is off by default), its img/s, and the K5 launches of the
     second run, the same weights with fuse_mlp=True (K1 and K5 in every
     layer, no plain-torch op on the residual stream between them)."""
-    from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
     from dinov2_tpu_torch.models.params import load_params
     from dinov2_tpu_torch.ops.flash_attention import flash_attention
     from dinov2_tpu_torch.ops.fused_attention import (
@@ -1157,10 +1247,8 @@ def phase_slice(card: str) -> tuple[int, float, int]:
 
     config = _vit_b14_config()
     images = _classify_images()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = write_synthetic_gguf(Path(tmp) / "vit_b14.gguf", config, seed=SEED)
-        engine = DinoEngine(path, dtype=torch.bfloat16, parity="reference", device="cuda")
-        cpu_model = load_params(path, dtype=torch.float32, device="cpu")
+    engine = DinoEngine(path, dtype=torch.bfloat16, parity="reference", device="cuda")
+    cpu_model = load_params(path, dtype=torch.float32, device="cpu")
     layers, forwards = config.num_hidden_layers, 2 + TIMED_CALLS
     counters = (slab_layer_block, slab_mlp_block, slab_attention, slab_attention_block,
                 flash_attention)
@@ -1430,6 +1518,463 @@ def phase_features(card: str) -> int:
     return launches
 
 
+def _http(url: str, data: bytes | None = None, timeout: float = 300) -> tuple[int, bytes]:
+    """(status, body) of one GET (data None) or POST over localhost."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _encode_images(images, ext: str) -> list[bytes]:
+    import cv2
+
+    out = []
+    for img in images:
+        ok, buf = cv2.imencode(ext, cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        require(ok, f"cv2.imencode {ext}")
+        out.append(buf.tobytes())
+    return out
+
+
+def _decode_image(data: bytes) -> np.ndarray:
+    """RGB u8 from encoded bytes, as the server and the CLIs decode them."""
+    import cv2
+
+    return cv2.cvtColor(cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR),
+                        cv2.COLOR_BGR2RGB)
+
+
+def _top5_against(replies: list, probs: np.ndarray, id2label: dict) -> tuple[int, float]:
+    """Each reply's [[label, prob], ...] top-5 against the direct probs row of
+    the same image: (replies whose labels are the direct top-5 in its order,
+    max|prob - direct prob| over their entries). A reply that differs from the
+    direct order must differ only between classes whose direct probs lie
+    within PROB_ABS_BOUND of each other (bf16 rounding of a near tie: the
+    server's batches and the direct call's differ in size, and cuBLAS may
+    pick another algorithm for another size)."""
+    index = {label: i for i, label in id2label.items()}
+    same, err = 0, 0.0
+    for reply, row in zip(replies, probs):
+        labels = [label for label, _ in reply]
+        direct = np.argsort(row)[::-1][: len(labels)]
+        same += labels == [id2label.get(int(i), str(int(i))) for i in direct]
+        got = np.array([row[index[label]] for label in labels])
+        require(bool(np.all(np.abs(got - row[direct]) <= PROB_ABS_BOUND)),
+                f"a top-5 {labels} differs from the direct ranking beyond near ties")
+        err = max(err, float(np.abs(np.array([p for _, p in reply]) - got).max()))
+    return same, err
+
+
+# A client process of the serving slice: it reads its request bodies, says
+# "ready", waits for "go" on stdin, posts them to one endpoint from its own
+# threads and prints [[status, body], ...] in its files' order as JSON. Its
+# own interpreter, so the clients share no GIL with the server's threads.
+CLIENT_SCRIPT = """
+import json, sys, urllib.error, urllib.request
+from concurrent.futures import ThreadPoolExecutor
+
+url, threads, files = sys.argv[1], int(sys.argv[2]), sys.argv[3:]
+bodies = [open(f, "rb").read() for f in files]
+
+def post(data):
+    try:
+        with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=300) as r:
+            return [r.status, r.read().decode()]
+    except urllib.error.HTTPError as e:
+        return [e.code, e.read().decode()]
+
+print("ready", flush=True)
+sys.stdin.readline()
+with ThreadPoolExecutor(threads) as pool:
+    print(json.dumps(list(pool.map(post, bodies))), flush=True)
+"""
+SERVE_CLIENT_PROCESSES = 8
+
+
+def _client_burst(url: str, files: list, in_flight: int) -> tuple[list, float]:
+    """Posts each file to url from SERVE_CLIENT_PROCESSES client processes
+    with in_flight requests in flight in all: ((status, body) in the files'
+    order, seconds from "go" until the last client printed its replies)."""
+    procs = SERVE_CLIENT_PROCESSES
+    clients = [
+        subprocess.Popen([sys.executable, "-c", CLIENT_SCRIPT, url, str(in_flight // procs),
+                          *map(str, files[i::procs])],
+                         stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        for i in range(procs)
+    ]
+    try:
+        for c in clients:
+            require(c.stdout.readline().strip() == "ready", "serving: a client did not start")
+        start = time.perf_counter()
+        for c in clients:
+            c.stdin.write("go\n")
+            c.stdin.flush()
+        outputs = [json.loads(c.stdout.readline()) for c in clients]
+        seconds = time.perf_counter() - start
+        for c in clients:
+            require(c.wait(timeout=60) == 0, "serving: a client process failed")
+    finally:
+        for c in clients:
+            if c.poll() is None:
+                c.kill()
+                c.wait(timeout=60)
+    replies = [None] * len(files)
+    for i, out in enumerate(outputs):
+        replies[i::procs] = [(code, body.encode()) for code, body in out]
+    return replies, seconds
+
+
+class _AnswerAtOnce:
+    """An engine stand-in whose classify answers at once: the same burst
+    against it is the rate of the server's HTTP side alone."""
+
+    def __init__(self, config):
+        self.config = config
+
+    def classify(self, images, topk=5):
+        return [[("class_0", 1.0)] * topk for _ in images]
+
+
+def phase_serving(card: str, path: Path, dense_rate: float) -> tuple[int, int]:
+    """BatchingServer(engine, port=0, max_batch=64, max_wait_ms=5) in this
+    process on a bf16 DinoEngine on the card; clients post over localhost:
+    256 JPEG images of 256 px to /classify, 64 in flight from 8 client
+    processes of 8 threads each; then client threads of this process post 16
+    PNG images of 512 px to /features (T=1370) and 8 to /pca; /healthz last.
+    Every reply 200; /classify against a direct classify_probs on the
+    client's own decode of the same bytes, /features against a direct
+    extract_features, /pca against a direct pca_visualizations; fewer
+    batches than requests. Returns the K1 and K4 launches of the traffic."""
+    from dinov2_tpu_torch.ops.flash_attention import flash_attention
+    from dinov2_tpu_torch.ops.fused_attention import (
+        slab_attention,
+        slab_attention_block,
+        slab_layer_block,
+        slab_mlp_block,
+    )
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+    from dinov2_tpu_torch.runtime.server import BatchingServer
+
+    engine = DinoEngine(path, dtype=torch.bfloat16, parity="reference", device="cuda")
+    layers = engine.config.num_hidden_layers
+    rng = np.random.default_rng(SEED + 7)
+    jpegs = _encode_images(rng.integers(0, 256, (SERVE_CLASSIFY_REQUESTS, IMAGE_PX, IMAGE_PX, 3),
+                                        dtype=np.uint8), ".jpg")
+    pngs = _encode_images(rng.integers(0, 256, (SERVE_FEATURE_REQUESTS, FEATURE_PX, FEATURE_PX, 3),
+                                       dtype=np.uint8), ".png")
+    server = BatchingServer(engine, port=0, max_batch=SERVE_MAX_BATCH, max_wait_ms=5.0)
+    url = f"http://127.0.0.1:{server.port}"
+    engine.warmup((IMAGE_PX, IMAGE_PX), batch=SERVE_MAX_BATCH)
+    counters = {"K1": slab_layer_block, "K4": flash_attention, "K2": slab_attention_block,
+                "K3": slab_attention, "K5": slab_mlp_block}
+    busy = []  # (images, seconds) of each engine.classify call, on the batcher thread
+    classify = engine.classify
+
+    def timed_classify(images, *args, **kwargs):
+        start = time.perf_counter()
+        out = classify(images, *args, **kwargs)  # host arrays out: the device has finished
+        busy.append((len(images), time.perf_counter() - start))
+        return out
+
+    folder = Path(tempfile.mkdtemp(prefix="serve-"))
+    files = []
+    for i, data in enumerate(jpegs):
+        files.append(folder / f"{i:03d}.jpg")
+        files[-1].write_bytes(data)
+
+    def burst(in_flight: int) -> tuple[list, float]:
+        return _client_burst(f"{url}/classify", files, in_flight)
+
+    engine.classify = timed_classify
+    server.start()
+    try:
+        for counter in counters.values():
+            counter.launches = 0
+        classified, classify_s = burst(SERVE_IN_FLIGHT)
+        classify_stats, classify_latency = dict(server.stats), server.latency_stats()
+        classify_busy = list(busy)
+        with ThreadPoolExecutor(SERVE_FEATURE_REQUESTS) as pool:
+            features = list(pool.map(lambda d: _http(f"{url}/features", d), pngs))
+            pcas = list(pool.map(lambda d: _http(f"{url}/pca", d), pngs[:SERVE_PCA_REQUESTS]))
+        health = _http(f"{url}/healthz")
+        torch.cuda.synchronize()
+        launches = {name: counter.launches for name, counter in counters.items()}
+        stats, latency = dict(server.stats), server.latency_stats()
+        before = dict(server.stats)
+        few = burst(SERVE_FEW_IN_FLIGHT)[1]  # a finding: the same traffic, fewer in flight
+        few_batches = server.stats["batches"] - before["batches"]
+        # a finding: the same burst with the device's work taken away
+        http_only = BatchingServer(_AnswerAtOnce(engine.config), port=0,
+                                   max_batch=SERVE_MAX_BATCH, max_wait_ms=5.0)
+        http_only.start()
+        try:
+            bare = _client_burst(f"http://127.0.0.1:{http_only.port}/classify", files,
+                                 SERVE_IN_FLIGHT)[1]
+        finally:
+            http_only.stop()
+    finally:
+        server.stop()
+        del engine.classify
+        shutil.rmtree(folder, ignore_errors=True)
+
+    # the batcher's engine calls against the same calls made directly, in
+    # this thread with the server stopped: the gap is what the server's own
+    # threads (HTTP, decode) take from the batcher
+    batch_ms = 1e3 * sum(sec for _, sec in classify_busy) / len(classify_busy)
+    typical = round(statistics.mean(k for k, _ in classify_busy))
+    decoded = [_decode_image(d) for d in jpegs[:typical]]
+    direct_ms = []
+    for _ in range(5):
+        start = time.perf_counter()
+        engine.classify(decoded)
+        direct_ms.append(1e3 * (time.perf_counter() - start))
+
+    replies = classified + features + pcas + [health]
+    codes = sorted({code for code, _ in replies})
+    require(codes == [200], f"serving: reply codes {codes}")
+    require(stats["batches"] < stats["requests"],
+            f"serving: {stats['batches']} batches for {stats['requests']} requests")
+    require(launches["K1"] > 0 and launches["K1"] % layers == 0
+            and launches["K4"] > 0 and launches["K4"] % layers == 0,
+            f"serving: K1 and K4 launches {launches} are not positive multiples of {layers}")
+    require(launches["K2"] == launches["K3"] == launches["K5"] == 0,
+            f"serving: K2, K3 or K5 launched: {launches}")
+    model = json.loads(health[1])["model"]
+    require(model["hidden_size"] == engine.config.hidden_size, f"serving: /healthz {model}")
+
+    topk = [json.loads(body)["topk"] for _, body in classified]
+    direct = engine.classify_probs(np.stack([_decode_image(d) for d in jpegs]))
+    same, prob_err = _top5_against(topk, direct, engine.id2label)
+    require(prob_err <= PROB_ABS_BOUND, f"serving: /classify probs {prob_err} from direct")
+    feats = engine.extract_features(np.stack([_decode_image(d) for d in pngs]))
+    cls = np.stack([json.loads(body)["cls_token"] for _, body in features])
+    grids = {tuple(json.loads(body)["grid"]) for _, body in features}
+    tok_rel = float(np.abs(cls - feats["cls_token"]).max() / np.abs(feats["cls_token"]).max())
+    require(grids == {feats["grid"]}, f"serving: /features grids {grids}")
+    require(tok_rel <= TOKEN_REL_BOUND, f"serving: /features cls_token {tok_rel} from direct")
+    vis = engine.pca_visualizations([_decode_image(d) for d in pngs[:SERVE_PCA_REQUESTS]])
+    agree = min(_agree_u8(_decode_image(body), v) for (_, body), v in zip(pcas, vis))
+    require(agree >= PCA_AGREE, f"serving: /pca agrees with the direct PCA on {agree:.2%}")
+
+    n = SERVE_CLASSIFY_REQUESTS
+    mean_batch = classify_stats["images"] / classify_stats["batches"]
+    print(
+        f"serving slice: BatchingServer(max_batch={SERVE_MAX_BATCH}, max_wait_ms=5) on ViT-B/14 "
+        f"bf16 on {card}: {len(replies)} replies, all 200; {stats['batches']} batches for "
+        f"{stats['requests']} requests; launches in the traffic {launches}"
+    )
+    print(
+        f"serving /classify: {n} JPEG images of {IMAGE_PX} px, {SERVE_IN_FLIGHT} in flight: "
+        f"{n / classify_s:.1f} requests/s, {n / classify_s:.1f} images/s over {classify_s:.3f} s, "
+        f"mean batch {mean_batch:.2f} ({classify_stats['batches']} batches); direct "
+        f"classify_probs {dense_rate:.1f} img/s in this run (classify slice, batches of {BATCH})"
+    )
+    print(f"serving latency of the /classify requests (ms, latency_stats): {classify_latency}; "
+          f"of all requests: {latency}")
+    busy_s = sum(sec for _, sec in classify_busy)
+    print(
+        f"serving finding, not a check: the batcher thread spent {busy_s:.3f} s of the "
+        f"{classify_s:.3f} s /classify burst in engine.classify ({busy_s / classify_s:.1%}; "
+        f"the rest it waited on the handler threads' HTTP and decode), {batch_ms:.2f} ms a "
+        f"batch over {len(classify_busy)} batches; engine.classify of {typical} of the same "
+        f"images called directly with the server stopped: median {statistics.median(direct_ms):.2f}"
+        f" ms of 5; the same {n} requests with {SERVE_FEW_IN_FLIGHT} in flight: "
+        f"{n / few:.1f} requests/s, mean batch {n / few_batches:.2f}; against an engine that "
+        f"answers at once (the HTTP side alone), {SERVE_IN_FLIGHT} in flight: "
+        f"{n / bare:.1f} requests/s ({card})"
+    )
+    print(
+        f"serving checks: /classify top-5 as a direct classify_probs of {n} images in order in "
+        f"{same} of {n} replies (the rest differ only within near ties), max|dprob| "
+        f"{prob_err:.4g} (bound {PROB_ABS_BOUND}), bits equal: {prob_err == 0.0}; /features "
+        f"{SERVE_FEATURE_REQUESTS} x {FEATURE_PX} px grid {feats['grid']} max|dcls|/max|cls| "
+        f"{tok_rel:.4g} (bound {TOKEN_REL_BOUND}); /pca {SERVE_PCA_REQUESTS} within one level "
+        f"of the direct PCA on >= {agree:.2%} of pixels (bound {PCA_AGREE:.0%})"
+    )
+    return launches["K1"], launches["K4"]
+
+
+def _cli(name: str, *args: str, timeout: float = CLI_TIMEOUT_S) -> subprocess.CompletedProcess:
+    """`python3 -m dinov2_tpu_torch.cli.<name> args` from the checkout on the
+    card; a non-zero exit fails the phase."""
+    proc = subprocess.run([sys.executable, "-m", f"dinov2_tpu_torch.cli.{name}", *args],
+                          cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    require(proc.returncode == 0,
+            f"CLI {name} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc
+
+
+def _serve_cli(path: Path, image: bytes) -> str:
+    """`cli.serve --warmup 1` on a free port: polls /healthz until it answers,
+    posts one /classify, terminates it; it must exit on the signal."""
+    import signal
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    start = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dinov2_tpu_torch.cli.serve", "-m", str(path),
+             "--port", str(port), "--warmup", "1"],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, text=True)
+        try:
+            while _http_or_none(f"http://127.0.0.1:{port}/healthz") is None:
+                require(proc.poll() is None, "CLI serve exited before it answered")
+                require(time.perf_counter() - start < CLI_TIMEOUT_S, "CLI serve never answered")
+                time.sleep(0.5)
+            ready_s = time.perf_counter() - start
+            code, body = _http(f"http://127.0.0.1:{port}/classify", image)
+            require(code == 200 and len(json.loads(body)["topk"]) == 5,
+                    f"CLI serve /classify: {code} {body[:200]}")
+            require(proc.poll() is None, "CLI serve exited before the signal")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        log.seek(0)
+        require(rc == -signal.SIGTERM, f"CLI serve exited {rc}, not on SIGTERM: {log.read()[-2000:]}")
+    return f"answered /healthz {ready_s:.1f} s after start, one /classify 200, exit on SIGTERM"
+
+
+def _http_or_none(url: str):
+    try:
+        return _http(url, timeout=5)
+    except OSError:
+        return None
+
+
+def _realtime_parts(engine, source) -> str:
+    """Median ms of the parts of one realtime frame, each alone: making a
+    synthetic frame on the host, engine.pca_visualization of it (upload,
+    forward, PCA, copy back; synchronised), its forward alone, and the PCA's
+    eigh of one (D, D) f32 covariance on the card."""
+    from dinov2_tpu_torch.image.preprocess import feature_preprocess
+
+    def median_ms(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - start))
+        return statistics.median(times)
+
+    frame = next(source)
+    x = torch.from_numpy(frame[None]).to(engine.device)
+    with torch.inference_mode():
+        pre = feature_preprocess(x, engine.config.patch_size)
+        tokens = engine.model(pre, classify=False)["patch_tokens"][0].float()
+        cov = (tokens - tokens.mean(0)).T @ (tokens - tokens.mean(0))
+        forward = median_ms(lambda: engine.model(pre, classify=False))
+    return (f"make a frame {median_ms(lambda: next(source)):.2f} ms, "
+            f"engine.pca_visualization {median_ms(lambda: engine.pca_visualization(frame)):.2f}, "
+            f"of which the forward {forward:.2f} and the eigh of a {tuple(cov.shape)} "
+            f"covariance {median_ms(lambda: torch.linalg.eigh(cov)):.2f}")
+
+
+def phase_cli(card: str, path: Path) -> None:
+    """Subprocesses of `python3 -m dinov2_tpu_torch.cli.<name>` on the card,
+    each with a time limit: inference -c and its PCA mode, eval --dir,
+    realtime --synthetic, benchmark and serve; outputs held against an
+    engine in this process."""
+    import argparse
+    import itertools
+    import re
+
+    from dinov2_tpu_torch.cli.realtime import _frame_source
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+    from dinov2_tpu_torch.runtime.loader import BatchLoader, list_images
+
+    engine = DinoEngine(path, dtype=torch.bfloat16, parity="reference", device="cuda")
+    rng = np.random.default_rng(SEED + 8)
+    images = rng.integers(0, 256, (CLI_EVAL_IMAGES, IMAGE_PX, IMAGE_PX, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp, folder = Path(tmp), Path(tmp) / "images"
+        folder.mkdir()
+        for i, d in enumerate(_encode_images(images, ".png")):
+            (folder / f"im{i:02d}.png").write_bytes(d)
+        image = str(folder / "im00.png")
+        model = ["-m", str(path)]
+        with ThreadPoolExecutor(3) as pool:
+            classify, pca, evaluated = pool.map(lambda a: _cli(*a), [
+                ("inference", *model, "-i", image, "-c"),
+                ("inference", *model, "-i", image, "-o", str(tmp / "pca.png")),
+                ("eval", *model, "--dir", str(folder), "--batch", "8", "--output",
+                 str(tmp / "eval.jsonl")),
+            ])
+        line = re.compile(r"^ > (.*) : ([0-9.]+)$")
+        top5 = [list(line.match(s).groups()) for s in classify.stdout.splitlines()]
+        same_c, err_c = _top5_against([[(lb, float(p)) for lb, p in top5]],
+                                      engine.classify_probs(images[:1]), engine.id2label)
+        # two printed decimals are within 0.005 of the value
+        require(err_c <= PRINTED_PROB_BOUND,
+                f"CLI inference -c: printed probs {err_c} from the engine's")
+        agree = _agree_u8(_decode_image((tmp / "pca.png").read_bytes()),
+                          engine.pca_visualization(images[0]))
+        require(agree >= PCA_AGREE, f"CLI inference PCA agrees on {agree:.2%}")
+        rows = [json.loads(s) for s in (tmp / "eval.jsonl").read_text().splitlines()]
+        paths = list_images(folder)
+        require([r["path"] for r in rows] == [str(p) for p in paths], "CLI eval: paths")
+        direct = np.concatenate([engine.classify_probs(batch) for _, batch in BatchLoader(
+            paths, batch_size=8, size=(IMAGE_PX, IMAGE_PX), interpolation="cubic-float")])
+        same_e, eval_err = _top5_against([r["topk"] for r in rows], direct, engine.id2label)
+        require(eval_err <= PROB_ABS_BOUND, f"CLI eval: probs {eval_err} from the engine's")
+        print(
+            f"CLI slice, inference -c: exit 0, top-5 {[lb for lb, _ in top5]} (the engine's in "
+            f"order: {bool(same_c)}), max|printed prob - engine prob| {err_c:.4g} (bound "
+            f"{PRINTED_PROB_BOUND:.4g}); inference PCA: exit 0, within one level of "
+            f"engine.pca_visualization on {agree:.2%} (bound {PCA_AGREE:.0%}), "
+            f"{classify.stderr.strip().splitlines()[-1]}; eval: exit 0, {len(rows)} rows, top-5 "
+            f"as engine.classify_probs on BatchLoader's cubic-float batches in order in "
+            f"{same_e} of {len(rows)}, max|dprob| {eval_err:.4g}, "
+            f"{evaluated.stderr.strip().splitlines()[-1]} ({card})"
+        )
+
+        stream = _cli("realtime", *model, "--synthetic", "--no-display", "--frames",
+                      str(CLI_REALTIME_FRAMES), "--save-last", str(tmp / "last.png"))
+        fps = [s for s in stream.stderr.splitlines() if "FPS" in s]
+        require(f"frame {CLI_REALTIME_FRAMES}:" in stream.stderr and fps,
+                "CLI realtime: frames or FPS missing")
+        frame_ms = [float(m) for m in re.findall(r"graph computation took ([0-9.]+) ms",
+                                                 stream.stderr)]
+        # the last frame the CLI composed: the same synthetic frame, and its
+        # PCA as engine.pca_visualization gives it
+        source = _frame_source(argparse.Namespace(synthetic=True))
+        frame = next(itertools.islice(source, CLI_REALTIME_FRAMES - 1, None))
+        last = _decode_image((tmp / "last.png").read_bytes())
+        require(last.shape == (frame.shape[0], 2 * frame.shape[1], 3)
+                and np.array_equal(last[:, :frame.shape[1]], frame),
+                "CLI realtime --save-last: the frame half is not the last synthetic frame")
+        agree_rt = _agree_u8(last[:, frame.shape[1]:], engine.pca_visualization(frame))
+        require(agree_rt >= PCA_AGREE, f"CLI realtime --save-last: PCA agrees on {agree_rt:.2%}")
+        parts = _realtime_parts(engine, source)
+        print(f"CLI slice, realtime --synthetic 854x480 (T=2171): exit 0; {'; '.join(fps)}; "
+              f"median of its per-frame 'graph computation' ms (upload, forward, PCA and the "
+              f"copy back; pipelined frames: frame to frame) {statistics.median(frame_ms):.2f}; "
+              f"--save-last: frame {CLI_REALTIME_FRAMES} as made, its PCA within one level of "
+              f"engine.pca_visualization on {agree_rt:.2%} (bound {PCA_AGREE:.0%}) ({card})")
+        print(f"CLI slice, realtime's frame in this process, a finding: {parts} ({card})")
+
+        bench = _cli("benchmark", *model, "--batch-sizes", "1,64", "--iters", "10", "--json")
+        bench_rows = json.loads(bench.stdout)
+        for rows_ in bench_rows.values():
+            for r in rows_:
+                require(r["hbm_peak_mb"] is not None and r["hbm_peak_mb"] >= r["hbm_weights_mb"],
+                        f"CLI benchmark: {r}")
+        print(f"CLI slice, benchmark: exit 0; rows {json.dumps(bench_rows)} ({card})")
+        print(f"CLI slice, serve --warmup 1: {_serve_cli(path, _encode_images(images[:1], '.jpg')[0])}")
+
+
 def _train_counters():
     from dinov2_tpu_torch.ops.flash_attention import flash_attention, flash_backward
     from dinov2_tpu_torch.ops.fused_attention import (
@@ -1648,8 +2193,14 @@ def main() -> int:
     k8_measured = timed_phase("K8 check", phase_quant_layer_check, card)
     k8_measured.update(timed_phase("K8 launch by launch", phase_quant_layer_split, card))
     timed_phase("output digests", phase_output_digests)
-    k1_launches, dense_rate, k5_launches = timed_phase("classify slices", phase_slice, card)
-    k7_launches, k8_launches = timed_phase("quantized slice", phase_quant_slice, card, dense_rate)
+    with tempfile.TemporaryDirectory() as tmp:
+        vit_b14 = timed_phase("ViT-B/14 GGUF", write_vit_b14, Path(tmp))
+        k1_launches, dense_rate, k5_launches = timed_phase(
+            "classify slices", phase_slice, card, vit_b14)
+        k1_serve, k4_serve = timed_phase("serving slice", phase_serving, card, vit_b14, dense_rate)
+        timed_phase("CLI slice", phase_cli, card, vit_b14)
+        k7_launches, k8_launches = timed_phase(
+            "quantized slice", phase_quant_slice, card, vit_b14, dense_rate)
     k4_launches = timed_phase("feature slice", phase_features, card)
     k3_launches, k2_launches = timed_phase("ViT-g/14 slice", phase_giant, card)
     train_launches, source = timed_phase("training slice", phase_train, card)
@@ -1668,6 +2219,7 @@ def main() -> int:
             "source": "dinov2_tpu_torch/csrc/slab_layer.cu",
             "replaces": f"{fused}:593",
             "launches": k1_launches,
+            "serve_launches": k1_serve,
             **k1_measured,
         },
         {
@@ -1694,6 +2246,7 @@ def main() -> int:
             "replaces": "dinov2_tpu/ops/flash_attention.py:95",
             "also_replaces": "dinov2_tpu/ops/flash_attention.py:34",
             "launches": k4_launches,
+            "serve_launches": k4_serve,
             **k4_measured,
             "lse_launches": train_launches["K4"],
             **lse_measured,

@@ -1,8 +1,8 @@
-"""Shared CLI plumbing (the port's own copy of dinov2_tpu/cli/_common.py's
-argument helpers): flag names mirror the reference's dino_params_parse, with
-the `-o` bug fixed (quirk Q7: upstream `-o` overwrote the input path; here
-it sets the output path as documented). `--device` is the port's own flag:
-the CLIs run on the card unless the caller asks for the CPU."""
+"""Shared CLI plumbing (the port's own copy of dinov2_tpu/cli/_common.py):
+flag names mirror the reference's dino_params_parse, with the `-o` bug
+fixed (quirk Q7: upstream `-o` overwrote the input path; here it sets the
+output path as documented). `--device` is the port's own flag: the CLIs run
+on the card unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
@@ -58,3 +58,85 @@ def mesh_axes_of(args) -> dict[str, int] | None:
     if len(parts) > 1 and parts[1] > 1:
         axes["model"] = parts[1]
     return axes
+
+
+def refuse_mesh(args) -> None:
+    """--mesh and --data-parallel ask for several devices; the port runs on one."""
+    if mesh_axes_of(args) is not None or args.data_parallel:
+        raise SystemExit("--mesh and --data-parallel: multi-device runs are not ported; "
+                         "this CLI runs on one device")
+
+
+def refuse_int8(args) -> None:
+    """--quant-mode int8 asks for the W8A8 mode, which the port does not run."""
+    if args.quant_mode == "int8":
+        raise SystemExit("--quant-mode int8: the W8A8 mode is not ported")
+
+
+def resolve_asset(path: str) -> str:
+    """Resolve an input path against the reference's sample images.
+
+    The reference ships sample images in `assets/` and defaults to
+    `assets/tench.jpg`. This repo does not copy them: a relative path under
+    `assets/` that does not exist locally is looked up (by its relative
+    path, then its basename) under $DINOV2_TPU_ASSETS, the reference
+    checkout's assets directory. Unlike the JAX package, which falls back to
+    a default location, the port looks only where the variable points.
+
+    Only that documented default-input form takes the fallback: a missing
+    absolute path, or any other missing relative path, is a user error, and
+    substituting a same-named sample would classify the wrong image. Those
+    come back unchanged and fail with the honest file-not-found."""
+    import os
+
+    if os.path.exists(path) or os.path.isabs(path):
+        return path
+    if not path.replace(os.sep, "/").startswith("assets/"):
+        return path
+    root = os.environ.get("DINOV2_TPU_ASSETS")
+    if not root:
+        return path
+    for cand in (
+        os.path.join(os.path.dirname(root), path),  # e.g. assets/tench.jpg
+        os.path.join(root, os.path.basename(path)),
+    ):
+        if os.path.exists(cand):
+            return cand
+    return path
+
+
+def load_image_rgb(path: str):
+    """Read an image as RGB uint8 (quirk Q1 lives in loader.decode_rgb);
+    paths that do not exist locally resolve against the sample images."""
+    from dinov2_tpu_torch.runtime.loader import decode_rgb
+
+    try:
+        return decode_rgb(resolve_asset(path))
+    except ValueError as e:
+        raise FileNotFoundError(str(e)) from None
+
+
+def save_image_rgb(path: str, img_rgb) -> None:
+    import cv2
+
+    # cv2.imwrite reports a failure (missing directory, bad extension) by
+    # returning False: raise, so no caller prints "wrote <path>" for a file
+    # that does not exist
+    if not cv2.imwrite(path, cv2.cvtColor(img_rgb, cv2.COLOR_RGB2BGR)):
+        raise OSError(f"failed to write image: {path}")
+
+
+def engine_from_args(args):
+    """The DinoEngine the inference CLIs run: the common flags, on one device."""
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    refuse_mesh(args)
+    refuse_int8(args)
+    return DinoEngine(
+        args.model,
+        dtype=dtype_of(args),
+        quant_mode=args.quant_mode,
+        parity=args.parity,
+        flash_attention=True if args.flash_attn else "auto",
+        device=args.device,
+    )

@@ -70,7 +70,7 @@ def main(argv=None) -> int:
 
     import torch
 
-    from dinov2_tpu_torch.cli._common import dtype_of, mesh_axes_of
+    from dinov2_tpu_torch.cli._common import dtype_of, refuse_mesh
     from dinov2_tpu_torch.models.config import DinoConfig
     from dinov2_tpu_torch.models.params import load_params
     from dinov2_tpu_torch.models.vit import ModelOptions
@@ -89,9 +89,7 @@ def main(argv=None) -> int:
             f"dataset has {len(samples)} samples < --batch {args.batch}; "
             f"lower --batch (incomplete trailing batches are dropped)"
         )
-    if mesh_axes_of(args) is not None or args.data_parallel:
-        raise SystemExit("--mesh and --data-parallel: multi-device training is not ported; "
-                         "this CLI trains on one device")
+    refuse_mesh(args)
     # flags train deliberately does not honor (vs. silently ignoring them):
     # master weights stay f32 regardless of --dtype (--dtype sets the compute
     # dtype below); fused-quant weights aren't trainable; parity is fixed 'hf'

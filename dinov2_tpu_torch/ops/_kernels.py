@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
@@ -177,6 +178,25 @@ def quant_layer_lib() -> ctypes.CDLL:
     )
     lib.dinov2_quant_layer_bf16.restype = i32
     return lib
+
+
+LIBRARIES = {
+    "slab_layer": slab_layer_lib, "slab_attention": slab_attention_lib,
+    "slab_mlp": slab_mlp_lib, "flash_attention": flash_attention_lib,
+    "flash_backward": flash_backward_lib, "quant_matmul": quant_matmul_lib,
+    "quant_layer": quant_layer_lib,
+}
+
+
+def build_all() -> list[Path]:
+    """Build every kernel library, one nvcc per source, all started
+    together, and load each: what a server does at boot so that no request
+    waits on the compiler."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        paths = list(pool.map(build, LIBRARIES))
+    for load in LIBRARIES.values():
+        load()
+    return paths
 
 
 def check_status(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -41,6 +41,7 @@ from dinov2_tpu_torch.models.params import load_params
 from dinov2_tpu_torch.models.vit import DinoViT, ModelOptions
 from dinov2_tpu_torch.ops.qmatmul import set_cuda_matmul_precision
 from dinov2_tpu_torch.utils.debug import check_finite
+from dinov2_tpu_torch.utils.logging import log_model_banner
 from dinov2_tpu_torch.utils.timing import time_blocked
 
 
@@ -83,6 +84,7 @@ class DinoEngine:
         self.config = self.loaded.config
         self.id2label = self.loaded.id2label
         self.model = DinoViT(self.loaded.params, self.config, self.opts)
+        log_model_banner(self.config, str(model_path))
         self.last_compute_ms = 0.0
 
     # ------------------------------------------------------------------
