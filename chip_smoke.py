@@ -24,6 +24,14 @@ with random f16 weights from a seed, bf16, parity="reference":
     quantize_gguf, through DinoEngine(quant_mode="fused").classify on the
     same images; K8 is the attention half-layer, K7 runs fc1, fc2 and the
     head from the packed blocks;
+  - int8 classify: the same ViT-B/14 file through
+    DinoEngine(quant_mode="int8").classify on the same images: K9 (its
+    quantize and its s8 GEMM) runs fc1, fc2 and the head, K1 the attention
+    half-layer on the dequantized qkv/proj; then quant_slab="off" (K9 for
+    every linear, K3 between); 518 px features of the same file (K9 around
+    K4); `inference -c` and `benchmark` with --quant-mode int8 as
+    subprocesses; and the ViT-g/14 file below in int8 (SwiGLU's win and
+    wout on K9);
   - features and PCA: DinoEngine.extract_features and pca_visualizations on
     8 RGB images of 512x512 (518 px in, a 37x37 grid, T=1370) with a
     full-width ViT-L/14; its attention core is K4;
@@ -57,12 +65,16 @@ realtime and 896 px shapes, K4 with lse and
 K6, the autograd Functions of K1, K2, K3 and K5, K7 with its dequantize and
 GEMM launches at fc1 and fc2 beside one linear call on the decoded weight,
 K8 at ViT-B's and ViT-g's widths, then its six launches in order and one by
-one beside one linear call on each GEMM's operands), classify slice,
+one beside one linear call on each GEMM's operands, K9 bit for bit at fc1,
+fc2, the head and qkv at T=1370, each launch beside torch._int_mm and one
+linear call), classify slice,
 its cross-check and the fuse_mlp slice with its own, serving slice, CLI
 slice, quantized classify slice, its cross-check and its findings (other
-routes, weight memory, the peak device memory of one call),
+routes, weight memory, the peak device memory of one call), int8 slice on
+both routes with its cross-checks and img/s beside dense and q4_0, int8
+feature slice, int8 CLI slice,
 feature slice, PCA, feature cross-check, ViT-g/14 slice at its three levels
-and its cross-check, training slice on both routes with its cross-check and
+and its cross-check, ViT-g/14 int8 slice, training slice on both routes with its cross-check and
 export, long-sequence training; then a check that no "auto" attention route
 of these bf16 paths fell to plain PyTorch on the card. Any failure exits
 non-zero. The line before the last is a JSON object with one entry per kernel; the last line is
@@ -146,7 +158,21 @@ CLI_REALTIME_FRAMES = 20
 # of its operations over the first and its bytes over the second
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores: K7's f32 head
+PEAK_INT8_OPS = 1979e12  # K9's s8 x s8 -> s32 products
 PEAK_BYTES_PER_S = 3.35e12
+# the int8 slices (quant_mode="int8" on the classify slice's ViT-B/14 file,
+# and on the ViT-g/14 file): bf16 on the card against f32 on the CPU, both
+# int8. They differ by (a) the bf16 roundings, which the dense bounds
+# (TOKEN_REL_BOUND, PROB_ABS_BOUND) cover, and (b) codes: a bf16 activation
+# is 2^-9 of itself from its f32 value, which moves x / sx by up to 127 *
+# 2^-9 ~ 1/4 of a step near the row's absmax, so many codes differ by one.
+# Each such input moves by one quantization step, the size of what int8
+# quantization itself does to the dense values. So each cross-check's bound
+# is the dense bound plus the int8 mode's own envelope, measured in the same
+# run on the CPU: f32 int8 against f32 dense on the same images
+# (_int8_cross_check).
+INT8_DENSE_PROB_GAP = 0.15  # int8 against dense bf16: tests/test_int8_mode.py's 8-bit envelope
+INT8_GIANT_CROSS_CHECK_IMAGES = 1
 
 
 def require(ok: bool, what: str) -> None:
@@ -316,6 +342,7 @@ def phase_kernel_check(card: str) -> dict:
 
 
 PROFILE_WINDOWS = 3
+PROFILE_MARGIN_S = 0.02  # host time around a window's launches (profile_window)
 
 
 def _card_kernels(prof) -> list:
@@ -331,9 +358,14 @@ def profile_window(run, calls: int, complete):
     run, after one call in a warmup step of the profiler. On an H100 a window
     has lost records at its start (9, once 8, of K7's 10 dequantize launches;
     one of K8's two dequantize launches; two fill kernels put first), and
-    once every record of the window. So a window that complete(prof) refuses
-    is taken again, up to PROFILE_WINDOWS in all; the last one is returned
-    whatever it holds, for the caller's check to refuse."""
+    sometimes every record of a short window, as if the profiler dropped
+    the device records it places outside the active step's host span. With
+    PROFILE_MARGIN_S of host time on both sides of the launches inside that
+    span, scripts/probe_profiler_windows.py found no short window in 120 on
+    an NVIDIA H100 80GB HBM3 at 700 W, against 8 of 120 without. A window
+    that complete(prof) refuses is still taken again, up to PROFILE_WINDOWS
+    in all; the last one is returned whatever it holds, for the caller's
+    check to refuse."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     run()
@@ -344,9 +376,11 @@ def profile_window(run, calls: int, complete):
             run()
             torch.cuda.synchronize()
             prof.step()
+            time.sleep(PROFILE_MARGIN_S)
             for _ in range(calls):
                 run()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
         if complete(prof) or window == PROFILE_WINDOWS:
             return prof
         print(f"torch.profiler window {window} of {PROFILE_WINDOWS} lost records "
@@ -834,16 +868,18 @@ def phase_function_checks(card: str) -> dict:
 # wgmma kernels and K8 the wgmma tile loop, they gave 867f80bd9af52824,
 # 7de1ddce09564e6c, 7e73001d935cec19, d4a00e2c9c944476.
 RECORDED_DIGESTS = {"K1": "cf2cbe3a19ddb848", "K2": "d179e4ab67c501f0", "K3": "a9ec9a1f534f1636",
-                    "K4": "db6c0a22b377b664", "K8": "c2b29f319d066d94"}
+                    "K4": "db6c0a22b377b664", "K8": "c2b29f319d066d94", "K9": "ccf976236cc23e31"}
 
 
 def phase_output_digests() -> dict:
-    """K1 (its three launches' buffers), K2, K3, K4 without lse and K8 on
-    small seeded inputs at real widths: the outputs' sha256 against the
-    recorded digests, so that a change to the shared attention tile loop
-    (csrc/flash_forward.cuh, which K1, K2, K3, K4 and K8 run) or to a GEMM
-    core that alters an inference kernel's output shows. A finding, not a
-    check: another compiler version may order sums otherwise."""
+    """K1 (its three launches' buffers), K2, K3, K4 without lse, K8 and K9
+    (fc1's shape at B=4, with its GELU) on small seeded inputs at real
+    widths: the outputs' sha256 against the recorded digests, so that a
+    change to the shared attention tile loop (csrc/flash_forward.cuh, which
+    K1, K2, K3, K4 and K8 run) or to a GEMM core that alters an inference
+    kernel's output shows. A finding, not a check: another compiler version
+    may order sums otherwise (K9's integer sums have one order's bits, but
+    its GELU's tanh may round otherwise)."""
     import hashlib
 
     from dinov2_tpu_torch.models.params import quantize_linear
@@ -854,6 +890,7 @@ def phase_output_digests() -> dict:
         slab_layer_buffers,
     )
     from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
+    from dinov2_tpu_torch.ops.int8_matmul_kernel import int8_matmul_kernel
 
     b, t, d, heads = 4, 257, 768, 12
     rng = np.random.default_rng(SEED + 6)
@@ -864,6 +901,7 @@ def phase_output_digests() -> dict:
     wp4 = quantize_linear(rng.standard_normal((d, d)) * 0.05, "q4_0", device="cuda")
     long_qkv = torch.from_numpy(rng.standard_normal((1, 1370, 3 * 1024)) * 1.5)
     long_qkv = long_qkv.to("cuda", torch.bfloat16)
+    x9, il9, bias9 = _int8_operands(b * t, d, 4 * d, torch.bfloat16, seed=SEED + 9)
     with torch.inference_mode():
         outputs = {
             "K1": torch.cat([a.flatten() for a in slab_layer_buffers(*args, heads, 0.125, 1e-6)]),
@@ -871,6 +909,7 @@ def phase_output_digests() -> dict:
             "K3": slab_attention(qkv, heads, 0.125),
             "K4": flash_attention_slab(long_qkv, 16, 0.125),
             "K8": slab_layer_block_quant(x, lns, lnb, wq4, bq, wp4, bp, ls, heads, 0.125, 1e-6),
+            "K9": int8_matmul_kernel(x9, il9, bias9, "gelu_tanh_f16"),
         }
     digests = {
         name: hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
@@ -1219,6 +1258,488 @@ def phase_quant_slice(card: str, dense: Path, dense_rate: float) -> tuple[int, i
         f"stats, {card})"
     )
     return k7, k8
+
+
+INT8_SHAPES = {  # name -> (M, K, N, activation, x dtype): ViT-B/14's K9 launches
+    "fc1": (BATCH * 257, 768, 3072, "gelu_tanh_f16", torch.bfloat16),
+    "fc2": (BATCH * 257, 3072, 768, None, torch.bfloat16),
+    "head": (BATCH, 1536, 1000, None, torch.float32),
+    "qkv_t1370": (FEATURE_BATCH * 1370, 768, 2304, None, torch.bfloat16),
+}
+
+
+def _int8_operands(m, k, n, dtype, seed):
+    """x (M, K), an (N, K) Int8Linear made as the loader makes one, and an
+    f32 bias, on the card."""
+    from dinov2_tpu_torch.models.params import Int8Linear
+
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((n, k)).astype(np.float32) * 0.05
+    s = np.maximum(np.abs(w).max(axis=1) / 127.0, 1e-12)
+    codes = np.clip(np.rint(w / s[:, None]), -127, 127).astype(np.int8)
+    il = Int8Linear(codes=torch.from_numpy(codes).cuda(),
+                    s=torch.from_numpy(s.astype(np.float32)).cuda(), shape=(n, k))
+    x = torch.from_numpy(rng.standard_normal((m, k))).to("cuda", dtype)
+    bias = torch.from_numpy(rng.standard_normal(n) * 0.1).to("cuda", torch.float32)
+    return x, il, bias
+
+
+def _int_mm_or_none(x8, codes):
+    """torch._int_mm's s32 product (a yardstick the port never calls), or
+    None where this PyTorch refuses the shape."""
+    try:
+        return torch._int_mm(x8, codes.t())
+    except RuntimeError as e:
+        print(f"K9 finding: torch._int_mm refuses {tuple(x8.shape)} x {tuple(codes.shape)}: "
+              f"{str(e).splitlines()[0][:160]}")
+        return None
+
+
+def phase_int8_check(card: str) -> dict:
+    """K9 at the int8 slice's shapes (ViT-B/14 classify's fc1, fc2 and head,
+    qkv at T=1370): the quantize's codes and scales and the GEMM's output bit
+    for bit against the plain quantize and the plain epilogue over the exact
+    s32 product (f64 sums; torch._int_mm's s32 product must equal them); then
+    the whole call by CUDA events beside its plain version, each launch's
+    device ms by torch.profiler, and beside the GEMM one bf16 (head: f32)
+    torch.nn.functional.linear call on the dequantized weight and
+    torch._int_mm alone and with the plain epilogue, yardsticks the port
+    never calls."""
+    from dinov2_tpu_torch.ops.int8_matmul_kernel import (
+        int8_gemm_kernel,
+        int8_matmul_kernel,
+        quantize_rows_int8_kernel,
+    )
+    from dinov2_tpu_torch.ops.qmatmul import (
+        dequant_weight,
+        int8_epilogue,
+        int8_matmul_reference,
+        int8_product,
+        quantize_rows_int8,
+    )
+
+    measured: dict = {}
+    for name, (m, k, n, act, dtype) in INT8_SHAPES.items():
+        x, il, bias = _int8_operands(m, k, n, dtype, seed=SEED + k + n)
+        x8, sx = quantize_rows_int8_kernel(x)
+        want8, want_sx = quantize_rows_int8(x)
+        got = int8_gemm_kernel(x8, sx, il, bias, act, dtype)
+        acc = int8_product(x8, il.codes)
+        want = int8_epilogue(acc, sx, il.s, dtype, bias, act)
+        int_mm = _int_mm_or_none(x8, il.codes)
+        whole = int8_matmul_kernel(x, il, bias, act)
+        torch.cuda.synchronize()
+        require(torch.equal(x8, want8) and torch.equal(sx.view(torch.int32),
+                                                       want_sx.view(torch.int32)),
+                f"K9 {name}: the quantize differs from the plain quantize")
+        require(int_mm is None or torch.equal(int_mm, acc),
+                f"K9 {name}: torch._int_mm's s32 product differs from the f64 one")
+        err = (got.float() - want.float()).abs().max().item()
+        require(bool(torch.isfinite(got).all()) and torch.equal(got, want),
+                f"K9 {name}: the GEMM differs from the plain epilogue by {err}")
+        require(torch.equal(whole, got), f"K9 {name}: the one-call wrapper differs")
+
+        out_bytes = m * n * got.element_size()
+        ops = 2.0 * m * k * n
+        bound = roofline(ops, nbytes(x, il, bias) + out_bytes, PEAK_INT8_OPS)
+        bound_quantize = roofline(0.0, nbytes(x, x8, sx))
+        bound_gemm = roofline(ops, nbytes(x8, sx, il, bias) + out_bytes, PEAK_INT8_OPS)
+        run = partial(int8_matmul_kernel, x, il, bias, act)
+        launch = device_ms_by_launch(
+            run, {"int8_quantize_rows_kernel": "quantize", "int8_gemm_kernel": "gemm"}, "K9")
+        w = dequant_weight(il, dtype)
+        library = {
+            "linear": cuda_median_ms(partial(torch.nn.functional.linear, x, w, bias.to(dtype))),
+            "int_mm": None if int_mm is None else cuda_median_ms(
+                partial(torch._int_mm, x8, il.codes.t())),
+            "int_mm_epilogue": None if int_mm is None else cuda_median_ms(
+                lambda: int8_epilogue(torch._int_mm(x8, il.codes.t()), sx, il.s, dtype, bias,
+                                      act)),
+        }
+        measured[name] = {
+            "max_abs_err": err, "ms": cuda_median_ms(run),
+            "plain_ms": cuda_median_ms(partial(int8_matmul_reference, x, il, bias, act)),
+            **bound, "ms_quantize": launch["quantize"], "ms_gemm": launch["gemm"],
+            "bound_ms_quantize": bound_quantize["bound_ms"],
+            "bound_ms_gemm": bound_gemm["bound_ms"],
+            "library_ms": library["int_mm"],
+            "library_ms_int_mm_epilogue": library["int_mm_epilogue"],
+            "library_ms_linear": library["linear"],
+        }
+        r = measured[name]
+        fmt = lambda v: "n/a" if v is None else f"{v:.4f}"  # noqa: E731
+        print(
+            f"kernel check: K9 {name} M={m} K={k} N={n} {str(dtype).removeprefix('torch.')} "
+            f"{act}: codes, scales and output bit for bit the plain version's; median call "
+            f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}), roofline {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, int8 at {PEAK_INT8_OPS / 1e12:.0f} TOPS), "
+            f"{r['bound_ms'] / r['ms']:.1%}; device ms of a launch (torch.profiler, 10 calls): "
+            f"quantize {r['ms_quantize']:.4f} (bound {r['bound_ms_quantize']:.4f}, "
+            f"{r['bound_ms_quantize'] / r['ms_quantize']:.1%}), GEMM {r['ms_gemm']:.4f} "
+            f"({ops / r['ms_gemm'] / 1e9:.0f} TOPS; bound {r['bound_ms_gemm']:.4f}, "
+            f"{r['bound_ms_gemm'] / r['ms_gemm']:.1%}); one "
+            f"{'f32' if dtype == torch.float32 else 'bf16'} torch.nn.functional.linear on the "
+            f"dequantized weight {fmt(r['library_ms_linear'])}, torch._int_mm "
+            f"{fmt(r['library_ms'])}, with the plain epilogue "
+            f"{fmt(r['library_ms_int_mm_epilogue'])}"
+            f" ({card})"
+        )
+    fc1 = measured["fc1"]
+    return {
+        **fc1,
+        "max_abs_err": max(v["max_abs_err"] for v in measured.values()),
+        **{f"{key}_{name}": measured[name][key] for name in ("fc2", "head", "qkv_t1370")
+           for key in ("ms", "plain_ms", "bound_ms", "ms_quantize", "ms_gemm", "library_ms",
+                       "library_ms_int_mm_epilogue", "library_ms_linear")},
+    }
+
+
+def _int8_counters() -> dict:
+    from dinov2_tpu_torch.ops.flash_attention import flash_attention
+    from dinov2_tpu_torch.ops.fused_attention import (
+        slab_attention,
+        slab_attention_block,
+        slab_layer_block,
+        slab_mlp_block,
+    )
+    from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
+    from dinov2_tpu_torch.ops.int8_matmul_kernel import int8_gemm_kernel, quantize_rows_int8_kernel
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel
+
+    return {"quantize": quantize_rows_int8_kernel, "gemm": int8_gemm_kernel,
+            "K1": slab_layer_block, "K2": slab_attention_block, "K3": slab_attention,
+            "K4": flash_attention, "K5": slab_mlp_block, "K7": quant_matmul_kernel,
+            "K8": slab_layer_block_quant}
+
+
+def _expected(**counts) -> dict:
+    """Every counter of _int8_counters at 0 but the given ones."""
+    return {name: counts.get(name, 0) for name in _int8_counters()}
+
+
+def _int8_cross_check(engine, cpu_params, dense_params, images, config, n: int) -> dict:
+    """The first n images through the engine's forward on the card and
+    through the port's plain f32 forward on the CPU with the engine's own
+    options (the same int8 route), and with the dense f32 weights on the
+    same route: max|dtokens|/max|tokens| and max|dprobs| of the card against
+    the f32 int8 forward, the int8 envelope (f32 int8 against f32 dense) and
+    the bounds made of both (the note above INT8_DENSE_PROB_GAP)."""
+    from dinov2_tpu_torch.image.preprocess import classify_preprocess
+    from dinov2_tpu_torch.models.vit import forward_features, forward_head
+
+    sub = images[:n]
+    opts32 = dataclasses.replace(engine.opts, compute_dtype=torch.float32)
+    with torch.inference_mode():
+        pre = classify_preprocess(torch.from_numpy(sub).cuda())
+        tok = forward_features(engine.model.params, pre, config, engine.opts)
+        prob = forward_head(engine.model.params, tok, config, engine.opts).cpu()
+        tok = tok.cpu()
+        pre32 = classify_preprocess(torch.from_numpy(sub))
+        tok32 = forward_features(cpu_params, pre32, config, opts32)
+        prob32 = forward_head(cpu_params, tok32, config, opts32)
+        tok_d = forward_features(dense_params, pre32, config, opts32)
+        prob_d = forward_head(dense_params, tok_d, config, opts32)
+    envelope = ((tok32 - tok_d).abs().max() / tok_d.abs().max()).item()
+    prob_envelope = (prob32 - prob_d).abs().max().item()
+    return {"tok_rel": ((tok - tok32).abs().max() / tok32.abs().max()).item(),
+            "prob_err": (prob - prob32).abs().max().item(),
+            "envelope": envelope, "prob_envelope": prob_envelope,
+            "tok_bound": TOKEN_REL_BOUND + envelope, "prob_bound": PROB_ABS_BOUND + prob_envelope}
+
+
+def _cross_check_line(c: dict) -> str:
+    return (f"max|dtokens|/max|tokens| {c['tok_rel']:.4g} (bound {c['tok_bound']:.4g} = "
+            f"{TOKEN_REL_BOUND} + the f32 int8 mode's own {c['envelope']:.4g} from f32 dense), "
+            f"max|dprobs| {c['prob_err']:.4g} (bound {c['prob_bound']:.4g} = {PROB_ABS_BOUND} + "
+            f"{c['prob_envelope']:.4g})")
+
+
+def _require_cross_check(c: dict, what: str) -> None:
+    require(c["tok_rel"] <= c["tok_bound"], f"{what}: tokens differ from the CPU f32 int8 forward")
+    require(c["prob_err"] <= c["prob_bound"], f"{what}: probs differ from the CPU f32 int8 forward")
+
+
+def _int8_run(engine, images, batch: int) -> tuple[dict, list, np.ndarray, float, float]:
+    """The classify path with every count at 0 just before and read just
+    after: launches, top-5, probs, img/s and median ms of the timed calls."""
+    engine.warmup((IMAGE_PX, IMAGE_PX), batch=batch)
+    counters = _int8_counters()
+    for counter in counters.values():
+        counter.launches = 0
+    top5 = engine.classify(images, topk=5)
+    probs = engine.classify_probs(images)
+    rate, median_ms = _timed_classify(engine, images)
+    return ({name: c.launches for name, c in counters.items()}, top5, probs, rate, median_ms)
+
+
+def phase_int8_slice(card: str, path: Path):
+    """The ViT-B/14 file of the classify slice through
+    DinoEngine(quant_mode="int8").classify on the card: per forward 25 K9
+    quantize and 25 K9 GEMM launches (fc1, fc2 in each of the 12 layers, the
+    head) and 12 of K1 on the dequantized qkv/proj, no other kernel; with
+    quant_slab="off" 49 and 49 (qkv and proj too) around 12 of K3, no K1.
+    Each route held against the port's plain f32 int8 forward on the CPU,
+    and top-1 and the probs against the dense bf16 engine's; img/s beside
+    the dense bf16 and q4_0 ("fused") engines' in this phase, the load's
+    device MB and one call's peak. Returns the engine, the default route's
+    launches and the numbers for the kernels line."""
+    from dinov2_tpu_torch.models.params import Int8Linear, load_params
+    from dinov2_tpu_torch.quant import quantize_gguf
+
+    config = _vit_b14_config()
+    images = _classify_images()
+    layers, forwards = config.num_hidden_layers, 2 + TIMED_CALLS
+    engine, load_peak_mb, held_mb = _load_engine(path, quant_mode="int8")
+    dense, _, dense_held_mb = _load_engine(path)
+    with tempfile.TemporaryDirectory() as tmp:
+        q4 = quantize_gguf(path, Path(tmp) / f"vit_b14.{QUANT_SLICE_FORMAT}.gguf",
+                           QUANT_SLICE_FORMAT)
+        q4_engine, _, _ = _load_engine(q4, quant_mode="fused")
+    cpu_model = load_params(path, dtype=torch.float32, device="cpu", quant_mode="int8")
+    cpu_dense = load_params(path, dtype=torch.float32, device="cpu")
+    require(not engine.loaded.quantized
+            and isinstance(engine.loaded.params["layers"]["qkv"]["kernel"], Int8Linear)
+            and isinstance(engine.loaded.params["classifier"]["kernel"], Int8Linear),
+            "the int8 engine's linears are not Int8Linear")
+
+    launches, top5, probs, rate, median_ms = _int8_run(engine, images, BATCH)
+    per_forward = 2 * layers + 1
+    require(launches == _expected(quantize=per_forward * forwards, gemm=per_forward * forwards,
+                                  K1=layers * forwards),
+            f"int8 classify launches {launches} in {forwards} forwards")
+    row_err = _check_probs(top5, probs, config)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    engine.classify_probs(images)
+    torch.cuda.synchronize()
+    call_peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    print(
+        f"int8 slice: ViT-B/14 (quant_mode=\"int8\") classify {BATCH}x{IMAGE_PX}px bf16 on "
+        f"{card}: probs finite, max|row sum - 1| {row_err:.3g}, K9 quantize launches "
+        f"{launches['quantize']} and GEMM launches {launches['gemm']} = {per_forward} x "
+        f"{forwards} forwards each, K1 {launches['K1']} = {layers} x {forwards} on the "
+        f"dequantized qkv/proj, every other kernel 0; {rate:.1f} img/s over {TIMED_CALLS} "
+        f"timed classify_probs calls (median {median_ms:.2f} ms/call)"
+    )
+    check = _int8_cross_check(engine, cpu_model.params, cpu_dense.params, images, config,
+                              CROSS_CHECK_IMAGES)
+    print(f"int8 cross-check: {CROSS_CHECK_IMAGES} images, GPU bf16 int8 vs CPU f32 int8 (plain "
+          f"versions, the same route) on the same file: {_cross_check_line(check)}")
+    _require_cross_check(check, "int8 classify")
+
+    dense.warmup((IMAGE_PX, IMAGE_PX), batch=BATCH)
+    dense_probs = dense.classify_probs(images)
+    gap = float(np.abs(probs - dense_probs).max())
+    top1 = float((probs.argmax(-1) == dense_probs.argmax(-1)).mean())
+    require(gap < INT8_DENSE_PROB_GAP, f"int8 probs {gap} from the dense bf16 probs")
+    dense_rate, dense_ms = _timed_classify(dense, images)
+    q4_engine.warmup((IMAGE_PX, IMAGE_PX), batch=BATCH)
+    q4_rate, q4_ms = _timed_classify(q4_engine, images)
+    rate_again, ms_again = _timed_classify(engine, images)
+    print(
+        f"int8 against dense: top-1 equal to the dense bf16 engine's on {top1:.1%} of "
+        f"{BATCH} images, max|dprob| {gap:.4g} (bound {INT8_DENSE_PROB_GAP}, the JAX "
+        f"package's 8-bit envelope); img/s in turns in this phase: int8 {rate:.1f} (median "
+        f"{median_ms:.2f} ms/call), dense bf16 {dense_rate:.1f} ({dense_ms:.2f}), "
+        f"{QUANT_SLICE_FORMAT} fused {q4_rate:.1f} ({q4_ms:.2f}), int8 again {rate_again:.1f} "
+        f"({ms_again:.2f}) ({card})"
+    )
+    weight_mb = sum(t.numel() * t.element_size() for t in engine.model.buffers()) / 1e6
+    print(
+        f"int8 finding, not a check: device memory of the load, ViT-B/14: int8 {held_mb:.1f} "
+        f"MB held ({weight_mb:.1f} MB of model buffers, peak {load_peak_mb:.1f} MB) against "
+        f"dense bf16 {dense_held_mb:.1f} MB; one int8 classify_probs call of {BATCH} images "
+        f"peaks {call_peak_mb:.1f} MB above what it starts from (activations, the codes and "
+        f"scales of each K9 input, K1's dequantized bf16 qkv/proj) (torch.cuda memory "
+        f"stats, {card})"
+    )
+    del dense, q4_engine
+
+    off = _same_weights(engine, quant_slab="off")
+    off_launches, off_top5, off_probs, off_rate, off_ms = _int8_run(off, images, BATCH)
+    off_per_forward = 4 * layers + 1
+    require(off_launches == _expected(quantize=off_per_forward * forwards,
+                                      gemm=off_per_forward * forwards, K3=layers * forwards),
+            f'int8 quant_slab="off" launches {off_launches} in {forwards} forwards')
+    off_row_err = _check_probs(off_top5, off_probs, config)
+    off_check = _int8_cross_check(off, cpu_model.params, cpu_dense.params, images, config,
+                                  CROSS_CHECK_IMAGES)
+    print(
+        f"int8 slice, quant_slab=\"off\" (every linear on K9, K3 between): probs finite, "
+        f"max|row sum - 1| {off_row_err:.3g}, K9 quantize launches {off_launches['quantize']} "
+        f"and GEMM launches {off_launches['gemm']} = {off_per_forward} x {forwards} forwards "
+        f"each, K3 {off_launches['K3']}, K1 and every other kernel 0; {off_rate:.1f} img/s "
+        f"(median {off_ms:.2f} ms/call); against CPU f32 int8 on the same route: "
+        f"{_cross_check_line(off_check)} ({card})"
+    )
+    _require_cross_check(off_check, 'int8 quant_slab="off"')
+    found = {
+        "img_per_s": rate, "img_per_s_dense_bf16": dense_rate,
+        f"img_per_s_{QUANT_SLICE_FORMAT}": q4_rate, "img_per_s_off": off_rate,
+        "launches_off": off_launches["gemm"], "quantize_launches_off": off_launches["quantize"],
+        "load_mb": held_mb, "call_peak_mb": call_peak_mb,
+    }
+    return engine, launches, found
+
+
+def phase_int8_features(card: str, engine, path: Path) -> dict:
+    """The int8 ViT-B/14 engine's extract_features on 8 images of 512 px
+    (518 px in, T=1370, the flash route): per forward 48 K9 GEMMs (qkv,
+    proj, fc1, fc2 in 12 layers) after as many quantizes and 12 of K4, no
+    K1; one image's tokens against the port's plain f32 int8 forward on the
+    CPU (the plain attention, the same int8 linears). The dense bf16 engine
+    on the same file and images is timed after it, a finding."""
+    from dinov2_tpu_torch.image.preprocess import feature_preprocess
+    from dinov2_tpu_torch.models.params import load_params
+    from dinov2_tpu_torch.models.vit import forward
+
+    config = engine.config
+    hw = (FEATURE_PX, FEATURE_PX)
+    images = np.random.default_rng(SEED + 2).integers(
+        0, 256, (FEATURE_BATCH, *hw, 3), dtype=np.uint8
+    )
+    engine.warmup(hw, batch=FEATURE_BATCH, classify=False)
+    counters = _int8_counters()
+    for counter in counters.values():
+        counter.launches = 0
+    feats = engine.extract_features(images)
+    seconds = []
+    for _ in range(FEATURE_TIMED_CALLS):
+        start = time.perf_counter()
+        engine.extract_features(images)
+        seconds.append(time.perf_counter() - start)
+    launches = {name: c.launches for name, c in counters.items()}
+    layers, forwards = config.num_hidden_layers, 1 + FEATURE_TIMED_CALLS
+    dense, _, _ = _load_engine(path)
+    dense.warmup(hw, batch=FEATURE_BATCH, classify=False)
+    dense_seconds = []
+    for _ in range(FEATURE_TIMED_CALLS):
+        start = time.perf_counter()
+        dense.extract_features(images)
+        dense_seconds.append(time.perf_counter() - start)
+    del dense
+    dense_rate = FEATURE_BATCH * FEATURE_TIMED_CALLS / sum(dense_seconds)
+    require(launches == _expected(quantize=4 * layers * forwards, gemm=4 * layers * forwards,
+                                  K4=layers * forwards),
+            f"int8 features launches {launches} in {forwards} forwards")
+    tokens = feats["patch_tokens"]
+    require(feats["grid"] == (37, 37) and tokens.shape == (FEATURE_BATCH, 37 * 37,
+                                                           config.hidden_size),
+            f"int8 features: grid {feats['grid']}, tokens {tokens.shape}")
+    require(bool(np.isfinite(tokens).all() and np.isfinite(feats["cls_token"]).all()),
+            "int8 features are not finite")
+    with torch.inference_mode():
+        opts32 = dataclasses.replace(engine.opts, flash_attention="vanilla",
+                                     compute_dtype=torch.float32)
+        pre32 = feature_preprocess(torch.from_numpy(images[:1]), config.patch_size)
+        tok32, tok_d = (
+            torch.cat([out["cls_token"][:, None], out["patch_tokens"]], dim=1)
+            for out in (forward(load_params(path, dtype=torch.float32, device="cpu",
+                                            quant_mode=mode).params, pre32, config, opts32)
+                        for mode in ("int8", "dequant"))
+        )
+    tok = torch.from_numpy(np.concatenate([feats["cls_token"][:1, None], tokens[:1]], axis=1))
+    tok_rel = ((tok - tok32).abs().max() / tok32.abs().max()).item()
+    envelope = ((tok32 - tok_d).abs().max() / tok_d.abs().max()).item()
+    rate = FEATURE_BATCH * FEATURE_TIMED_CALLS / sum(seconds)
+    print(
+        f"int8 features: ViT-B/14 (quant_mode=\"int8\") extract_features {FEATURE_BATCH}x"
+        f"{FEATURE_PX}px -> grid (37, 37), T=1370, bf16 on {card}: tokens finite, K9 quantize "
+        f"launches {launches['quantize']} and GEMM launches {launches['gemm']} = {4 * layers} "
+        f"x {forwards} forwards each, K4 {launches['K4']} = {layers} x {forwards}, K1 and the "
+        f"rest 0; {rate:.1f} img/s over {FEATURE_TIMED_CALLS} timed calls (dense bf16 on the "
+        f"same file after them: {dense_rate:.1f}, a finding); 1 image against CPU "
+        f"f32 int8 (plain attention): max|dtokens|/max|tokens| {tok_rel:.4g} (bound "
+        f"{TOKEN_REL_BOUND + envelope:.4g} = {TOKEN_REL_BOUND} + the f32 int8 mode's own "
+        f"{envelope:.4g} from f32 dense)"
+    )
+    require(tok_rel <= TOKEN_REL_BOUND + envelope,
+            "int8 feature tokens differ from the CPU f32 int8 forward")
+    return {"feature_launches": launches["gemm"], "feature_img_per_s": rate,
+            "feature_img_per_s_dense_bf16": dense_rate}
+
+
+def phase_int8_cli(card: str, path: Path, engine) -> None:
+    """`inference -c --quant-mode int8` and `benchmark --quant-mode int8` as
+    subprocesses on the card, held against the int8 engine in this process:
+    the printed top-5 and probs, and the benchmark's weight MB."""
+    import re
+
+    from dinov2_tpu_torch.models.params import tree_leaves
+
+    images = np.random.default_rng(SEED + 8).integers(0, 256, (1, IMAGE_PX, IMAGE_PX, 3),
+                                                      dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        image = Path(tmp) / "im.png"
+        image.write_bytes(_encode_images(images, ".png")[0])
+        classify = _cli("inference", "-m", str(path), "-i", str(image), "-c",
+                        "--quant-mode", "int8")
+    line = re.compile(r"^ > (.*) : ([0-9.]+)$")
+    top5 = [list(line.match(s).groups()) for s in classify.stdout.splitlines()]
+    same, err = _top5_against([[(lb, float(p)) for lb, p in top5]],
+                              engine.classify_probs(images), engine.id2label)
+    require(len(top5) == 5 and err <= PRINTED_PROB_BOUND,
+            f"CLI inference -c --quant-mode int8: printed probs {err} from the engine's")
+    bench = _cli("benchmark", "-m", str(path), "--batch-sizes", "1,64", "--iters", "10",
+                 "--json", "--quant-mode", "int8")
+    rows = json.loads(bench.stdout)
+    weights = sum(t.numel() * t.element_size() for leaf in tree_leaves(engine.loaded.params)
+                  for t in (leaf.tensors().values() if hasattr(leaf, "tensors") else [leaf]))
+    require(list(rows) == ["f16"], f"CLI benchmark --quant-mode int8: variants {list(rows)}")
+    for r in rows["f16"]:
+        require(r["hbm_weights_mb"] == round(weights / 2**20, 1)
+                and r["hbm_peak_mb"] is not None and r["hbm_peak_mb"] >= r["hbm_weights_mb"],
+                f"CLI benchmark --quant-mode int8: {r} (int8 weights {weights / 2**20:.1f} MiB)")
+    print(
+        f"int8 CLI slice, inference -c --quant-mode int8: exit 0, top-5 "
+        f"{[lb for lb, _ in top5]} (the int8 engine's in order: {bool(same)}), max|printed "
+        f"prob - engine prob| {err:.4g} (bound {PRINTED_PROB_BOUND:.4g}); benchmark "
+        f"--quant-mode int8: exit 0, weights {weights / 2**20:.1f} MiB as the engine's, rows "
+        f"{json.dumps(rows)} ({card})"
+    )
+
+
+def phase_int8_giant(card: str) -> dict:
+    """ViT-g/14 at full width, 12 of its 40 layers (the giant slice's file,
+    written again), DinoEngine(quant_mode="int8").classify on 16 images: per
+    forward K9 for SwiGLU's win and wout in every layer and the head (25
+    quantizes, 25 GEMMs) and 12 of K1 on the dequantized qkv/proj; one image
+    against the port's plain f32 int8 forward on the CPU."""
+    from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
+    from dinov2_tpu_torch.models.config import PRESETS
+    from dinov2_tpu_torch.models.params import load_params
+
+    config = dataclasses.replace(PRESETS["giant"], num_hidden_layers=GIANT_LAYERS)
+    images = np.random.default_rng(SEED + 3).integers(
+        0, 256, (GIANT_BATCH, IMAGE_PX, IMAGE_PX, 3), dtype=np.uint8
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_synthetic_gguf(Path(tmp) / "vit_g14.gguf", config, seed=SEED)
+        engine, _, held_mb = _load_engine(path, quant_mode="int8")
+        cpu_model = load_params(path, dtype=torch.float32, device="cpu", quant_mode="int8")
+        cpu_dense = load_params(path, dtype=torch.float32, device="cpu")
+    require(engine.config.swiglu, "the ViT-g/14 file did not load as SwiGLU")
+    launches, top5, probs, rate, median_ms = _int8_run(engine, images, GIANT_BATCH)
+    layers, forwards = config.num_hidden_layers, 2 + TIMED_CALLS
+    per_forward = 2 * layers + 1
+    require(launches == _expected(quantize=per_forward * forwards, gemm=per_forward * forwards,
+                                  K1=layers * forwards),
+            f"ViT-g/14 int8 launches {launches} in {forwards} forwards")
+    row_err = _check_probs(top5, probs, config)
+    check = _int8_cross_check(engine, cpu_model.params, cpu_dense.params, images, config,
+                              INT8_GIANT_CROSS_CHECK_IMAGES)
+    print(
+        f"int8 giant slice: ViT-g/14 (quant_mode=\"int8\", {layers} layers, SwiGLU) classify "
+        f"{GIANT_BATCH}x{IMAGE_PX}px bf16 on {card}: probs finite, max|row sum - 1| "
+        f"{row_err:.3g}, K9 quantize and GEMM launches {launches['quantize']} and "
+        f"{launches['gemm']} = {per_forward} x {forwards} forwards (win, wout, head), K1 "
+        f"{launches['K1']}; {rate:.1f} img/s (median {median_ms:.2f} ms/call), {held_mb:.0f} MB "
+        f"held; {INT8_GIANT_CROSS_CHECK_IMAGES} image against CPU f32 int8: "
+        f"{_cross_check_line(check)}"
+    )
+    _require_cross_check(check, "ViT-g/14 int8")
+    return {"giant_launches": launches["gemm"], "giant_img_per_s": rate}
 
 
 def write_vit_b14(directory: Path) -> Path:
@@ -2192,6 +2713,7 @@ def main() -> int:
     k7_measured = timed_phase("K7 check", phase_quant_matmul_check, card)
     k8_measured = timed_phase("K8 check", phase_quant_layer_check, card)
     k8_measured.update(timed_phase("K8 launch by launch", phase_quant_layer_split, card))
+    k9_measured = timed_phase("K9 check", phase_int8_check, card)
     timed_phase("output digests", phase_output_digests)
     with tempfile.TemporaryDirectory() as tmp:
         vit_b14 = timed_phase("ViT-B/14 GGUF", write_vit_b14, Path(tmp))
@@ -2201,8 +2723,15 @@ def main() -> int:
         timed_phase("CLI slice", phase_cli, card, vit_b14)
         k7_launches, k8_launches = timed_phase(
             "quantized slice", phase_quant_slice, card, vit_b14, dense_rate)
+        int8_engine, k9_launches, k9_found = timed_phase(
+            "int8 slice", phase_int8_slice, card, vit_b14)
+        k9_found.update(timed_phase(
+            "int8 feature slice", phase_int8_features, card, int8_engine, vit_b14))
+        timed_phase("int8 CLI slice", phase_int8_cli, card, vit_b14, int8_engine)
+        del int8_engine
     k4_launches = timed_phase("feature slice", phase_features, card)
     k3_launches, k2_launches = timed_phase("ViT-g/14 slice", phase_giant, card)
+    k9_found.update(timed_phase("ViT-g/14 int8 slice", phase_int8_giant, card))
     train_launches, source = timed_phase("training slice", phase_train, card)
     timed_phase("long-sequence training", phase_train_long, card, source)
     from dinov2_tpu_torch.ops.attention import vanilla_route_warnings
@@ -2285,6 +2814,19 @@ def main() -> int:
             "replaces": "dinov2_tpu/ops/fused_quant_attention.py:183",
             "launches": k8_launches,
             **k8_measured,
+        },
+        {
+            "name": "int8_matmul_kernel",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/int8_matmul.cu",
+            "replaces": "dinov2_tpu/ops/qmatmul.py:139",
+            "replaces_what": "int8_matmul: an XLA s8 x s8 -> s32 dot_general with its epilogue "
+                             "fused by XLA, no pallas_call",
+            "launches": k9_launches["gemm"],
+            "quantize_launches": k9_launches["quantize"],
+            "library_call": "torch._int_mm (the s32 product alone)",
+            **k9_measured,
+            **k9_found,
         },
     ]
     print(json.dumps({"kernels": kernels}))

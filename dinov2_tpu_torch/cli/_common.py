@@ -28,7 +28,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--dtype", choices=["bf16", "f32"], default="bf16")
     p.add_argument("--quant-mode", choices=["dequant", "fused", "int8"], default="dequant",
                    help="quantized checkpoints: dequant at load, or the fused "
-                   "dequant-matmul kernels; 'int8' (W8A8) is not ported")
+                   "dequant-matmul kernels (K7, K8); 'int8' = W8A8 for any "
+                   "checkpoint: per-row int8 weights, int8 GEMMs (K9)")
     p.add_argument("--data-parallel", action="store_true",
                    help="shard the batch over all devices (not ported: one device only)")
     p.add_argument("--mesh", default=None, metavar="DP[,TP]",
@@ -65,12 +66,6 @@ def refuse_mesh(args) -> None:
     if mesh_axes_of(args) is not None or args.data_parallel:
         raise SystemExit("--mesh and --data-parallel: multi-device runs are not ported; "
                          "this CLI runs on one device")
-
-
-def refuse_int8(args) -> None:
-    """--quant-mode int8 asks for the W8A8 mode, which the port does not run."""
-    if args.quant_mode == "int8":
-        raise SystemExit("--quant-mode int8: the W8A8 mode is not ported")
 
 
 def resolve_asset(path: str) -> str:
@@ -131,7 +126,6 @@ def engine_from_args(args):
     from dinov2_tpu_torch.runtime.engine import DinoEngine
 
     refuse_mesh(args)
-    refuse_int8(args)
     return DinoEngine(
         args.model,
         dtype=dtype_of(args),

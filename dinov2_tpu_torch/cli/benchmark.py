@@ -29,12 +29,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from dinov2_tpu_torch.cli._common import refuse_int8
-
 
 def _param_bytes(tree) -> int:
     """Bytes of the loaded parameter tensors (a QuantLinear's packed fields
-    included)."""
+    and an Int8Linear's codes and scales included)."""
     from dinov2_tpu_torch.models.params import tree_leaves
 
     total = 0
@@ -127,7 +125,8 @@ def main(argv=None) -> int:
                    help="also quantize+benchmark: comma list of q4_0,q4_1,q5_0,q5_1,q8_0")
     p.add_argument("--quant-mode", default="dequant",
                    choices=["dequant", "fused", "int8"],
-                   help="'int8' (W8A8) is not ported")
+                   help="'int8' = W8A8 (per-row int8 weights, int8 GEMMs) for "
+                        "any checkpoint, the synthetic one included")
     p.add_argument("-fa", "--flash-attn", action="store_true")
     p.add_argument("--registers", type=int, default=0,
                    help="synthetic checkpoints: number of register tokens "
@@ -142,7 +141,6 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: 'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
-    refuse_int8(args)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -188,6 +186,9 @@ def _run(args, batch_sizes, device, tmpdir: Path) -> int:
                 int(r.kv.get("ftype", GGMLType.F16)) % 1000
             ).name.lower()
         variants = [(base_label, model_path, args.quant_mode)]
+    elif args.quant_mode == "int8":
+        # int8 is a runtime mode for any ftype, the synthetic f16 file included
+        variants = [("f16-int8", model_path, "int8")]
     else:
         variants = [("f16", model_path, "dequant")]
     if args.quant:

@@ -17,7 +17,7 @@ import torch
 
 from dinov2_tpu_torch.io.gguf import GGMLType, GGUFWriter
 from dinov2_tpu_torch.models.config import DinoConfig
-from dinov2_tpu_torch.models.params import QuantLinear, tree_leaves, tree_map
+from dinov2_tpu_torch.models.params import PACKED_WEIGHTS, tree_leaves, tree_map
 
 
 def _np(x) -> np.ndarray:
@@ -35,9 +35,9 @@ def export_gguf(
     config: DinoConfig,
     id2label: dict[int, str] | None = None,
 ) -> Path:
-    if any(isinstance(leaf, QuantLinear) for leaf in tree_leaves(params)):
+    if any(isinstance(leaf, PACKED_WEIGHTS) for leaf in tree_leaves(params)):
         raise ValueError(
-            "cannot export fused-quantized params; reload with "
+            "cannot export fused-quantized or int8 params; reload with "
             "quant_mode='dequant' or quantize the exported fp16 file with "
             "quant/quantize.py"
         )

@@ -16,9 +16,13 @@ modes, as in the JAX package:
     `QuantLinear`, kept (out, in), and every matmul dequantizes it on the fly
     (the K7 and K8 kernels, ops/qmatmul_kernel.py and
     ops/fused_quant_attention.py).
-The SwiGLU FFN (ViT-g) loads as `mlp.win` (D, 2*hidden) and `mlp.wout`
-(hidden, D) in place of fc1/fc2, dense or QuantLinear alike. The W8A8 "int8"
-mode (Int8Linear) raises NotImplementedError; it is listed in ROADMAP.md.
+The W8A8 mode "int8" is a runtime mode for a file of any ftype: every linear
+weight is requantized on the host at load to per-row symmetric int8, an
+`Int8Linear` kept (out, in), and every matmul quantizes its activations per
+row and runs an s8 x s8 -> s32 product (the K9 kernel,
+ops/int8_matmul_kernel.py). The SwiGLU FFN (ViT-g) loads as `mlp.win`
+(D, 2*hidden) and `mlp.wout` (hidden, D) in place of fc1/fc2, dense,
+QuantLinear or Int8Linear alike.
 """
 
 from __future__ import annotations
@@ -33,8 +37,6 @@ import torch
 from dinov2_tpu_torch.io.gguf import GGMLType, GGUFReader, GGUFTensor, QUANTIZED_TYPES
 from dinov2_tpu_torch.models.config import DinoConfig, id2label_from_kv
 from dinov2_tpu_torch.quant import QUANT_TYPE_NAMES, block_dtype, quantize, unpack_codes
-
-_NOT_PORTED = "not ported to dinov2_tpu_torch yet (see ROADMAP.md, 'Modules to port')"
 
 QUANT_FIELDS = ("codes", "d", "m", "qh_lo", "qh_hi")  # QuantLinear's tensor fields
 
@@ -83,6 +85,41 @@ class QuantLinear:
         return replace(self, **{k: fn(v) for k, v in self.tensors().items()})
 
 
+INT8_FIELDS = ("codes", "s")  # Int8Linear's tensor fields
+
+
+@dataclass
+class Int8Linear:
+    """A W8A8 serving-mode linear weight (out, in): per-output-row symmetric
+    int8 (port of the JAX package's Int8Linear).
+
+      codes: (out, in) int8, no zero point;
+      s:     (out,) f32 per-row scale, so the weight is codes * s[:, None].
+
+    `shape` is static. `int8_per_row` is the dispatch marker, deliberately
+    not `ggml_type`: an Int8Linear is not a QuantLinear, so nothing routes
+    it into the ggml-block kernels (K7, K8). The stacked layer tree holds
+    one Int8Linear per weight name with a leading layer axis on both
+    fields."""
+
+    codes: torch.Tensor
+    s: torch.Tensor
+    shape: tuple[int, int]
+
+    int8_per_row = True
+
+    def tensors(self) -> dict[str, torch.Tensor]:
+        """The tensor fields, by name."""
+        return {"codes": self.codes, "s": self.s}
+
+    def map(self, fn) -> Int8Linear:
+        """The same weight with fn applied to both tensor fields."""
+        return replace(self, codes=fn(self.codes), s=fn(self.s))
+
+
+PACKED_WEIGHTS = (QuantLinear, Int8Linear)  # the weights kept (out, in) in their own form
+
+
 @dataclass
 class LoadedModel:
     config: DinoConfig
@@ -93,12 +130,12 @@ class LoadedModel:
 
 
 def _stack(dicts: list[Any]) -> Any:
-    """Stack identically-structured trees of tensors (and QuantLinears, field
-    by field) along a new axis 0."""
+    """Stack identically-structured trees of tensors (and QuantLinears and
+    Int8Linears, field by field) along a new axis 0."""
     first = dicts[0]
     if isinstance(first, dict):
         return {k: _stack([d[k] for d in dicts]) for k in first}
-    if isinstance(first, QuantLinear):
+    if isinstance(first, PACKED_WEIGHTS):
         return replace(first, **{
             k: torch.stack([q.tensors()[k] for q in dicts], dim=0) for k in first.tensors()
         })
@@ -178,10 +215,15 @@ def init_params(
 def params_from_numpy(tree: Any, device="cpu") -> Any:
     """A tree of numpy arrays (e.g. the JAX params through np.asarray) ->
     the same tree of torch tensors, dtypes kept. bfloat16 arrays (numpy's
-    ml_dtypes extension type) are moved bit for bit. A QuantLinear of either
-    package becomes the port's, its layout kept."""
+    ml_dtypes extension type) are moved bit for bit. A QuantLinear or an
+    Int8Linear of either package becomes the port's, its layout kept."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if getattr(tree, "int8_per_row", False):
+        return Int8Linear(
+            codes=params_from_numpy(tree.codes, device), s=params_from_numpy(tree.s, device),
+            shape=tuple(int(v) for v in tree.shape),
+        )
     if hasattr(tree, "ggml_type"):
         return QuantLinear(
             **{f: None if getattr(tree, f) is None else params_from_numpy(getattr(tree, f), device)
@@ -200,11 +242,11 @@ def params_to_numpy(tree: Any) -> Any:
     """The inverse of `params_from_numpy`: a tree of torch tensors -> the same
     tree of numpy arrays on the host, dtypes kept (detached from any graph).
     bfloat16 goes bit for bit into numpy's `ml_dtypes.bfloat16` where that
-    package is installed, else to float32 (exact). A QuantLinear keeps its
-    class, its tensor fields as arrays."""
+    package is installed, else to float32 (exact). A QuantLinear or an
+    Int8Linear keeps its class, its tensor fields as arrays."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, QuantLinear):
+    if isinstance(tree, PACKED_WEIGHTS):
         return tree.map(params_to_numpy)
     tensor = tree.detach().cpu()
     if tensor.dtype != torch.bfloat16:
@@ -218,7 +260,7 @@ def params_to_numpy(tree: Any) -> Any:
 
 def tree_leaves(tree: Any) -> list[Any]:
     """The leaves of a parameter tree in its (insertion) order; a QuantLinear
-    is one leaf."""
+    or an Int8Linear is one leaf."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     return [tree]
@@ -235,11 +277,11 @@ def trainable_params(tree: Any, device="cpu") -> Any:
     """The tree as training holds it: every leaf an f32 master tensor on
     `device` that requires grad (its own storage, never a view of the
     input), the stacked-layer layout kept. Quantized leaves are refused:
-    fused-quant weights aren't trainable."""
+    fused-quant and int8 weights aren't trainable."""
     def leaf(t):
-        if isinstance(t, QuantLinear):
+        if isinstance(t, PACKED_WEIGHTS):
             raise ValueError(
-                "fused-quant weights aren't trainable: load the checkpoint with "
+                "fused-quant and int8 weights aren't trainable: load the checkpoint with "
                 "quant_mode='dequant'"
             )
         return t.detach().to(device=device, dtype=torch.float32, copy=True).requires_grad_(True)
@@ -342,15 +384,37 @@ def quantize_linear(w: np.ndarray, quant_type: str, packed: bool = True, device=
     return _soa_from_blocks(t, device) if packed else _int8_soa(t, device)
 
 
+def _int8_from_tensor(t: GGUFTensor, device="cpu") -> Int8Linear:
+    """Per-row symmetric int8 requantization of a 2-D weight on the host,
+    once at load (the JAX package's numpy code): f16/f32 directly, ggml
+    blocks through their exact dequantization, so an int8 model made from a
+    q8_0 file sees the values the dequant path would."""
+    arr = np.asarray(t.as_numpy(), dtype=np.float32)
+    if arr.ndim != 2:
+        raise ValueError(f"int8 mode needs a 2D weight, got {arr.shape}")
+    if not np.isfinite(arr).all():
+        raise ValueError("int8 requantization refuses non-finite weights")
+    s = np.abs(arr).max(axis=1) / 127.0
+    s = np.maximum(s, 1e-12)
+    codes = np.clip(np.rint(arr / s[:, None]), -127, 127).astype(np.int8)
+    return Int8Linear(
+        codes=_tensor(codes, torch.int8, device),
+        s=_tensor(s, torch.float32, device),
+        shape=(int(arr.shape[0]), int(arr.shape[1])),
+    )
+
+
 def _linear(
     tensors: dict[str, GGUFTensor], name: str, dtype: torch.dtype, device, quant_mode: str
 ) -> dict[str, Any]:
-    """`{name}.weight` (out, in) as an (in, out) kernel, or kept (out, in) as
-    a QuantLinear when it is quantized and quant_mode is "fused"; plus its
-    f32 bias."""
+    """`{name}.weight` (out, in) as an (in, out) kernel; or kept (out, in) as
+    an Int8Linear in quant_mode "int8", or as a QuantLinear when it is
+    quantized and quant_mode is "fused"; plus its f32 bias."""
     w = tensors[f"{name}.weight"]
-    if quant_mode == "fused" and w.ggml_type in QUANTIZED_TYPES:
-        out: dict[str, Any] = {"kernel": _soa_from_blocks(w, device)}
+    if quant_mode == "int8":
+        out: dict[str, Any] = {"kernel": _int8_from_tensor(w, device)}
+    elif quant_mode == "fused" and w.ggml_type in QUANTIZED_TYPES:
+        out = {"kernel": _soa_from_blocks(w, device)}
     else:  # as_numpy decodes ggml blocks to f32
         out = {"kernel": _tensor(w.as_numpy().T, dtype, device)}
     b = tensors.get(f"{name}.bias")
@@ -370,13 +434,11 @@ def load_params(
 ) -> LoadedModel:
     """Load a GGUF checkpoint onto `device`: dense f16/f32, or ggml-quantized
     in `quant_mode` "dequant" (decoded at load) or "fused" (QuantLinear
-    weights). A dense file ignores "fused", as in the JAX package."""
+    weights). A dense file ignores "fused", as in the JAX package. "int8"
+    takes a file of any ftype and holds every linear weight as an
+    Int8Linear; `quantized` stays False (no weight is a QuantLinear)."""
     if quant_mode not in QUANT_MODES:
         raise ValueError(f"quant_mode must be one of {QUANT_MODES}, got {quant_mode!r}")
-    if quant_mode == "int8":
-        raise NotImplementedError(
-            f"quant_mode='int8' (Int8Linear, W8A8 with no Pallas kernel) is {_NOT_PORTED}"
-        )
     reader = GGUFReader(path)
     try:
         return _load(reader, dtype, device, quant_mode)
@@ -389,8 +451,8 @@ def _load(reader: GGUFReader, dtype: torch.dtype, device, quant_mode: str) -> Lo
     config = DinoConfig.from_gguf_kv(kv)
     id2label = id2label_from_kv(kv, config.num_classes)
     quantized = GGMLType(config.ftype) in QUANTIZED_TYPES
-    if not quantized:
-        quant_mode = "dequant"  # "fused" needs ggml blocks to keep
+    if not quantized and quant_mode == "fused":
+        quant_mode = "dequant"  # "fused" needs ggml blocks to keep; "int8" takes any ftype
     # SwiGLU is detected from the tensors too, and written back into the config
     swiglu = config.swiglu or "encoder.layer.0.mlp.weights_in.weight" in tensors
     mlp_names = (

@@ -47,6 +47,17 @@ two options in place of the JAX package's environment knobs:
 On a card "auto" therefore always reaches a kernel; the JAX package's
 "auto" picks the dequant routes, a choice measured on a TPU.
 
+W8A8 int8 weights (Int8Linear, quant_mode="int8") route as in the JAX
+package:
+  - slab route, qkv and proj int8, `quant_slab` "auto", "kernel" and
+    "dequant": both weights dequantized (codes * s) into K1 at the "layer"
+    level (K8 takes ggml blocks only, so "kernel" means "auto"), a proj
+    into K2 at the "proj" level; with `fuse_mlp` an fc1/fc2 pair into K5;
+  - everything else, and all of it under quant_slab "off", goes through
+    ops/qmatmul.py::int8_matmul, the K9 kernel (ops/int8_matmul_kernel.py):
+    fc1 with its GELU, fc2, the classifier, SwiGLU's win and wout, and qkv
+    and proj on the flash route and at the "core" level.
+
 Numerics as in the JAX package: LN statistics in f32; matmuls accumulate in
 f32 and round to the compute dtype before the bias add; tokens are embedded
 in f32 and cast once; the final LN and the head run in f32. Quirks kept:
@@ -62,8 +73,7 @@ and the layer runs again in the backward, so its forward kernels launch
 twice a step; it does nothing where grad is disabled.
 
 Left out: the JAX CLS-shift overflow rescue (the port's softmax takes the
-exact row max), batch chunking (TPU scheduling), sequence parallelism and
-the W8A8 Int8Linear.
+exact row max), batch chunking (TPU scheduling) and sequence parallelism.
 """
 
 from __future__ import annotations
@@ -77,7 +87,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dinov2_tpu_torch.models.config import DinoConfig
-from dinov2_tpu_torch.models.params import QUANT_FIELDS, QuantLinear, tree_leaves
+from dinov2_tpu_torch.models.params import (
+    INT8_FIELDS,
+    PACKED_WEIGHTS,
+    QUANT_FIELDS,
+    Int8Linear,
+    QuantLinear,
+    tree_leaves,
+)
 from dinov2_tpu_torch.image.posembed import interpolate_pos_embed
 from dinov2_tpu_torch.ops.attention import resolve_attention_path, self_attention_block
 from dinov2_tpu_torch.ops.fused_attention import slab_layer_block, slab_mlp_block
@@ -166,6 +183,7 @@ def _attention_half_layer(
     path = _attention_path(x, config, opts)
     w_qkv, w_proj = layer["qkv"]["kernel"], layer["proj"]["kernel"]
     quantized = isinstance(w_qkv, QuantLinear), isinstance(w_proj, QuantLinear)
+    int8 = isinstance(w_qkv, Int8Linear) and isinstance(w_proj, Int8Linear)
     whole = (
         path == "slab" and opts.slab_fusion in ("auto", "layer")
         and "bias" in layer["qkv"] and "bias" in layer["proj"]
@@ -175,13 +193,13 @@ def _attention_half_layer(
             x, layer["norm1"]["scale"], layer["norm1"]["bias"], w_qkv, layer["qkv"]["bias"],
             w_proj, layer["proj"]["bias"], layer["ls1"], heads, scale, config.eps,
         )
-    if whole and all(quantized) and opts.quant_slab == "dequant":
+    if whole and (all(quantized) and opts.quant_slab == "dequant"
+                  or int8 and opts.quant_slab != "off"):
         refuse_quant_grad("the quantized attention half-layer", x, *_tensor_leaves(layer))
         # the layer's weights dequantized into K1's dense (in, out) layout
         w_qkv = dequant_weight(w_qkv, x.dtype).T.contiguous()
         w_proj = dequant_weight(w_proj, x.dtype).T.contiguous()
-        quantized = False, False
-    if whole and not any(quantized):
+    if whole and not isinstance(w_qkv, PACKED_WEIGHTS) and not isinstance(w_proj, PACKED_WEIGHTS):
         return slab_layer_block(
             x, layer["norm1"]["scale"], layer["norm1"]["bias"], w_qkv, layer["qkv"]["bias"],
             w_proj, layer["proj"]["bias"], layer["ls1"], heads, scale, config.eps,
@@ -199,8 +217,9 @@ def _mlp_half_layer(
 ) -> torch.Tensor:
     """LN2 -> MLP -> LayerScale -> residual, in the compute dtype. With
     `fuse_mlp`, on the slab route, a GELU MLP with both biases is one call of
-    the K5 kernel; a quantized fc1/fc2 pair is dequantized into it unless
-    quant_slab is "off"; a mixed dense/quantized pair takes no fused route."""
+    the K5 kernel; a quantized (QuantLinear or Int8Linear) fc1/fc2 pair is
+    dequantized into it unless quant_slab is "off"; a mixed dense/quantized
+    pair takes no fused route."""
     mlp = layer["mlp"]
     if (
         opts.fuse_mlp and not config.swiglu
@@ -208,7 +227,7 @@ def _mlp_half_layer(
         and "bias" in mlp["fc1"] and "bias" in mlp["fc2"]
     ):
         w1, w2 = mlp["fc1"]["kernel"], mlp["fc2"]["kernel"]
-        quantized = isinstance(w1, QuantLinear), isinstance(w2, QuantLinear)
+        quantized = isinstance(w1, PACKED_WEIGHTS), isinstance(w2, PACKED_WEIGHTS)
         if all(quantized) and opts.quant_slab != "off":
             refuse_quant_grad("the quantized MLP half-layer", x, *_tensor_leaves(layer))
             w1 = dequant_weight(w1, x.dtype).T.contiguous()
@@ -234,7 +253,8 @@ def encoder_layer(
 
 
 def _tensor_leaves(tree: Any) -> list[torch.Tensor]:
-    """The dense tensors of a parameter (sub)tree; QuantLinears are skipped."""
+    """The dense tensors of a parameter (sub)tree; QuantLinears and
+    Int8Linears are skipped."""
     return [leaf for leaf in tree_leaves(tree) if torch.is_tensor(leaf)]
 
 
@@ -242,7 +262,7 @@ def _layer(layers: Any, i: int) -> Any:
     """Layer i of the stacked layer tree."""
     if isinstance(layers, dict):
         return {k: _layer(v, i) for k, v in layers.items()}
-    if isinstance(layers, QuantLinear):
+    if isinstance(layers, PACKED_WEIGHTS):
         return layers.map(lambda t: t[i])
     return layers[i]
 
@@ -351,18 +371,23 @@ def _flatten(tree: dict, prefix: str = "") -> dict[str, Any]:
 
 class DinoViT(nn.Module):
     """Owns the weight tensors (as buffers named by their tree path, e.g.
-    "layers/qkv/kernel", or "layers/qkv/kernel/codes" for a QuantLinear's
-    fields) and runs the functional forward on them. A QuantLinear's static
-    fields (ggml_type, shape, packed) are kept beside the buffers."""
+    "layers/qkv/kernel", or "layers/qkv/kernel/codes" for a QuantLinear's or
+    an Int8Linear's fields) and runs the functional forward on them. A
+    QuantLinear's static fields (ggml_type, shape, packed) and an
+    Int8Linear's shape are kept beside the buffers."""
 
     def __init__(self, params: dict, config: DinoConfig, opts: ModelOptions):
         super().__init__()
         self.config = config
         self.opts = opts
         self._quant_static: dict[str, tuple] = {}
+        self._int8_static: dict[str, tuple] = {}
         for name, leaf in _flatten(params).items():
-            if isinstance(leaf, QuantLinear):
-                self._quant_static[name] = (leaf.ggml_type, leaf.shape, leaf.packed)
+            if isinstance(leaf, PACKED_WEIGHTS):
+                if isinstance(leaf, QuantLinear):
+                    self._quant_static[name] = (leaf.ggml_type, leaf.shape, leaf.packed)
+                else:
+                    self._int8_static[name] = leaf.shape
                 for field, tensor in leaf.tensors().items():
                     self.register_buffer(f"{name}/{field}", tensor)
             else:
@@ -377,16 +402,21 @@ class DinoViT(nn.Module):
             for key in path:
                 node = node.setdefault(key, {})
             node[leaf] = tensor
-        for name, (ggml_type, shape, packed) in self._quant_static.items():
+        def rebuild(name: str, make) -> None:
             *path, leaf = name.split("/")
             node = tree
             for key in path:
                 node = node[key]
-            fields = node[leaf]
-            node[leaf] = QuantLinear(
+            node[leaf] = make(node[leaf])
+
+        for name, (ggml_type, shape, packed) in self._quant_static.items():
+            rebuild(name, lambda fields: QuantLinear(
                 **{f: fields.get(f) for f in QUANT_FIELDS},
                 ggml_type=ggml_type, shape=shape, packed=packed,
-            )
+            ))
+        for name, shape in self._int8_static.items():
+            rebuild(name, lambda fields: Int8Linear(**{f: fields[f] for f in INT8_FIELDS},
+                                                    shape=shape))
         return tree
 
     def forward(self, x: torch.Tensor, classify: bool = False) -> dict[str, torch.Tensor]:

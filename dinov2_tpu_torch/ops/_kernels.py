@@ -10,7 +10,8 @@ header is rebuilt and a stale library is never loaded.
 The entry points take device pointers and the CUDA stream as `void*` and
 return `cudaGetLastError()` after their launches; the Python wrappers
 (ops/fused_attention.py, ops/flash_attention.py, ops/qmatmul_kernel.py,
-ops/fused_quant_attention.py) check the code and raise.
+ops/fused_quant_attention.py, ops/int8_matmul_kernel.py) check the code and
+raise.
 """
 
 from __future__ import annotations
@@ -180,11 +181,23 @@ def quant_layer_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def int8_matmul_lib() -> ctypes.CDLL:
+    """The K9 library (csrc/int8_matmul.cu), built on first use."""
+    lib = _load("int8_matmul")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.dinov2_int8_quantize_rows.argtypes = [ptr, i32, ptr, ptr, i32, i32, ptr]
+    lib.dinov2_int8_quantize_rows.restype = i32
+    lib.dinov2_int8_gemm.argtypes = [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr]
+    lib.dinov2_int8_gemm.restype = i32
+    return lib
+
+
 LIBRARIES = {
     "slab_layer": slab_layer_lib, "slab_attention": slab_attention_lib,
     "slab_mlp": slab_mlp_lib, "flash_attention": flash_attention_lib,
     "flash_backward": flash_backward_lib, "quant_matmul": quant_matmul_lib,
-    "quant_layer": quant_layer_lib,
+    "quant_layer": quant_layer_lib, "int8_matmul": int8_matmul_lib,
 }
 
 

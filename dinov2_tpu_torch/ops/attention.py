@@ -7,7 +7,8 @@ half-layer after LN1 (fused QKV, attention core, proj, LayerScale,
 residual): models/vit.py takes them on the flash and vanilla routes and, on
 the slab route, at the "proj" (K2) and "core" (K3) levels of
 `ModelOptions.slab_fusion`. QuantLinear qkv and proj weights go through
-ops/qmatmul.py::quant_matmul with `backend`.
+ops/qmatmul.py::quant_matmul with `backend`, Int8Linear ones through
+ops/qmatmul.py::int8_matmul (K9).
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import functools
 
 import torch
 
-from dinov2_tpu_torch.models.params import QuantLinear
+from dinov2_tpu_torch.models.params import PACKED_WEIGHTS
 from dinov2_tpu_torch.ops.qmatmul import apply_linear, dequant_weight, refuse_quant_grad
 from dinov2_tpu_torch.utils.logging import get_logger
 
@@ -150,15 +151,15 @@ def self_attention_block(
     On the slab route with `fuse_proj` and a proj bias, the core, proj, bias,
     LayerScale and residual are one call of the K2 kernel
     (ops/fused_attention.py::slab_attention_block) on the QKV GEMM's slab. A
-    QuantLinear proj is dequantized into it when `dequant_proj` (the JAX
-    package's rule: every DINOV2_TPU_QUANT_SLAB mode but "off"); otherwise,
+    QuantLinear or Int8Linear proj is dequantized into it when `dequant_proj`
+    (the JAX package's rule: every DINOV2_TPU_QUANT_SLAB mode but "off"); otherwise,
     and without `fuse_proj`, the unfused order runs: the K3 core, then proj
     through apply_linear. Same numerics ordering either way."""
     b, t, d = x_norm.shape
     flash = resolve_attention_path(flash, t, x_norm.dtype, d // num_heads, x_norm.device.type)
     if fuse_proj and "bias" in proj_params and flash == "slab":
         proj_kernel = proj_params["kernel"]
-        if isinstance(proj_kernel, QuantLinear):
+        if isinstance(proj_kernel, PACKED_WEIGHTS):
             refuse_quant_grad("self_attention_block", x_res, x_norm, proj_params["bias"], ls1)
             proj_kernel = (
                 dequant_weight(proj_kernel, x_norm.dtype).T.contiguous() if dequant_proj else None

@@ -14,7 +14,13 @@ one dispatch point of quantized matmuls. Its backends:
     plain matmul (the JAX package's "xla" backend);
   - "auto": "kernel", so a card always reaches the kernel. The JAX package's
     "auto" is "dequant", a choice measured on a TPU that does not carry over.
-The W8A8 Int8Linear is not ported (ROADMAP.md).
+
+An `Int8Linear` kernel (the W8A8 mode) goes through `int8_matmul`: the
+activations are quantized per row (`quantize_rows_int8`), multiplied with
+the int8 codes into exact s32 sums and rescaled in f32 by both scales
+(`int8_matmul_reference`, the plain version of the K9 kernel,
+ops/int8_matmul_kernel.py). It has no backend choice: the JAX package
+leaves it to XLA, the port to K9.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from dinov2_tpu_torch.models.params import QuantLinear, decode_packed_planes
+from dinov2_tpu_torch.models.params import Int8Linear, QuantLinear, decode_packed_planes
 
 
 def set_cuda_matmul_precision() -> None:
@@ -67,10 +73,10 @@ def needs_grad(*tensors: torch.Tensor | None) -> bool:
 
 
 def refuse_quant_grad(what: str, *tensors: torch.Tensor | None) -> None:
-    """Raise where a tensor that requires grad meets a QuantLinear path: the
-    quantized kernels have no backward, and returning their result would
-    cut the graph without a word (the JAX package: "fused-quant weights
-    aren't trainable")."""
+    """Raise where a tensor that requires grad meets a QuantLinear or an
+    Int8Linear path: the quantized kernels have no backward, and returning
+    their result would cut the graph without a word (the JAX package:
+    "fused-quant weights aren't trainable")."""
     if needs_grad(*tensors):
         raise RuntimeError(
             f"{what}: fused-quant weights aren't trainable, and an input requires grad; "
@@ -81,7 +87,11 @@ def refuse_quant_grad(what: str, *tensors: torch.Tensor | None) -> None:
 def dequant_weight(ql, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """A QuantLinear -> its dense (out, in) weight in `dtype`, in the JAX
     package's order: integer codes -> f32, times d, plus m for q4_1/q5_1,
-    each in f32, then one cast. Both layouts; dims come from the tensors."""
+    each in f32, then one cast. Both layouts; dims come from the tensors.
+    An Int8Linear: codes -> f32, times its row's s, one cast (the route
+    that feeds int8 weights into the dense slab kernels K1, K2 and K5)."""
+    if isinstance(ql, Int8Linear):
+        return (ql.codes.float() * ql.s[:, None]).to(dtype)
     out_dim = ql.codes.shape[0]
     in_dim = ql.codes.shape[1] * (2 if ql.packed else 1)
     if ql.packed:
@@ -114,16 +124,77 @@ def quant_matmul(
     return quant_matmul_kernel(x, ql, bias, activation)
 
 
+# np.float32(1 / 127) and np.float32(1e-12), the JAX package's constants,
+# written out so that the kernel's (csrc/int8_matmul.cu) are checkably the same
+INT8_SCALE_STEP = 0.007874015718698502  # 0x3c010204
+INT8_SCALE_FLOOR = 9.99999996e-13  # 0x2b8cbccc
+
+
+def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-row symmetric int8 activation quantization, the JAX
+    package's order: in f32, sx = max(absmax, 1e-12) * f32(1/127), codes =
+    round-half-even(x / sx) (|x / sx| <= 127 by construction, so no clip).
+    Returns (codes int8 like x, sx f32 with the last axis kept as 1)."""
+    xf = x.float()
+    ax = xf.abs().amax(dim=-1, keepdim=True)
+    sx = torch.clamp_min(ax, INT8_SCALE_FLOOR) * INT8_SCALE_STEP
+    return torch.round(xf / sx).to(torch.int8), sx
+
+
+def int8_product(x8: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """The exact s32 product x8 @ codes^T for int8 x8 (..., K) and codes
+    (N, K). The sums run in f64, where every partial sum is an integer of
+    at most 127 * 127 * K < 2^53 and so exact, on the CPU and on a card
+    alike; then one cast to int32."""
+    return torch.matmul(x8.double(), codes.double().T).to(torch.int32)
+
+
+def int8_epilogue(
+    acc: torch.Tensor, sx: torch.Tensor, s: torch.Tensor, dtype: torch.dtype,
+    bias: torch.Tensor | None = None, activation: str | None = None,
+) -> torch.Tensor:
+    """What the s32 sums become, in the JAX package's order: f32(acc) * sx
+    * s (two f32 multiplies, in that order), one cast to `dtype`, + bias
+    cast to `dtype`, then the activation."""
+    y = (acc.float() * sx * s).to(dtype)
+    if bias is not None:
+        y = y + bias.to(dtype)
+    return apply_activation(y, activation)
+
+
+def int8_matmul_reference(
+    x: torch.Tensor, il, bias: torch.Tensor | None = None, activation: str | None = None
+) -> torch.Tensor:
+    """The plain PyTorch version of K9: y = act(x @ W^T + bias) for an
+    (N, K) Int8Linear W, in x's dtype (the JAX package's int8_matmul)."""
+    x8, sx = quantize_rows_int8(x)
+    return int8_epilogue(int8_product(x8, il.codes), sx, il.s, x.dtype, bias, activation)
+
+
+def int8_matmul(
+    x: torch.Tensor, il, bias: torch.Tensor | None = None, activation: str | None = None
+) -> torch.Tensor:
+    """x (..., in) @ W^T (+ bias) (+ activation) for an (out, in)
+    Int8Linear W: the K9 kernel on a card, its plain version on the CPU
+    (ops/int8_matmul_kernel.py), which refuses inputs that require grad."""
+    from dinov2_tpu_torch.ops.int8_matmul_kernel import int8_matmul_kernel
+
+    return int8_matmul_kernel(x, il, bias, activation)
+
+
 def apply_linear(
     x: torch.Tensor, layer: dict, activation: str | None = None, backend: str = "auto"
 ) -> torch.Tensor:
-    """x @ kernel (+ bias) (+ activation) for a dense (in, out) kernel or an
-    (out, in) QuantLinear (through quant_matmul with `backend`, which carries
-    the bias and the activation into the kernel's epilogue).
+    """x @ kernel (+ bias) (+ activation) for a dense (in, out) kernel, an
+    (out, in) Int8Linear (through int8_matmul) or an (out, in) QuantLinear
+    (through quant_matmul with `backend`); both carry the bias and the
+    activation into the kernel's epilogue.
 
     A dense kernel is cast to x's dtype first, so f32 features meet an f32
     classifier (JAX promotes the bf16 kernel the same way)."""
     kernel = layer["kernel"]
+    if isinstance(kernel, Int8Linear):
+        return int8_matmul(x, kernel, layer.get("bias"), activation)
     if isinstance(kernel, QuantLinear):
         return quant_matmul(x, kernel, backend, layer.get("bias"), activation)
     y = torch.matmul(x, kernel.to(x.dtype))

@@ -2,7 +2,7 @@
 one CUDA GPU.
 
     python3 -m dinov2_tpu_torch.utils.profile_slice [--mode classify|features|train]
-        [--quant q4_0|q4_1|q5_0|q5_1|q8_0] [--model giant]
+        [--quant q4_0|q4_1|q5_0|q5_1|q8_0|int8] [--model giant]
         [--slab-fusion layer|proj|core] [--fuse-mlp]
         [--flash-attn] [--no-remat] [--long]
 
@@ -15,7 +15,10 @@ features: a random-weight ViT-L/14 (PRESETS["large"]) in the same engine,
 route), as chip_smoke.py runs it.
 --quant FMT: the same checkpoint quantized with quantize_gguf and loaded
 with quant_mode="fused" (K8 for the attention half-layer, K7 for the other
-linears), as chip_smoke.py's quantized slice runs it.
+linears), as chip_smoke.py's quantized slice runs it. --quant int8: the
+f16 checkpoint itself in quant_mode="int8" (W8A8: K1 on the dequantized
+qkv/proj on the slab route, K9 for the other linears; every linear on the
+flash route), as chip_smoke.py's int8 slice runs it.
 --model giant (classify): a random-weight ViT-g/14 (PRESETS["giant"], 40
 layers, SwiGLU, 1000 classes) on 16 images, as chip_smoke.py's ViT-g slice
 runs it. --slab-fusion picks the level of the slab route (K1 | K2 | K3) and
@@ -77,10 +80,11 @@ def _engine(preset: str, overrides: dict, seed: int, quant: str | None, **option
     config = DinoConfig(**{**PRESETS[preset].__dict__, **overrides})
     with tempfile.TemporaryDirectory() as tmp:
         path = write_synthetic_gguf(Path(tmp) / f"{preset}.gguf", config, seed=seed)
-        if quant:
+        if quant and quant != "int8":
             path = quantize_gguf(path, Path(tmp) / f"{preset}.{quant}.gguf", quant)
+        mode = "int8" if quant == "int8" else "fused" if quant else "dequant"
         return DinoEngine(path, dtype=torch.bfloat16, parity="reference", device="cuda",
-                          quant_mode="fused" if quant else "dequant", **options)
+                          quant_mode=mode, **options)
 
 
 def _train_step(overrides: dict, seed: int, batch: int, px: int, flash: bool, remat: bool,
@@ -119,7 +123,7 @@ def main(argv=()) -> int:
         return 1
     parser = argparse.ArgumentParser(prog="profile_slice")
     parser.add_argument("--mode", choices=sorted(MODES), default="classify")
-    parser.add_argument("--quant", choices=sorted(QUANT_TYPE_NAMES), default=None)
+    parser.add_argument("--quant", choices=[*sorted(QUANT_TYPE_NAMES), "int8"], default=None)
     parser.add_argument("--model", choices=["giant"], default=None)
     parser.add_argument("--slab-fusion", choices=["layer", "proj", "core"], default=None)
     parser.add_argument("--fuse-mlp", action="store_true")
@@ -137,7 +141,7 @@ def main(argv=()) -> int:
         preset, batch, label = "giant", GIANT_BATCH, "ViT-g/14 classify_probs"
         tags.append("giant")
     if quant:
-        label = f"{label}, {quant} fused"
+        label = f"{label}, {'W8A8 int8' if quant == 'int8' else quant + ' fused'}"
         tags.append(quant)
     if args.slab_fusion:
         options["slab_fusion"] = args.slab_fusion

@@ -20,15 +20,16 @@ block shape and ring depth as macros too (-DDINOV2_GEMM_COLUMNS=,
 is held against K1's, K5's, K7's and K8's plain versions at the same ragged
 lengths, and K1, K5, K7's fc1 and fc2 and K8 are timed on each at their
 shapes. With --ptxas it first prints what `nvcc -Xptxas -v` says of the
-seven kernel sources: both flash sources, csrc/slab_layer.cu (K1: the wgmma
+eight kernel sources: both flash sources, csrc/slab_layer.cu (K1: the wgmma
 GEMM kernels of csrc/wgmma_gemm.cuh and the attention kernel as the slab
 kernels instantiate it), csrc/slab_attention.cu (K3, K2), csrc/slab_mlp.cu
 (K5: the layer norm and the GEMM with the activation and with the residual
 epilogue), csrc/quant_matmul.cu (K7: the dequantize kernel, the GEMM on a
-k-major weight, the f32 kernel) and csrc/quant_layer.cu (K8: the dequantize
-kernel and K1's launches with the k-major weight): registers, spills,
-shared memory, and the count of HGMMA (wgmma), HMMA (mma.sync) and LDGSTS
-(cp.async) instructions in their SASS. --quick skips the timing. Exits non-zero if a variant disagrees with
+k-major weight, the f32 kernel), csrc/quant_layer.cu (K8: the dequantize
+kernel and K1's launches with the k-major weight) and csrc/int8_matmul.cu
+(K9: the quantize and the s8 GEMM with each epilogue): registers, spills,
+shared memory, and the count of HGMMA and IGMMA (wgmma, float and
+integer), HMMA (mma.sync) and LDGSTS (cp.async) instructions in their SASS. --quick skips the timing. Exits non-zero if a variant disagrees with
 the plain version. Needs a CUDA device and nvcc.
 """
 
@@ -170,7 +171,7 @@ def ptxas_report(name: str) -> str:
         [str(Path(nvcc).with_name("cuobjdump")), "-sass", str(cubin)],
         capture_output=True, text=True,
     ).stdout
-    for word in ("HGMMA", "HMMA", "LDGSTS", "WARPGROUP", "MUFU.EX2", "STL", "LDL"):
+    for word in ("HGMMA", "IGMMA", "HMMA", "LDGSTS", "WARPGROUP", "MUFU.EX2", "STL", "LDL"):
         lines.append(f"SASS lines with {word}: {sum(word in row for row in sass.splitlines())}")
     return "\n".join(lines)
 
@@ -395,7 +396,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card)
     names = ("flash_attention", "flash_backward", "slab_layer", "slab_attention", "slab_mlp",
-             "quant_matmul", "quant_layer")
+             "quant_matmul", "quant_layer", "int8_matmul")
     with ThreadPoolExecutor(len(names)) as pool:
         reports = pool.map(ptxas_report, names) if opts.ptxas else ()
         build_all()

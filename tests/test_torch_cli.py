@@ -416,10 +416,121 @@ def test_multi_device_flags_exit(ckpt, image_dir, name, flag):
         CLIS[name].main([*_argv(name, ckpt, image_dir), *flag, *PORT])
 
 
+def _int8_engine(ckpt):
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    return DinoEngine(ckpt, dtype=torch.float32, device="cpu", quant_mode="int8")
+
+
+def _topk_of(probs_row, engine, k=4):
+    order = np.argsort(-probs_row, kind="stable")[:k]
+    return [engine.id2label.get(int(i), str(int(i))) for i in order], probs_row[order]
+
+
+def _int8_serve(ckpt, image_dir, monkeypatch):
+    """serve --quant-mode int8 on port 0: one /classify, then the server
+    stops (serve_forever is replaced by a start, a request and a stop)."""
+    from dinov2_tpu_torch.runtime.server import BatchingServer
+
+    replies = []
+
+    def once(server):
+        server.start()
+        data = (image_dir / "im2.png").read_bytes()
+        req = urllib.request.Request(f"http://127.0.0.1:{server.port}/classify", data=data,
+                                     method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                replies.append(json.loads(resp.read()))
+        finally:
+            server.stop()
+
+    monkeypatch.setattr(BatchingServer, "serve_forever", once)
+    assert serve.main(["-m", str(ckpt), "--port", "0", "--warmup", "1", "--quant-mode", "int8",
+                       *PORT]) == 0
+    engine = _int8_engine(ckpt)
+    labels, probs = _topk_of(engine.classify_probs(load_image_rgb(str(image_dir / "im2.png")))[0],
+                             engine)
+    (reply,) = replies
+    assert [label for label, _ in reply["topk"]] == labels
+    np.testing.assert_allclose([p for _, p in reply["topk"]], probs, atol=PROB_ATOL, rtol=0)
+
+
+def _int8_inference(ckpt, image_dir):
+    img = str(image_dir / "im0.png")
+    rc, out = _run(inference.main, ["-m", str(ckpt), "-i", img, "-c", "--quant-mode", "int8",
+                                    *PORT])
+    assert rc == 0
+    line = re.compile(r"^ > (\S+) : ([0-9.]+)$")
+    got = [line.match(s).groups() for s in out.splitlines()]
+    engine = _int8_engine(ckpt)
+    labels, probs = _topk_of(engine.classify_probs(load_image_rgb(img))[0], engine)
+    assert [label for label, _ in got] == labels
+    np.testing.assert_allclose([float(p) for _, p in got], probs, atol=PRINTED_ATOL, rtol=0)
+
+
+def _int8_eval(ckpt, image_dir, tmp_path):
+    from dinov2_tpu_torch.runtime.loader import BatchLoader, list_images
+
+    rows = _eval(eval_cli.main, ckpt, image_dir, tmp_path / "a.jsonl", ["--quant-mode", "int8", *PORT])
+    engine = _int8_engine(ckpt)
+    paths = list_images(image_dir)
+    direct = np.concatenate([engine.classify_probs(batch) for _, batch in BatchLoader(
+        paths, batch_size=4, size=(256, 256), interpolation="cubic-float")])
+    assert [r["path"] for r in rows] == [str(p) for p in paths]
+    for row, probs in zip(rows, direct):
+        labels, top = _topk_of(probs, engine, k=len(row["topk"]))
+        assert [label for label, _ in row["topk"]] == labels
+        np.testing.assert_allclose([p for _, p in row["topk"]], top, atol=PROB_ATOL, rtol=0)
+
+
+def _int8_realtime(ckpt, tmp_path):
+    import argparse
+    import itertools
+
+    out = tmp_path / "last.png"
+    assert realtime.main(["-m", str(ckpt), "--synthetic", "--no-display", "--frames", "2",
+                          "--save-last", str(out), "--quant-mode", "int8", *PORT]) == 0
+    frame = next(itertools.islice(realtime._frame_source(argparse.Namespace(synthetic=True)),
+                                  1, None))
+    last = cv2.cvtColor(cv2.imread(str(out)), cv2.COLOR_BGR2RGB)
+    np.testing.assert_array_equal(last[:, : frame.shape[1]], frame)
+    assert _agree_u8(last[:, frame.shape[1]:], _int8_engine(ckpt).pca_visualization(frame)) \
+        >= U8_AGREE
+
+
+def _int8_benchmark(ckpt, monkeypatch):
+    """With -m, the file's own label; without it, JAX's "f16-int8" variant
+    of the synthetic file (its preset cut to the tiny config here). The
+    weights' bytes are the int8 engine's."""
+    from dinov2_tpu_torch.models import config as port_config
+    from dinov2_tpu_torch.models.params import tree_leaves
+
+    got = _bench_rows(benchmark.main, ["-m", str(ckpt), "--batch-sizes", "1", "--iters", "1",
+                                       "--json", "--quant-mode", "int8", *PORT])
+    engine = _int8_engine(ckpt)
+    weights = sum(t.numel() * t.element_size() for leaf in tree_leaves(engine.loaded.params)
+                  for t in (leaf.tensors().values() if hasattr(leaf, "tensors") else [leaf]))
+    assert set(got) == {"f16"} and got["f16"][0]["images_per_sec"] > 0
+    assert got["f16"][0]["hbm_weights_mb"] == round(weights / 2**20, 1)  # the column is in MiB
+    monkeypatch.setitem(port_config.PRESETS, "small", TINY)
+    synthetic = _bench_rows(benchmark.main, ["--size", "small", "--batch-sizes", "1", "--iters",
+                                             "1", "--json", "--quant-mode", "int8", *PORT])
+    assert set(synthetic) == {"f16-int8"} and synthetic["f16-int8"][0]["images_per_sec"] > 0
+
+
 @pytest.mark.parametrize("name", [*CLIS, "benchmark"])
-def test_int8_mode_exits(ckpt, image_dir, name):
-    """--quant-mode int8 (W8A8, not ported) is refused before any work."""
-    main = benchmark.main if name == "benchmark" else CLIS[name].main
-    argv = ["-m", str(ckpt)] if name == "benchmark" else _argv(name, ckpt, image_dir)
-    with pytest.raises(SystemExit, match="int8: the W8A8 mode is not ported"):
-        main([*argv, "--quant-mode", "int8", *PORT])
+def test_int8_mode_runs(ckpt, image_dir, tmp_path, monkeypatch, name):
+    """--quant-mode int8 (the W8A8 mode: Int8Linear weights, K9's plain
+    version here) runs through each CLI, and its output is the int8
+    engine's on the same inputs."""
+    if name == "serve":
+        _int8_serve(ckpt, image_dir, monkeypatch)
+    elif name == "inference":
+        _int8_inference(ckpt, image_dir)
+    elif name == "eval":
+        _int8_eval(ckpt, image_dir, tmp_path)
+    elif name == "realtime":
+        _int8_realtime(ckpt, tmp_path)
+    else:
+        _int8_benchmark(ckpt, monkeypatch)

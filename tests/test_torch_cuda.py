@@ -1026,3 +1026,136 @@ def test_default_trainer_takes_a_step_on_cuda(cuda):
             parity="hf", compute_dtype=torch.float32, remat=True, flash_attention=route))
         with pytest.raises(NotImplementedError):
             forced.step(*forced.place(source), images, labels)
+
+
+# K9, the int8 matmul (csrc/int8_matmul.cu): each launch bit for bit its
+# plain version on the same card. The plain GEMM is the exact s32 product
+# (ops/qmatmul.py::int8_product, f64 sums of integers below 2^53) and the
+# same epilogue; the plain quantize is the same f32 arithmetic with an IEEE
+# division.
+
+
+def _int8_linear(n, k, seed, device):
+    from dinov2_tpu_torch.models.params import Int8Linear
+
+    w = np.random.default_rng(seed).standard_normal((n, k)).astype(np.float32) * 0.05
+    s = np.maximum(np.abs(w).max(axis=1) / 127.0, 1e-12)
+    codes = np.clip(np.rint(w / s[:, None]), -127, 127).astype(np.int8)
+    return Int8Linear(codes=torch.from_numpy(codes).to(device),
+                      s=torch.from_numpy(s.astype(np.float32)).to(device), shape=(n, k))
+
+
+def _int8_x(m, k, dtype, seed, device):
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal((m, k)) * 2).to(device, dtype)
+    x[min(3, m - 1)] = 0  # the absmax floor
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m, k", [(1, 16), (257, 768), (514, 3072), (33, 1536), (1370 * 2, 1024)])
+def test_int8_quantize_kernel_equals_plain(cuda, m, k, dtype):
+    from dinov2_tpu_torch.ops.int8_matmul_kernel import quantize_rows_int8_kernel
+    from dinov2_tpu_torch.ops.qmatmul import quantize_rows_int8
+
+    x = _int8_x(m, k, dtype, seed=m + k, device=cuda)
+    got8, got_sx = quantize_rows_int8_kernel(x)
+    want8, want_sx = quantize_rows_int8(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got8, want8)
+    assert torch.equal(got_sx.view(torch.int32), want_sx.view(torch.int32))
+
+
+INT8_GEMM_CASES = [
+    (16448, 768, 3072, "gelu_tanh_f16", torch.bfloat16),  # ViT-B/14 fc1
+    (16448, 3072, 768, None, torch.bfloat16),  # fc2
+    (64, 1536, 1000, None, torch.float32),  # the head on f32 features
+    (2740, 1024, 3072, None, torch.bfloat16),  # qkv at T=1370
+    (257, 384, 1000, "gelu_erf", torch.bfloat16),
+    (514, 640, 33, "gelu_tanh", torch.float32),  # K = 128 * 5, N = 33 stored value by value
+    (1, 128, 40, None, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("m, k, n, activation, dtype", INT8_GEMM_CASES)
+def test_int8_gemm_kernel_equals_plain(cuda, m, k, n, activation, dtype):
+    from dinov2_tpu_torch.ops.int8_matmul_kernel import (
+        int8_gemm_kernel,
+        int8_matmul_kernel,
+        quantize_rows_int8_kernel,
+    )
+    from dinov2_tpu_torch.ops.qmatmul import int8_epilogue, int8_matmul_reference, int8_product
+
+    il = _int8_linear(n, k, seed=n, device=cuda)
+    x = _int8_x(m, k, dtype, seed=k, device=cuda)
+    bias = torch.from_numpy(np.random.default_rng(1).standard_normal(n) * 0.1).to(cuda, torch.float32)
+    x8, sx = quantize_rows_int8_kernel(x)
+    for b in (bias, None):
+        got = int8_gemm_kernel(x8, sx, il, b, activation, dtype)
+        want = int8_epilogue(int8_product(x8, il.codes), sx, il.s, dtype, b, activation)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (m, n)
+        assert torch.equal(got, want), (got.float() - want.float()).abs().max().item()
+    assert torch.equal(int8_matmul_kernel(x, il, bias, activation),
+                       int8_matmul_reference(x, il, bias, activation))
+
+
+def test_int8_launch_counters_count_kernel_calls_only(cuda):
+    from dinov2_tpu_torch.ops.int8_matmul_kernel import (
+        int8_gemm_kernel,
+        int8_matmul_kernel,
+        quantize_rows_int8_kernel,
+    )
+    from dinov2_tpu_torch.ops.qmatmul import int8_matmul_reference
+
+    il = _int8_linear(256, 384, seed=0, device=cuda)
+    x = _int8_x(20, 384, torch.bfloat16, seed=0, device=cuda)
+    before = quantize_rows_int8_kernel.launches, int8_gemm_kernel.launches
+    int8_matmul_reference(x, il)
+    int8_matmul_kernel(x.cpu(), _int8_linear(256, 384, seed=0, device="cpu"))
+    assert (quantize_rows_int8_kernel.launches, int8_gemm_kernel.launches) == before
+    int8_matmul_kernel(x, il)
+    assert (quantize_rows_int8_kernel.launches, int8_gemm_kernel.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("case", ["K % 128", "f16 x", "weight on the CPU"])
+def test_int8_kernel_refuses(cuda, case):
+    from dinov2_tpu_torch.ops.int8_matmul_kernel import int8_matmul_kernel
+
+    k = 192 if case == "K % 128" else 256
+    il = _int8_linear(64, k, seed=0, device="cpu" if case == "weight on the CPU" else cuda)
+    x = _int8_x(8, k, torch.float16 if case == "f16 x" else torch.bfloat16, seed=0, device=cuda)
+    with pytest.raises((NotImplementedError, ValueError)):
+        int8_matmul_kernel(x, il)
+
+
+@pytest.mark.parametrize("quant_slab", ["auto", "off"])
+def test_engine_int8_classify_on_cuda_close_to_cpu_f32(cuda, tmp_path, quant_slab):
+    """DinoEngine(quant_mode="int8") in bf16 on the card against the same
+    file in f32 on the CPU: "auto" runs K1 on the dequantized qkv/proj and
+    K9 for fc1, fc2 and the head; "off" K9 for every linear around K3. A bf16
+    activation quantizes to codes one step from the f32 one's in places, so
+    the bound is the int8 mode's own against dense (JAX's 0.15 in
+    tests/test_int8_mode.py) cut to 2e-2, with top-1 equal."""
+    from dinov2_tpu_torch.ops.int8_matmul_kernel import int8_gemm_kernel, quantize_rows_int8_kernel
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    config = DinoConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                        num_classes=4, patch_size=14, img_size=70)
+    path = write_synthetic_gguf(tmp_path / "tiny.gguf", config, seed=3)
+    imgs = np.random.default_rng(0).integers(0, 256, (3, 90, 100, 3), dtype=np.uint8)
+    gpu = DinoEngine(path, dtype=torch.bfloat16, device="cuda", quant_mode="int8",
+                     quant_slab=quant_slab)
+    counts = (quantize_rows_int8_kernel.launches, int8_gemm_kernel.launches,
+              slab_layer_block.launches)
+    got = gpu.classify_probs(imgs)
+    layers = config.num_hidden_layers
+    per_layer = 2 if quant_slab == "auto" else 4
+    assert (quantize_rows_int8_kernel.launches - counts[0], int8_gemm_kernel.launches - counts[1],
+            slab_layer_block.launches - counts[2]) == (
+        per_layer * layers + 1, per_layer * layers + 1, layers if quant_slab == "auto" else 0)
+    want = DinoEngine(path, dtype=torch.float32, device="cpu", quant_mode="int8",
+                      quant_slab=quant_slab).classify_probs(imgs)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() < 2e-2
+    assert (got.argmax(-1) == want.argmax(-1)).all()

@@ -72,14 +72,12 @@ def test_load_params_without_classifier(tmp_path):
 
 def test_load_params_refuses_quantized_and_swiglu(tmp_path):
     """Quantized files load in "dequant" and "fused" mode
-    (tests/test_torch_quant.py) and SwiGLU loads (tests/test_torch_giant.py);
-    the W8A8 "int8" mode is not ported."""
+    (tests/test_torch_quant.py), the W8A8 "int8" mode from any ftype
+    (tests/test_torch_int8.py) and SwiGLU loads (tests/test_torch_giant.py);
+    an unknown mode is refused."""
     dense = write_synthetic_gguf(tmp_path / "m.gguf", TINY, seed=3)
     q8 = tmp_path / "q8.gguf"
     quantize_gguf(dense, q8, "q8_0")
-    for path in (q8, dense):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            params.load_params(path, quant_mode="int8")
     with pytest.raises(ValueError, match="quant_mode"):
         params.load_params(q8, quant_mode="pallas")
     swiglu = DinoConfig(**{**TINY.__dict__, "use_swiglu_ffn": True})
