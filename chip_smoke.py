@@ -67,7 +67,9 @@ GEMM launches at fc1 and fc2 beside one linear call on the decoded weight,
 K8 at ViT-B's and ViT-g's widths, then its six launches in order and one by
 one beside one linear call on each GEMM's operands, K9 bit for bit at fc1,
 fc2, the head and qkv at T=1370, each launch beside torch._int_mm and one
-linear call), classify slice,
+linear call, its table GELU on every bf16 input, fc1's GEMM with and
+without its activation, its build and x8's tensor-map encode time),
+classify slice,
 its cross-check and the fuse_mlp slice with its own, serving slice, CLI
 slice, quantized classify slice, its cross-check and its findings (other
 routes, weight memory, the peak device memory of one call), int8 slice on
@@ -1304,14 +1306,22 @@ def phase_int8_check(card: str) -> dict:
     device ms by torch.profiler, and beside the GEMM one bf16 (head: f32)
     torch.nn.functional.linear call on the dequantized weight and
     torch._int_mm alone and with the plain epilogue, yardsticks the port
-    never calls."""
+    never calls. Then the bf16 gelu_tanh_f16 epilogue's table lookup on all
+    65,536 bf16 inputs against the plain gelu_tanh_f16 on the card, bit for
+    bit (NaN where it gives NaN); fc1's GEMM by torch.profiler with and
+    without its activation; and the GEMM's build (ping-pong or cooperative,
+    tile, ring depth) with the host time of encoding x8's tensor map."""
     from dinov2_tpu_torch.ops.int8_matmul_kernel import (
+        int8_gelu_lookup_kernel,
         int8_gemm_kernel,
+        int8_gemm_variant,
         int8_matmul_kernel,
         quantize_rows_int8_kernel,
+        x8_tensor_map_us,
     )
     from dinov2_tpu_torch.ops.qmatmul import (
         dequant_weight,
+        gelu_tanh_f16,
         int8_epilogue,
         int8_matmul_reference,
         int8_product,
@@ -1319,8 +1329,10 @@ def phase_int8_check(card: str) -> dict:
     )
 
     measured: dict = {}
+    operands: dict = {}
     for name, (m, k, n, act, dtype) in INT8_SHAPES.items():
         x, il, bias = _int8_operands(m, k, n, dtype, seed=SEED + k + n)
+        operands[name] = x, il, bias
         x8, sx = quantize_rows_int8_kernel(x)
         want8, want_sx = quantize_rows_int8(x)
         got = int8_gemm_kernel(x8, sx, il, bias, act, dtype)
@@ -1384,9 +1396,43 @@ def phase_int8_check(card: str) -> dict:
             f"{fmt(r['library_ms_int_mm_epilogue'])}"
             f" ({card})"
         )
+    y = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(torch.bfloat16).cuda()
+    looked_up, plain_gelu = int8_gelu_lookup_kernel(y), gelu_tanh_f16(y)
+    torch.cuda.synchronize()
+    nan = plain_gelu.isnan()
+    require(torch.equal(looked_up.isnan(), nan)
+            and torch.equal(looked_up.view(torch.int16)[~nan], plain_gelu.view(torch.int16)[~nan]),
+            "K9's table gelu_tanh_f16 differs from the plain gelu_tanh_f16 on some bf16 input")
+    print(f"kernel check: K9 table gelu_tanh_f16 (the bf16 epilogue's lookup): all 65536 bf16 "
+          f"inputs bit for bit the plain gelu_tanh_f16 on the card, NaN on the same "
+          f"{int(nan.sum())} ({card})")
+
+    m, k, n, act, dtype = INT8_SHAPES["fc1"]
+    x, il, bias = operands["fc1"]
+    x8, sx = quantize_rows_int8_kernel(x)
+    gemm = {"int8_gemm_kernel": "gemm"}
+    with_act = device_ms_by_launch(partial(int8_gemm_kernel, x8, sx, il, bias, act, dtype), gemm,
+                                   "K9 fc1 with its activation")["gemm"]
+    without = device_ms_by_launch(partial(int8_gemm_kernel, x8, sx, il, bias, None, dtype), gemm,
+                                  "K9 fc1 without an activation")["gemm"]
+    variant = int8_gemm_variant()
+    encode_us = x8_tensor_map_us(x8)
+    print(f"K9 GEMM build: {variant['variant']}, a {variant['tile'][0]} x {variant['tile'][1]} "
+          f"tile, a {variant['stages']}-stage ring, {variant['shared_bytes']} bytes of shared "
+          f"memory, {variant['producer_registers']} / {variant['consumer_registers']} registers a "
+          f"producer / consumer thread (setmaxnreg); x8's tensor map encoded on the host in "
+          f"{encode_us:.3f} us a call; fc1's GEMM (torch.profiler) {with_act:.4f} ms with "
+          f"{act}, {without:.4f} ms without an activation: the activation costs "
+          f"{with_act - without:.4f} ms ({card})")
     fc1 = measured["fc1"]
     return {
         **fc1,
+        "ms_gemm_no_activation": without,
+        "ms_gemm_with_activation": with_act,
+        "gemm_variant": variant["variant"],
+        "gemm_tile": list(variant["tile"]),
+        "gemm_stages": variant["stages"],
+        "x8_tensor_map_us": encode_us,
         "max_abs_err": max(v["max_abs_err"] for v in measured.values()),
         **{f"{key}_{name}": measured[name][key] for name in ("fc2", "head", "qkv_t1370")
            for key in ("ms", "plain_ms", "bound_ms", "ms_quantize", "ms_gemm", "library_ms",
@@ -2819,6 +2865,7 @@ def main() -> int:
             "name": "int8_matmul_kernel",
             "route": "cuda",
             "source": "dinov2_tpu_torch/csrc/int8_matmul.cu",
+            "also_source": "dinov2_tpu_torch/csrc/tma_pipeline.cuh",
             "replaces": "dinov2_tpu/ops/qmatmul.py:139",
             "replaces_what": "int8_matmul: an XLA s8 x s8 -> s32 dot_general with its epilogue "
                              "fused by XLA, no pallas_call",

@@ -188,9 +188,38 @@ def int8_matmul_lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.dinov2_int8_quantize_rows.argtypes = [ptr, i32, ptr, ptr, i32, i32, ptr]
     lib.dinov2_int8_quantize_rows.restype = i32
-    lib.dinov2_int8_gemm.argtypes = [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr]
+    # the gelu_tanh_f16 table comes last: a library from before it ignores it
+    lib.dinov2_int8_gemm.argtypes = [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr, ptr]
     lib.dinov2_int8_gemm.restype = i32
     return lib
+
+
+@functools.cache
+def int8_gelu_table_entry():
+    """K9's one-off table kernel (csrc/int8_matmul.cu's dinov2_int8_gelu_table),
+    bound on first use apart from the library loader, so that a library from
+    before the table still loads (scripts/compare_kernel_builds.py)."""
+    fn = int8_matmul_lib().dinov2_int8_gelu_table
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def int8_probe_entries() -> dict:
+    """K9's entries for checks and reports, not on any path: the epilogue's
+    table lookup alone, the GEMM's build constants, the host time of a
+    tensor-map encode."""
+    lib = int8_matmul_lib()
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.dinov2_int8_gelu_lookup.argtypes = [ptr, ptr, i32, ptr, ptr]
+    lib.dinov2_int8_gelu_lookup.restype = i32
+    lib.dinov2_int8_gemm_variant.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.dinov2_int8_gemm_variant.restype = None
+    lib.dinov2_int8_tensor_map_us.argtypes = [ptr, i32, i32, i32]
+    lib.dinov2_int8_tensor_map_us.restype = ctypes.c_double
+    return {"lookup": lib.dinov2_int8_gelu_lookup, "variant": lib.dinov2_int8_gemm_variant,
+            "tensor_map_us": lib.dinov2_int8_tensor_map_us}
 
 
 LIBRARIES = {

@@ -5,12 +5,15 @@
 DIR holds another version of dinov2_tpu_torch/csrc/ (e.g. the parent
 commit's: `git archive <commit> dinov2_tpu_torch/csrc | tar -x -C <dir>`).
 For K1, K2, K3, K4 (with and without lse), K5, K6 (dq, dk, dv), K7 (bf16
-fc1 and fc2, f32 head) and K8, at the shapes chip_smoke.py checks them at,
+fc1 and fc2, f32 head), K8 and K9 (the whole call, its quantize and its
+GEMM alone, at chip_smoke.py's INT8_SHAPES: fc1, fc2, the head and qkv at
+T=1370), at the shapes chip_smoke.py checks them at,
 it builds both versions, runs both wrappers on the same seeded inputs, and
 times them in turns (other, this, this, other; median CUDA-event ms, and the
 host's microseconds to issue one call with the card never waited for). K4
 (with and without lse), K6 and K7's f32 head kernel must be equal bit for
-bit; so must K3's backward on its flash route, which is K4 with lse and K6
+bit, and so must K9 (integer sums, the JAX package's roundings); so must
+K3's backward on its flash route, which is K4 with lse and K6
 behind autograd (four launches: where the event time is the host time, the
 host binds it). The kernels that REDESIGNED names, whose f32 sums may run in
 another order in the two versions, must be equal within TOLERANCE of the
@@ -20,10 +23,11 @@ older tree, add the kernels redesigned since (K1, K2, K3 against a tree
 before their wgmma kernels; K5 and K7's bf16 path against one before
 theirs). Exits non-zero otherwise. Needs a CUDA device and nvcc.
 
-The wrappers pass K5's hidden buffer and K7's and K8's weight scratch as
-the last argument of their C entries, so an entry from before those
-buffers, which takes one argument fewer, runs with the same wrapper and
-never reads it.
+The wrappers pass K5's hidden buffer, K7's and K8's weight scratch and
+K9's GELU table as the last argument of their C entries, so an entry from
+before those buffers, which takes one argument fewer, runs with the same
+wrapper and never reads it. --only PREFIX keeps the cases whose names start
+with it (e.g. --only K9).
 """
 
 import argparse
@@ -41,7 +45,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from dinov2_tpu_torch.models.params import quantize_linear  # noqa: E402
+from dinov2_tpu_torch.models.params import Int8Linear, quantize_linear  # noqa: E402
 from dinov2_tpu_torch.ops import _kernels  # noqa: E402
 from dinov2_tpu_torch.ops.attention import split_heads  # noqa: E402
 from dinov2_tpu_torch.ops.flash_attention import (  # noqa: E402
@@ -58,10 +62,25 @@ from dinov2_tpu_torch.ops.fused_attention import (  # noqa: E402
     slab_mlp_block,
 )
 from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant  # noqa: E402
+from dinov2_tpu_torch.ops.int8_matmul_kernel import (  # noqa: E402
+    int8_gelu_table,
+    int8_gemm_kernel,
+    int8_matmul_kernel,
+    quantize_rows_int8_kernel,
+)
+from dinov2_tpu_torch.ops.qmatmul import quantize_rows_int8  # noqa: E402
 from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel  # noqa: E402
 
 LIBS = ("slab_layer_lib", "slab_attention_lib", "slab_mlp_lib", "flash_attention_lib",
-        "flash_backward_lib", "quant_matmul_lib", "quant_layer_lib")
+        "flash_backward_lib", "quant_matmul_lib", "quant_layer_lib", "int8_matmul_lib",
+        "int8_gelu_table_entry", "int8_probe_entries")
+# chip_smoke.py's INT8_SHAPES: name -> (M, K, N, activation, x dtype)
+INT8_SHAPES = {
+    "fc1": (64 * 257, 768, 3072, "gelu_tanh_f16", torch.bfloat16),
+    "fc2": (64 * 257, 3072, 768, None, torch.bfloat16),
+    "head": (64, 1536, 1000, None, torch.float32),
+    "qkv_t1370": (8 * 1370, 768, 2304, None, torch.bfloat16),
+}
 # held within tolerance; every other kernel bit for bit
 REDESIGNED = ("K8",)
 TOLERANCE = 1e-2  # of max|other|, plus 1e-5
@@ -176,6 +195,21 @@ def cases():
         bias = torch.from_numpy(rng.standard_normal(n) * 0.1).to("cuda", torch.float32)
         calls[f"{name} M={m} K={k} N={n} {act}"] = partial(
             quant_matmul_kernel, xq, ql, bias, act)
+    int8_gelu_table(torch.device("cuda"))  # made by this tree's library, read by both builds
+    for name, (m, k, n, act, dtype) in INT8_SHAPES.items():
+        w = rng.standard_normal((n, k)).astype(np.float32) * 0.05
+        s = np.maximum(np.abs(w).max(axis=1) / 127.0, 1e-12)
+        il = Int8Linear(
+            codes=torch.from_numpy(np.clip(np.rint(w / s[:, None]), -127, 127).astype(np.int8))
+            .cuda(), s=torch.from_numpy(s.astype(np.float32)).cuda(), shape=(n, k))
+        x9 = torch.from_numpy(rng.standard_normal((m, k))).to("cuda", dtype)
+        bias = torch.from_numpy(rng.standard_normal(n) * 0.1).to("cuda", torch.float32)
+        x8, sx = quantize_rows_int8(x9)
+        shape = f"{name} M={m} K={k} N={n} {act}"
+        calls[f"K9 int8_matmul_kernel {shape}"] = partial(int8_matmul_kernel, x9, il, bias, act)
+        calls[f"K9 quantize_rows_int8_kernel {shape}"] = partial(quantize_rows_int8_kernel, x9)
+        calls[f"K9 int8_gemm_kernel {shape}"] = partial(
+            int8_gemm_kernel, x8, sx, il, bias, act, dtype)
     slab_g = torch.from_numpy(rng.standard_normal((16, 257, 3 * 1536))).to("cuda", torch.bfloat16)
     calls["K3 slab_attention B=16 T=257 H=24"] = lambda: slab_attention(slab_g, 24, 0.125)
     for bb, tt, hh in ((8, 1370, 16), (1, 4226, 16), (32, 257, 12)):
@@ -219,6 +253,7 @@ def compare(name: str, ours, theirs) -> tuple[bool, str]:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--other-csrc", required=True, type=Path)
+    parser.add_argument("--only", default="", help="keep the cases whose names start with this")
     opts = parser.parse_args()
     other = opts.other_csrc.resolve()
     if not torch.cuda.is_available():
@@ -232,6 +267,8 @@ def main() -> int:
     same = True
     with torch.no_grad():  # K3's backward turns grad on again inside
         for name, call in cases().items():
+            if not name.startswith(opts.only):
+                continue
             with csrc(other):
                 theirs = call()
                 ms_other, us_other = [median_ms(call)], [host_us(call)]

@@ -27,10 +27,14 @@ kernels instantiate it), csrc/slab_attention.cu (K3, K2), csrc/slab_mlp.cu
 epilogue), csrc/quant_matmul.cu (K7: the dequantize kernel, the GEMM on a
 k-major weight, the f32 kernel), csrc/quant_layer.cu (K8: the dequantize
 kernel and K1's launches with the k-major weight) and csrc/int8_matmul.cu
-(K9: the quantize and the s8 GEMM with each epilogue): registers, spills,
-shared memory, and the count of HGMMA and IGMMA (wgmma, float and
-integer), HMMA (mma.sync) and LDGSTS (cp.async) instructions in their SASS. --quick skips the timing. Exits non-zero if a variant disagrees with
-the plain version. Needs a CUDA device and nvcc.
+(K9: the quantize and the persistent s8 GEMM with each epilogue):
+registers, spills, shared memory, the count of HGMMA and IGMMA (wgmma,
+float and integer), HMMA (mma.sync), LDGSTS (cp.async) and UTMALDG (TMA
+load) instructions in their SASS, the registers each warpgroup role holds
+after setmaxnreg, ptxas's C751x notes, and K9's GEMM build (variant, tile,
+ring depth, dynamic shared memory). --quick skips the timing. Exits
+non-zero if a variant disagrees with the plain version. Needs a CUDA device
+and nvcc.
 """
 
 import argparse
@@ -147,8 +151,11 @@ def median_ms(fn, reps: int = 20) -> float:
 
 
 def ptxas_report(name: str) -> str:
-    """Registers, spills and shared memory of csrc/<name>.cu's kernels, and
-    its SASS's tensor-core and async-copy instruction counts."""
+    """Registers, spills and shared memory of csrc/<name>.cu's kernels, its
+    SASS's tensor-core and async-copy instruction counts, the registers a
+    warpgroup holds after each setmaxnreg (a warp-specialised kernel's
+    roles: DEALLOC gives back, TRY_ALLOC takes), and ptxas's C751x notes
+    (a wgmma it serialised), said to be none when there are none."""
     cubin = _kernels.BUILD_DIR / f"{name}.cubin"
     _kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _kernels.find_nvcc()
@@ -159,6 +166,7 @@ def ptxas_report(name: str) -> str:
     )
     lines = [f"== {name}.cu (nvcc exit {proc.returncode})"]
     entry = ""
+    notes = [line for line in (proc.stdout + proc.stderr).splitlines() if re.search(r"C751\d", line)]
     for line in (proc.stdout + proc.stderr).splitlines():
         if "Compiling entry function" in line:
             entry = re.sub(r".*entry function '(\w+)'.*", r"\1", line)
@@ -171,9 +179,17 @@ def ptxas_report(name: str) -> str:
         [str(Path(nvcc).with_name("cuobjdump")), "-sass", str(cubin)],
         capture_output=True, text=True,
     ).stdout
-    for word in ("HGMMA", "IGMMA", "HMMA", "LDGSTS", "WARPGROUP", "MUFU.EX2", "STL", "LDL"):
+    for word in ("HGMMA", "IGMMA", "HMMA", "LDGSTS", "UTMALDG", "WARPGROUP", "MUFU.EX2", "STL",
+                 "LDL"):
         lines.append(f"SASS lines with {word}: {sum(word in row for row in sass.splitlines())}")
-    return "\n".join(lines)
+    roles = sorted({(m.group(1), int(m.group(2), 16)) for m in re.finditer(
+        r"USETMAXREG\.(\w+)\.CTAPOOL[^,;]*?,?\s*(0x[0-9a-f]+)", sass)})
+    if roles:
+        lines.append("setmaxnreg, registers a thread after it: " + ", ".join(
+            f"{'a producer gives back to' if kind == 'DEALLOC' else 'a consumer takes'} {regs}"
+            for kind, regs in roles))
+    lines.append(f"ptxas C751x notes (a wgmma serialised): {len(notes) or 'none'}")
+    return "\n".join(lines + [note.strip()[:220] for note in notes])
 
 
 def inputs(b, t, heads, seed):
@@ -402,6 +418,14 @@ def main() -> int:
         build_all()
         for report in reports:
             print(report)
+    if opts.ptxas:
+        from dinov2_tpu_torch.ops.int8_matmul_kernel import int8_gemm_variant
+
+        v = int8_gemm_variant()
+        print(f"K9's GEMM: {v['variant']}, {v['tile'][0]} x {v['tile'][1]} tiles, a "
+              f"{v['stages']}-stage ring, {v['shared_bytes']} bytes of dynamic shared memory, "
+              f"{v['producer_registers']} / {v['consumer_registers']} registers a producer / "
+              f"consumer thread after setmaxnreg")
 
     ok = True
     for t in RAGGED_T + (1370,):
