@@ -20,6 +20,14 @@ with random f16 weights from a seed, bf16, parity="reference":
     frame held against engine.pca_visualization of the same frame), benchmark
     and serve (polled until it answers, one /classify, then SIGTERM), each
     output held against the engine in this process;
+  - AOT artifacts: the same ViT-B/14 file through runtime/aot.py:
+    export_forward (batch 64, 224 px classify for cuda and cpu; 518 px
+    features, T=1370; the q4_0 file in quant_mode="fused"), save_artifact,
+    load_artifact, and calls of the CUDA program against the eager forward
+    on the same weights and input (top-5, max|d|, launches a call, the
+    graph's operator nodes, img/s of both); then `python3 -m
+    dinov2_tpu_torch.cli.aot` export, info and run as subprocesses, run's
+    top-5 lines against cli.inference's, and both cold starts;
   - quantized classify: the same ViT-B/14 quantized to q4_0 with
     quantize_gguf, through DinoEngine(quant_mode="fused").classify on the
     same images; K8 is the attention half-layer, K7 runs fc1, fc2 and the
@@ -71,7 +79,8 @@ linear call, its table GELU on every bf16 input, fc1's GEMM with and
 without its activation, its build and x8's tensor-map encode time),
 classify slice,
 its cross-check and the fuse_mlp slice with its own, serving slice, CLI
-slice, quantized classify slice, its cross-check and its findings (other
+slice, AOT slice (classify, features, q4_0, the CLI, cold starts), quantized
+classify slice, its cross-check and its findings (other
 routes, weight memory, the peak device memory of one call), int8 slice on
 both routes with its cross-checks and img/s beside dense and q4_0, int8
 feature slice, int8 CLI slice,
@@ -86,6 +95,7 @@ that holds only this file, it exits non-zero and prints no result.
 
 import copy
 import dataclasses
+import gc
 import json
 import shutil
 import statistics
@@ -2542,6 +2552,237 @@ def phase_cli(card: str, path: Path) -> None:
         print(f"CLI slice, serve --warmup 1: {_serve_cli(path, _encode_images(images[:1], '.jpg')[0])}")
 
 
+AOT_TIMED_CALLS = 10
+
+
+def _aot_counters() -> dict:
+    from dinov2_tpu_torch.ops.flash_attention import flash_attention
+    from dinov2_tpu_torch.ops.fused_attention import (
+        slab_attention,
+        slab_attention_block,
+        slab_layer_block,
+        slab_mlp_block,
+    )
+    from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel
+
+    return {"K1": slab_layer_block, "K2": slab_attention_block, "K3": slab_attention,
+            "K4": flash_attention, "K5": slab_mlp_block, "K7": quant_matmul_kernel,
+            "K8": slab_layer_block_quant}
+
+
+def _aot_artifact(tmp: Path, name: str, params, config, opts, x, classify: bool,
+                  platforms: tuple) -> tuple[Any, dict]:
+    """export_forward -> save -> load_artifact and its CUDA program: (the
+    artifact, its export seconds, load seconds and KiB)."""
+    from dinov2_tpu_torch.runtime.aot import export_forward, load_artifact, save_artifact
+
+    start = time.perf_counter()
+    data = export_forward(params, config, opts, *x.shape[:3], classify=classify,
+                          platforms=platforms)
+    export_s = time.perf_counter() - start
+    save_artifact(tmp / name, data)
+    start = time.perf_counter()
+    art = load_artifact(tmp / name)
+    art.program("cuda")  # deserialized at first use: count it in the load
+    return art, {"export_s": export_s, "load_s": time.perf_counter() - start,
+                 "kib": len(data) / 1024}
+
+
+def _aot_against_eager(what: str, art, params, config, opts, x, expected: dict,
+                       classify: bool) -> dict:
+    """The artifact's CUDA program against the eager forward on the same
+    weights and input: the graph's operator nodes against `expected` (kernel
+    -> calls a forward) and no SDPA node; the launches of one call against
+    `expected`, every other count 0; every output's max|d| (probs: identical
+    top-5 and within PROB_ABS_BOUND; tokens: within TOKEN_REL_BOUND of
+    max|token|); then img/s of the eager forward and of the artifact over
+    AOT_TIMED_CALLS calls each (CUDA events) in blocks of half as many, in
+    turns (eager, artifact, artifact, eager), the counts read around each
+    of the artifact's blocks. Returns what it measured, with `launches`,
+    the artifact's launches over its checked and timed calls."""
+    from collections import Counter
+
+    from dinov2_tpu_torch.models.vit import forward
+
+    counters = _aot_counters()
+    names = {"K1": "slab_layer_block", "K2": "slab_attention_block", "K3": "slab_attention",
+             "K4": "flash_attention", "K5": "slab_mlp_block", "K7": "quant_matmul",
+             "K8": "slab_layer_block_quant"}
+    targets = [str(n.target) for n in art.program("cuda").graph.nodes if n.op == "call_function"]
+    nodes = Counter(t.split(".")[1] for t in targets if t.startswith("dinov2_tpu_torch."))
+    want_nodes = {names[k]: v for k, v in expected.items()}
+    require(nodes == want_nodes, f"AOT {what}: the CUDA program's operator nodes {dict(nodes)}, "
+            f"expected {want_nodes}")
+    require(not any("scaled_dot_product" in t for t in targets),
+            f"AOT {what}: the CUDA program holds an SDPA node")
+    runs = {"eager": lambda: forward(params, x, config, opts, classify=classify),
+            "artifact": lambda: art(params, x)}
+
+    def zero():
+        for counter in counters.values():
+            counter.launches = 0
+
+    def timed(run) -> float:
+        """Seconds of AOT_TIMED_CALLS // 2 calls, by CUDA events."""
+        events = []
+        for _ in range(AOT_TIMED_CALLS // 2):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            run()
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in events) / 1e3
+
+    with torch.inference_mode():
+        want = runs["eager"]()
+        torch.cuda.synchronize()
+        zero()
+        got = runs["artifact"]()
+        torch.cuda.synchronize()
+        one = {k: c.launches for k, c in counters.items()}
+        require(one == {k: expected.get(k, 0) for k in counters},
+                f"AOT {what}: one call launched {one}, expected {expected}")
+        diffs = {k: (got[k].float() - want[k].float()).abs().max().item() for k in want}
+        for key, value in want.items():
+            require(bool(torch.isfinite(got[key]).all()) and got[key].shape == value.shape,
+                    f"AOT {what}: {key} is not finite or of the eager shape")
+        if classify:
+            require(torch.equal(torch.topk(got["probs"], 5).indices,
+                                torch.topk(want["probs"], 5).indices),
+                    f"AOT {what}: top-5 differs from eager")
+            require(diffs["probs"] <= PROB_ABS_BOUND,
+                    f"AOT {what}: max|dprobs| {diffs['probs']} > {PROB_ABS_BOUND}")
+        scale = want["patch_tokens"].abs().max().item()
+        require(diffs["patch_tokens"] <= TOKEN_REL_BOUND * scale,
+                f"AOT {what}: max|dtokens| {diffs['patch_tokens']} against max|token| {scale}")
+        for run in runs.values():  # warm up both
+            run()
+        gc.collect()  # the exports' garbage, collected before the timing
+        seconds = {"eager": [], "artifact": []}
+        timed_launches = dict.fromkeys(counters, 0)
+        for name in ("eager", "artifact", "artifact", "eager"):
+            before = {k: c.launches for k, c in counters.items()}
+            seconds[name].append(timed(runs[name]))
+            if name == "artifact":
+                for k, c in counters.items():
+                    timed_launches[k] += c.launches - before[k]
+    block = AOT_TIMED_CALLS // 2 * len(x)
+    rate = {k: 2 * block / sum(v) for k, v in seconds.items()}
+    blocks = {k: [round(block / s, 1) for s in v] for k, v in seconds.items()}
+    require(timed_launches == {k: AOT_TIMED_CALLS * v for k, v in one.items()},
+            f"AOT {what}: {AOT_TIMED_CALLS} calls launched {timed_launches}")
+    return {"max_abs_diff": diffs, "per_call": {k: v for k, v in one.items() if v},
+            "launches": {k: v + timed_launches[k] for k, v in one.items() if v},
+            "img_s": rate, "img_s_blocks": blocks, "nodes": dict(nodes)}
+
+
+def phase_aot(card: str, path: Path) -> dict:
+    """The AOT slice on the classify slice's ViT-B/14 file: (a) classify at
+    batch 64, 224 px, bf16 exported for cuda and cpu, (b) 518 px features
+    (T=1370, K4) and (c) the q4_0 file in quant_mode="fused" (K8 and K7),
+    each exported, saved, loaded and run on the card against the eager
+    forward; (d) `python -m dinov2_tpu_torch.cli.aot` export, info and run
+    as subprocesses, run's top-5 lines against `cli.inference`'s on the same
+    image; (e) their cold starts. Returns each kernel's launches in the
+    artifacts' calls."""
+    import re
+
+    from dinov2_tpu_torch.image.preprocess import classify_preprocess, feature_preprocess
+    from dinov2_tpu_torch.models.params import load_params
+    from dinov2_tpu_torch.models.vit import ModelOptions
+    from dinov2_tpu_torch.quant import quantize_gguf
+
+    config = _vit_b14_config()
+    layers = config.num_hidden_layers
+    opts = ModelOptions(parity="reference", compute_dtype=torch.bfloat16)
+    gguf_mib = path.stat().st_size / 2**20
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        dense = load_params(path, dtype=torch.bfloat16, device="cuda").params
+        x = classify_preprocess(torch.from_numpy(_classify_images()).cuda())
+        art, made = _aot_artifact(tmp, "classify.aot", dense, config, opts, x, True,
+                                  ("cuda", "cpu"))
+        res = _aot_against_eager("classify", art, dense, config, opts, x, {"K1": layers}, True)
+        launches.update(res["launches"])
+        print(
+            f"AOT slice, classify: ViT-B/14 {tuple(x.shape)} bf16, platforms cuda,cpu: export "
+            f"{made['export_s']:.2f} s, artifact {made['kib']:.0f} KiB against the GGUF's "
+            f"{gguf_mib:.1f} MiB, load {made['load_s']:.2f} s; the CUDA program's operator nodes "
+            f"{res['nodes']}, no SDPA; one call launches {res['per_call']}; against "
+            f"the eager forward on the same weights and input: top-5 identical, max|d| "
+            f"{res['max_abs_diff']} (probs bound {PROB_ABS_BOUND}); img/s over "
+            f"{AOT_TIMED_CALLS} calls each, in blocks in turns (CUDA events): artifact "
+            f"{res['img_s']['artifact']:.1f}, eager {res['img_s']['eager']:.1f}; blocks "
+            f"{res['img_s_blocks']} ({card})"
+        )
+        del art
+
+        images = np.random.default_rng(SEED + 2).integers(
+            0, 256, (FEATURE_BATCH, FEATURE_PX, FEATURE_PX, 3), dtype=np.uint8)
+        xf = feature_preprocess(torch.from_numpy(images).cuda(), config.patch_size)
+        art, made = _aot_artifact(tmp, "features.aot", dense, config, opts, xf, False, ("cuda",))
+        res = _aot_against_eager("features", art, dense, config, opts, xf, {"K4": layers}, False)
+        launches.update(res["launches"])
+        print(
+            f"AOT slice, features: ViT-B/14 {tuple(xf.shape)} (T=1370) bf16, platform cuda: "
+            f"export {made['export_s']:.2f} s, {made['kib']:.0f} KiB, load {made['load_s']:.2f} "
+            f"s; nodes {res['nodes']}; one call launches {res['per_call']}; max|d| "
+            f"against eager {res['max_abs_diff']} (tokens bound {TOKEN_REL_BOUND} of max|token|);"
+            f" img/s artifact {res['img_s']['artifact']:.1f}, eager {res['img_s']['eager']:.1f}; "
+            f"blocks {res['img_s_blocks']} ({card})"
+        )
+        del art, dense, xf
+
+        qpath = quantize_gguf(path, tmp / f"vit_b14.{QUANT_SLICE_FORMAT}.gguf", QUANT_SLICE_FORMAT)
+        quant = load_params(qpath, dtype=torch.bfloat16, device="cuda", quant_mode="fused").params
+        art, made = _aot_artifact(tmp, "q4_0.aot", quant, config, opts, x, True, ("cuda",))
+        want = {"K8": layers, "K7": 2 * layers + 1}
+        res = _aot_against_eager("q4_0 classify", art, quant, config, opts, x, want, True)
+        launches.update(res["launches"])
+        print(
+            f"AOT slice, {QUANT_SLICE_FORMAT} classify (quant_mode=\"fused\"): platform cuda: "
+            f"export {made['export_s']:.2f} s, {made['kib']:.0f} KiB against the "
+            f"{QUANT_SLICE_FORMAT} GGUF's {qpath.stat().st_size / 2**20:.1f} MiB, load "
+            f"{made['load_s']:.2f} s; nodes {res['nodes']}; one call launches "
+            f"{res['per_call']}; top-5 identical to eager, max|d| {res['max_abs_diff']}; "
+            f"img/s artifact {res['img_s']['artifact']:.1f}, eager {res['img_s']['eager']:.1f}; "
+            f"blocks {res['img_s_blocks']} ({card})"
+        )
+        del art, quant
+
+        image = tmp / "image.png"
+        image.write_bytes(_encode_images(_classify_images()[:1], ".png")[0])
+        artifact = tmp / "cli.aot"
+        timed = {}
+        for name, args in (
+            ("export", ("aot", "export", "-m", str(path), "--batch", "1", "-o", str(artifact))),
+            ("info", ("aot", "info", str(artifact))),
+            ("run", ("aot", "run", str(artifact), "-m", str(path), "-i", str(image))),
+            ("inference", ("inference", "-m", str(path), "-i", str(image), "-c")),
+        ):
+            start = time.perf_counter()
+            timed[name] = (_cli(*args), time.perf_counter() - start)
+        meta = json.loads(timed["info"][0].stdout)
+        require(meta["kind"] == "dinov2_tpu_torch.forward" and meta["platforms"] == ["cuda", "cpu"]
+                and meta["input"]["batch"] == 1, f"CLI aot info: {meta}")
+        line = re.compile(r"^ > .* : [0-9.]+$")
+        top5 = {k: [s for s in timed[k][0].stdout.splitlines() if line.match(s)]
+                for k in ("run", "inference")}
+        require(len(top5["run"]) == 5 and top5["run"] == top5["inference"],
+                f"CLI aot run's top-5 {top5['run']} is not cli.inference's {top5['inference']}")
+        print(
+            f"AOT slice, CLI: aot export --batch 1 (cuda,cpu) exit 0 in {timed['export'][1]:.1f} "
+            f"s ({timed['export'][0].stderr.strip().splitlines()[-1]}); info exit 0; aot run -i "
+            f"<png> printed the top-5 lines of cli.inference -c on the same image: {top5['run']}; "
+            f"cold start, process start to printed probabilities: aot run "
+            f"{timed['run'][1]:.2f} s, cli.inference {timed['inference'][1]:.2f} s ({card})"
+        )
+    return launches
+
+
 def _train_counters():
     from dinov2_tpu_torch.ops.flash_attention import flash_attention, flash_backward
     from dinov2_tpu_torch.ops.fused_attention import (
@@ -2767,6 +3008,7 @@ def main() -> int:
             "classify slices", phase_slice, card, vit_b14)
         k1_serve, k4_serve = timed_phase("serving slice", phase_serving, card, vit_b14, dense_rate)
         timed_phase("CLI slice", phase_cli, card, vit_b14)
+        aot_launches = timed_phase("AOT slice", phase_aot, card, vit_b14)
         k7_launches, k8_launches = timed_phase(
             "quantized slice", phase_quant_slice, card, vit_b14, dense_rate)
         int8_engine, k9_launches, k9_found = timed_phase(
@@ -2795,6 +3037,7 @@ def main() -> int:
             "replaces": f"{fused}:593",
             "launches": k1_launches,
             "serve_launches": k1_serve,
+            "aot_launches": aot_launches["K1"],
             **k1_measured,
         },
         {
@@ -2822,6 +3065,7 @@ def main() -> int:
             "also_replaces": "dinov2_tpu/ops/flash_attention.py:34",
             "launches": k4_launches,
             "serve_launches": k4_serve,
+            "aot_launches": aot_launches["K4"],
             **k4_measured,
             "lse_launches": train_launches["K4"],
             **lse_measured,
@@ -2851,6 +3095,7 @@ def main() -> int:
             "replaces": "dinov2_tpu/ops/pallas_qmatmul.py:215",
             "also_replaces": "dinov2_tpu/ops/pallas_qmatmul.py:81, dinov2_tpu/ops/pallas_qmatmul.py:104",
             "launches": k7_launches,
+            "aot_launches": aot_launches["K7"],
             **k7_measured,
         },
         {
@@ -2859,6 +3104,7 @@ def main() -> int:
             "source": "dinov2_tpu_torch/csrc/quant_layer.cu",
             "replaces": "dinov2_tpu/ops/fused_quant_attention.py:183",
             "launches": k8_launches,
+            "aot_launches": aot_launches["K8"],
             **k8_measured,
         },
         {

@@ -21,5 +21,5 @@ def interpolate_pos_embed(
     if h * w == m * m:  # reference early-return on equal counts
         return pos_embed
     d = pos_embed.shape[-1]
-    grid = resize_bicubic(pos_embed[1:].reshape(m, m, d), h, w)
-    return torch.cat([pos_embed[:1], grid.reshape(h * w, d)], dim=0)
+    grid = resize_bicubic(pos_embed.narrow(0, 1, m * m).reshape(m, m, d), h, w)
+    return torch.cat([pos_embed.narrow(0, 0, 1), grid.reshape(h * w, d)], dim=0)

@@ -308,7 +308,7 @@ def decode_packed_planes(
         shifts = torch.arange(8, dtype=torch.int32, device=codes.device)
 
         def bits(words: torch.Tensor) -> torch.Tensor:
-            b = (words.to(torch.int32)[..., None] >> shifts) & 1
+            b = (words.to(torch.int32).unsqueeze(-1) >> shifts) & 1
             return b.reshape(*words.shape[:-1], words.shape[-1] * 8)
 
         lo = lo | (bits(qh_lo) << 4)

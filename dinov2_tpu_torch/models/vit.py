@@ -263,8 +263,8 @@ def _layer(layers: Any, i: int) -> Any:
     if isinstance(layers, dict):
         return {k: _layer(v, i) for k, v in layers.items()}
     if isinstance(layers, PACKED_WEIGHTS):
-        return layers.map(lambda t: t[i])
-    return layers[i]
+        return layers.map(lambda t: t.select(0, i))
+    return layers.select(0, i)
 
 
 def embed_tokens(
@@ -285,11 +285,11 @@ def embed_tokens(
     tokens = tokens + params["patch_embed"]["bias"]
 
     pos = interpolate_pos_embed(params["pos_embed"], config.n_img_embd, (gh, gw))
-    cls = (params["cls_token"][None, None, :] + pos[None, :1]).expand(b, 1, -1)
-    tokens = tokens + pos[None, 1:]
+    cls = (params["cls_token"].reshape(1, 1, -1) + pos.narrow(0, 0, 1)).expand(b, 1, -1)
+    tokens = tokens + pos.narrow(0, 1, pos.shape[0] - 1)
     parts = [cls.to(dtype), tokens.to(dtype)]
     if config.num_register_tokens > 0:
-        reg = params["register_tokens"][None].expand(b, -1, -1)
+        reg = params["register_tokens"].unsqueeze(0).expand(b, -1, -1)
         parts.insert(1, reg.to(dtype))  # after the pos add: no pos-embed
     return torch.cat(parts, dim=1)
 
@@ -314,6 +314,13 @@ def forward_features(
     return layer_norm(tokens.float(), params["final_norm"], config.eps)
 
 
+def _tokens_from(tokens: torch.Tensor, start: int) -> torch.Tensor:
+    """tokens[:, start:] as a narrow: the forward slices with tensor methods,
+    never Python indexing, so that torch.export can trace it on fake CUDA
+    tensors where PyTorch has no CUDA (runtime/aot.py)."""
+    return tokens.narrow(1, start, tokens.shape[1] - start)
+
+
 def head_logits(
     params: dict, tokens: torch.Tensor, config: DinoConfig, opts: ModelOptions
 ) -> torch.Tensor:
@@ -322,11 +329,11 @@ def head_logits(
     "reference": registers included in the pooled patches and the divisor is
     the MODEL-grid count n_img_embd² (quirks Q5, Q3). "hf": registers
     excluded and a true mean."""
-    cls = tokens[:, 0]
+    cls = tokens.select(1, 0)
     if opts.parity == "reference":
-        pooled = tokens[:, 1:].sum(dim=1) / float(config.n_img_embd**2)
+        pooled = _tokens_from(tokens, 1).sum(dim=1) / float(config.n_img_embd**2)
     else:
-        pooled = tokens[:, 1 + config.num_register_tokens :].mean(dim=1)
+        pooled = _tokens_from(tokens, 1 + config.num_register_tokens).mean(dim=1)
     feats = torch.cat([cls, pooled], dim=-1)
     return apply_linear(feats, params["classifier"], backend=opts.quant_backend).float()
 
@@ -349,8 +356,8 @@ def forward(
     registers dropped; probs (B, classes) when classify."""
     tokens = forward_features(params, x, config, opts)
     out = {
-        "cls_token": tokens[:, 0],
-        "patch_tokens": tokens[:, 1 + config.num_register_tokens :],
+        "cls_token": tokens.select(1, 0),
+        "patch_tokens": _tokens_from(tokens, 1 + config.num_register_tokens),
     }
     if classify:
         out["probs"] = forward_head(params, tokens, config, opts)

@@ -44,9 +44,12 @@ delta prologue, no atomics: the same inputs give the same bits every run.
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch.autograd.function import once_differentiable
 
+from dinov2_tpu_torch.ops._library import check_device, define
 from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
 from dinov2_tpu_torch.ops.qmatmul import needs_grad
 
@@ -101,10 +104,11 @@ def flash_backward_reference(
 
 
 def _check_cuda_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     names=("q", "k", "v")) -> tuple[int, ...]:
+                     names=("q", "k", "v"), aligned: bool = True) -> tuple[int, ...]:
     """What the kernels take of three tensors read (or written) through one
     set of strides; returns the (batch, token, head) strides in elements that
-    they share."""
+    they share. `aligned` False skips the data pointers' alignment (a tensor
+    with no storage: the operators' fake implementations)."""
     named = tuple(zip(names, (q, k, v)))
     for name, tensor in named:
         if tensor.dtype != torch.bfloat16:
@@ -134,7 +138,7 @@ def _check_cuda_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{', '.join(names)} must share their strides with unit stride over head_dim, "
                 f"got {name} {tensor.stride()} against {names[0]} {q.stride()}"
             )
-        if any(s % 8 for s in shared[:3]) or tensor.data_ptr() % 16:
+        if any(s % 8 for s in shared[:3]) or (aligned and tensor.data_ptr() % 16):
             raise ValueError(
                 f"{name}: strides {tensor.stride()} must be multiples of 8 elements "
                 "and the data 16-byte aligned"
@@ -145,8 +149,6 @@ def _check_cuda_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch_forward(q, k, v, scale: float, with_lse: bool):
     """One K4 launch on CUDA tensors: out, or (out, lse) from the kernel's
     `with_lse` variant. Adds one to `flash_attention.launches`."""
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash_attention for device {q.device}")
     batch_stride, token_stride, head_stride = _check_cuda_args(q, k, v)
     b, t, heads, hd = q.shape
     out = torch.empty((b, t, heads, hd), dtype=q.dtype, device=q.device)
@@ -178,10 +180,26 @@ def flash_forward_lse(
     """The training forward: (out, lse), out as `flash_attention`'s bit for
     bit and lse the (B, H, T) f32 row logsumexp of the scaled scores. CPU
     tensors run `flash_forward_reference`; CUDA tensors launch the K4
-    kernel's `with_lse` variant (counted in `flash_attention.launches`)."""
-    if q.device.type == "cpu":
-        return flash_forward_reference(q, k, v, scale)
-    return _launch_forward(q, k, v, scale, with_lse=True)
+    kernel's `with_lse` variant (counted in `flash_attention.launches`);
+    both through the operator `dinov2_tpu_torch::flash_attention_lse`."""
+    check_device(q, "flash_attention")
+    return _FLASH_LSE_OP(q, k, v, scale)
+
+
+def _forward_fake(q, k, v, scale: float) -> torch.Tensor:
+    if q.device.type == "cuda":
+        _check_cuda_args(q, k, v, aligned=False)
+    return q.new_empty(q.shape)
+
+
+def _forward_lse_fake(q, k, v, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    b, t, heads, _ = q.shape
+    return _forward_fake(q, k, v, scale), q.new_empty((b, heads, t), dtype=torch.float32)
+
+
+def _forward_lse_cpu(q, k, v, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    out, lse = flash_forward_reference(q, k, v, scale)
+    return out.contiguous(), lse
 
 
 def flash_backward(
@@ -302,15 +320,24 @@ def flash_attention(
     `flash_attention.launches`. q, k and v may be strided views (e.g. of a
     qkv slab); they are never copied. Where an input requires grad the
     result carries the gradient of the module docstring (the `with_lse`
-    forward, K6 backward)."""
+    forward, K6 backward). Without grad both go through the operator
+    `dinov2_tpu_torch::flash_attention` (ops/_library.py)."""
     if needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, scale)
-    if q.device.type == "cpu":
-        return vanilla_attention(q, k, v, scale)
-    return _launch_forward(q, k, v, scale, with_lse=False)
+    check_device(q, "flash_attention")
+    return _FLASH_OP(q, k, v, scale)
 
 
 flash_attention.launches = 0  # K4 launches on CUDA tensors, from any entry, with lse or without
+_FLASH_OP = define(
+    "flash_attention(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
+    lambda q, k, v, scale: vanilla_attention(q, k, v, scale).contiguous(),
+    partial(_launch_forward, with_lse=False), _forward_fake,
+)
+_FLASH_LSE_OP = define(
+    "flash_attention_lse(Tensor q, Tensor k, Tensor v, float scale) -> (Tensor, Tensor)",
+    _forward_lse_cpu, partial(_launch_forward, with_lse=True), _forward_lse_fake,
+)
 
 
 def flash_attention_slab(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:

@@ -15,8 +15,12 @@ CPU tensor each runs its plain PyTorch version (`slab_layer_reference`,
 `_slab_block_reference`, `_slab_reference`, `slab_mlp_reference`), which
 keeps the JAX package's unfused ordering. Every wrapper counts its calls
 that launch kernels in `.launches` (one a call, however many launches the
-entry makes). What bounds K2, K3 and K5 on the card is in their sources'
-notes.
+entry makes). Each dispatches through its PyTorch operator
+(`dinov2_tpu_torch::slab_layer_block`, `::slab_attention_block`,
+`::slab_attention`, `::slab_mlp_block`; ops/_library.py), whose CUDA
+implementation is the launch and whose CPU implementation is the plain
+version, so `torch.export` traces each call as one node. What bounds K2, K3
+and K5 on the card is in their sources' notes.
 
 What bounds K1 on an H100, at the main path's shape (B=64, T=257,
 D=768, H=12): ~91 GFLOP per call (58 in the QKV GEMM, 19 in proj, 13 in
@@ -54,6 +58,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from dinov2_tpu_torch.ops._library import check_device, define
 from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
 from dinov2_tpu_torch.ops.qmatmul import apply_activation, needs_grad
 from dinov2_tpu_torch.ops.qmatmul_kernel import ACTIVATIONS
@@ -178,9 +183,11 @@ class _SlabAttention(torch.autograd.Function):
         return slab_attention_backward(qkv, g, ctx.num_heads, ctx.scale), None, None
 
 
-def _check_tensors(x: torch.Tensor, expected: dict) -> None:
+def _check_tensors(x: torch.Tensor, expected: dict, aligned: bool = True) -> None:
     """Every named (tensor, shape, dtype) has that shape and dtype, lies on
-    x's device, is contiguous and 16-byte aligned; x too."""
+    x's device, is contiguous and, unless `aligned` is False (a tensor with
+    no storage: the operators' fake implementations), 16-byte aligned; x
+    too."""
     for name, (tensor, shape, dtype) in expected.items():
         if tuple(tensor.shape) != shape or tensor.dtype != dtype:
             raise ValueError(
@@ -189,7 +196,7 @@ def _check_tensors(x: torch.Tensor, expected: dict) -> None:
     for name, tensor in (("x", x), *((n, v[0]) for n, v in expected.items())):
         if tensor.device != x.device:
             raise ValueError(f"{name} is on {tensor.device}, x on {x.device}")
-        if not tensor.is_contiguous() or tensor.data_ptr() % 16:
+        if not tensor.is_contiguous() or (aligned and tensor.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
@@ -206,11 +213,12 @@ def _check_bf16_head64(x: torch.Tensor, d: int, num_heads: int, what: str) -> No
 
 
 def check_half_layer_args(
-    x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads, w_qkv=None, w_proj=None
+    x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads, w_qkv=None, w_proj=None,
+    aligned: bool = True,
 ):
     """What the CUDA half-layer kernels (K1, and K8 with quantized weights)
     take: bf16 x (B, T, D) with head_dim 64 and f32 rows; the dense (in, out)
-    weights too where they are given."""
+    weights too where they are given. `aligned`: as `_check_tensors`."""
     _check_bf16_head64(x, x.shape[-1], num_heads, "half-layer")
     d = x.shape[-1]
     expected = {
@@ -223,7 +231,7 @@ def check_half_layer_args(
     if w_qkv is not None:
         expected["w_qkv"] = (w_qkv, (d, 3 * d), torch.bfloat16)
         expected["w_proj"] = (w_proj, (d, d), torch.bfloat16)
-    _check_tensors(x, expected)
+    _check_tensors(x, expected, aligned)
 
 
 def slab_layer_block(
@@ -245,9 +253,10 @@ def slab_layer_block(
 
     CPU tensors run the plain version. CUDA tensors launch the K1 kernel
     (bf16 activations only; anything else raises; weights are cast to x's
-    dtype) and add one to `slab_layer_block.launches`. Where an input
-    requires grad the result carries the recompute gradient of the module
-    docstring."""
+    dtype) and add one to `slab_layer_block.launches`. Both go through the
+    operator `dinov2_tpu_torch::slab_layer_block` (ops/_library.py). Where
+    an input requires grad the result carries the recompute gradient of the
+    module docstring."""
     tensors = (x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, ls1)
     if needs_grad(*tensors):
         return _RecomputeFunction.apply(
@@ -255,17 +264,25 @@ def slab_layer_block(
             lambda *a: slab_layer_reference(*a, num_heads, scale, eps),
             *tensors,
         )
-    if x.device.type == "cpu":
-        return slab_layer_reference(
-            x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, ls1,
-            num_heads, scale, eps,
-        )
-    if x.device.type != "cuda":
-        raise ValueError(f"no slab_layer_block for device {x.device}")
+    check_device(x, "slab_layer_block")
+    return _SLAB_LAYER_OP(*tensors, num_heads, scale, eps)
+
+
+def _slab_layer_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, ls1, num_heads, scale,
+                     eps):
+    """The K1 launch, weights cast to x's dtype."""
     return slab_layer_buffers(
         x, ln_scale, ln_bias, w_qkv.to(x.dtype), b_qkv, w_proj.to(x.dtype), b_proj, ls1,
         num_heads, scale, eps,
     )[0]
+
+
+def _slab_layer_fake(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, ls1, num_heads, scale,
+                     eps):
+    if x.device.type == "cuda":
+        check_half_layer_args(x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads,
+                              w_qkv.to(x.dtype), w_proj.to(x.dtype), aligned=False)
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def slab_layer_buffers(
@@ -295,19 +312,25 @@ def slab_layer_buffers(
 
 
 slab_layer_block.launches = 0  # kernel launches on CUDA tensors
+_SLAB_LAYER_OP = define(
+    "slab_layer_block(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor w_qkv, Tensor b_qkv, "
+    "Tensor w_proj, Tensor b_proj, Tensor ls1, int num_heads, float scale, float eps) -> Tensor",
+    slab_layer_reference, _slab_layer_cuda, _slab_layer_fake,
+)
 
 
-def check_slab_attention_args(qkv, num_heads, x=None, w_proj=None, b_proj=None, ls1=None):
+def check_slab_attention_args(qkv, num_heads, x=None, w_proj=None, b_proj=None, ls1=None,
+                              aligned: bool = True):
     """What the CUDA slab attention kernels take: a bf16 (B, T, 3D) slab with
     head_dim 64 (K3); with x given, K2's bf16 x (B, T, D) and w_proj (D, D)
-    and f32 b_proj and ls1 rows too."""
+    and f32 b_proj and ls1 rows too. `aligned`: as `_check_tensors`."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (B, T, 3D), got {tuple(qkv.shape)}")
     b, t, three_d = qkv.shape
     d = three_d // 3
     _check_bf16_head64(qkv, d, num_heads, "slab attention")
     if x is None:
-        return _check_tensors(qkv, {})
+        return _check_tensors(qkv, {}, aligned)
     if x.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"the CUDA slab attention kernel takes bf16 activations, got {x.dtype}"
@@ -318,7 +341,7 @@ def check_slab_attention_args(qkv, num_heads, x=None, w_proj=None, b_proj=None, 
         "w_proj": (w_proj, (d, d), torch.bfloat16),
         "b_proj": (b_proj, (d,), torch.float32),
         "ls1": (ls1, (d,), torch.float32),
-    })
+    }, aligned)
 
 
 def slab_attention(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
@@ -335,11 +358,21 @@ def slab_attention(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Ten
 
 
 def _slab_attention_forward(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
-    """slab_attention's dispatch: plain on the CPU, the K3 launch on a card."""
-    if qkv.device.type == "cpu":
-        return _slab_reference(qkv, num_heads, scale)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no slab_attention for device {qkv.device}")
+    """slab_attention's dispatch: the operator `dinov2_tpu_torch::slab_attention`,
+    plain on the CPU, the K3 launch on a card."""
+    check_device(qkv, "slab_attention")
+    return _SLAB_ATTENTION_OP(qkv, num_heads, scale)
+
+
+def _slab_attention_fake(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    if qkv.device.type == "cuda":
+        check_slab_attention_args(qkv, num_heads, aligned=False)
+    b, t, three_d = qkv.shape
+    return qkv.new_empty((b, t, three_d // 3))
+
+
+def _slab_attention_cuda(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """The K3 launch."""
     check_slab_attention_args(qkv, num_heads)
     b, t, three_d = qkv.shape
     d = three_d // 3
@@ -358,6 +391,10 @@ def _slab_attention_forward(qkv: torch.Tensor, num_heads: int, scale: float) -> 
 
 
 slab_attention.launches = 0  # kernel launches on CUDA tensors
+_SLAB_ATTENTION_OP = define(
+    "slab_attention(Tensor qkv, int num_heads, float scale) -> Tensor",
+    _slab_reference, _slab_attention_cuda, _slab_attention_fake,
+)
 
 
 def slab_attention_block(
@@ -375,10 +412,11 @@ def slab_attention_block(
 
     CPU tensors run the plain version. CUDA tensors launch the K2 kernel
     (bf16, head_dim 64; anything else raises) and add one to
-    `slab_attention_block.launches`. On the slab K1 makes, the output is
-    K1's bit for bit: both run the same two launches on it. Where an input
-    requires grad the result carries the recompute gradient of the module
-    docstring."""
+    `slab_attention_block.launches`. Both go through the operator
+    `dinov2_tpu_torch::slab_attention_block`. On the slab K1 makes, the
+    output is K1's bit for bit: both run the same two launches on it. Where
+    an input requires grad the result carries the recompute gradient of the
+    module docstring."""
     tensors = (x, qkv, w_proj, b_proj, ls1)
     if needs_grad(*tensors):
         return _RecomputeFunction.apply(
@@ -386,10 +424,19 @@ def slab_attention_block(
             lambda *a: _slab_block_reference(*a, num_heads, scale),
             *tensors,
         )
-    if x.device.type == "cpu":
-        return _slab_block_reference(x, qkv, w_proj, b_proj, ls1, num_heads, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"no slab_attention_block for device {x.device}")
+    check_device(x, "slab_attention_block")
+    return _SLAB_ATTENTION_BLOCK_OP(*tensors, num_heads, scale)
+
+
+def _slab_attention_block_fake(x, qkv, w_proj, b_proj, ls1, num_heads, scale):
+    if x.device.type == "cuda":
+        check_slab_attention_args(qkv, num_heads, x, w_proj.to(x.dtype), b_proj, ls1,
+                                  aligned=False)
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _slab_attention_block_cuda(x, qkv, w_proj, b_proj, ls1, num_heads, scale):
+    """The K2 launch."""
     w_proj = w_proj.to(x.dtype)
     check_slab_attention_args(qkv, num_heads, x, w_proj, b_proj, ls1)
     b, t, d = x.shape
@@ -410,13 +457,19 @@ def slab_attention_block(
 
 
 slab_attention_block.launches = 0  # kernel launches on CUDA tensors
+_SLAB_ATTENTION_BLOCK_OP = define(
+    "slab_attention_block(Tensor x, Tensor qkv, Tensor w_proj, Tensor b_proj, Tensor ls1, "
+    "int num_heads, float scale) -> Tensor",
+    _slab_block_reference, _slab_attention_block_cuda, _slab_attention_block_fake,
+)
 
 MLP_KERNEL_WIDTHS = (384, 768, 1024)  # the D the K5 kernel is built for, with DH = 4 D
 
 
-def check_slab_mlp_args(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2):
+def check_slab_mlp_args(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, aligned: bool = True):
     """What the CUDA MLP kernel takes: bf16 x (B, T, D) with D in
-    MLP_KERNEL_WIDTHS, bf16 (in, out) weights with DH = 4 D, f32 rows."""
+    MLP_KERNEL_WIDTHS, bf16 (in, out) weights with DH = 4 D, f32 rows.
+    `aligned`: as `_check_tensors`."""
     if x.dtype != torch.bfloat16:
         raise NotImplementedError(f"the CUDA MLP kernel takes bf16 activations, got {x.dtype}")
     if x.dim() != 3:
@@ -436,7 +489,7 @@ def check_slab_mlp_args(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2):
         "w2": (w2, (dh, d), torch.bfloat16),
         "b2": (b2, (d,), torch.float32),
         "ls2": (ls2, (d,), torch.float32),
-    })
+    }, aligned)
 
 
 def slab_mlp_block(
@@ -458,12 +511,12 @@ def slab_mlp_block(
     CPU tensors run the plain version. CUDA tensors launch the K5 kernels
     (bf16, D in MLP_KERNEL_WIDTHS, DH = 4 D, any T; anything else raises):
     LN2, fc1 with the activation into a (B*T, DH) bf16 hidden buffer
-    allocated here for the call (it goes through device memory, written once
-    and read once), fc2 with the residual; and add one to
-    `slab_mlp_block.launches`. Where an input requires grad the result
-    carries the recompute gradient of the module docstring."""
-    if activation is None or activation not in ACTIVATIONS:
-        raise ValueError(f"unknown activation {activation!r}")
+    allocated in the operator for the call (it goes through device memory,
+    written once and read once), fc2 with the residual; and add one to
+    `slab_mlp_block.launches`. Both go through the operator
+    `dinov2_tpu_torch::slab_mlp_block`. Where an input requires grad the
+    result carries the recompute gradient of the module docstring."""
+    _check_activation(activation)
     tensors = (x, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
     if needs_grad(*tensors):
         return _RecomputeFunction.apply(
@@ -471,10 +524,26 @@ def slab_mlp_block(
             lambda *a: slab_mlp_reference(*a, activation, eps),
             *tensors,
         )
-    if x.device.type == "cpu":
-        return slab_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, activation, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"no slab_mlp_block for device {x.device}")
+    check_device(x, "slab_mlp_block")
+    return _SLAB_MLP_OP(*tensors, activation, eps)
+
+
+def _check_activation(activation) -> None:
+    if activation is None or activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+
+
+def _slab_mlp_fake(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, activation, eps):
+    if x.device.type == "cuda":
+        _check_activation(activation)
+        check_slab_mlp_args(x, ln_scale, ln_bias, w1.to(x.dtype), b1, w2.to(x.dtype), b2, ls2,
+                            aligned=False)
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _slab_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, activation, eps):
+    """The K5 launches."""
+    _check_activation(activation)
     w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
     check_slab_mlp_args(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
     b, t, d = x.shape
@@ -499,3 +568,8 @@ def slab_mlp_block(
 
 
 slab_mlp_block.launches = 0  # kernel launches on CUDA tensors
+_SLAB_MLP_OP = define(
+    "slab_mlp_block(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor w1, Tensor b1, Tensor w2, "
+    "Tensor b2, Tensor ls2, str activation, float eps) -> Tensor",
+    slab_mlp_reference, _slab_mlp_cuda, _slab_mlp_fake,
+)

@@ -23,9 +23,16 @@ from __future__ import annotations
 
 import torch
 
+from dinov2_tpu_torch.ops._library import check_device, define
 from dinov2_tpu_torch.ops.fused_attention import check_half_layer_args, slab_layer_reference
 from dinov2_tpu_torch.ops.qmatmul import dequant_weight, refuse_quant_grad
-from dinov2_tpu_torch.ops.qmatmul_kernel import check_quant_weight, quant_weight_args
+from dinov2_tpu_torch.ops.qmatmul_kernel import (
+    QUANT_OP_SCHEMA,
+    check_quant_weight,
+    quant_linear,
+    quant_op_args,
+    quant_weight_args,
+)
 
 
 def quant_layer_reference(
@@ -60,19 +67,48 @@ def slab_layer_block_quant(
     (bf16 only; anything else raises; its six launches share scratch
     allocated here for the call: the qkv slab, the attention output and the
     (4D, D) dequantized weights) and add one to
-    `slab_layer_block_quant.launches`. An input that requires grad raises:
-    the quantized weights are not trainable and the kernel has no backward."""
+    `slab_layer_block_quant.launches`. Both go through the operator
+    `dinov2_tpu_torch::slab_layer_block_quant` (ops/_library.py). An input
+    that requires grad raises: the quantized weights are not trainable and
+    the kernel has no backward."""
     refuse_quant_grad("slab_layer_block_quant", x, ln_scale, ln_bias, b_qkv, b_proj, ls1)
-    if x.device.type == "cpu":
-        return quant_layer_reference(
-            x, ln_scale, ln_bias, qkv_ql, b_qkv, proj_ql, b_proj, ls1, num_heads, scale, eps
-        )
-    if x.device.type != "cuda":
-        raise ValueError(f"no slab_layer_block_quant for device {x.device}")
-    check_half_layer_args(x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads)
+    check_device(x, "slab_layer_block_quant")
+    return _QUANT_LAYER_OP(
+        x, ln_scale, ln_bias, *quant_op_args(qkv_ql), b_qkv, *quant_op_args(proj_ql), b_proj,
+        ls1, num_heads, scale, eps,
+    )
+
+
+def _operator_args(args: tuple) -> tuple:
+    """The operator's arguments -> quant_layer_reference's: each weight's
+    seven fields (quant_op_args) as one QuantLinear."""
+    x, ln_scale, ln_bias, *rest = args
+    qkv_ql, (b_qkv, *rest) = quant_linear(*rest[:7]), rest[7:]
+    proj_ql, (b_proj, ls1, num_heads, scale, eps) = quant_linear(*rest[:7]), rest[7:]
+    return x, ln_scale, ln_bias, qkv_ql, b_qkv, proj_ql, b_proj, ls1, num_heads, scale, eps
+
+
+def _check_quant_layer_args(x, ln_scale, ln_bias, qkv_ql, b_qkv, proj_ql, b_proj, ls1, num_heads,
+                            aligned: bool = True) -> None:
+    check_half_layer_args(x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads, aligned=aligned)
+    d = x.shape[-1]
+    check_quant_weight(qkv_ql, "qkv", x.device, 3 * d, d, aligned=aligned)
+    check_quant_weight(proj_ql, "proj", x.device, d, d, aligned=aligned)
+
+
+def _quant_layer_fake(*args):
+    x, *checked, _, _ = _operator_args(args)
+    if x.device.type == "cuda":
+        _check_quant_layer_args(x, *checked, aligned=False)
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _quant_layer_cuda(*args):
+    """The K8 launches."""
+    x, ln_scale, ln_bias, qkv_ql, b_qkv, proj_ql, b_proj, ls1, num_heads, scale, eps = (
+        _operator_args(args))
+    _check_quant_layer_args(x, ln_scale, ln_bias, qkv_ql, b_qkv, proj_ql, b_proj, ls1, num_heads)
     b, t, d = x.shape
-    check_quant_weight(qkv_ql, "qkv", x.device, 3 * d, d)
-    check_quant_weight(proj_ql, "proj", x.device, d, d)
     from dinov2_tpu_torch.ops._kernels import check_status, quant_layer_lib
 
     lib = quant_layer_lib()
@@ -95,3 +131,10 @@ def slab_layer_block_quant(
 
 
 slab_layer_block_quant.launches = 0  # kernel launches on CUDA tensors
+_QUANT_LAYER_OP = define(
+    "slab_layer_block_quant(Tensor x, Tensor ln_scale, Tensor ln_bias, "
+    f"{QUANT_OP_SCHEMA.format(p='qkv_')}, Tensor b_qkv, {QUANT_OP_SCHEMA.format(p='proj_')}, "
+    "Tensor b_proj, Tensor ls1, int num_heads, float scale, float eps) -> Tensor",
+    lambda *args: quant_layer_reference(*_operator_args(args)), _quant_layer_cuda,
+    _quant_layer_fake,
+)

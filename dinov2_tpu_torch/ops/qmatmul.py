@@ -91,16 +91,16 @@ def dequant_weight(ql, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     An Int8Linear: codes -> f32, times its row's s, one cast (the route
     that feeds int8 weights into the dense slab kernels K1, K2 and K5)."""
     if isinstance(ql, Int8Linear):
-        return (ql.codes.float() * ql.s[:, None]).to(dtype)
+        return (ql.codes.float() * ql.s.unsqueeze(-1)).to(dtype)
     out_dim = ql.codes.shape[0]
     in_dim = ql.codes.shape[1] * (2 if ql.packed else 1)
     if ql.packed:
         q = decode_packed_planes(ql.codes, ql.qh_lo, ql.qh_hi, ql.zero_point)
     else:
         q = ql.codes
-    w = q.to(torch.float32).reshape(out_dim, in_dim // 32, 32) * ql.d[..., None]
+    w = q.to(torch.float32).reshape(out_dim, in_dim // 32, 32) * ql.d.unsqueeze(-1)
     if ql.m is not None:
-        w = w + ql.m[..., None]
+        w = w + ql.m.unsqueeze(-1)
     return w.reshape(out_dim, in_dim).to(dtype)
 
 

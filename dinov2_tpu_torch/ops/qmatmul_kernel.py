@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from dinov2_tpu_torch.models.params import QuantLinear
+from dinov2_tpu_torch.ops._library import check_device, define
 from dinov2_tpu_torch.ops.qmatmul import apply_activation, dequant_weight, refuse_quant_grad
 
 # activation name -> the kernels' code (csrc/activation.cuh; K5 takes them too)
@@ -46,8 +48,10 @@ def quant_matmul_reference(
 
 
 def check_quant_weight(ql, name: str, device: torch.device, n: int | None = None,
-                       k: int | None = None) -> tuple[int, int]:
-    """What the CUDA kernels take of a QuantLinear; returns its (N, K)."""
+                       k: int | None = None, aligned: bool = True) -> tuple[int, int]:
+    """What the CUDA kernels take of a QuantLinear; returns its (N, K).
+    `aligned` False skips the data pointers' alignment (fields with no
+    storage: the operators' fake implementations)."""
     codes = ql.codes
     if codes.dim() != 2:
         raise ValueError(f"{name}: codes must be 2-D (one layer), got {tuple(codes.shape)}")
@@ -80,9 +84,27 @@ def check_quant_weight(ql, name: str, device: torch.device, n: int | None = None
             )
         if tensor.device != device:
             raise ValueError(f"{name}.{field} is on {tensor.device}, the input on {device}")
-        if not tensor.is_contiguous() or tensor.data_ptr() % 16:
+        if not tensor.is_contiguous() or (aligned and tensor.data_ptr() % 16):
             raise ValueError(f"{name}.{field} must be contiguous and 16-byte aligned")
     return rows, cols
+
+
+# a QuantLinear as the operators take it (quant_op_args), `p` its name's prefix
+QUANT_OP_SCHEMA = ("Tensor {p}codes, Tensor {p}d, Tensor? {p}m, Tensor? {p}qh_lo, "
+                   "Tensor? {p}qh_hi, int {p}ggml_type, bool {p}packed")
+
+
+def quant_op_args(ql) -> list:
+    """A QuantLinear as the operators take it: its tensor fields, its ggml
+    type and its layout flag (`QUANT_OP_SCHEMA`); `quant_linear` rebuilds it."""
+    return [ql.codes, ql.d, ql.m, ql.qh_lo, ql.qh_hi, int(ql.ggml_type), bool(ql.packed)]
+
+
+def quant_linear(codes, d, m, qh_lo, qh_hi, ggml_type: int, packed: bool) -> QuantLinear:
+    """The QuantLinear of `quant_op_args`; its (N, K) from the tensors."""
+    cols = codes.shape[-1] * (2 if packed else 1)
+    return QuantLinear(codes=codes, d=d, m=m, ggml_type=ggml_type, shape=(codes.shape[-2], cols),
+                       packed=packed, qh_lo=qh_lo, qh_hi=qh_hi)
 
 
 def quant_weight_args(ql) -> list:
@@ -103,19 +125,23 @@ def quant_matmul_kernel(
     CPU tensors run the plain version. CUDA tensors launch the K7 kernels
     (bf16 or f32 x; anything else raises; bf16 x: the dequantize kernel into
     an (N, K) bf16 scratch allocated here, then the GEMM) and add one to
-    `quant_matmul_kernel.launches`. An input that requires grad raises: the
-    quantized weights are not trainable and the kernel has no backward."""
+    `quant_matmul_kernel.launches`. Both go through the operator
+    `dinov2_tpu_torch::quant_matmul` (ops/_library.py). An input that
+    requires grad raises: the quantized weights are not trainable and the
+    kernel has no backward."""
     refuse_quant_grad("quant_matmul_kernel", x, bias)
-    if x.device.type == "cpu":
-        return quant_matmul_reference(x, ql, bias, activation)
-    if x.device.type != "cuda":
-        raise ValueError(f"no quant_matmul_kernel for device {x.device}")
+    check_device(x, "quant_matmul_kernel")
+    return _QUANT_MATMUL_OP(x, *quant_op_args(ql), bias, activation)
+
+
+def _check_quant_matmul_args(x, ql, bias, activation, aligned: bool = True) -> tuple[int, int]:
+    """What the CUDA dequant-matmul takes; returns the weight's (N, K)."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"the CUDA dequant-matmul takes bf16 or f32 x, got {x.dtype}")
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
-    n, k = check_quant_weight(ql, "weight", x.device, k=x.shape[-1])
-    if not x.is_contiguous() or x.data_ptr() % 16:
+    n, k = check_quant_weight(ql, "weight", x.device, k=x.shape[-1], aligned=aligned)
+    if not x.is_contiguous() or (aligned and x.data_ptr() % 16):
         raise ValueError("x must be contiguous and 16-byte aligned")
     if bias is not None and (
         tuple(bias.shape) != (n,) or bias.dtype != torch.float32 or bias.device != x.device
@@ -123,6 +149,25 @@ def quant_matmul_kernel(
     ):
         raise ValueError(f"bias: expected ({n},) f32 on {x.device}, got "
                          f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
+    return n, k
+
+
+def _quant_matmul_cpu(x, codes, d, m, qh_lo, qh_hi, ggml_type, packed, bias, activation):
+    ql = quant_linear(codes, d, m, qh_lo, qh_hi, ggml_type, packed)
+    return quant_matmul_reference(x, ql, bias, activation)
+
+
+def _quant_matmul_fake(x, codes, d, m, qh_lo, qh_hi, ggml_type, packed, bias, activation):
+    if x.device.type == "cuda":
+        ql = quant_linear(codes, d, m, qh_lo, qh_hi, ggml_type, packed)
+        _check_quant_matmul_args(x, ql, bias, activation, aligned=False)
+    return x.new_empty((*x.shape[:-1], codes.shape[0]))
+
+
+def _quant_matmul_cuda(x, codes, d, m, qh_lo, qh_hi, ggml_type, packed, bias, activation):
+    """The K7 launches."""
+    ql = quant_linear(codes, d, m, qh_lo, qh_hi, ggml_type, packed)
+    n, k = _check_quant_matmul_args(x, ql, bias, activation)
     from dinov2_tpu_torch.ops._kernels import check_status, quant_matmul_lib
 
     lib = quant_matmul_lib()
@@ -145,6 +190,11 @@ def quant_matmul_kernel(
 
 
 quant_matmul_kernel.launches = 0  # kernel launches on CUDA tensors
+_QUANT_MATMUL_OP = define(
+    f"quant_matmul(Tensor x, {QUANT_OP_SCHEMA.format(p='')}, Tensor? bias, str? activation) "
+    "-> Tensor",
+    _quant_matmul_cpu, _quant_matmul_cuda, _quant_matmul_fake,
+)
 
 
 def dequant_weight_kernel(ql) -> torch.Tensor:

@@ -28,10 +28,23 @@ K9's GELU table as the last argument of their C entries, so an entry from
 before those buffers, which takes one argument fewer, runs with the same
 wrapper and never reads it. --only PREFIX keeps the cases whose names start
 with it (e.g. --only K9).
+
+    python3 scripts/compare_kernel_builds.py --host-tree DIR
+
+times the host instead, with the whole Python package of another tree
+(e.g. the parent commit's `git archive <commit> | tar -x -C <dir>`) against
+this one's: each in its own process, in turns (other, this, this, other,
+twice), the host's microseconds to issue one K1 call (slab_layer_block at B=64,
+T=257, D=768) and one eager ViT-B/14 classify forward (batch 64, 224 px,
+bf16, random weights), the card waited for after each forward. In this
+tree it also times K1's launch without the operator's dispatch
+(slab_layer_buffers) and through a `torch.library.custom_op` registration
+of the same launch, the registration ops/_library.py did not take.
 """
 
 import argparse
 import contextlib
+import json
 import statistics
 import subprocess
 import sys
@@ -250,12 +263,100 @@ def compare(name: str, ours, theirs) -> tuple[bool, str]:
     return ok, f"equal within tolerance: {ok}; " + ", ".join(parts)
 
 
+# One tree's host times, run with that tree's package first on sys.path
+# (--host-tree): prints one JSON object.
+HOST_PROBE = """
+import json, statistics, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from dinov2_tpu_torch.models.config import PRESETS, DinoConfig
+from dinov2_tpu_torch.models.params import init_params
+from dinov2_tpu_torch.models.vit import ModelOptions, forward
+from dinov2_tpu_torch.ops import fused_attention
+from dinov2_tpu_torch.ops.qmatmul import set_cuda_matmul_precision
+
+set_cuda_matmul_precision()
+rng = np.random.default_rng(0)
+arrays = [((64, 257, 768), torch.bfloat16, 1.0), ((768,), torch.float32, 1.0),
+          ((768,), torch.float32, 0.1), ((768, 2304), torch.bfloat16, 0.05),
+          ((2304,), torch.float32, 0.1), ((768, 768), torch.bfloat16, 0.05),
+          ((768,), torch.float32, 0.1), ((768,), torch.float32, 1.0)]
+args = [torch.from_numpy(rng.standard_normal(s) * c).to("cuda", t) for s, t, c in arrays]
+
+def host_us(fn, reps=50, blocks=7):
+    # the median over the blocks of the mean host us to issue one of `reps`
+    # calls, the card waited for after each block
+    for _ in range(3):
+        fn()
+    means = []
+    for _ in range(blocks):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        means.append((time.perf_counter() - start) / reps * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(means)
+
+out = {"k1_us": host_us(lambda: fused_attention.slab_layer_block(*args, 12, 0.125, 1e-6))}
+if hasattr(fused_attention, "_SLAB_LAYER_OP"):
+    out["k1_launch_alone_us"] = host_us(
+        lambda: fused_attention.slab_layer_buffers(*args, 12, 0.125, 1e-6))
+
+    @torch.library.custom_op("dinov2_host_probe::slab_layer_block", mutates_args=())
+    def probe(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+              w_qkv: torch.Tensor, b_qkv: torch.Tensor, w_proj: torch.Tensor,
+              b_proj: torch.Tensor, ls1: torch.Tensor, num_heads: int, scale: float,
+              eps: float) -> torch.Tensor:
+        return fused_attention._slab_layer_cuda(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj,
+                                                b_proj, ls1, num_heads, scale, eps)
+
+    probe.register_fake(fused_attention._slab_layer_fake)
+    out["k1_custom_op_us"] = host_us(lambda: probe(*args, 12, 0.125, 1e-6))
+config = DinoConfig(**{**PRESETS["base"].__dict__, "num_classes": 1000, "img_size": 518})
+params = init_params(config, seed=0, dtype=torch.bfloat16, device="cuda")
+x = torch.from_numpy(rng.standard_normal((64, 224, 224, 3)).astype(np.float32)).cuda()
+opts = ModelOptions(compute_dtype=torch.bfloat16)
+times = []
+with torch.inference_mode():
+    for i in range(43):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        forward(params, x, config, opts, classify=True)
+        spent = time.perf_counter() - start
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(spent * 1e6)
+out["forward_us"] = statistics.median(times)
+print(json.dumps(out))
+"""
+
+
+def compare_hosts(other: Path, card: str) -> int:
+    """--host-tree: the HOST_PROBE in the other tree and in this one, in
+    turns, each in a fresh process."""
+    readings = []
+    for name, tree in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)) * 2:
+        proc = subprocess.run([sys.executable, "-c", HOST_PROBE, str(tree)], cwd=tree,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            print(f"host probe in {tree} failed:\n{proc.stderr[-3000:]}", file=sys.stderr)
+            return 1
+        readings.append((name, json.loads(proc.stdout.strip().splitlines()[-1])))
+    for key in ("k1_us", "k1_launch_alone_us", "k1_custom_op_us", "forward_us"):
+        values = ", ".join(f"{name} {r[key]:.1f}" for name, r in readings if key in r)
+        print(f"host us, {key}: {values} (order other, this, this, other, twice; {card})")
+    return 0
+
+
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--other-csrc", required=True, type=Path)
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    which = parser.add_mutually_exclusive_group(required=True)
+    which.add_argument("--other-csrc", type=Path)
+    which.add_argument("--host-tree", type=Path)
     parser.add_argument("--only", default="", help="keep the cases whose names start with this")
     opts = parser.parse_args()
-    other = opts.other_csrc.resolve()
     if not torch.cuda.is_available():
         print("compare_kernel_builds: no CUDA device available", file=sys.stderr)
         return 1
@@ -264,6 +365,9 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card)
+    if opts.host_tree:
+        return compare_hosts(opts.host_tree.resolve(), card)
+    other = opts.other_csrc.resolve()
     same = True
     with torch.no_grad():  # K3's backward turns grad on again inside
         for name, call in cases().items():

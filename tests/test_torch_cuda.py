@@ -1159,3 +1159,87 @@ def test_engine_int8_classify_on_cuda_close_to_cpu_f32(cuda, tmp_path, quant_sla
     assert np.isfinite(got).all()
     assert np.abs(got - want).max() < 2e-2
     assert (got.argmax(-1) == want.argmax(-1)).all()
+
+
+def _operator_cases():
+    from test_torch_custom_ops import NAMES
+
+    return NAMES
+
+
+@pytest.mark.parametrize("name", _operator_cases())
+def test_operator_cuda_implementation_matches_plain(cuda, name):
+    """Each dinov2_tpu_torch operator on CUDA tensors (the kernel launch)
+    against its CPU implementation (the plain version) on the same inputs in
+    bf16 and in f32, as test_slab_layer_kernel_matches_plain bounds K1; and
+    the wrapper's launch count gains one."""
+    from test_torch_custom_ops import _op, cases
+
+    from dinov2_tpu_torch.ops import fused_attention, fused_quant_attention, qmatmul_kernel
+    from dinov2_tpu_torch.ops.flash_attention import flash_attention
+
+    counters = {
+        "slab_layer_block": fused_attention.slab_layer_block,
+        "slab_attention_block": fused_attention.slab_attention_block,
+        "slab_attention": fused_attention.slab_attention, "flash_attention": flash_attention,
+        "flash_attention_lse": flash_attention, "slab_mlp_block": fused_attention.slab_mlp_block,
+        "quant_matmul": qmatmul_kernel.quant_matmul_kernel,
+        "slab_layer_block_quant": fused_quant_attention.slab_layer_block_quant,
+    }
+    args, _ = cases()[name]
+    counter = counters[name.split()[0]]
+    before = counter.launches
+    got = _op(name)(*[a.to(cuda) if torch.is_tensor(a) else a for a in args])
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    plain = _op(name)(*args)
+    want = _op(name)(*[a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16 else a
+                       for a in args])
+    for g, p, w in zip(*(o if isinstance(o, tuple) else (o,) for o in (got, plain, want))):
+        assert g.shape == p.shape and g.dtype == p.dtype and torch.isfinite(g).all()
+        err = (g.cpu().float() - w).abs().max().item()
+        err_plain = (p.float() - w).abs().max().item()
+        assert err <= 2 * err_plain + 1e-3 * w.abs().max().item()
+
+
+@pytest.mark.parametrize(
+    "quant, options, counter",
+    [(None, {}, "K1"), (None, {"flash_attention": True}, "K4"),
+     ("q4_0", {}, "K8"), ("q4_0", {"quant_slab": "off"}, "K7")],
+)
+def test_artifact_equals_the_eager_forward_on_cuda(cuda, tmp_path, quant, options, counter):
+    """An artifact exported for the card runs the same kernels as the eager
+    forward on the same weights and input: equal bit for bit, and each call
+    launches the kernel once a layer (K7: fc1, fc2 and the head too, and
+    qkv and proj under quant_slab="off")."""
+    from dinov2_tpu_torch.models.params import load_params
+    from dinov2_tpu_torch.models.vit import ModelOptions, forward
+    from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel
+    from dinov2_tpu_torch.quant import quantize_gguf
+    from dinov2_tpu_torch.runtime.aot import export_forward, load_artifact, save_artifact
+
+    config = DinoConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                        num_classes=4, patch_size=14, img_size=70)
+    path = write_synthetic_gguf(tmp_path / "tiny.gguf", config, seed=3)
+    if quant:
+        path = quantize_gguf(path, tmp_path / "q.gguf", quant)
+    loaded = load_params(path, dtype=torch.bfloat16, device="cuda",
+                         quant_mode="fused" if quant else "dequant")
+    opts = ModelOptions(**options)
+    save_artifact(tmp_path / "m.aot", export_forward(loaded.params, config, opts, batch=2,
+                                                     height=70, width=70, platforms=("cuda",)))
+    art = load_artifact(tmp_path / "m.aot")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 70, 70, 3))).to(
+        cuda, torch.float32)
+    kernel = {"K1": slab_layer_block, "K4": flash_attention, "K8": slab_layer_block_quant,
+              "K7": quant_matmul_kernel}[counter]
+    with torch.inference_mode():
+        want = forward(loaded.params, x, config, opts, classify=True)
+        before = kernel.launches
+        got = art(loaded.params, x)
+        torch.cuda.synchronize()
+    per_call = {"K1": 2, "K4": 2, "K8": 2, "K7": 4 * 2 + 1}[counter]
+    assert kernel.launches - before == per_call
+    for key in want:
+        assert torch.equal(got[key], want[key]), key

@@ -64,6 +64,9 @@ def test_forward_runs_without_jax_in_a_fresh_process():
         "from dinov2_tpu_torch.parallel import checkpoint\n"
         "from dinov2_tpu_torch.io import export\n"
         "from dinov2_tpu_torch.cli import train\n"
+        "from dinov2_tpu_torch.cli import aot as cli_aot\n"
+        "from dinov2_tpu_torch.runtime import aot\n"
+        "from dinov2_tpu_torch.ops import _library\n"
         "c = DinoConfig(hidden_size=64, num_hidden_layers=1, num_attention_heads=1,"
         " num_classes=3, patch_size=14, img_size=28)\n"
         "t = make_trainer(c, device='cpu')\n"
