@@ -49,6 +49,22 @@ with random f16 weights from a seed, bf16, parity="reference":
     each level of the slab route: slab_fusion="core" (K3, the JAX package's
     route for this model), "proj" (K2) and "layer" (K1) on the same device
     weights;
+  - multi-device inference (the mesh slice), single-controller as in the
+    JAX package, every mesh's shards on this one card (make_mesh(axes,
+    devices=[card] * n): the launches n cards would run, one after the
+    other): the ViT-g/14 file in q4_0 through tp_prepare_params and
+    make_tp_forward at {"model": 2}, {"model": 4} and {"data": 2,
+    "model": 2} (K3 on each shard's heads, K7 on its weight shards); the
+    ViT-B/14 file data-parallel at {"data": 4} (K1 in each replica; in q4_0
+    K8 and K7), bit for bit the single-device forward, dense TP at
+    {"data": 2, "model": 2} (K3) and 518 px features at {"model": 2} (K4
+    on 6 heads); pipeline_forward over 4 stages of 4 microbatches (K1);
+    then DinoEngine(mesh_axes={"data": n, "model": 1}) for the dense and
+    the q4_0 file and `cli.inference -c --mesh n,1` at the machine's card
+    count n. Each sharded forward beside the single-device one on the same
+    weights: bit for bit, or both held to the CPU f32 forward with the
+    slice's bounds; its ms and one call's peak device memory beside the
+    single-device call's;
   - training: make_trainer(...).place and five Trainer.step calls on one
     batch of 32 uint8 images of 256x256 with a full-width ViT-B/14 (12
     layers, 1000 classes, init_params seed 0), parity="hf", bf16 compute
@@ -85,7 +101,8 @@ routes, weight memory, the peak device memory of one call), int8 slice on
 both routes with its cross-checks and img/s beside dense and q4_0, int8
 feature slice, int8 CLI slice,
 feature slice, PCA, feature cross-check, ViT-g/14 slice at its three levels
-and its cross-check, ViT-g/14 int8 slice, training slice on both routes with its cross-check and
+and its cross-check, ViT-g/14 int8 slice, mesh slice (one line a case),
+training slice on both routes with its cross-check and
 export, long-sequence training; then a check that no "auto" attention route
 of these bf16 paths fell to plain PyTorch on the card. Any failure exits
 non-zero. The line before the last is a JSON object with one entry per kernel; the last line is
@@ -2969,6 +2986,502 @@ def phase_train_long(card: str, source) -> None:
     )
 
 
+# ---------------------------------------------------------------------------
+# The mesh slice: multi-device inference, single-controller, with every
+# shard of a mesh on this one card (make_mesh(axes, devices=[card] * n)): the
+# same launches a mesh of n cards would issue, one after the other
+# ---------------------------------------------------------------------------
+
+MESH_TIMED_CALLS = 5
+MESH_GIANT_AXES = ({"model": 2}, {"model": 4}, {"data": 2, "model": 2})
+MESH_DP_AXES = {"data": 4}
+MESH_DENSE_TP_AXES = {"data": 2, "model": 2}
+MESH_FEATURE_AXES = {"model": 2}
+PP_STAGES = 4
+PP_MICROBATCHES = 4
+
+
+def _mesh_counters() -> dict:
+    from dinov2_tpu_torch.ops.flash_attention import flash_attention
+    from dinov2_tpu_torch.ops.fused_attention import (
+        slab_attention,
+        slab_attention_block,
+        slab_layer_block,
+        slab_mlp_block,
+    )
+    from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel
+
+    return {"K1": slab_layer_block, "K2": slab_attention_block, "K3": slab_attention,
+            "K4": flash_attention, "K5": slab_mlp_block, "K7": quant_matmul_kernel,
+            "K8": slab_layer_block_quant}
+
+
+def _mesh_devices(axes: dict) -> list:
+    """Every position of the mesh on this card."""
+    return [torch.device("cuda", 0)] * int(np.prod(list(axes.values())))
+
+
+def _peak_mb(run) -> float:
+    """Device memory one call of run allocates above what it starts from."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def _spread_rows(batch: int, n: int) -> list[int]:
+    """n rows spread evenly over a batch, the first and the last included:
+    the images a CPU f32 reference is made of, so that every 'data' slice
+    of a mesh case holds some."""
+    return sorted({round(i * (batch - 1) / max(n - 1, 1)) for i in range(n)})
+
+
+def _apart(got: dict, want: dict) -> dict:
+    """Two routes' outputs apart, on every image: max|d| of each token
+    output over max|that output| of `want`, and max|d| of the probs."""
+    d = {k: ((got[k].float() - want[k].float()).abs().max()
+             / want[k].float().abs().max()).item() for k in ("cls_token", "patch_tokens")}
+    if "probs" in want:
+        d["probs"] = (got["probs"].float() - want["probs"].float()).abs().max().item()
+    return d
+
+
+def _mesh_case(card: str, label: str, run, single, expected: dict, shards: int,
+               reference: dict | None = None, prob_bound: float | None = None) -> tuple:
+    """One mesh case: `run()` (the sharded forward) with every launch count
+    at 0 just before it and read just after, required to equal `expected`
+    (the kernels not named: 0), and `single()` (the single-device route on
+    the same weights and input, run before the counted call). Without a
+    `reference`, the two must agree bit for bit. With one (the port's plain
+    f32 forward on the CPU of the images `reference["rows"]`, as every bf16
+    slice of this script is held), each route's rows are held to it: tokens
+    within TOKEN_REL_BOUND of max|token|, probs within `prob_bound`. And the
+    two routes are held to each other on every image, within twice those
+    bounds: two routes each within b of the f32 forward lie within 2b of
+    each other, which is all the f32 bounds allow on the images the f32
+    check does not see (in bf16 each TP partial is rounded before the psum,
+    so the routes are not bit for bit). Then the median ms of each beside
+    the other and the peak device memory of one call of each. Returns
+    (launches, the numbers)."""
+    counters = _mesh_counters()
+    with torch.inference_mode():
+        want = single()
+        torch.cuda.synchronize()
+        for counter in counters.values():
+            counter.launches = 0
+        got = run()
+        torch.cuda.synchronize()
+        launches = {name: counter.launches for name, counter in counters.items()}
+    require(launches == {name: expected.get(name, 0) for name in counters},
+            f"{label}: launches {launches}, expected {expected}")
+    require(set(got) == set(want) and all(got[k].shape == want[k].shape for k in want),
+            f"{label}: output keys or shapes differ")
+    require(all(bool(torch.isfinite(v).all()) for v in got.values()), f"{label}: not finite")
+    diffs = {k: (got[k].float() - want[k].float()).abs().max().item() for k in want}
+    if reference is None:
+        require(all(torch.equal(got[k], want[k]) for k in want),
+                f"{label}: not bit for bit the single-device forward: max|d| {diffs}")
+        verdict = "bit for bit the single-device forward"
+    else:
+        rows = reference["rows"]
+
+        def distance(out: dict) -> dict:
+            tok = reference["patch_tokens"]
+            d = {"tokens": ((out["patch_tokens"][rows].cpu() - tok).abs().max()
+                            / tok.abs().max()).item()}
+            if "probs" in reference:
+                d["probs"] = (out["probs"][rows].cpu() - reference["probs"]).abs().max().item()
+            return d
+
+        sharded, alone = distance(got), distance(want)
+        for name, d in (("sharded", sharded), ("single-device", alone)):
+            require(d["tokens"] <= TOKEN_REL_BOUND,
+                    f"{label}: {name} tokens {d['tokens']} of max|token| from CPU f32")
+            require("probs" not in d or d["probs"] <= prob_bound,
+                    f"{label}: {name} probs {d.get('probs')} from CPU f32")
+        apart, images = _apart(got, want), want["cls_token"].shape[0]
+        for key, value in apart.items():
+            bound = 2 * (prob_bound if key == "probs" else TOKEN_REL_BOUND)
+            require(value <= bound, f"{label}: sharded and single-device {key} {value} apart "
+                                    f"on all {images} images (bound {bound})")
+        verdict = (
+            f"images {rows} against CPU f32 plain: max|dtokens|/max|tokens| sharded "
+            f"{sharded['tokens']:.4g}, single-device {alone['tokens']:.4g} (bound "
+            f"{TOKEN_REL_BOUND})"
+            + (f", max|dprobs| sharded {sharded['probs']:.4g}, single-device "
+               f"{alone['probs']:.4g} (bound {prob_bound})" if "probs" in reference else "")
+            + f"; sharded against single-device bf16 on all {images} images: "
+            f"max|d|/max|output| cls_token {apart['cls_token']:.4g}, patch_tokens "
+            f"{apart['patch_tokens']:.4g} (bound {2 * TOKEN_REL_BOUND:.4g})"
+            + (f", max|dprobs| {apart['probs']:.4g} (bound {2 * prob_bound:.4g})"
+               if "probs" in apart else "")
+        )
+    with torch.inference_mode():
+        ms = cuda_median_ms(run, warmup=1, reps=MESH_TIMED_CALLS)
+        single_ms = cuda_median_ms(single, warmup=1, reps=MESH_TIMED_CALLS)
+        peak, single_peak = _peak_mb(run), _peak_mb(single)
+    counted = ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+    print(
+        f"mesh slice: {label}: {verdict}; launches a forward {counted}, the other kernels 0; "
+        f"{ms:.3f} ms a call with {shards} shard(s) on one card against {single_ms:.3f} ms "
+        f"single-device (median of {MESH_TIMED_CALLS}); peak device memory of one call "
+        f"{peak:.1f} MB against {single_peak:.1f} MB ({card})"
+    )
+    return launches, {"ms": ms, "single_ms": single_ms, "peak_mb": peak,
+                      "single_peak_mb": single_peak, "max_abs_diff": diffs}
+
+
+def _cpu_reference(path: Path, config, pre, rows: list[int], classify: bool) -> dict:
+    """The port's plain f32 forward on the CPU (weights decoded at load) of
+    the rows `rows` of the preprocessed batch `pre` (on the CPU), with
+    those rows under "rows"."""
+    from dinov2_tpu_torch.models.params import load_params
+    from dinov2_tpu_torch.models.vit import ModelOptions, forward
+
+    cpu = load_params(path, dtype=torch.float32, device="cpu")
+    with torch.inference_mode():
+        out = forward(cpu.params, pre[rows], config,
+                      ModelOptions(parity="reference", compute_dtype=torch.float32),
+                      classify=classify)
+    return {**out, "rows": rows}
+
+
+def _tp_case(card, label, loaded, config, opts, axes, x, classify, prepare, expected,
+             reference, prob_bound):
+    from dinov2_tpu_torch.models.vit import forward
+    from dinov2_tpu_torch.parallel.mesh import make_mesh
+    from dinov2_tpu_torch.parallel.mesh import place
+    from dinov2_tpu_torch.parallel.tp_fused import make_tp_forward
+
+    groups = axes.get("data", 1)
+    require({row // (x.shape[0] // groups) for row in reference["rows"]} == set(range(groups)),
+            f"{label}, TP {axes}: the CPU f32 images {reference['rows']} miss a 'data' slice")
+    mesh = make_mesh(axes, devices=_mesh_devices(axes))
+    params_tp, specs = prepare(loaded.params, config, axes["model"])
+    placed = place(params_tp, mesh, specs)
+    tp = make_tp_forward(config, opts, mesh)[classify]
+    return _mesh_case(
+        card, f"{label}, TP {axes}", lambda: tp(placed, x),
+        lambda: forward(loaded.params, x, config, opts, classify=classify),
+        expected, mesh.size, reference, prob_bound)
+
+
+def _dp_case(card, label, loaded, config, opts, x, expected):
+    """{"data": 4} on the card: each slice is the unchanged forward on its
+    replica. Held bit for bit against the single-device forward on the
+    whole batch; where that fails the per-slice forward is the contract
+    (a matmul library may round by the batch's size), and is required."""
+    from dinov2_tpu_torch.models.vit import forward
+    from dinov2_tpu_torch.parallel.mesh import make_mesh, replicate, shard_map_data_parallel
+
+    mesh = make_mesh(MESH_DP_AXES, devices=_mesh_devices(MESH_DP_AXES))
+
+    def fn(params, xs):
+        return forward(params, xs, config, opts, classify=True)
+
+    dp = shard_map_data_parallel(fn, mesh)
+    placed = replicate(loaded.params, mesh)
+    require(all(p["layers"]["ls1"] is loaded.params["layers"]["ls1"] for p in placed),
+            f"{label}: a replica on the card copied the weights")
+    rows = x.shape[0] // MESH_DP_AXES["data"]
+
+    def per_slice():
+        outs = [fn(loaded.params, x[i: i + rows]) for i in range(0, x.shape[0], rows)]
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    with torch.inference_mode():
+        whole = fn(loaded.params, x)
+        got = dp(placed, x)
+    if all(torch.equal(got[k], whole[k]) for k in whole):
+        return _mesh_case(card, f"{label}, DP {MESH_DP_AXES}", lambda: dp(placed, x),
+                          lambda: fn(loaded.params, x), expected, mesh.size)
+    d = {k: (got[k] - whole[k]).abs().max().item() for k in whole}
+    print(f"mesh slice: {label}, DP: against the single-device forward on the whole batch "
+          f"max|d| {d}, not bit for bit: a matmul library may pick its algorithm by the "
+          f"rows, {rows} a slice against {x.shape[0]}; held bit for bit against the "
+          f"single-device forward on each slice instead")
+    return _mesh_case(card, f"{label}, DP {MESH_DP_AXES} (against each slice)",
+                      lambda: dp(placed, x), per_slice, expected, mesh.size)
+
+
+def _shard_kernel_checks(card: str) -> dict:
+    """K3, K4 and K7 at the shard shapes of the mesh slice's TP cases
+    against their plain versions (check_kernel), beside SDPA on the same
+    head views (K3, K4) and one torch.nn.functional.linear call on the
+    decoded weight (K7): K3 on ViT-g/14's 6-head slab at tp=4 and on
+    ViT-B/14's at {"data": 2, "model": 2}; K4 on ViT-B/14's 6 heads at
+    T=1370; K7 on ViT-g/14's weight shards at tp=4, the column-split packed
+    qkv and win with their bias and the row-split int8-SoA proj and wout
+    without. Returns {kernel: {shape: numbers}}."""
+    from dinov2_tpu_torch.models.params import quantize_linear
+    from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
+    from dinov2_tpu_torch.ops.flash_attention import flash_attention
+    from dinov2_tpu_torch.ops.fused_attention import _slab_reference, slab_attention
+    from dinov2_tpu_torch.ops.qmatmul import dequant_weight
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel, quant_matmul_reference
+
+    scale = 0.125
+    found: dict = {"K3": {}, "K4": {}, "K7": {}}
+    for b, t, heads in ((GIANT_BATCH, 257, 6), (BATCH // 2, 257, 6), (FEATURE_BATCH, 1370, 6)):
+        rng = np.random.default_rng(SEED + b + heads)
+        qkv = (torch.from_numpy(rng.standard_normal((b, t, 3 * 64 * heads)) * 1.5)
+               .to("cuda", torch.bfloat16))
+        q, k, v = split_heads(qkv, heads)
+        shape = f"B={b} T={t} H={heads}"
+        if t < 1024:
+            found["K3"][shape] = check_kernel(
+                f"mesh shard: slab_attention {shape} (a {3 * 64 * heads}-wide slab)", "K3",
+                partial(slab_attention, qkv, heads, scale),
+                partial(_slab_reference, qkv, heads, scale),
+                partial(_slab_reference, qkv.float(), heads, scale),
+                card, attention_flops(b, t, heads), nbytes(qkv, q),
+                library=partial(sdpa, q, k, v, scale))
+        else:
+            found["K4"][shape] = check_kernel(
+                f"mesh shard: flash_attention on a {3 * 64 * heads}-wide slab's head views "
+                f"{shape}", "K4", partial(flash_attention, q, k, v, scale),
+                partial(vanilla_attention, q, k, v, scale),
+                partial(vanilla_attention, q.float(), k.float(), v.float(), scale),
+                card, attention_flops(b, t, heads), nbytes(q, k, v, q),
+                library=partial(sdpa, q, k, v, scale))
+    m = GIANT_BATCH * 257
+    for name, k, n, packed, bias in (("qkv", 1536, 1152, True, True),
+                                     ("win", 1536, 2048, True, True),
+                                     ("proj", 384, 1536, False, False),
+                                     ("wout", 1024, 1536, False, False)):
+        rng = np.random.default_rng(SEED + k + n)
+        ql = quantize_linear(rng.standard_normal((n, k)) * 0.05, QUANT_SLICE_FORMAT,
+                             packed=packed, device="cuda")
+        x = torch.from_numpy(rng.standard_normal((m, k))).to("cuda", torch.bfloat16)
+        b_ = (torch.from_numpy(rng.standard_normal(n) * 0.1).to("cuda", torch.float32)
+              if bias else None)
+        shape = f"{name} M={m} K={k} N={n}"
+        found["K7"][shape] = check_kernel(
+            f"mesh shard: quant_matmul_kernel {QUANT_SLICE_FORMAT} "
+            f"{'packed' if packed else 'int8 SoA'} {shape}", "K7",
+            partial(quant_matmul_kernel, x, ql, b_),
+            partial(quant_matmul_reference, x, ql, b_),
+            partial(quant_matmul_reference, x.float(), ql, b_),
+            card, 2.0 * m * k * n, nbytes(x, ql, *([b_] if bias else [])) + 2 * m * n,
+            library=partial(torch.nn.functional.linear, x, dequant_weight(ql, x.dtype),
+                            None if b_ is None else b_.to(x.dtype)),
+            library_name="torch.nn.functional.linear on the decoded weight")
+    return found
+
+
+def phase_mesh(card: str) -> dict:
+    """The multi-device inference path, every mesh on this card: ViT-g/14
+    q4_0 (full width, GIANT_LAYERS layers, 16 images) tensor-parallel at
+    MESH_GIANT_AXES (K3 on each shard's heads, K7 on its weight shards);
+    ViT-B/14 bf16, 64 images: data-parallel (K1 in each replica, bit for
+    bit), dense TP (K3) and 518 px features at {"model": 2} (K4 on 6
+    heads); ViT-B/14 q4_0 data-parallel (K8 and K7, bit for bit);
+    pipeline_forward over PP_STAGES stages of PP_MICROBATCHES microbatches
+    (K1); then DinoEngine(mesh_axes={"data": n, "model": 1}) for the dense
+    and the q4_0 file and `cli.inference -c --mesh n,1` at the machine's
+    card count n (and the ViT-g/14 TP through the engine where n >= 2).
+    First K3, K4 and K7 at the TP cases' shard shapes against their plain
+    versions. Returns {kernel: {case: launches}} and, under "shard checks",
+    the kernels' numbers at those shapes."""
+    import re
+
+    from dinov2_tpu_torch.image.preprocess import classify_preprocess, feature_preprocess
+    from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
+    from dinov2_tpu_torch.models.config import PRESETS
+    from dinov2_tpu_torch.models.params import load_params
+    from dinov2_tpu_torch.models.vit import ModelOptions, forward
+    from dinov2_tpu_torch.parallel.mesh import make_mesh
+    from dinov2_tpu_torch.parallel.pipeline import pipeline_forward, place_pipeline_params
+    from dinov2_tpu_torch.parallel.tp_fused import tp_prepare_dense_params, tp_prepare_params
+    from dinov2_tpu_torch.quant import quantize_gguf
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    found: dict = {"shard checks": _shard_kernel_checks(card)}
+
+    def record(case: str, launches: dict) -> None:
+        for name, count in launches.items():
+            if count:
+                found.setdefault(name, {})[case] = count
+
+    opts = ModelOptions()  # the engine's: bf16, parity="reference", "auto" routes
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        giant = dataclasses.replace(PRESETS["giant"], num_hidden_layers=GIANT_LAYERS)
+        giant_q = quantize_gguf(write_synthetic_gguf(tmp / "vit_g14.gguf", giant, seed=SEED),
+                                tmp / "vit_g14.q4_0.gguf", "q4_0")
+        loaded = load_params(giant_q, dtype=torch.bfloat16, device="cuda", quant_mode="fused")
+        images = np.random.default_rng(SEED + 3).integers(
+            0, 256, (GIANT_BATCH, IMAGE_PX, IMAGE_PX, 3), dtype=np.uint8)
+        x = classify_preprocess(torch.from_numpy(images).cuda())
+        reference = _cpu_reference(giant_q, giant, classify_preprocess(torch.from_numpy(images)),
+                                   _spread_rows(GIANT_BATCH, GIANT_CROSS_CHECK_IMAGES), True)
+        layers = giant.num_hidden_layers
+        for axes in MESH_GIANT_AXES:
+            tp, groups = axes["model"], axes.get("data", 1)
+            case = f"ViT-g/14 q4_0 TP {axes}"
+            launches, _ = _tp_case(
+                card, f"ViT-g/14 q4_0 classify {GIANT_BATCH}x{IMAGE_PX}px", loaded, giant, opts,
+                axes, x, True, tp_prepare_params,
+                {"K3": groups * tp * layers, "K7": groups * (4 * tp * layers + 1)},
+                reference, GIANT_PROB_ABS_BOUND)
+            record(case, launches)
+        giant_reference = reference
+        del loaded, x, reference
+
+        config = _vit_b14_config()
+        layers = config.num_hidden_layers
+        vit_b = write_synthetic_gguf(tmp / "vit_b14.gguf", config, seed=SEED)
+        vit_b_q = quantize_gguf(vit_b, tmp / f"vit_b14.{QUANT_SLICE_FORMAT}.gguf",
+                                QUANT_SLICE_FORMAT)
+        loaded = load_params(vit_b, dtype=torch.bfloat16, device="cuda")
+        images = _classify_images()
+        x = classify_preprocess(torch.from_numpy(images).cuda())
+        reference = _cpu_reference(vit_b, config, classify_preprocess(torch.from_numpy(images)),
+                                   _spread_rows(BATCH, CROSS_CHECK_IMAGES), True)
+        label = f"ViT-B/14 bf16 classify {BATCH}x{IMAGE_PX}px"
+        dp = MESH_DP_AXES["data"]
+        record(f"ViT-B/14 DP {MESH_DP_AXES}",
+               _dp_case(card, label, loaded, config, opts, x, {"K1": dp * layers})[0])
+        axes = MESH_DENSE_TP_AXES
+        record(f"ViT-B/14 dense TP {axes}", _tp_case(
+            card, label, loaded, config, opts, axes, x, True, tp_prepare_dense_params,
+            {"K3": axes["data"] * axes["model"] * layers}, reference, PROB_ABS_BOUND)[0])
+        feature_images = np.random.default_rng(SEED + 4).integers(
+            0, 256, (FEATURE_BATCH, FEATURE_PX, FEATURE_PX, 3), dtype=np.uint8)
+        x518 = feature_preprocess(torch.from_numpy(feature_images).cuda(), config.patch_size)
+        axes = MESH_FEATURE_AXES
+        record(f"ViT-B/14 518 px features TP {axes}", _tp_case(
+            card, f"ViT-B/14 bf16 features {FEATURE_BATCH}x{FEATURE_PX}px (T=1370)", loaded,
+            config, opts, axes, x518, False, tp_prepare_dense_params,
+            {"K4": axes["model"] * layers},
+            _cpu_reference(vit_b, config, feature_preprocess(
+                torch.from_numpy(feature_images[:1]), config.patch_size), [0], False),
+            None)[0])
+        del x518
+
+        mesh = make_mesh({"stage": PP_STAGES}, devices=_mesh_devices({"stage": PP_STAGES}))
+        placed = place_pipeline_params(loaded.params, mesh)
+        require(placed[0]["layers"]["ls1"].shape[0] == layers // PP_STAGES,
+                "pipeline: stage 0 does not hold its layers")
+
+        def pipelined():
+            return pipeline_forward(placed, x, config, opts, mesh,
+                                    num_microbatches=PP_MICROBATCHES, classify=True)
+
+        def sequential():
+            return forward(loaded.params, x, config, opts, classify=True)
+
+        with torch.inference_mode():
+            exact = all(torch.equal(a, b) for a, b in zip(pipelined().values(),
+                                                            sequential().values()))
+        if not exact:
+            print("mesh slice: pipeline: not bit for bit the sequential forward (a matmul "
+                  f"library may pick its algorithm by the rows: {BATCH // PP_MICROBATCHES} "
+                  f"images a microbatch against {BATCH}); held within the bound instead")
+        record(f"ViT-B/14 pipeline {PP_STAGES} stages x {PP_MICROBATCHES} microbatches",
+               _mesh_case(card, f"{label}, pipeline_forward {PP_STAGES} stages x "
+                                f"{PP_MICROBATCHES} microbatches of {BATCH // PP_MICROBATCHES}",
+                          pipelined, sequential, {"K1": PP_MICROBATCHES * layers}, PP_STAGES,
+                          None if exact else reference, PROB_ABS_BOUND)[0])
+        del placed, loaded
+
+        quant = load_params(vit_b_q, dtype=torch.bfloat16, device="cuda", quant_mode="fused")
+        record(f"ViT-B/14 {QUANT_SLICE_FORMAT} DP {MESH_DP_AXES}", _dp_case(
+            card, f"ViT-B/14 {QUANT_SLICE_FORMAT} classify {BATCH}x{IMAGE_PX}px", quant, config,
+            opts, x, {"K8": dp * layers, "K7": dp * (2 * layers + 1)})[0])
+        del quant
+
+        # the engine and the CLI at the machine's card count
+        axes = {"data": cards, "model": 1}
+        counters = _mesh_counters()
+        for name, path, quant_mode, expected in (
+            ("dense", vit_b, "dequant", {"K1": cards * layers}),
+            # 'model' 1 is no TP for any format: K8 and K7 in each replica
+            (QUANT_SLICE_FORMAT, vit_b_q, "fused",
+             {"K8": cards * layers, "K7": cards * (2 * layers + 1)}),
+        ):
+            single = DinoEngine(path, dtype=torch.bfloat16, device="cuda", quant_mode=quant_mode)
+            engine = DinoEngine(path, dtype=torch.bfloat16, device="cuda", quant_mode=quant_mode,
+                                mesh_axes=axes)
+            require(engine.mesh.shape == axes, f"engine {name}: mesh {engine.mesh}")
+            want = single.classify_probs(images)
+            engine.classify_probs(images)
+            for counter in counters.values():
+                counter.launches = 0
+            top5 = engine.classify(images, topk=5)
+            probs = engine.classify_probs(images)
+            launches = {k: c.launches for k, c in counters.items()}
+            require(launches == {k: 2 * expected.get(k, 0) for k in counters},
+                    f"engine {name} {axes}: launches {launches} in 2 calls")
+            _check_probs(top5, probs, config)
+            err = float(np.abs(probs - want).max())
+            require(err <= PROB_ABS_BOUND, f"engine {name} {axes}: probs differ by {err}")
+            rate, median_ms = _timed_classify(engine, images)
+            single_rate, single_ms = _timed_classify(single, images)
+            record(f"engine {name} {axes}", {k: v // 2 for k, v in launches.items()})
+            print(
+                f"mesh slice: DinoEngine({name}, mesh_axes={axes}) classify {BATCH}x{IMAGE_PX}px "
+                f"on {cards} card(s): max|dprobs| against the single-device engine {err:.4g} "
+                f"(bound {PROB_ABS_BOUND}), launches in 2 calls {launches}; {rate:.1f} img/s "
+                f"(median {median_ms:.2f} ms/call) against {single_rate:.1f} "
+                f"(median {single_ms:.2f}) single-device ({card})"
+            )
+            if name == "dense":
+                dense_engine = engine
+            del single
+        image = tmp / "im.png"
+        image.write_bytes(_encode_images(images[:1], ".png")[0])
+        proc = _cli("inference", "-m", str(vit_b), "-i", str(image), "-c", "--mesh",
+                    f"{cards},1")
+        line = re.compile(r"^ > (.*) : ([0-9.]+)$")
+        top5 = [list(line.match(s).groups()) for s in proc.stdout.splitlines()]
+        direct = dense_engine.classify_probs(_decode_image(image.read_bytes())[None])
+        same, err = _top5_against([[(lb, float(p)) for lb, p in top5]], direct,
+                                  dense_engine.id2label)
+        require(same == 1, f"CLI inference --mesh {cards},1: top-5 {top5} is not the engine's")
+        require(err <= PRINTED_PROB_BOUND, f"CLI inference --mesh: printed probs {err} off")
+        print(f"mesh slice: cli.inference -c --mesh {cards},1: exit 0, top-5 "
+              f"{[lb for lb, _ in top5]} the engine's in order, max|printed prob - engine "
+              f"prob| {err:.4g} (bound {PRINTED_PROB_BOUND:.4g}) ({card})")
+        if cards >= 2:
+            tp = 4 if cards >= 4 else 2
+            torch.cuda.synchronize()
+            before = [torch.cuda.memory_allocated(i) for i in range(tp)]
+            engine = DinoEngine(giant_q, dtype=torch.bfloat16, device="cuda", quant_mode="fused",
+                                mesh_axes={"model": tp})
+            torch.cuda.synchronize()
+            held = [(torch.cuda.memory_allocated(i) - before[i]) / 1e6 for i in range(tp)]
+            before = torch.cuda.memory_allocated(0)
+            single = DinoEngine(giant_q, dtype=torch.bfloat16, device="cuda", quant_mode="fused")
+            torch.cuda.synchronize()
+            single_held = (torch.cuda.memory_allocated(0) - before) / 1e6
+            giant_images = np.random.default_rng(SEED + 3).integers(
+                0, 256, (GIANT_BATCH, IMAGE_PX, IMAGE_PX, 3), dtype=np.uint8)
+            got, want = engine.classify_probs(giant_images), single.classify_probs(giant_images)
+            rows = giant_reference["rows"]
+            f32 = giant_reference["probs"].numpy()
+            errs = [float(np.abs(p[rows] - f32).max()) for p in (got, want)]
+            require(max(errs) <= GIANT_PROB_ABS_BOUND,
+                    f"engine ViT-g/14 TP {tp}: probs {errs} from CPU f32")
+            apart = float(np.abs(got - want).max())
+            require(apart <= 2 * GIANT_PROB_ABS_BOUND,
+                    f"engine ViT-g/14 TP {tp}: probs {apart} from one card's on all images")
+            rate, median_ms = _timed_classify(engine, giant_images)
+            single_rate, single_ms = _timed_classify(single, giant_images)
+            print(f"mesh slice: DinoEngine(ViT-g/14 q4_0, mesh_axes={{'model': {tp}}}) across "
+                  f"{tp} cards: max|dprobs| against CPU f32 on images {rows} {errs[0]:.4g}, one "
+                  f"card {errs[1]:.4g} (bound {GIANT_PROB_ABS_BOUND}), against one card on all "
+                  f"{GIANT_BATCH} {apart:.4g} (bound {2 * GIANT_PROB_ABS_BOUND:.4g}); weights "
+                  f"held a card {[round(mb, 1) for mb in held]} MB against {single_held:.1f} MB "
+                  f"on one card; {rate:.1f} img/s (median {median_ms:.2f} ms/call) against "
+                  f"{single_rate:.1f} (median {single_ms:.2f}) on one card ({card})")
+    return found
+
+
 def timed_phase(name: str, phase, *args):
     """Run one phase and print the seconds it took."""
     start = time.perf_counter()
@@ -3020,6 +3533,7 @@ def main() -> int:
     k4_launches = timed_phase("feature slice", phase_features, card)
     k3_launches, k2_launches = timed_phase("ViT-g/14 slice", phase_giant, card)
     k9_found.update(timed_phase("ViT-g/14 int8 slice", phase_int8_giant, card))
+    mesh_launches = timed_phase("mesh slice", phase_mesh, card)
     train_launches, source = timed_phase("training slice", phase_train, card)
     timed_phase("long-sequence training", phase_train_long, card, source)
     from dinov2_tpu_torch.ops.attention import vanilla_route_warnings
@@ -3036,6 +3550,7 @@ def main() -> int:
             "source": "dinov2_tpu_torch/csrc/slab_layer.cu",
             "replaces": f"{fused}:593",
             "launches": k1_launches,
+            "mesh_launches": mesh_launches.get("K1", {}),
             "serve_launches": k1_serve,
             "aot_launches": aot_launches["K1"],
             **k1_measured,
@@ -3054,6 +3569,8 @@ def main() -> int:
             "source": "dinov2_tpu_torch/csrc/slab_attention.cu",
             "replaces": f"{fused}:331",
             "launches": k3_launches,
+            "mesh_launches": mesh_launches.get("K3", {}),
+            "mesh_shard_checks": mesh_launches["shard checks"]["K3"],
             **k3_measured,
             **k3_backward,
         },
@@ -3064,6 +3581,8 @@ def main() -> int:
             "replaces": "dinov2_tpu/ops/flash_attention.py:95",
             "also_replaces": "dinov2_tpu/ops/flash_attention.py:34",
             "launches": k4_launches,
+            "mesh_launches": mesh_launches.get("K4", {}),
+            "mesh_shard_checks": mesh_launches["shard checks"]["K4"],
             "serve_launches": k4_serve,
             "aot_launches": aot_launches["K4"],
             **k4_measured,
@@ -3095,6 +3614,8 @@ def main() -> int:
             "replaces": "dinov2_tpu/ops/pallas_qmatmul.py:215",
             "also_replaces": "dinov2_tpu/ops/pallas_qmatmul.py:81, dinov2_tpu/ops/pallas_qmatmul.py:104",
             "launches": k7_launches,
+            "mesh_launches": mesh_launches.get("K7", {}),
+            "mesh_shard_checks": mesh_launches["shard checks"]["K7"],
             "aot_launches": aot_launches["K7"],
             **k7_measured,
         },
@@ -3104,6 +3625,7 @@ def main() -> int:
             "source": "dinov2_tpu_torch/csrc/quant_layer.cu",
             "replaces": "dinov2_tpu/ops/fused_quant_attention.py:183",
             "launches": k8_launches,
+            "mesh_launches": mesh_launches.get("K8", {}),
             "aot_launches": aot_launches["K8"],
             **k8_measured,
         },

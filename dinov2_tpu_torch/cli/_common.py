@@ -31,10 +31,11 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    "dequant-matmul kernels (K7, K8); 'int8' = W8A8 for any "
                    "checkpoint: per-row int8 weights, int8 GEMMs (K9)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard the batch over all devices (not ported: one device only)")
+                   help="shard the batch over all visible cards")
     p.add_argument("--mesh", default=None, metavar="DP[,TP]",
                    help="explicit mesh: 'dp' or 'dp,tp' device counts "
-                   "(not ported: one device only)")
+                   "(tensor-parallel weights on the tp axis; composes with "
+                   "--quant-mode fused); with --device cpu every position is the CPU")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: 'cuda' (default) or 'cpu'")
 
@@ -62,10 +63,11 @@ def mesh_axes_of(args) -> dict[str, int] | None:
 
 
 def refuse_mesh(args) -> None:
-    """--mesh and --data-parallel ask for several devices; the port runs on one."""
+    """--mesh and --data-parallel ask the trainer for several devices: the
+    multi-device training step is not ported."""
     if mesh_axes_of(args) is not None or args.data_parallel:
-        raise SystemExit("--mesh and --data-parallel: multi-device runs are not ported; "
-                         "this CLI runs on one device")
+        raise SystemExit("--mesh and --data-parallel: multi-device training is not ported; "
+                         "train runs on one device")
 
 
 def resolve_asset(path: str) -> str:
@@ -122,10 +124,9 @@ def save_image_rgb(path: str, img_rgb) -> None:
 
 
 def engine_from_args(args):
-    """The DinoEngine the inference CLIs run: the common flags, on one device."""
+    """The DinoEngine the inference CLIs run, from the common flags."""
     from dinov2_tpu_torch.runtime.engine import DinoEngine
 
-    refuse_mesh(args)
     return DinoEngine(
         args.model,
         dtype=dtype_of(args),
@@ -133,4 +134,6 @@ def engine_from_args(args):
         parity=args.parity,
         flash_attention=True if args.flash_attn else "auto",
         device=args.device,
+        data_parallel=args.data_parallel,
+        mesh_axes=mesh_axes_of(args),
     )

@@ -1,0 +1,131 @@
+"""Pipeline-parallel DINOv2 forward, GPipe microbatching over a 'stage' mesh
+axis (port of the forward half of dinov2_tpu/parallel/pipeline.py).
+
+  - the stacked layer tree is split on its leading L axis over 'stage':
+    stage s holds layers [s*L/S, (s+1)*L/S) on the mesh's stage-s device;
+    embeddings, the final norm and the head are replicated;
+  - the schedule: M microbatches take M + S - 1 steps. At step t stage s
+    runs microbatch t - s through its layers (the unchanged
+    models/vit.py::encoder_layer, K1 on a card's default route): stage 0
+    takes it from the embedded batch (injection), stage s > 0 the output
+    stage s - 1 handed off at step t - 1 (a copy to its device), and the
+    last stage collects. The JAX package runs every stage at every step and
+    masks the fill and drain steps; here a stage with no microbatch simply
+    issues nothing.
+The embedding runs on stage 0, the final norm and the head on the last
+stage, where the result stays. The training step under a stage mesh
+(`make_pipeline_train_step` in the JAX package) is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from dinov2_tpu_torch.models.config import DinoConfig
+from dinov2_tpu_torch.models.params import PACKED_WEIGHTS
+from dinov2_tpu_torch.models.vit import (
+    ModelOptions,
+    _layer,
+    _tokens_from,
+    embed_tokens,
+    encoder_layer,
+    forward_head,
+    layer_norm,
+)
+from dinov2_tpu_torch.parallel.mesh import Mesh, _walk, place
+
+STAGE = "stage"
+
+
+def layer_pspecs(params: Any, axis: str = STAGE) -> Any:
+    """Specs splitting the stacked layer tree's leading L axis on `axis`
+    (every field of a QuantLinear or Int8Linear alike); everything else
+    replicated."""
+
+    def spec_for(path: tuple, leaf) -> tuple:
+        if "layers" not in path:
+            return ()
+        ndim = (leaf.codes if isinstance(leaf, PACKED_WEIGHTS) else leaf).dim()
+        return (axis, *([None] * (ndim - 1)))
+
+    return _walk(spec_for, params)
+
+
+def place_pipeline_params(params: Any, mesh: Mesh) -> list:
+    """Layers split over the 'stage' axis, the rest replicated."""
+    return place(params, mesh, layer_pspecs(params))
+
+
+def _stage_scan(layers: Any, tokens: torch.Tensor, config, opts) -> torch.Tensor:
+    for i in range(layers["ls1"].shape[0]):
+        tokens = encoder_layer(tokens, _layer(layers, i), config, opts)
+    return tokens
+
+
+def _pipeline_tokens(
+    placed: list,
+    x: torch.Tensor,
+    config: DinoConfig,
+    opts: ModelOptions,
+    mesh: Mesh,
+    num_microbatches: int,
+) -> torch.Tensor:
+    """The GPipe schedule: images -> pre-final-norm tokens, on the last
+    stage's device."""
+    n_stages = mesh.shape[STAGE]
+    if config.num_hidden_layers % n_stages:
+        raise ValueError(
+            f"{config.num_hidden_layers} layers do not split over "
+            f"{n_stages} stages"
+        )
+    m = num_microbatches
+    if x.shape[0] % m:
+        raise ValueError(f"batch {x.shape[0]} % microbatches {m} != 0")
+    positions = [mesh.position({STAGE: s}) for s in range(n_stages)]
+    devices = [mesh.device(p) for p in positions]
+    tokens = embed_tokens(placed[positions[0]], x.to(devices[0]), config, opts)
+    rows = x.shape[0] // m
+    outs: list = [None] * m
+    recv: list = [None] * n_stages  # what each stage takes at this step
+    for step in range(m + n_stages - 1):
+        sent: list = [None] * n_stages
+        for s in range(n_stages):
+            mb = step - s
+            if not 0 <= mb < m:
+                continue  # fill or drain: this stage has no microbatch
+            act = tokens.narrow(0, mb * rows, rows) if s == 0 else recv[s]
+            out = _stage_scan(placed[positions[s]]["layers"], act, config, opts)
+            if s == n_stages - 1:
+                outs[mb] = out
+            else:
+                sent[s + 1] = out.to(devices[s + 1])  # the hand-off to the next stage
+        recv = sent
+    return torch.cat(outs)
+
+
+def pipeline_forward(
+    placed: list,
+    x: torch.Tensor,
+    config: DinoConfig,
+    opts: ModelOptions,
+    mesh: Mesh,
+    num_microbatches: int = 4,
+    classify: bool = False,
+) -> dict[str, torch.Tensor]:
+    """Pipeline-parallel equivalent of models/vit.py::forward on
+    `place_pipeline_params`'s list; x: (B, H, W, 3) preprocessed images,
+    B % num_microbatches == 0, config.num_hidden_layers % the stage count
+    == 0. The same layer math in the same order as the sequential forward:
+    only the placement and the microbatching change."""
+    tokens = _pipeline_tokens(placed, x, config, opts, mesh, num_microbatches)
+    last = placed[mesh.position({STAGE: mesh.shape[STAGE] - 1})]
+    tokens = layer_norm(tokens.float(), last["final_norm"], config.eps)
+    out = {
+        "cls_token": tokens.select(1, 0),
+        "patch_tokens": _tokens_from(tokens, 1 + config.num_register_tokens),
+    }
+    if classify:
+        out["probs"] = forward_head(last, tokens, config, opts)
+    return out

@@ -21,10 +21,35 @@ routes, models/vit.py). `slab_fusion` picks the level of the slab route
 the MLP half-layer as the K5 kernel (off by default). `device="cuda"` runs the CUDA kernels and needs a GPU: with none,
 the constructor raises; it never falls back to the CPU. `device="cpu"` runs
 the plain PyTorch versions.
+
+Several devices (parallel/mesh.py; one process drives them all, as in the
+JAX package): `mesh_axes`, e.g. {"data": 4, "model": 2}, shards the batch
+on 'data' and the weights Megatron-style on 'model'; `data_parallel=True` is
+a 'data' mesh over every card (no mesh with one). The routes are the JAX
+engine's, with one test of "tensor-parallel" for every weight format:
+'model' > 1 (JAX's fused-quant route takes its TP forward for any 'model'
+axis, even of size 1, which the CLIs never build):
+  - fused-quant weights under 'model' > 1: parallel/tp_fused.py's TP
+    forward (K3/K4 on each shard's heads, K7 on its weight shards); heads
+    that do not split over it, or a `tp_prepare_params` ValueError, log a
+    warning and reload as quant_mode="dequant";
+  - int8 weights under 'model' > 1 are replicated, with a warning;
+  - dense weights under 'model' > 1: the same TP forward with plain PyTorch
+    products (heads that do not split: a warning, replicated);
+  - everything else: the single-device forward on each 'data' slice of the
+    batch (parallel/mesh.py::shard_map_data_parallel).
+Batches are padded to a multiple of the 'data' size. On "cuda" the mesh
+takes the visible cards and raises when it needs more; on "cpu" it names
+the CPU once per position (several shards on one device), as the JAX
+package's tests use eight virtual host devices. On a mesh the engine keeps
+only the placed trees: the unsharded one (`loaded.params`) is dropped once
+they are made, and no single-device `model` is built.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from functools import partial
 from pathlib import Path
 from typing import Any, Sequence
 
@@ -37,11 +62,14 @@ from dinov2_tpu_torch.image.preprocess import (
     feature_preprocess,
     feature_target_size,
 )
+from dinov2_tpu_torch.io.gguf import GGUFReader
+from dinov2_tpu_torch.models.config import DinoConfig
 from dinov2_tpu_torch.models.params import load_params
-from dinov2_tpu_torch.models.vit import DinoViT, ModelOptions
+from dinov2_tpu_torch.models.vit import DinoViT, ModelOptions, forward
 from dinov2_tpu_torch.ops.qmatmul import set_cuda_matmul_precision
+from dinov2_tpu_torch.parallel.mesh import make_mesh, place, replicate, shard_map_data_parallel
 from dinov2_tpu_torch.utils.debug import check_finite
-from dinov2_tpu_torch.utils.logging import log_model_banner
+from dinov2_tpu_torch.utils.logging import get_logger, log_model_banner
 from dinov2_tpu_torch.utils.timing import time_blocked
 
 
@@ -66,6 +94,8 @@ class DinoEngine:
         quant_backend: str = "auto",
         slab_fusion: str = "auto",
         fuse_mlp: bool = False,
+        data_parallel: bool = False,
+        mesh_axes: dict[str, int] | None = None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -80,12 +110,104 @@ class DinoEngine:
             quant_slab=quant_slab, quant_backend=quant_backend,
             slab_fusion=slab_fusion, fuse_mlp=fuse_mlp,
         )
+        tp = (mesh_axes or {}).get("model", 1)
+        if quant_mode == "fused" and tp > 1:
+            # Megatron TP x fused-quant runs via parallel/tp_fused.py when the
+            # head count splits over the 'model' axis; otherwise dequant
+            reader = GGUFReader(model_path)
+            heads = DinoConfig.from_gguf_kv(reader.kv).num_attention_heads
+            reader.close()
+            if heads % tp:
+                get_logger().warning("%d heads do not split over tp=%d; falling back to quant_mode='dequant'",
+                      heads, tp)
+                quant_mode = "dequant"
+        self.mesh = None
+        self._mesh_forward = None  # {classify: fn(placed, x)} on a mesh
+        if mesh_axes is not None:
+            devices = None if self.device.type == "cuda" else [self.device] * int(
+                np.prod(list(mesh_axes.values())))
+            self.mesh = make_mesh(mesh_axes, devices)
+        elif data_parallel and self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            self.mesh = make_mesh()
         self.loaded = load_params(model_path, dtype=dtype, device=self.device, quant_mode=quant_mode)
         self.config = self.loaded.config
         self.id2label = self.loaded.id2label
-        self.model = DinoViT(self.loaded.params, self.config, self.opts)
+        if quant_mode == "fused" and self.loaded.quantized and tp > 1:
+            from dinov2_tpu_torch.parallel.tp_fused import tp_prepare_params
+
+            try:
+                self._tensor_parallel(tp_prepare_params, tp)
+            except ValueError as e:
+                get_logger().warning("TP x fused-quant unavailable (%s); falling back to "
+                      "quant_mode='dequant'", e)
+                quant_mode = "dequant"
+                self.loaded = load_params(model_path, dtype=dtype, device=self.device,
+                                          quant_mode="dequant")
+        if self._mesh_forward is None and tp > 1:
+            if quant_mode == "int8":
+                # no Megatron split for Int8Linear (the per-row scales
+                # would need the codes' row/column split): replicate
+                get_logger().warning("int8 weights are not tensor-parallel sharded; replicating over "
+                      "the %d-way 'model' axis", tp)
+            else:
+                from dinov2_tpu_torch.parallel.tp_fused import tp_prepare_dense_params
+
+                try:
+                    self._tensor_parallel(tp_prepare_dense_params, tp)
+                except ValueError as e:
+                    get_logger().warning("dense TP unavailable (%s); replicating over the %d-way 'model' "
+                          "axis", e, tp)
+        if self.mesh is not None and self._mesh_forward is None:
+            self._placed = replicate(self.loaded.params, self.mesh)
+            self._mesh_forward = {
+                classify: shard_map_data_parallel(
+                    partial(forward, config=self.config, opts=self.opts, classify=classify),
+                    self.mesh,
+                )
+                for classify in (False, True)
+            }
+        if self.mesh is None:
+            self.model = DinoViT(self.loaded.params, self.config, self.opts)
+        else:
+            # the placed trees hold every weight the mesh runs: keeping the
+            # unsharded tree too would hold all of it on the first card
+            self.model = None
+            self.loaded = dataclasses.replace(self.loaded, params=None)
         log_model_banner(self.config, str(model_path))
         self.last_compute_ms = 0.0
+
+    def _tensor_parallel(self, prepare, tp: int) -> None:
+        """The TP route: the loaded tree prepared for a tp-way split, placed
+        on the mesh, and the TP forward. On a card, a split weight that K7
+        does not take raises here (parallel/tp_fused.py::kernel_refusals)."""
+        from dinov2_tpu_torch.parallel.tp_fused import kernel_refusals, make_tp_forward
+
+        params_tp, specs = prepare(self.loaded.params, self.config, tp)
+        placed = place(params_tp, self.mesh, specs)
+        refused = kernel_refusals(placed[0])
+        if refused and self.device.type == "cuda" and self.opts.quant_backend != "dequant":
+            raise NotImplementedError(
+                f"tp={tp}: the K7 kernel does not take the weight shards {refused} "
+                "(it needs K % 64 == 0, K/2 % 64 == 0 packed)"
+            )
+        self._placed = placed
+        self._mesh_forward = make_tp_forward(self.config, self.opts, self.mesh)
+
+    def _forward(self, x: torch.Tensor, classify: bool) -> dict[str, torch.Tensor]:
+        """The single-device forward, or the mesh's (TP or data-parallel)."""
+        if self._mesh_forward is not None:
+            return self._mesh_forward[classify](self._placed, x)
+        return self.model(x, classify=classify)
+
+    def _target_batch(self, n: int) -> int:
+        """The bucket (a power of two), rounded up to a multiple of the mesh's
+        'data' size: the batch is split on 'data' only (a pure 'model' mesh
+        takes it whole)."""
+        bucket = _bucket(n)
+        if self.mesh is not None:
+            mult = self.mesh.shape.get("data", 1)
+            bucket = -(-max(bucket, mult) // mult) * mult
+        return bucket
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -156,8 +278,8 @@ class DinoEngine:
         def run():
             if len(groups) == 1:
                 idxs, batch = groups[0]
-                pre = classify_preprocess(self._upload(batch, _bucket(len(idxs))))
-                return self.model(pre, classify=True), len(idxs)
+                pre = classify_preprocess(self._upload(batch, self._target_batch(len(idxs))))
+                return self._forward(pre, classify=True), len(idxs)
             order, parts = [], []
             for idxs, batch in groups:
                 order.extend(idxs)
@@ -167,8 +289,8 @@ class DinoEngine:
             inv = torch.from_numpy(np.argsort(np.asarray(order))).to(self.device)
             pre = torch.cat(parts)[inv]
             n = pre.shape[0]
-            pad = pre[-1:].expand(_bucket(n) - n, *pre.shape[1:])
-            return self.model(torch.cat([pre, pad]), classify=True), n
+            pad = pre[-1:].expand(self._target_batch(n) - n, *pre.shape[1:])
+            return self._forward(torch.cat([pre, pad]), classify=True), n
 
         (out, n), ms = time_blocked(run, device=self.device)
         self.last_compute_ms = ms
@@ -185,12 +307,12 @@ class DinoEngine:
         extract_features_mixed for a mixed-size list."""
         batch = self._stack_batch(images)
         n = batch.shape[0]
-        x = self._upload(batch, _bucket(n))
+        x = self._upload(batch, self._target_batch(n))
 
         @torch.inference_mode()
         def run():
             pre = feature_preprocess(x, self.config.patch_size)
-            return self.model(pre, classify=False)
+            return self._forward(pre, classify=False)
 
         out, ms = time_blocked(run, device=self.device)
         self.last_compute_ms = ms
@@ -222,7 +344,7 @@ class DinoEngine:
         """Device batch (B, H, W, 3) -> (B, gh, gw, 3) uint8 PCA images on the
         device: preprocess, forward, per-image PCA at the patch grid's size."""
         pre = feature_preprocess(x, self.config.patch_size)
-        out = self.model(pre, classify=False)
+        out = self._forward(pre, classify=False)
         return pca_visualization_batch(out["patch_tokens"], grid)
 
     def _pca_batch(self, batch: np.ndarray) -> np.ndarray:
@@ -230,7 +352,7 @@ class DinoEngine:
         input size: the device returns the grid (a ~p² smaller copy) and the
         host nearest-resizes it, as the reference does."""
         n = batch.shape[0]
-        x = self._upload(batch, _bucket(n))
+        x = self._upload(batch, self._target_batch(n))
         vis, ms = time_blocked(self._pca_grid, x, self._feature_grid(batch), device=self.device)
         self.last_compute_ms = ms
         return resize_nearest_host(vis[:n].cpu().numpy(), batch.shape[1], batch.shape[2])
@@ -246,7 +368,8 @@ class DinoEngine:
         (row 0 is the frame; `.cpu()` waits). The caller can decode the next
         frame meanwhile."""
         batch = self._stack_batch(image)
-        return self._pca_grid(self._upload(batch, _bucket(batch.shape[0])), self._feature_grid(batch))
+        return self._pca_grid(self._upload(batch, self._target_batch(batch.shape[0])),
+                              self._feature_grid(batch))
 
     def pca_visualizations(self, images) -> list[np.ndarray]:
         """Mixed-size images -> per-image uint8 PCA visualizations: one

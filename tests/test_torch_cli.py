@@ -409,17 +409,14 @@ def test_benchmark_has_no_fallback(ckpt, monkeypatch):
         benchmark.main(["-m", str(ckpt), "--batch-sizes", "1"])
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2"], ["--data-parallel"]])
-@pytest.mark.parametrize("name", list(CLIS))
-def test_multi_device_flags_exit(ckpt, image_dir, name, flag):
-    with pytest.raises(SystemExit, match="not ported"):
-        CLIS[name].main([*_argv(name, ckpt, image_dir), *flag, *PORT])
+def _plain_engine(ckpt, **kw):
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    return DinoEngine(ckpt, dtype=torch.float32, device="cpu", **kw)
 
 
 def _int8_engine(ckpt):
-    from dinov2_tpu_torch.runtime.engine import DinoEngine
-
-    return DinoEngine(ckpt, dtype=torch.float32, device="cpu", quant_mode="int8")
+    return _plain_engine(ckpt, quant_mode="int8")
 
 
 def _topk_of(probs_row, engine, k=4):
@@ -427,9 +424,10 @@ def _topk_of(probs_row, engine, k=4):
     return [engine.id2label.get(int(i), str(int(i))) for i in order], probs_row[order]
 
 
-def _int8_serve(ckpt, image_dir, monkeypatch):
-    """serve --quant-mode int8 on port 0: one /classify, then the server
-    stops (serve_forever is replaced by a start, a request and a stop)."""
+def _serve_check(ckpt, image_dir, monkeypatch, flags, engine):
+    """serve with `flags` on port 0: one /classify, then the server stops
+    (serve_forever is replaced by a start, a request and a stop); the reply
+    is `engine`'s top-k."""
     from dinov2_tpu_torch.runtime.server import BatchingServer
 
     replies = []
@@ -446,9 +444,7 @@ def _int8_serve(ckpt, image_dir, monkeypatch):
             server.stop()
 
     monkeypatch.setattr(BatchingServer, "serve_forever", once)
-    assert serve.main(["-m", str(ckpt), "--port", "0", "--warmup", "1", "--quant-mode", "int8",
-                       *PORT]) == 0
-    engine = _int8_engine(ckpt)
+    assert serve.main(["-m", str(ckpt), "--port", "0", "--warmup", "1", *flags, *PORT]) == 0
     labels, probs = _topk_of(engine.classify_probs(load_image_rgb(str(image_dir / "im2.png")))[0],
                              engine)
     (reply,) = replies
@@ -456,24 +452,21 @@ def _int8_serve(ckpt, image_dir, monkeypatch):
     np.testing.assert_allclose([p for _, p in reply["topk"]], probs, atol=PROB_ATOL, rtol=0)
 
 
-def _int8_inference(ckpt, image_dir):
+def _inference_check(ckpt, image_dir, flags, engine):
     img = str(image_dir / "im0.png")
-    rc, out = _run(inference.main, ["-m", str(ckpt), "-i", img, "-c", "--quant-mode", "int8",
-                                    *PORT])
+    rc, out = _run(inference.main, ["-m", str(ckpt), "-i", img, "-c", *flags, *PORT])
     assert rc == 0
     line = re.compile(r"^ > (\S+) : ([0-9.]+)$")
     got = [line.match(s).groups() for s in out.splitlines()]
-    engine = _int8_engine(ckpt)
     labels, probs = _topk_of(engine.classify_probs(load_image_rgb(img))[0], engine)
     assert [label for label, _ in got] == labels
     np.testing.assert_allclose([float(p) for _, p in got], probs, atol=PRINTED_ATOL, rtol=0)
 
 
-def _int8_eval(ckpt, image_dir, tmp_path):
+def _eval_check(ckpt, image_dir, tmp_path, flags, engine):
     from dinov2_tpu_torch.runtime.loader import BatchLoader, list_images
 
-    rows = _eval(eval_cli.main, ckpt, image_dir, tmp_path / "a.jsonl", ["--quant-mode", "int8", *PORT])
-    engine = _int8_engine(ckpt)
+    rows = _eval(eval_cli.main, ckpt, image_dir, tmp_path / "a.jsonl", [*flags, *PORT])
     paths = list_images(image_dir)
     direct = np.concatenate([engine.classify_probs(batch) for _, batch in BatchLoader(
         paths, batch_size=4, size=(256, 256), interpolation="cubic-float")])
@@ -484,19 +477,60 @@ def _int8_eval(ckpt, image_dir, tmp_path):
         np.testing.assert_allclose([p for _, p in row["topk"]], top, atol=PROB_ATOL, rtol=0)
 
 
-def _int8_realtime(ckpt, tmp_path):
+def _realtime_check(ckpt, tmp_path, flags, engine, frames):
+    """realtime --synthetic for `frames` frames: the last composed frame's
+    halves are the frame and, within one u8 level, `engine`'s PCA of it."""
     import argparse
     import itertools
 
     out = tmp_path / "last.png"
-    assert realtime.main(["-m", str(ckpt), "--synthetic", "--no-display", "--frames", "2",
-                          "--save-last", str(out), "--quant-mode", "int8", *PORT]) == 0
+    assert realtime.main(["-m", str(ckpt), "--synthetic", "--no-display", "--frames",
+                          str(frames), "--save-last", str(out), *flags, *PORT]) == 0
     frame = next(itertools.islice(realtime._frame_source(argparse.Namespace(synthetic=True)),
-                                  1, None))
+                                  frames - 1, None))
     last = cv2.cvtColor(cv2.imread(str(out)), cv2.COLOR_BGR2RGB)
     np.testing.assert_array_equal(last[:, : frame.shape[1]], frame)
-    assert _agree_u8(last[:, frame.shape[1]:], _int8_engine(ckpt).pca_visualization(frame)) \
-        >= U8_AGREE
+    assert _agree_u8(last[:, frame.shape[1]:], engine.pca_visualization(frame)) >= U8_AGREE
+
+
+def _cli_check(name, ckpt, image_dir, tmp_path, monkeypatch, flags, engine, frames):
+    """Run CLI `name` with `flags` on the CPU and hold its output against
+    `engine` on the same inputs."""
+    if name == "serve":
+        _serve_check(ckpt, image_dir, monkeypatch, flags, engine)
+    elif name == "inference":
+        _inference_check(ckpt, image_dir, flags, engine)
+    elif name == "eval":
+        _eval_check(ckpt, image_dir, tmp_path, flags, engine)
+    else:
+        _realtime_check(ckpt, tmp_path, flags, engine, frames)
+
+
+@pytest.mark.parametrize("flag", [["--mesh", "2,2"], ["--data-parallel"]])
+@pytest.mark.parametrize("name", list(CLIS))
+def test_multi_device_flags_exit(ckpt, image_dir, tmp_path, monkeypatch, name, flag):
+    """--mesh and --data-parallel run each CLI to exit 0 on the CPU with the
+    unsharded engine's output: --mesh 2,2 builds a {"data": 2, "model": 2}
+    mesh (every position the CPU, the dense TP forward), --data-parallel on
+    the one CPU device builds none."""
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    unsharded = _plain_engine(ckpt)
+    built = []
+    init = DinoEngine.__init__
+
+    def spy(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        built.append(self)
+
+    monkeypatch.setattr(DinoEngine, "__init__", spy)
+    _cli_check(name, ckpt, image_dir, tmp_path, monkeypatch, flag, unsharded, frames=1)
+    (engine,) = built
+    if flag[0] == "--mesh":
+        assert engine.mesh.shape == {"data": 2, "model": 2}
+        assert engine._placed[0]["layers"]["qkv"]["kernel"].shape[-1] == 3 * TINY.hidden_size // 2
+    else:
+        assert engine.mesh is None
 
 
 def _int8_benchmark(ckpt, monkeypatch):
@@ -524,13 +558,8 @@ def test_int8_mode_runs(ckpt, image_dir, tmp_path, monkeypatch, name):
     """--quant-mode int8 (the W8A8 mode: Int8Linear weights, K9's plain
     version here) runs through each CLI, and its output is the int8
     engine's on the same inputs."""
-    if name == "serve":
-        _int8_serve(ckpt, image_dir, monkeypatch)
-    elif name == "inference":
-        _int8_inference(ckpt, image_dir)
-    elif name == "eval":
-        _int8_eval(ckpt, image_dir, tmp_path)
-    elif name == "realtime":
-        _int8_realtime(ckpt, tmp_path)
-    else:
+    if name == "benchmark":
         _int8_benchmark(ckpt, monkeypatch)
+    else:
+        _cli_check(name, ckpt, image_dir, tmp_path, monkeypatch, ["--quant-mode", "int8"],
+                   _int8_engine(ckpt), frames=2)
