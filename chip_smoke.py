@@ -72,7 +72,20 @@ with random f16 weights from a seed, bf16, parity="reference":
     with_lse forward and K6, the flash backward) and with "auto" (K1
     forward, recompute backward); the model exported with export_gguf after
     step 5 classifies through DinoEngine; then two steps at batch 8 on
-    518 px preprocessed input (T=1370, "auto" takes the flash route).
+    518 px preprocessed input (T=1370, "auto" takes the flash route);
+  - training on a mesh (the mesh training slice), every mesh's shards on
+    this card: the same ViT-B/14 and batch through Trainer(mesh=...) at
+    {"data": 4} on "auto" (K1 in each replica), {"data": 2, "model": 2}
+    Megatron TP on the flash route (K4 with lse and K6 on 6 heads a
+    shard) and on "auto" (K3, its backward K4 with lse and K6), TP with
+    sequence parallelism on the flash route, and make_pipeline_train_step
+    over 4 stages of 4 microbatches of 8 (K1). Each case's f32 step held
+    to the single-device f32 step at the JAX package's CPU bounds, its
+    bf16 step's loss and raw gradients (SGD with learning rate 1) within
+    twice the single-device bf16 step's distance from f32, its exact
+    launches a step, ms a step and peak memory beside the single-device
+    step's; then `cli.train --mesh 2,2 --device cuda:0 --flash-attn` with
+    --export and --checkpoint-dir, and `cli.inference -c` on the export.
 On the way it builds every hand-written kernel of those paths from the
 sources in this checkout (one nvcc per source, all at once) and holds each
 against its plain PyTorch version on the card, with its time beside its
@@ -103,7 +116,8 @@ feature slice, int8 CLI slice,
 feature slice, PCA, feature cross-check, ViT-g/14 slice at its three levels
 and its cross-check, ViT-g/14 int8 slice, mesh slice (one line a case),
 training slice on both routes with its cross-check and
-export, long-sequence training; then a check that no "auto" attention route
+export, long-sequence training, mesh training slice (K4 with lse and K6 at
+a shard's shape, one line a case, the CLI); then a check that no "auto" attention route
 of these bf16 paths fell to plain PyTorch on the card. Any failure exits
 non-zero. The line before the last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. With no CUDA device, or run from a directory
@@ -701,15 +715,17 @@ def sdpa_backward(q, k, v, g, scale):
     return lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True)
 
 
-def phase_flash_backward_check(card: str) -> tuple[dict, dict]:
-    """K4's with_lse forward and K6 at the training slice's shape (B=32,
-    T=257, H=12) and at the long-sequence one (B=8, T=1370, H=16). The lse variant's out must equal K4's without lse bit
-    for bit and its lse the plain f32 one within LSE_ABS_BOUND; dq, dk and dv
-    are held to check_kernel's rule, each against the plain version in bf16
-    and in f32 on the same inputs. Beside K6, the backward of one
-    scaled_dot_product_attention call. Returns K6's numbers and the lse
-    variant's (for K4's entry)."""
-    from dinov2_tpu_torch.ops.attention import split_heads
+def _flash_training_shape(card: str, b: int, t: int, heads: int,
+                          forward_check: bool = False) -> tuple[dict, dict, dict | None]:
+    """K4's with_lse forward and K6 at one shape. The lse variant's out must
+    equal K4's without lse bit for bit and its lse the plain f32 one within
+    LSE_ABS_BOUND; dq, dk and dv are held to check_kernel's rule, each
+    against the plain version in bf16 and in f32 on the same inputs. Beside
+    K6, the backward of one scaled_dot_product_attention call. With
+    `forward_check`, the lse variant's out by check_kernel too, beside one
+    scaled_dot_product_attention call. Returns (K6's numbers with its max
+    error, the lse variant's, the forward check's or None)."""
+    from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
     from dinov2_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_backward,
@@ -720,71 +736,91 @@ def phase_flash_backward_check(card: str) -> tuple[dict, dict]:
     )
 
     scale = 0.125
+    rows = kernel_tile_rows(b, t, heads)
+    print(f"kernel check: at B={b} T={t} H={heads} K4 with lse takes {rows['forward']}-query "
+          f"blocks, K6 {rows['backward_keys']}-key blocks (dK/dV) and "
+          f"{rows['backward_queries']}-query blocks (dQ)")
+    rng = np.random.default_rng(SEED + t + heads)
+    qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * 64 * heads)) * 1.5)
+    qkv = qkv.to("cuda", torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal((b, t, heads, 64))).to("cuda", torch.bfloat16)
+    q, k, v = split_heads(qkv, heads)
+    shape = f"B={b} T={t} H={heads} hd=64"
+
+    without = partial(flash_attention, q, k, v, scale)
+    with_lse = partial(flash_forward_lse, q, k, v, scale)
+    out, lse = with_lse()
+    out32, lse32 = flash_forward_reference(q.float(), k.float(), v.float(), scale)
+    same_out = torch.equal(out, without())
+    lse_err = (lse - lse32).abs().max().item()
+    ms = [cuda_median_ms(fn) for fn in (without, with_lse, with_lse, without)]
+    lse_variant = {"lse_max_abs_err": lse_err, "lse_ms": min(ms[1:3]),
+                   "ms_beside_lse": min(ms[0], ms[3])}
+    print(
+        f"kernel check: flash_forward_lse {shape}: out equals K4's without lse bit for bit: "
+        f"{same_out}; max|lse-lse f32| {lse_err:.3g} (bound {LSE_ABS_BOUND}); median ms without "
+        f"lse {ms[0]:.4f} and {ms[3]:.4f}, with lse {ms[1]:.4f} and {ms[2]:.4f} (in that "
+        f"order: without, with, with, without) ({card})"
+    )
+    require(same_out, f"the with_lse forward's out differs from K4's at {shape}")
+    require(lse_err <= LSE_ABS_BOUND, f"lse error {lse_err} at {shape}")
+    forward = None
+    if forward_check:
+        forward = check_kernel(
+            f"flash_forward_lse {shape}, out", "K4 with lse", lambda: with_lse()[0],
+            partial(vanilla_attention, q, k, v, scale),
+            partial(vanilla_attention, q.float(), k.float(), v.float(), scale),
+            card, attention_flops(b, t, heads), nbytes(q, k, v, out, lse),
+            library=partial(sdpa, q, k, v, scale))
+
+    kernel = partial(flash_backward, q, k, v, out, lse, g, scale)
+    plain = partial(flash_backward_reference, q, k, v, out, lse, g, scale)
+    got, ref = kernel(), plain()
+    want = flash_backward_reference(q.float(), k.float(), v.float(), out32, lse32, g.float(),
+                                    scale)
+    torch.cuda.synchronize()
+    errors, worst = [], 0.0
+    for name, a, r, w in zip(("dq", "dk", "dv"), got, ref, want):
+        err_kernel = (a.float() - w).abs().max().item()
+        err_plain = (r.float() - w).abs().max().item()
+        bound = 2 * err_plain + 1e-3 * w.abs().max().item()
+        errors.append(f"{name} max|K6-f32| {err_kernel:.6g}, max|plain-f32| {err_plain:.6g}, "
+                      f"bound {bound:.6g}")
+        require(bool(torch.isfinite(a).all()), f"flash_backward {shape}: {name} is not finite")
+        require(err_kernel <= bound,
+                f"flash_backward {shape}: {name} error {err_kernel} exceeds {bound}")
+        worst = max(worst, err_kernel)
+    del ref, want
+    measured = {
+        "max_abs_err": worst,
+        "ms": cuda_median_ms(kernel),
+        "plain_ms": cuda_median_ms(plain, reps=10),
+        **roofline(10.0 * b * heads * t * t * 64, nbytes(q, k, v, out, g, lse, *got)),
+        "library_ms": cuda_median_ms(sdpa_backward(q, k, v, g, scale)),
+    }
+    print(
+        f"kernel check: flash_backward {shape}: {'; '.join(errors)}; median K6 "
+        f"{measured['ms']:.4f} ms, plain {measured['plain_ms']:.4f} ms, roofline "
+        f"{measured['bound_ms']:.4f} ms ({measured['bound_by']}), "
+        f"scaled_dot_product_attention backward {measured['library_ms']:.4f} ms ({card})"
+    )
+    return measured, lse_variant, forward
+
+
+def phase_flash_backward_check(card: str) -> tuple[dict, dict]:
+    """K4's with_lse forward and K6 (_flash_training_shape) at the training
+    slice's shape (B=32, T=257, H=12) and at the long-sequence one (B=8,
+    T=1370, H=16). Returns K6's numbers and the lse variant's (for K4's
+    entry)."""
     k6, lse_variant = {"max_abs_err": 0.0}, {}
     for b, t, heads in ((TRAIN_BATCH, 257, 12), (TRAIN_LONG_BATCH, 1370, 16)):
-        rows = kernel_tile_rows(b, t, heads)
-        print(f"kernel check: at B={b} T={t} H={heads} K4 with lse takes {rows['forward']}-query "
-              f"blocks, K6 {rows['backward_keys']}-key blocks (dK/dV) and "
-              f"{rows['backward_queries']}-query blocks (dQ)")
-        rng = np.random.default_rng(SEED + t + heads)
-        qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * 64 * heads)) * 1.5)
-        qkv = qkv.to("cuda", torch.bfloat16)
-        g = torch.from_numpy(rng.standard_normal((b, t, heads, 64))).to("cuda", torch.bfloat16)
-        q, k, v = split_heads(qkv, heads)
-        shape = f"B={b} T={t} H={heads} hd=64"
-
-        without = partial(flash_attention, q, k, v, scale)
-        with_lse = partial(flash_forward_lse, q, k, v, scale)
-        out, lse = with_lse()
-        out32, lse32 = flash_forward_reference(q.float(), k.float(), v.float(), scale)
-        same_out = torch.equal(out, without())
-        lse_err = (lse - lse32).abs().max().item()
-        ms = [cuda_median_ms(fn) for fn in (without, with_lse, with_lse, without)]
-        lse_variant[t] = {"lse_max_abs_err": lse_err, "lse_ms": min(ms[1:3]),
-                          "ms_beside_lse": min(ms[0], ms[3])}
-        print(
-            f"kernel check: flash_forward_lse {shape}: out equals K4's without lse bit for bit: "
-            f"{same_out}; max|lse-lse f32| {lse_err:.3g} (bound {LSE_ABS_BOUND}); median ms without "
-            f"lse {ms[0]:.4f} and {ms[3]:.4f}, with lse {ms[1]:.4f} and {ms[2]:.4f} (in that "
-            f"order: without, with, with, without) ({card})"
-        )
-        require(same_out, f"the with_lse forward's out differs from K4's at {shape}")
-        require(lse_err <= LSE_ABS_BOUND, f"lse error {lse_err} at {shape}")
-
-        kernel = partial(flash_backward, q, k, v, out, lse, g, scale)
-        plain = partial(flash_backward_reference, q, k, v, out, lse, g, scale)
-        got, ref = kernel(), plain()
-        want = flash_backward_reference(q.float(), k.float(), v.float(), out32, lse32, g.float(),
-                                        scale)
-        torch.cuda.synchronize()
-        errors = []
-        for name, a, r, w in zip(("dq", "dk", "dv"), got, ref, want):
-            err_kernel = (a.float() - w).abs().max().item()
-            err_plain = (r.float() - w).abs().max().item()
-            bound = 2 * err_plain + 1e-3 * w.abs().max().item()
-            errors.append(f"{name} max|K6-f32| {err_kernel:.6g}, max|plain-f32| {err_plain:.6g}, "
-                          f"bound {bound:.6g}")
-            require(bool(torch.isfinite(a).all()), f"flash_backward {shape}: {name} is not finite")
-            require(err_kernel <= bound,
-                    f"flash_backward {shape}: {name} error {err_kernel} exceeds {bound}")
-            k6["max_abs_err"] = max(k6["max_abs_err"], err_kernel)
-        del ref, want
-        measured = {
-            "ms": cuda_median_ms(kernel),
-            "plain_ms": cuda_median_ms(plain, reps=10),
-            **roofline(10.0 * b * heads * t * t * 64, nbytes(q, k, v, out, g, lse, *got)),
-            "library_ms": cuda_median_ms(sdpa_backward(q, k, v, g, scale)),
-        }
-        print(
-            f"kernel check: flash_backward {shape}: {'; '.join(errors)}; median K6 "
-            f"{measured['ms']:.4f} ms, plain {measured['plain_ms']:.4f} ms, roofline "
-            f"{measured['bound_ms']:.4f} ms ({measured['bound_by']}), "
-            f"scaled_dot_product_attention backward {measured['library_ms']:.4f} ms ({card})"
-        )
+        measured, lse_variant[t], _ = _flash_training_shape(card, b, t, heads)
+        worst = max(k6["max_abs_err"], measured.pop("max_abs_err"))
         if t == 257:  # the JSON line's numbers are the training slice's shape's
             k6.update(measured)
         else:
             k6.update({f"{key}_t1370": value for key, value in measured.items()})
+        k6["max_abs_err"] = worst
     lse = {**lse_variant[257],
            **{f"{key}_t1370": value for key, value in lse_variant[1370].items()}}
     return k6, lse
@@ -3482,6 +3518,324 @@ def phase_mesh(card: str) -> dict:
     return found
 
 
+# ---------------------------------------------------------------------------
+# The mesh training slice: Trainer(mesh=) and make_pipeline_train_step, every
+# mesh's shards on this one card, each case's step held to the single-device
+# step on the same batch
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_SHARD = (TRAIN_BATCH // 2, 257, 6)  # one shard's attention at {"data": 2, "model": 2}
+MESH_TRAIN_TIMED_STEPS = 3
+# the sharded f32 step against the single-device f32 step: the JAX package's
+# CPU bounds on its sharded steps (tests/test_parallel.py)
+F32_LOSS_RTOL = 1e-5
+F32_GRAD_RTOL, F32_GRAD_ATOL = 1e-4, 1e-6
+MESH_TRAIN_CLI_IMAGES = 8  # a class; two classes, batch 8: two steps
+# (label, mesh axes, attention route, sequence_parallel)
+MESH_TRAIN_CASES = (
+    ("DP", {"data": 4}, "auto", False),
+    ("TP", {"data": 2, "model": 2}, True, False),
+    ("TP", {"data": 2, "model": 2}, "auto", False),
+    ("TP + SP", {"data": 2, "model": 2}, True, True),
+    ("pipeline", {"stage": PP_STAGES}, "auto", False),
+)
+
+
+class _SGD:
+    """p -= g (learning rate 1): after one step, p0 - p1 is the step's raw
+    gradient, which Adam's normalization would hide."""
+
+    def init(self, params):
+        return {}
+
+    @torch.no_grad()
+    def update_(self, params, grads, state):
+        from dinov2_tpu_torch.models.params import tree_leaves
+
+        torch._foreach_add_(tree_leaves(params), grads, alpha=-1.0)
+
+
+def _replicas_identical(placed: list, mesh, specs) -> bool:
+    """Every copy of each (leaf, shard) in a placed list bit for bit the
+    first one (across cards each position holds its own copy)."""
+    from dinov2_tpu_torch.parallel.mesh import _spec_of, _walk
+
+    first: dict = {}
+    same = []
+    for position, tree in enumerate(placed):
+        coords = mesh.coords(position)
+
+        def visit(path, t):
+            spec = () if specs is None else _spec_of(specs, path)
+            ref = first.setdefault((path, tuple((a, coords[a]) for a in spec if a)), t)
+            same.append(torch.equal(ref, t.to(ref.device)))
+
+        _walk(visit, tree)
+    return all(same)
+
+
+def _mesh_train_runner(config, axes, opts, optimizer, spread=False):
+    """(place, step, unplace, replicas_identical) of one case: a Trainer on
+    the mesh `axes` (on the card alone for None), or
+    make_pipeline_train_step for a 'stage' mesh; every position on this
+    card, or position k on card k (`spread`). step takes the uint8 batch;
+    unplace gives the logical tree."""
+    from dinov2_tpu_torch.image.preprocess import classify_preprocess
+    from dinov2_tpu_torch.parallel.mesh import make_mesh, unplace
+    from dinov2_tpu_torch.parallel.pipeline import layer_pspecs, make_pipeline_train_step
+    from dinov2_tpu_torch.parallel.train import Trainer
+
+    mesh = None
+    if axes is not None:
+        n = int(np.prod(list(axes.values())))
+        mesh = make_mesh(axes, devices=[torch.device("cuda", k) for k in range(n)] if spread
+                         else _mesh_devices(axes))
+    if mesh is None or "stage" not in axes:
+        trainer = Trainer(config, opts, optimizer, mesh=mesh, device="cuda")
+        return (trainer.place, trainer.step, lambda p: trainer.unplace(p)[0],
+                lambda p: mesh is None or _replicas_identical(p, mesh, trainer.specs(p)))
+    step, place = make_pipeline_train_step(config, opts, mesh, optimizer, PP_MICROBATCHES)
+
+    def run(params, state, images, labels):
+        return step(params, state, classify_preprocess(torch.from_numpy(images).cuda()), labels)
+
+    return (place, run, lambda p: unplace(p, mesh, layer_pspecs(p[0])),
+            lambda p: _replicas_identical(p, mesh, layer_pspecs(p[0])))
+
+
+def _zero_launches() -> dict:
+    counters = _train_counters()
+    for counter in counters.values():
+        counter.launches = 0
+    return counters
+
+
+def _raw_gradients(config, axes, opts, source, images, labels,
+                   spread=False) -> tuple[float, dict, dict]:
+    """One SGD(1.0) step: (loss, the raw gradient leaf by leaf on the first
+    card, the step's launches)."""
+    from dinov2_tpu_torch.models.params import tree_map
+
+    place, step, unplace, _ = _mesh_train_runner(config, axes, opts, _SGD(), spread)
+    params, state = place(source)
+    torch.cuda.synchronize()
+    counters = _zero_launches()
+    params, state, metrics = step(params, state, images, labels)
+    loss = float(metrics["loss"])
+    launches = {name: counter.launches for name, counter in counters.items()}
+    with torch.no_grad():
+        grads = tree_map(lambda a, b: a.to(b.device) - b, source, unplace(params))
+    return loss, grads, launches
+
+
+def _timed_train_steps(config, axes, opts, source, images, labels,
+                       spread=False) -> tuple[float, dict, float, bool]:
+    """AdamW steps of one case after a warm-up step: (median ms a step over
+    MESH_TRAIN_TIMED_STEPS, their launches, the peak device MB of one more
+    step above the state it starts from on the first card, whether every
+    replica is then bit for bit the others)."""
+    from dinov2_tpu_torch.parallel.train import AdamW
+
+    place, step, _, identical = _mesh_train_runner(config, axes, opts, AdamW(1e-4, 0.05), spread)
+    params, state = place(source)
+    params, state, metrics = step(params, state, images, labels)
+    float(metrics["loss"])
+    counters = _zero_launches()
+    seconds = []
+    for _ in range(MESH_TRAIN_TIMED_STEPS):
+        start = time.perf_counter()
+        params, state, metrics = step(params, state, images, labels)
+        float(metrics["loss"])  # waits for the device
+        seconds.append(time.perf_counter() - start)
+    launches = {name: counter.launches for name, counter in counters.items()}
+    peak = _peak_mb(lambda: step(params, state, images, labels))
+    return 1e3 * statistics.median(seconds), launches, peak, identical(params)
+
+
+def _leaf_distances(grads: dict, want: dict) -> list[float]:
+    """max|g - w| of each leaf."""
+    from dinov2_tpu_torch.models.params import tree_leaves
+
+    return [(g - w).abs().max().item() for g, w in zip(tree_leaves(grads), tree_leaves(want))]
+
+
+def _mesh_train_cli(card: str, config, device: str) -> None:
+    """`cli.train --mesh 2,2 --device <device> --dtype bf16 --flash-attn`
+    ("cuda:0": every position on this card; "cuda": one a card) on a folder
+    of two classes with --export and --checkpoint-dir; the export must hold
+    the checkpoint's logical tree (within its f16 rounding), and
+    `cli.inference -c` on the export must print the top-5 of DinoEngine on
+    the same file."""
+    import re
+
+    import cv2
+
+    from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
+    from dinov2_tpu_torch.models.params import load_params, tree_leaves
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    rng = np.random.default_rng(SEED + 6)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        backbone = write_synthetic_gguf(tmp / "vit_b14.gguf",
+                                        dataclasses.replace(config, num_classes=0), seed=SEED,
+                                        with_classifier=False)
+        for name, base in (("blue", (40, 40, 200)), ("red", (200, 40, 40))):
+            (tmp / "data" / name).mkdir(parents=True)
+            for i in range(MESH_TRAIN_CLI_IMAGES):
+                img = np.clip(np.asarray(base, np.int16) + rng.integers(-30, 30, (64, 64, 3)),
+                              0, 255).astype(np.uint8)
+                cv2.imwrite(str(tmp / "data" / name / f"{i}.png"), img)
+        export = tmp / "tuned.gguf"
+        start = time.perf_counter()
+        _cli("train", "-m", str(backbone), "--data", str(tmp / "data"), "--batch", "8",
+             "--mesh", "2,2", "--device", device, "--dtype", "bf16", "--flash-attn",
+             "--export", str(export), "--checkpoint-dir", str(tmp / "ck"), "--log-every", "1")
+        train_s = time.perf_counter() - start
+        saved = torch.load(tmp / "ck" / "step_00000002.pt", map_location="cpu",
+                           weights_only=True)["params"]
+        exported = load_params(export, dtype=torch.float32, device="cpu").params
+        worst = 0.0
+        for a, b in zip(tree_leaves(exported), tree_leaves(saved)):
+            # f16 rounding: half an f16 step, 2^-11 of the value
+            worst = max(worst, ((a - b).abs() - 2.0**-11 * b.abs()).max().item())
+        require(worst <= 1e-7, f"cli.train --mesh 2,2: the export is not the checkpoint's "
+                               f"logical tree ({worst} beyond f16 rounding)")
+        image = tmp / "data" / "blue" / "0.png"
+        proc = _cli("inference", "-m", str(export), "-i", str(image), "-c", "--parity", "hf")
+        line = re.compile(r"^ > (.*) : ([0-9.]+)$")
+        top5 = [list(line.match(s).groups()) for s in proc.stdout.splitlines() if line.match(s)]
+        engine = DinoEngine(export, dtype=torch.bfloat16, parity="hf", device="cuda")
+        direct = engine.classify_probs(_decode_image(image.read_bytes())[None])
+        same, err = _top5_against([[(lb, float(p)) for lb, p in top5]], direct, engine.id2label)
+        require(same == 1 and len(top5) == 2, f"cli.inference on the mesh export: top-5 {top5}")
+        require(err <= PRINTED_PROB_BOUND, f"cli.inference on the mesh export: probs {err} off")
+    print(f"mesh training slice: cli.train --mesh 2,2 --device {device} --dtype bf16 --flash-attn, "
+          f"ViT-B/14 on {2 * MESH_TRAIN_CLI_IMAGES} images of 64 px (two steps of 8), exit 0 in "
+          f"{train_s:.1f} s; the export is the checkpoint's unplaced tree within f16 rounding; "
+          f"cli.inference -c --parity hf on it: top-5 {[lb for lb, _ in top5]} DinoEngine's in "
+          f"order, max|printed prob - engine prob| {err:.4g} (bound {PRINTED_PROB_BOUND:.4g}) "
+          f"({card})")
+
+
+def phase_mesh_train(card: str, source) -> dict:
+    """The multi-device training path, every mesh on this card: ViT-B/14 at
+    full width, 32 uint8 images of 256 px, parity "hf", remat, through
+    Trainer(mesh=...) (place, step, unplace) at MESH_TRAIN_CASES and
+    make_pipeline_train_step over PP_STAGES stages of PP_MICROBATCHES
+    microbatches. First K4 with lse and K6 at a TP shard's shape. For each
+    case, with the single-device step on the same batch and parameters as
+    the reference:
+      - f32 (plain attention in full f32, no kernel): the sharded SGD(1.0)
+        step's loss and raw gradient against the single-device one, at the
+        JAX package's CPU bounds;
+      - bf16 over f32 masters on the case's route: the loss and each leaf's
+        raw gradient within twice the single-device bf16 step's distance
+        from the f32 one, plus 1e-3 of the f32 value's max (the loss's, the
+        leaf's max|g|); the step's exact launches;
+      - AdamW steps: ms a step against the single-device step's (the shards
+        run in turn on one card: not a scale-out rate) and the peak device
+        memory of one step.
+    On a machine with 4 cards each case runs across them instead, position
+    k on card k, and its replicas (distinct tensors there) must be bit for
+    bit each other after the AdamW steps.
+    Then `cli.train --mesh 2,2` (on this card, or across 4 cards) and
+    `cli.inference -c` on its export.
+    Returns {kernel: {case: launches a step}} and, under "shard checks",
+    K4's and K6's numbers at the shard shape."""
+    from dinov2_tpu_torch.models.params import tree_leaves
+    from dinov2_tpu_torch.models.vit import ModelOptions
+
+    config = _vit_b14_config()
+    layers = config.num_hidden_layers
+    b, t, heads = MESH_TRAIN_SHARD
+    k6, lse, forward = _flash_training_shape(card, b, t, heads, forward_check=True)
+    shape = f"B={b} T={t} H={heads}"
+    found: dict = {"shard checks": {"K4": {f"{shape} with lse": {**forward, **lse}},
+                                    "K6": {shape: k6}}}
+    rng = np.random.default_rng(SEED + 5)
+    images = rng.integers(0, 256, (TRAIN_BATCH, IMAGE_PX, IMAGE_PX, 3), dtype=np.uint8)
+    labels = rng.integers(0, config.num_classes, TRAIN_BATCH)
+
+    def options(route, dtype, sp=False):
+        return ModelOptions(parity="hf", flash_attention=route, compute_dtype=dtype, remat=True,
+                            sequence_parallel=sp)
+
+    loss32, grads32, _ = _raw_gradients(config, None, options(False, torch.float32), source,
+                                        images, labels)
+    scale32 = [g.abs().max().item() for g in tree_leaves(grads32)]
+    singles: dict = {}
+    spread = torch.cuda.device_count() >= 4  # then position k on card k
+    for label, axes, route, sp in MESH_TRAIN_CASES:
+        shards = int(np.prod(list(axes.values())))
+        route_name = "flash_attention=True" if route is True else f'flash_attention="{route}"'
+        case = f"ViT-B/14 {label} {axes} {route_name}"
+        where = f"across {shards} cards" if spread else f"with {shards} shards in turn on one card"
+        # remat: each forward kernel twice a step
+        if label.startswith("TP"):
+            expected = ({"K4": 2 * layers * shards, "K6": layers * shards} if route is True else
+                        {"K3": 2 * layers * shards, "K4": layers * shards, "K6": layers * shards})
+        else:  # K1 on each replica's slice, or each microbatch
+            expected = {"K1": 2 * layers * (shards if label == "DP" else PP_MICROBATCHES)}
+
+        loss_f, grads_f, _ = _raw_gradients(config, axes, options(False, torch.float32, sp),
+                                            source, images, labels, spread)
+        require(abs(loss_f - loss32) <= F32_LOSS_RTOL * abs(loss32),
+                f"{case} f32: loss {loss_f} against {loss32} on one device")
+        beyond = max(((g - w).abs() - F32_GRAD_ATOL - F32_GRAD_RTOL * w.abs()).max().item()
+                     for g, w in zip(tree_leaves(grads_f), tree_leaves(grads32)))
+        require(beyond <= 0, f"{case} f32: a raw gradient is {beyond} beyond rtol "
+                             f"{F32_GRAD_RTOL}, atol {F32_GRAD_ATOL} of one device's")
+        f32_apart = max(_leaf_distances(grads_f, grads32))
+        del grads_f
+
+        if route not in singles:
+            loss_s, grads_s, _ = _raw_gradients(config, None, options(route, torch.bfloat16),
+                                                source, images, labels)
+            ms_s, _, peak_s, _ = _timed_train_steps(config, None, options(route, torch.bfloat16),
+                                                    source, images, labels)
+            singles[route] = (loss_s, _leaf_distances(grads_s, grads32), ms_s, peak_s)
+            del grads_s
+        loss_s, dist_s, ms_s, peak_s = singles[route]
+        loss_b, grads_b, launches = _raw_gradients(
+            config, axes, options(route, torch.bfloat16, sp), source, images, labels, spread)
+        want = {name: expected.get(name, 0) for name in launches}
+        require(launches == want, f"{case} bf16: launches a step {launches}, expected {want}")
+        loss_bound = 2 * abs(loss_s - loss32) + 1e-3 * abs(loss32)
+        require(abs(loss_b - loss32) <= loss_bound,
+                f"{case} bf16: loss {loss_b}, f32 {loss32}, bound {loss_bound}")
+        dist_b = _leaf_distances(grads_b, grads32)
+        ratios = [d / (2 * s + 1e-3 * m) for d, s, m in zip(dist_b, dist_s, scale32)]
+        require(max(ratios) <= 1, f"{case} bf16: a leaf's raw gradient is {max(ratios):.3g} "
+                                  "of its bound from the f32 one")
+        del grads_b
+
+        ms, timed_launches, peak, identical = _timed_train_steps(
+            config, axes, options(route, torch.bfloat16, sp), source, images, labels, spread)
+        require(identical, f"{case} {where}: replicas differ after the AdamW steps")
+        want = {name: MESH_TRAIN_TIMED_STEPS * n for name, n in want.items()}
+        require(timed_launches == want,
+                f"{case}: launches in {MESH_TRAIN_TIMED_STEPS} AdamW steps {timed_launches}")
+        for name, count in launches.items():
+            if count:
+                found.setdefault(name, {})[case] = count
+        counted = ", ".join(f"{k} {v}" for k, v in launches.items() if v)
+        print(
+            f"mesh training slice: {case} {where}, {TRAIN_BATCH}x{IMAGE_PX}px uint8, parity hf, "
+            f"remat: f32 against one device: loss {loss_f:.6f} and {loss32:.6f}, max|dgrad| "
+            f"{f32_apart:.3g} (rtol {F32_GRAD_RTOL}, atol {F32_GRAD_ATOL}); bf16 over f32 masters: "
+            f"loss {loss_b:.6f} ({abs(loss_b - loss32):.3g} from f32, bound {loss_bound:.3g}; "
+            f"one device {loss_s:.6f}), raw gradients at most {max(ratios):.3g} of the bound "
+            f"(2 x one device's distance from f32 + 1e-3 max|g|, leaf by leaf); launches a step "
+            f"{counted}, the other kernels 0; AdamW step {ms:.2f} ms against {ms_s:.2f} ms "
+            f"single-device (median of {MESH_TRAIN_TIMED_STEPS}), replicas bit for bit after "
+            f"them; peak device memory of one step {peak:.0f} MB (the first card's) against "
+            f"{peak_s:.0f} MB ({card})"
+        )
+    _mesh_train_cli(card, config, "cuda" if spread else "cuda:0")
+    return found
+
+
 def timed_phase(name: str, phase, *args):
     """Run one phase and print the seconds it took."""
     start = time.perf_counter()
@@ -3536,6 +3890,7 @@ def main() -> int:
     mesh_launches = timed_phase("mesh slice", phase_mesh, card)
     train_launches, source = timed_phase("training slice", phase_train, card)
     timed_phase("long-sequence training", phase_train_long, card, source)
+    mesh_train = timed_phase("mesh training slice", phase_mesh_train, card, source)
     from dinov2_tpu_torch.ops.attention import vanilla_route_warnings
 
     require(vanilla_route_warnings() == 0,
@@ -3551,6 +3906,7 @@ def main() -> int:
             "replaces": f"{fused}:593",
             "launches": k1_launches,
             "mesh_launches": mesh_launches.get("K1", {}),
+            "mesh_train_launches": mesh_train.get("K1", {}),
             "serve_launches": k1_serve,
             "aot_launches": aot_launches["K1"],
             **k1_measured,
@@ -3570,6 +3926,7 @@ def main() -> int:
             "replaces": f"{fused}:331",
             "launches": k3_launches,
             "mesh_launches": mesh_launches.get("K3", {}),
+            "mesh_train_launches": mesh_train.get("K3", {}),
             "mesh_shard_checks": mesh_launches["shard checks"]["K3"],
             **k3_measured,
             **k3_backward,
@@ -3582,7 +3939,9 @@ def main() -> int:
             "also_replaces": "dinov2_tpu/ops/flash_attention.py:34",
             "launches": k4_launches,
             "mesh_launches": mesh_launches.get("K4", {}),
-            "mesh_shard_checks": mesh_launches["shard checks"]["K4"],
+            "mesh_train_launches": mesh_train.get("K4", {}),
+            "mesh_shard_checks": {**mesh_launches["shard checks"]["K4"],
+                                  **mesh_train["shard checks"]["K4"]},
             "serve_launches": k4_serve,
             "aot_launches": aot_launches["K4"],
             **k4_measured,
@@ -3596,6 +3955,8 @@ def main() -> int:
             "replaces": "dinov2_tpu/ops/flash_attention.py:468",
             "also_replaces": "dinov2_tpu/ops/flash_attention.py:499",
             "launches": train_launches["K6"],
+            "mesh_train_launches": mesh_train.get("K6", {}),
+            "mesh_shard_checks": mesh_train["shard checks"]["K6"],
             **k6_measured,
         },
         {

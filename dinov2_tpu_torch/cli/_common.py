@@ -35,7 +35,8 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mesh", default=None, metavar="DP[,TP]",
                    help="explicit mesh: 'dp' or 'dp,tp' device counts "
                    "(tensor-parallel weights on the tp axis; composes with "
-                   "--quant-mode fused); with --device cpu every position is the CPU")
+                   "--quant-mode fused); with --device cpu, or a card named by its "
+                   "index (cuda:0), every position is that device")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on: 'cuda' (default) or 'cpu'")
 
@@ -60,14 +61,6 @@ def mesh_axes_of(args) -> dict[str, int] | None:
     if len(parts) > 1 and parts[1] > 1:
         axes["model"] = parts[1]
     return axes
-
-
-def refuse_mesh(args) -> None:
-    """--mesh and --data-parallel ask the trainer for several devices: the
-    multi-device training step is not ported."""
-    if mesh_axes_of(args) is not None or args.data_parallel:
-        raise SystemExit("--mesh and --data-parallel: multi-device training is not ported; "
-                         "train runs on one device")
 
 
 def resolve_asset(path: str) -> str:

@@ -4,13 +4,19 @@ dinov2_tpu/cli/train.py, `dinov2-train`):
     python -m dinov2_tpu_torch.cli.train -m backbone.gguf --data DATA_DIR \\
         [--epochs 1] [--batch 32] [--lr 1e-4] [--weight-decay 0.05] [--dtype bf16] \\
         [-fa] [--checkpoint-dir DIR] [--export tuned.gguf] [--device cuda|cpu]
+        [--mesh DP[,TP] | --data-parallel]
 
 Loads a GGUF backbone (its classifier replaced to match the dataset's
 classes), runs the cross-entropy + AdamW training step (parallel/train.py)
-on one device with threaded host-side decode, saves checkpoints
-(parallel/checkpoint.py) and exports the result back to GGUF so the
-inference paths (and the reference C++ loader) can consume it. It runs on
-the card unless `--device cpu` is given. Decoding needs OpenCV (`cv2`),
+with threaded host-side decode, saves checkpoints (parallel/checkpoint.py)
+and exports the result back to GGUF so the inference paths (and the
+reference C++ loader) can consume it. It runs on the card unless `--device
+cpu` is given. `--mesh dp[,tp]` trains on a 'data' x 'model' mesh
+(data parallelism, and Megatron tensor parallelism where tp > 1), over
+every card for `--device cuda`, every position on one device for `--device
+cpu` or a card named by its index (`--device cuda:0`); `--data-parallel`
+takes every card. Checkpoints and the export hold the logical tree, the
+same file a single-device run writes. Decoding needs OpenCV (`cv2`),
 imported at the first batch.
 
 Dataset layout: DATA_DIR/<class_name>/*.jpg; classes are sorted subdir names.
@@ -70,11 +76,12 @@ def main(argv=None) -> int:
 
     import torch
 
-    from dinov2_tpu_torch.cli._common import dtype_of, refuse_mesh
+    from dinov2_tpu_torch.cli._common import dtype_of, mesh_axes_of
     from dinov2_tpu_torch.models.config import DinoConfig
     from dinov2_tpu_torch.models.params import load_params
     from dinov2_tpu_torch.models.vit import ModelOptions
     from dinov2_tpu_torch.parallel import train as parallel_train
+    from dinov2_tpu_torch.parallel.mesh import make_mesh, mesh_devices
     from dinov2_tpu_torch.runtime.loader import decode_rgb
     from dinov2_tpu_torch.utils.logging import get_logger
 
@@ -89,7 +96,6 @@ def main(argv=None) -> int:
             f"dataset has {len(samples)} samples < --batch {args.batch}; "
             f"lower --batch (incomplete trailing batches are dropped)"
         )
-    refuse_mesh(args)
     # flags train deliberately does not honor (vs. silently ignoring them):
     # master weights stay f32 regardless of --dtype (--dtype sets the compute
     # dtype below); fused-quant weights aren't trainable; parity is fixed 'hf'
@@ -112,12 +118,19 @@ def main(argv=None) -> int:
         "bias": torch.zeros((len(classes),), dtype=torch.float32),
     }
 
+    axes = mesh_axes_of(args)
+    if axes is None and args.data_parallel:
+        cards = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
+        axes = {"data": cards} if cards > 1 else None
+    mesh = make_mesh(axes, mesh_devices(args.device, int(np.prod(list(axes.values()))))) \
+        if axes else None
+
     # --dtype selects the COMPUTE dtype (bf16 activations on the tensor cores
     # with f32 master weights is the standard mixed-precision recipe);
     # --flash-attn routes attention like the inference paths
     trainer = parallel_train.make_trainer(
         config,
-        mesh=None,
+        mesh=mesh,
         learning_rate=args.lr,
         weight_decay=args.weight_decay,
         opts=ModelOptions(
@@ -169,7 +182,7 @@ def main(argv=None) -> int:
         if args.checkpoint_dir:
             from dinov2_tpu_torch.parallel.checkpoint import save_train_state
 
-            save_train_state(args.checkpoint_dir, step, params, opt_state)
+            save_train_state(args.checkpoint_dir, step, params, opt_state, trainer=trainer)
             log.info("checkpoint @ step %d -> %s", step, args.checkpoint_dir)
     pool.shutdown()
 
@@ -177,7 +190,7 @@ def main(argv=None) -> int:
         from dinov2_tpu_torch.io.export import export_gguf
 
         id2label = {i: name for i, name in enumerate(classes)}
-        export_gguf(args.export, params, config, id2label)
+        export_gguf(args.export, trainer.unplace(params)[0], config, id2label)
         log.info("exported fine-tuned model -> %s", args.export)
     return 0
 

@@ -77,3 +77,8 @@ def resize_nearest(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     ih = torch.from_numpy(nearest_resize_index(h, out_h)).to(img.device)
     iw = torch.from_numpy(nearest_resize_index(w, out_w)).to(img.device)
     return img.index_select(-3, ih).index_select(-2, iw)
+
+
+def resize_grid_bicubic(grid: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bicubic resize of a (H, W, D) feature grid (used for pos-embed interp)."""
+    return resize_bicubic(grid, out_h, out_w)

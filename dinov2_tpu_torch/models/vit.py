@@ -72,8 +72,14 @@ grad. `remat` (off by default) runs each encoder layer under
 and the layer runs again in the backward, so its forward kernels launch
 twice a step; it does nothing where grad is disabled.
 
+`sequence_parallel` changes nothing here: the single-device forward holds
+every token, as the JAX package's `_sequence_shard` is a no-op without a
+mesh. On a mesh the tensor-parallel training forward
+(parallel/tp_fused.py::make_tp_train_forward) holds the residual stream as
+token slices between layers.
+
 Left out: the JAX CLS-shift overflow rescue (the port's softmax takes the
-exact row max), batch chunking (TPU scheduling) and sequence parallelism.
+exact row max) and batch chunking (TPU scheduling).
 """
 
 from __future__ import annotations
@@ -120,6 +126,9 @@ class ModelOptions:
     slab_fusion: str = "auto"  # "auto" | "layer" | "proj" | "core" (module docstring)
     fuse_mlp: bool = False  # the MLP half-layer as the K5 kernel, where it applies
     remat: bool = False  # rematerialize encoder layers in the backward (training memory/FLOPs trade)
+    # the residual stream as token slices on the 'model' shards between
+    # layers (Megatron-SP, parallel/tp_fused.py); a no-op off a mesh
+    sequence_parallel: bool = False
 
     def __post_init__(self):
         if self.slab_fusion not in SLAB_FUSION_LEVELS:
@@ -299,19 +308,22 @@ def forward_features(
 ) -> torch.Tensor:
     """(B, H, W, 3) preprocessed -> final-normed tokens (B, 1+R+N, D) in f32."""
     tokens = embed_tokens(params, x, config, opts)
-    remat = opts.remat and torch.is_grad_enabled()
     for i in range(config.num_hidden_layers):
         # the slices of the stacked leaves are views taken outside the
         # checkpoint, so gradients land in the stacked leaf either way
-        layer = _layer(params["layers"], i)
-        if remat:
-            tokens = checkpoint(
-                encoder_layer, tokens, layer, config, opts,
-                use_reentrant=False, preserve_rng_state=False,
-            )
-        else:
-            tokens = encoder_layer(tokens, layer, config, opts)
+        tokens = run_encoder_layer(tokens, _layer(params["layers"], i), config, opts)
     return layer_norm(tokens.float(), params["final_norm"], config.eps)
+
+
+def run_encoder_layer(
+    x: torch.Tensor, layer: dict, config: DinoConfig, opts: ModelOptions
+) -> torch.Tensor:
+    """encoder_layer, inside torch.utils.checkpoint (non-reentrant) where
+    `opts.remat` is on and grad is enabled."""
+    if opts.remat and torch.is_grad_enabled():
+        return checkpoint(encoder_layer, x, layer, config, opts,
+                          use_reentrant=False, preserve_rng_state=False)
+    return encoder_layer(x, layer, config, opts)
 
 
 def _tokens_from(tokens: torch.Tensor, start: int) -> torch.Tensor:

@@ -9,6 +9,12 @@ Orbax directories; the port writes its own format, one file per step,
 `torch.load(weights_only=True)` (tensors, dicts and numbers only; no code
 runs at load). The two formats do not read each other; a model moves
 between the packages as GGUF.
+
+A state placed on a mesh is written as its logical tree (`trainer=`: the
+Trainer that placed it; Trainer.unplace concatenates the shards and undoes
+the tensor-parallel permutation) and placed again at restore
+(Trainer.place), so one file serves every layout: a file written under a
+mesh restores on one device, and the reverse.
 """
 
 from __future__ import annotations
@@ -38,7 +44,12 @@ def _like(value: Any, like: Any) -> Any:
     return value.to(device=like.device, dtype=like.dtype).requires_grad_(like.requires_grad)
 
 
-def save_train_state(directory: str | Path, step: int, params: Any, opt_state: Any) -> None:
+def save_train_state(directory: str | Path, step: int, params: Any, opt_state: Any,
+                     trainer: Any = None) -> None:
+    """Write `<directory>/step_<step>.pt`; a mesh-placed state is written as
+    `trainer.unplace` gives it."""
+    if trainer is not None:
+        params, opt_state = trainer.unplace(params, opt_state)
     directory = Path(directory).resolve()
     directory.mkdir(parents=True, exist_ok=True)
     path = directory / f"step_{step:08d}.pt"
@@ -64,10 +75,15 @@ def restore_train_state(
     params_like: Any,
     opt_state_like: Any,
     step: int | None = None,
+    trainer: Any = None,
 ) -> tuple[int, Any, Any]:
     """Restore (step, params, opt_state). `*_like` give the structure and,
     leaf by leaf, the device, dtype and requires_grad to restore to (e.g.
-    what `Trainer.place` returned for freshly initialized parameters)."""
+    what `Trainer.place` returned for freshly initialized parameters). With
+    `trainer`, `*_like` are a state that trainer placed, and the file's
+    logical state is placed as it places one (Trainer.place)."""
+    if trainer is not None:
+        params_like, opt_state_like = trainer.unplace(params_like, opt_state_like)
     directory = Path(directory).resolve()
     step = latest_step(directory) if step is None else step
     if step is None:
@@ -78,4 +94,6 @@ def restore_train_state(
     state = torch.load(path, map_location="cpu", weights_only=True)
     params = tree_map(_like, state["params"], params_like)
     opt_state = tree_map(_like, state["opt_state"], opt_state_like)
+    if trainer is not None:
+        params, opt_state = trainer.place(params, opt_state)
     return int(state["step"]), params, opt_state

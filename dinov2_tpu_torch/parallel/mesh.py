@@ -1,5 +1,5 @@
-"""Device meshes, placement and collectives for multi-device inference
-(port of dinov2_tpu/parallel/mesh.py).
+"""Device meshes, placement and collectives for multi-device inference and
+training (port of dinov2_tpu/parallel/mesh.py).
 
 Single-controller, as in the JAX package: one process drives every device
 of a `Mesh`, places each shard of a tree on its device and issues that
@@ -12,8 +12,15 @@ here:
   - `shard_map_data_parallel` runs an unchanged forward on each 'data'
     slice of the batch on its device's replica;
   - the collectives are plain functions on lists of per-shard tensors:
-    `psum` over an axis and `gather` over 'data'. The pipeline's stage
-    hand-off is a copy to the next stage's device (parallel/pipeline.py).
+    `psum` over an axis and `gather` over 'data', and for sequence
+    parallelism `all_gather_tokens` and `reduce_scatter_tokens` over
+    'model' (each the other's transpose). All are differentiable. The
+    pipeline's stage hand-off is a copy to the next stage's device
+    (parallel/pipeline.py);
+  - `unplace` is `np.asarray` of a sharded array: the logical tree back
+    from its shards;
+  - `reduce_replica_grads` is what GSPMD does for a replicated input's
+    gradient: the sum over every position that holds the same shard.
 No torch.distributed: one process, no process group.
 
 A mesh may name one device several times: several shards then live on that
@@ -85,6 +92,17 @@ class Mesh:
         return f"Mesh({self.shape}, devices={list(self.devices.flat)})"
 
 
+def mesh_devices(device, count: int) -> list | None:
+    """The devices of a `count`-position mesh for a `device` flag: None (every
+    visible card, `make_mesh`'s default) for "cuda" without an index; the
+    one device at every position for the CPU or a card named by its index
+    ("cuda:0": several shards on that card)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return None
+    return [device] * count
+
+
 def make_mesh(axes: dict[str, int] | None = None, devices=None) -> Mesh:
     """Build a mesh. Default: one 'data' axis over every visible CUDA device.
     `devices` is taken as given, repeats included (several shards on one
@@ -144,18 +162,13 @@ def place(tree: Any, mesh: Mesh, specs: Any = None) -> list:
     made: dict = {}
 
     def shard(t: torch.Tensor, spec: tuple, coords: dict, device: torch.device) -> torch.Tensor:
-        cut = []
         for dim, axis in enumerate(spec):
-            if axis is None:
-                continue
-            n = mesh.shape[axis]
-            if t.shape[dim] % n:
+            if axis is not None and t.shape[dim] % mesh.shape[axis]:
                 raise ValueError(
                     f"dimension {dim} of a {tuple(t.shape)} tensor does not split over "
-                    f"{axis}={n}"
+                    f"{axis}={mesh.shape[axis]}"
                 )
-            step = t.shape[dim] // n
-            cut.append((dim, coords[axis] * step, step))
+        cut = _shard_cut(t.shape, spec, mesh, coords)
         key = (id(t), tuple(cut), device)
         if key not in made:
             part = t
@@ -185,6 +198,85 @@ def place(tree: Any, mesh: Mesh, specs: Any = None) -> list:
     return placed
 
 
+def _shard_cut(shape, spec: tuple, mesh: Mesh, coords: dict) -> list[tuple[int, int, int]]:
+    """(dim, start, length) of the position at `coords` in each split
+    dimension of a leaf of `shape`."""
+    cut = []
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            step = shape[dim] // mesh.shape[axis]
+            cut.append((dim, coords[axis] * step, step))
+    return cut
+
+
+def unplace(placed: list, mesh: Mesh, specs: Any = None) -> Any:
+    """The inverse of `place`: the logical tree, each split dimension
+    concatenated over its axis on position 0's device, each replicated leaf
+    the one at position 0. Dense tensor leaves only; the result holds no
+    autograd history."""
+
+    def leaf(path: tuple, first: torch.Tensor) -> torch.Tensor:
+        spec = (specs or ()) if torch.is_tensor(placed[0]) else (
+            () if specs is None else _spec_of(specs, path))
+        if not any(axis is not None for axis in spec):
+            return first.detach()
+        split = {axis for axis in spec if axis is not None}
+        shape = list(first.shape)
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                shape[dim] *= mesh.shape[axis]
+        full = torch.empty(shape, dtype=first.dtype, device=first.device)
+        for position in range(mesh.size):
+            coords = mesh.coords(position)
+            if any(coords[a] for a in mesh.axis_names if a not in split):
+                continue  # a replica of a shard already taken
+            part = placed[position]
+            for key in path:
+                part = part[key]
+            target = full
+            for dim, start, length in _shard_cut(shape, spec, mesh, coords):
+                target = target.narrow(dim, start, length)
+            target.copy_(part.detach())
+        return full
+
+    if torch.is_tensor(placed[0]):
+        return leaf((), placed[0])
+    return _walk(leaf, placed[0])
+
+
+def reduce_replica_grads(placed: list, grads: dict, mesh: Mesh, specs: Any = None) -> dict:
+    """The replica reduction of a placed tree's gradients. `grads` maps
+    id(tensor) -> the gradient of that tensor of `placed`. For every logical
+    (leaf, shard), the gradients of the distinct tensors that hold it (a
+    tensor at several positions counts once) are summed in position order
+    on the first one's device, and each of those tensors gets the sum on its
+    own device. A shard held by one tensor keeps its gradient as it is.
+    Returns id -> reduced gradient."""
+    groups: dict = {}
+    for position in range(mesh.size):
+        coords = mesh.coords(position)
+
+        def visit(path: tuple, t: torch.Tensor) -> None:
+            spec = () if specs is None else _spec_of(specs, path)
+            key = (path, tuple((axis, coords[axis]) for axis in spec if axis is not None))
+            members = groups.setdefault(key, [])
+            if all(m is not t for m in members):
+                members.append(t)
+
+        _walk(visit, placed[position])
+    reduced = {}
+    for members in groups.values():
+        if len(members) == 1:
+            reduced[id(members[0])] = grads[id(members[0])]
+            continue
+        total = grads[id(members[0])]
+        for m in members[1:]:
+            total = total + grads[id(m)].to(total.device)
+        for m in members:
+            reduced[id(m)] = total.to(m.device)
+    return reduced
+
+
 def replicate(tree: Any, mesh: Mesh) -> list:
     """The whole tree on every position of the mesh."""
     return place(tree, mesh)
@@ -196,19 +288,86 @@ def shard_batch(x: torch.Tensor, mesh: Mesh, axis: str = "data") -> list:
     return place(x, mesh, (axis,) if axis in mesh.axis_names else ())
 
 
-def gather(parts: list, device: torch.device) -> torch.Tensor:
-    """The 'data' gather: per-slice tensors concatenated in order on
-    `device`."""
-    return torch.cat([p.to(device) for p in parts])
+def gather(parts: list, device: torch.device, dim: int = 0) -> torch.Tensor:
+    """The 'data' gather: per-slice tensors concatenated in order (on
+    dimension `dim`) on `device`."""
+    return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+def token_slices(t: int, n: int) -> list[tuple[int, int]]:
+    """(start, length) of each of n shards' token slices of T tokens, as
+    GSPMD pads a split: ceil(T/n) tokens a slice, the last ones shorter
+    (possibly empty)."""
+    step = -(-t // n)
+    return [(min(j * step, t), max(0, min(step, t - j * step))) for j in range(n)]
+
+
+class _AllGatherTokens(torch.autograd.Function):
+    """Forward: the token slices concatenated on every shard's device.
+    Backward: the reduce-scatter of the full-length gradients."""
+
+    @staticmethod
+    def forward(ctx, dim: int, *slices):
+        ctx.dim = dim
+        ctx.lengths = [s.shape[dim] for s in slices]
+        return tuple(gather(slices, s.device, dim) for s in slices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = _sum_in_order(grads)
+        starts = np.cumsum([0, *ctx.lengths[:-1]])
+        return (None, *(total.narrow(ctx.dim, int(start), length).to(g.device)
+                        for g, start, length in zip(grads, starts, ctx.lengths)))
+
+
+class _ReduceScatterTokens(torch.autograd.Function):
+    """Forward: the partials summed in shard order, each shard keeping its
+    token slice. Backward: the all-gather of the slices' gradients."""
+
+    @staticmethod
+    def forward(ctx, dim: int, *parts):
+        ctx.dim = dim
+        total = _sum_in_order(parts)
+        bounds = token_slices(total.shape[dim], len(parts))
+        return tuple(total.narrow(dim, start, length).to(p.device).contiguous()
+                     for p, (start, length) in zip(parts, bounds))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *(gather(grads, g.device, ctx.dim) for g in grads))
+
+
+def all_gather_tokens(slices: list, dim: int = 1) -> list:
+    """The sequence-parallel all-gather over 'model': shard j's token slice
+    (dimension `dim`) concatenated in shard order, on every shard's device.
+    Differentiable; its transpose is `reduce_scatter_tokens`."""
+    if len(slices) == 1:
+        return list(slices)
+    return list(_AllGatherTokens.apply(dim, *slices))
+
+
+def reduce_scatter_tokens(parts: list, dim: int = 1) -> list:
+    """The sequence-parallel reduce-scatter over 'model': the full-length
+    partials summed in shard order (as `psum`), then shard j keeps its slice
+    `token_slices(T, n)[j]` on its device (the last slices may be shorter).
+    Differentiable; its transpose is `all_gather_tokens`."""
+    if len(parts) == 1:
+        return list(parts)
+    return list(_ReduceScatterTokens.apply(dim, *parts))
+
+
+def _sum_in_order(parts) -> torch.Tensor:
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part.to(total.device)
+    return total
 
 
 def psum(parts: list) -> list:
     """All-reduce over an axis: the partials summed in shard order on the
     first shard's device, in their (compute) dtype, then the sum copied to
     each shard's device."""
-    total = parts[0]
-    for part in parts[1:]:
-        total = total + part.to(total.device)
+    total = _sum_in_order(parts)
     return [total.to(p.device) for p in parts]
 
 

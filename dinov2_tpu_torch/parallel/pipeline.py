@@ -1,5 +1,5 @@
-"""Pipeline-parallel DINOv2 forward, GPipe microbatching over a 'stage' mesh
-axis (port of the forward half of dinov2_tpu/parallel/pipeline.py).
+"""Pipeline-parallel DINOv2 forward and train step, GPipe microbatching over
+a 'stage' mesh axis (port of dinov2_tpu/parallel/pipeline.py).
 
   - the stacked layer tree is split on its leading L axis over 'stage':
     stage s holds layers [s*L/S, (s+1)*L/S) on the mesh's stage-s device;
@@ -13,8 +13,15 @@ axis (port of the forward half of dinov2_tpu/parallel/pipeline.py).
     masks the fill and drain steps; here a stage with no microbatch simply
     issues nothing.
 The embedding runs on stage 0, the final norm and the head on the last
-stage, where the result stays. The training step under a stage mesh
-(`make_pipeline_train_step` in the JAX package) is not ported.
+stage, where the result stays.
+
+`make_pipeline_train_step` trains through the same schedule: the loss on
+the last stage, one backward through the stage hand-offs (the transpose of
+a copy is a copy back), each stage's layers under torch.utils.checkpoint
+where `opts.remat` is on, and the gradients of the replicated embedding,
+final norm and head summed over the stages
+(parallel/mesh.py::reduce_replica_grads), as the JAX package's psum of a
+replicated input's cotangent does.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from dinov2_tpu_torch.models.config import DinoConfig
 from dinov2_tpu_torch.models.params import PACKED_WEIGHTS
@@ -30,11 +38,13 @@ from dinov2_tpu_torch.models.vit import (
     _layer,
     _tokens_from,
     embed_tokens,
-    encoder_layer,
     forward_head,
+    head_logits,
     layer_norm,
+    run_encoder_layer,
 )
 from dinov2_tpu_torch.parallel.mesh import Mesh, _walk, place
+from dinov2_tpu_torch.parallel.train import apply_gradients, as_tensor, masters_of, place_masters
 
 STAGE = "stage"
 
@@ -60,7 +70,7 @@ def place_pipeline_params(params: Any, mesh: Mesh) -> list:
 
 def _stage_scan(layers: Any, tokens: torch.Tensor, config, opts) -> torch.Tensor:
     for i in range(layers["ls1"].shape[0]):
-        tokens = encoder_layer(tokens, _layer(layers, i), config, opts)
+        tokens = run_encoder_layer(tokens, _layer(layers, i), config, opts)
     return tokens
 
 
@@ -129,3 +139,41 @@ def pipeline_forward(
     if classify:
         out["probs"] = forward_head(last, tokens, config, opts)
     return out
+
+
+def make_pipeline_train_step(
+    config: DinoConfig,
+    opts: ModelOptions,
+    mesh: Mesh,
+    optimizer: Any,
+    num_microbatches: int = 4,
+):
+    """The classification train step over the stage mesh (GPipe forward and
+    backward), with the JAX package's signature. Returns (train_step,
+    place): `place(params)` splits the layers over 'stage' as f32 masters
+    that require grad (parallel/train.py::place_masters) and initializes
+    the optimizer on the distinct masters; `train_step(params, opt_state,
+    x, labels)` takes preprocessed images x (B, H, W, 3) and updates both in
+    place, returning them with {"loss", "accuracy"} on the last stage's
+    device. The optimizer is any object with `init` and `update_`, as the
+    Trainer's."""
+    stage0 = mesh.device(mesh.position({STAGE: 0}))
+    last = mesh.position({STAGE: mesh.shape[STAGE] - 1})
+
+    def place_fn(params: Any):
+        placed = place_masters(params, mesh, layer_pspecs(params))
+        return placed, optimizer.init(masters_of(placed))
+
+    def train_step(params: list, opt_state: Any, x, labels):
+        x = as_tensor(x).to(stage0)
+        labels = as_tensor(labels).to(mesh.device(last), torch.int64)
+        with torch.enable_grad():
+            tokens = _pipeline_tokens(params, x, config, opts, mesh, num_microbatches)
+            tokens = layer_norm(tokens.float(), params[last]["final_norm"], config.eps)
+            logits = head_logits(params[last], tokens, config, opts)
+            loss = F.cross_entropy(logits, labels)
+            apply_gradients(optimizer, params, opt_state, loss, mesh, layer_pspecs(params[0]))
+        accuracy = (logits.detach().argmax(dim=-1) == labels).float().mean()
+        return params, opt_state, {"loss": loss.detach(), "accuracy": accuracy}
+
+    return train_step, place_fn

@@ -1,5 +1,5 @@
-"""Megatron tensor-parallel inference, quantized and dense (port of
-dinov2_tpu/parallel/tp_fused.py).
+"""Megatron tensor-parallel inference, quantized and dense, and the dense
+training forward (port of dinov2_tpu/parallel/tp_fused.py).
 
 The classic column/row split, one psum per block, on a mesh with a 'model'
 axis (parallel/mesh.py), each shard's launches on its own device:
@@ -25,6 +25,14 @@ TP); dense ones `tp_prepare_dense_params`, which the JAX package leaves to
 GSPMD through parallel/mesh.py::param_pspecs: PyTorch has no GSPMD, so one
 forward, `make_tp_forward`, serves both, its dense products plain PyTorch
 matmuls (XLA dots in the JAX package) and its quantized ones K7.
+
+`make_tp_train_forward` is the same layer for the mesh Trainer
+(parallel/train.py), where JAX's GSPMD partitions its jitted step: logits
+out, each layer recomputed in the backward with `opts.remat`, and with
+`opts.sequence_parallel` the residual stream held as token slices between
+layers (`all_gather_tokens` before LN1, `reduce_scatter_tokens` in place of
+the MLP's psum, parallel/mesh.py). `tp_restore_dense_params` undoes the
+dense permutation for checkpoints and export.
 """
 
 from __future__ import annotations
@@ -34,20 +42,35 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from dinov2_tpu_torch.models.config import DinoConfig
-from dinov2_tpu_torch.models.params import QuantLinear, decode_packed_planes
+from dinov2_tpu_torch.models.params import (
+    QuantLinear,
+    decode_packed_planes,
+    tree_leaves,
+    tree_map,
+)
 from dinov2_tpu_torch.models.vit import (
     ModelOptions,
     _layer,
     _tokens_from,
     embed_tokens,
     forward_head,
+    head_logits,
     layer_norm,
 )
 from dinov2_tpu_torch.ops.attention import resolve_attention_path, split_heads, vanilla_attention
 from dinov2_tpu_torch.ops.qmatmul import apply_linear
-from dinov2_tpu_torch.parallel.mesh import Mesh, gather, param_pspecs, psum
+from dinov2_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_gather_tokens,
+    gather,
+    param_pspecs,
+    psum,
+    reduce_scatter_tokens,
+    token_slices,
+)
 
 # ---------------------------------------------------------------------------
 # Param preparation (host side, once at engine construction)
@@ -199,17 +222,31 @@ def tp_prepare_dense_params(
         raise ValueError(
             f"{config.num_attention_heads} heads do not split over tp={tp}"
         )
+    params_tp = _permute_dense(params, config, tp)
+    return params_tp, param_pspecs(params_tp, axis)
+
+
+def tp_restore_dense_params(params_tp: Any, config: DinoConfig, tp: int) -> Any:
+    """The inverse of `tp_prepare_dense_params`'s permutation: a dense tree
+    (or one of the same structure, such as an optimizer moment) back in the
+    file's [q; k; v] and [in1; in2] order."""
+    return _permute_dense(params_tp, config, tp, inverse=True)
+
+
+def _permute_dense(params: Any, config: DinoConfig, tp: int, inverse: bool = False) -> Any:
+    def perm(p: np.ndarray | None) -> np.ndarray | None:
+        return np.argsort(p) if inverse and p is not None else p
+
     layers = dict(params["layers"])
     layers["qkv"] = _permute_linear(
-        layers["qkv"], _section_perm(3 * config.hidden_size, 3, tp))
+        layers["qkv"], perm(_section_perm(3 * config.hidden_size, 3, tp)))
     col_name = _mlp_names(params)[0]
     mlp = dict(layers["mlp"])
     sections = 2 if col_name == "win" else 1
     mlp[col_name] = _permute_linear(
-        mlp[col_name], _section_perm(mlp[col_name]["kernel"].shape[2], sections, tp))
+        mlp[col_name], perm(_section_perm(mlp[col_name]["kernel"].shape[2], sections, tp)))
     layers["mlp"] = mlp
-    params_tp = dict(params, layers=layers)
-    return params_tp, param_pspecs(params_tp, axis)
+    return dict(params, layers=layers)
 
 
 def kernel_refusals(params_tp: Any) -> list[str]:
@@ -255,9 +292,12 @@ def _attention_core(qkv: torch.Tensor, local_heads: int, head_dim: int,
     return vanilla_attention(q, k, v, scale).reshape(b, t, dl)
 
 
-def _tp_encoder_layer(xs: list, layers: list, config: DinoConfig, opts: ModelOptions) -> list:
-    """One encoder layer over the shards of a 'model' group: xs[j] the
-    (replicated) activations on shard j's device, layers[j] its weights."""
+def _tp_attention_half(xs: list, layers: list, config: DinoConfig,
+                       opts: ModelOptions) -> list:
+    """The attention half-layer over the shards of a 'model' group: xs[j]
+    the (replicated) activations on shard j's device, layers[j] its
+    weights. LN1, the shard's QKV columns, attention on its heads and its
+    proj rows, then the psum, the proj bias, LayerScale and the residual."""
     head_dim = config.head_dim
     backend = opts.quant_backend
     parts = []
@@ -266,12 +306,17 @@ def _tp_encoder_layer(xs: list, layers: list, config: DinoConfig, opts: ModelOpt
         qkv = apply_linear(h, layer["qkv"], backend=backend)  # (B, T, 3*D/S) local columns
         out = _attention_core(qkv, qkv.shape[-1] // 3 // head_dim, head_dim, opts)
         parts.append(apply_linear(out, {"kernel": layer["proj"]["kernel"]}, backend=backend))
-    xs = [
+    return [
         x + (att + layer["proj"]["bias"].to(att.dtype) if "bias" in layer["proj"] else att)
         * layer["ls1"].to(x.dtype)
         for x, att, layer in zip(xs, psum(parts), layers)
     ]
 
+
+def _tp_mlp_parts(xs: list, layers: list, config: DinoConfig, opts: ModelOptions) -> list:
+    """Each shard's partial MLP output (LN2, its fc1/win columns, its
+    fc2/wout rows), before the sum over the group."""
+    backend = opts.quant_backend
     parts = []
     for x, layer in zip(xs, layers):
         h = layer_norm(x, layer["norm2"], config.eps)
@@ -283,12 +328,54 @@ def _tp_encoder_layer(xs: list, layers: list, config: DinoConfig, opts: ModelOpt
         else:
             hh = apply_linear(h, mlp["fc1"], activation=opts.gelu_activation, backend=backend)
             parts.append(apply_linear(hh, {"kernel": mlp["fc2"]["kernel"]}, backend=backend))
+    return parts
+
+
+def _tp_mlp_residual(xs: list, ys: list, layers: list) -> list:
+    """x + (the summed MLP output + its row bias) * LayerScale, per shard."""
     row = "wout" if "win" in layers[0]["mlp"] else "fc2"
     return [
         x + (y + layer["mlp"][row]["bias"].to(y.dtype) if "bias" in layer["mlp"][row] else y)
         * layer["ls2"].to(x.dtype)
-        for x, y, layer in zip(xs, psum(parts), layers)
+        for x, y, layer in zip(xs, ys, layers)
     ]
+
+
+def _tp_encoder_layer(xs: list, layers: list, config: DinoConfig, opts: ModelOptions) -> list:
+    """One encoder layer over the shards of a 'model' group: xs[j] the
+    (replicated) activations on shard j's device, layers[j] its weights."""
+    xs = _tp_attention_half(xs, layers, config, opts)
+    return _tp_mlp_residual(xs, psum(_tp_mlp_parts(xs, layers, config, opts)), layers)
+
+
+def _slices(xs: list) -> list:
+    """Shard j's token slice of its (B, T, D) activations."""
+    bounds = token_slices(xs[0].shape[1], len(xs))
+    return [x.narrow(1, start, length) for x, (start, length) in zip(xs, bounds)]
+
+
+def _tp_sequence_parallel_layer(slices: list, layers: list, config: DinoConfig,
+                                opts: ModelOptions) -> list:
+    """One encoder layer with the residual stream held as token slices
+    (Megatron-SP): the all-gather before LN1, the attention half-layer on
+    every token, the reduce-scatter in place of the MLP's psum and the
+    MLP residual on the slices."""
+    xs = _tp_attention_half(all_gather_tokens(slices), layers, config, opts)
+    ys = reduce_scatter_tokens(_tp_mlp_parts(xs, layers, config, opts))
+    return _tp_mlp_residual(_slices(xs), ys, layers)
+
+
+def _groups(mesh: Mesh, axis: str) -> tuple[str | None, int, list]:
+    """(the data axis or None, its size, the positions of each 'data'
+    slice's 'model' group)."""
+    data_axes = [a for a in mesh.axis_names if a != axis]
+    data = data_axes[0] if data_axes else None
+    n_data = mesh.shape[data] if data else 1
+    groups = [
+        [mesh.position({data: i, axis: j} if data else {axis: j}) for j in range(mesh.shape[axis])]
+        for i in range(n_data)
+    ]
+    return data, n_data, groups
 
 
 def make_tp_forward(config: DinoConfig, opts: ModelOptions, mesh: Mesh, axis: str = "model"):
@@ -302,13 +389,7 @@ def make_tp_forward(config: DinoConfig, opts: ModelOptions, mesh: Mesh, axis: st
     group's first shard, and the slices are gathered in order. Numerics
     are the single-device forward's (same products in the same dtypes; the
     psums add partials in the compute dtype)."""
-    data_axes = [a for a in mesh.axis_names if a != axis]
-    data = data_axes[0] if data_axes else None
-    n_data = mesh.shape[data] if data else 1
-    groups = [
-        [mesh.position({data: i, axis: j} if data else {axis: j}) for j in range(mesh.shape[axis])]
-        for i in range(n_data)
-    ]
+    data, n_data, groups = _groups(mesh, axis)
     first = mesh.device(0)
 
     def run(classify: bool, placed: list, x: torch.Tensor) -> dict:
@@ -338,3 +419,93 @@ def make_tp_forward(config: DinoConfig, opts: ModelOptions, mesh: Mesh, axis: st
         return {key: gather([o[key] for o in outs], first) for key in outs[0]}
 
     return {classify: (lambda placed, x, c=classify: run(c, placed, x)) for classify in (False, True)}
+
+
+class _RematLayer(torch.autograd.Function):
+    """`run(tensors)` without autograd in the forward, its inputs saved, and
+    again with autograd in the backward for the gradients of every input
+    (remat). A layer over several devices is remat'd so, not through
+    torch.utils.checkpoint: the engine runs the backward of each device on
+    its own thread, and checkpoint's non-reentrant recompute of one frame,
+    reached from two of them at once, runs twice and fails its count of
+    saved tensors; a Function's backward runs once."""
+
+    @staticmethod
+    def forward(ctx, run, *tensors):
+        ctx.run = run
+        ctx.save_for_backward(*tensors)
+        with torch.no_grad():
+            return tuple(run(tensors))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *grads):
+        needs = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, needs)]
+            outs = ctx.run(inputs)
+            got = iter(torch.autograd.grad(outs, [t for t in inputs if t.requires_grad], grads,
+                                           allow_unused=True, materialize_grads=True))
+        return (None, *(next(got) if need else None for need in needs))
+
+
+def _remat_layer(layer_fn, xs: list, weights: list, config: DinoConfig,
+                 opts: ModelOptions) -> list:
+    """layer_fn(xs, weights, config, opts) through _RematLayer, the weights'
+    dense leaves passed as its inputs so that their gradients flow."""
+    leaves = [leaf for w in weights for leaf in tree_leaves(w)]
+
+    def run(flat):
+        rest = iter(flat[len(xs):])
+        return layer_fn(list(flat[:len(xs)]), [tree_map(lambda _: next(rest), w) for w in weights],
+                        config, opts)
+
+    return list(_RematLayer.apply(run, *xs, *leaves))
+
+
+def make_tp_train_forward(config: DinoConfig, opts: ModelOptions, mesh: Mesh,
+                          axis: str = "model"):
+    """The tensor-parallel training forward, fn(placed, xs) -> logits (B,
+    classes) in f32 on the mesh's first device, differentiable on the
+    placed leaves. `placed` is `place` of `tp_prepare_dense_params`'s tree
+    and specs (the kernels on quantized weights refuse gradients); xs[k] is
+    position k's preprocessed images, its 'data' slice of the batch
+    (parallel/mesh.py::shard_batch).
+
+    As `make_tp_forward`, each 'data' slice runs over its 'model' group,
+    each shard embedding its slice, and the final LN and the head run on
+    the group's first shard. Under `opts.remat` each layer of each group
+    runs without keeping its activations and again in the backward
+    (_RematLayer), so it launches its forward kernels twice a step. Under `opts.sequence_parallel`
+    the residual stream between layers is held as token slices, shard j's
+    slice `token_slices(T, S)[j]` (parallel/mesh.py), and gathered on the
+    group's first shard after the last layer."""
+    _, _, groups = _groups(mesh, axis)
+    first = mesh.device(0)
+    layer_fn = _tp_sequence_parallel_layer if opts.sequence_parallel else _tp_encoder_layer
+
+    def run(placed: list, xs: list) -> torch.Tensor:
+        remat = opts.remat and torch.is_grad_enabled()
+        tokens = []
+        for group in groups:
+            embedded = [embed_tokens(placed[k], xs[k], config, opts) for k in group]
+            tokens.append(_slices(embedded) if opts.sequence_parallel else embedded)
+        for index in range(config.num_hidden_layers):
+            for i, group in enumerate(groups):
+                # the layer's weights are views of the stacked leaves, so
+                # gradients land in those either way
+                weights = [_layer(placed[k]["layers"], index) for k in group]
+                if remat:
+                    tokens[i] = _remat_layer(layer_fn, tokens[i], weights, config, opts)
+                else:
+                    tokens[i] = layer_fn(tokens[i], weights, config, opts)
+        logits = []
+        for i, group in enumerate(groups):
+            params = placed[group[0]]
+            t = (gather(tokens[i], mesh.device(group[0]), dim=1) if opts.sequence_parallel
+                 else tokens[i][0])
+            t = layer_norm(t.float(), params["final_norm"], config.eps)
+            logits.append(head_logits(params, t, config, opts))
+        return gather(logits, first)
+
+    return run

@@ -1,5 +1,5 @@
 """The training step (fine-tune / linear-probe DINOv2 classification): port of
-dinov2_tpu/parallel/train.py for one device.
+dinov2_tpu/parallel/train.py, on one device or on a mesh.
 
     trainer = make_trainer(config, learning_rate=1e-4, weight_decay=0.05)
     params, opt_state = trainer.place(params)
@@ -11,16 +11,39 @@ the step unless `preprocess_in_step=False`), `forward_features` and
 and AdamW; `metrics` is {"loss", "accuracy"} as f32 scalars on the device.
 The signatures and defaults are the JAX package's (`parity="hf"`, f32
 compute, `remat=True`) plus an explicit `device`, "cuda" unless the caller
-asks for the CPU. `mesh` must be None: the multi-device step
-(parallel/mesh.py in the JAX package) is not ported, and anything else
-raises.
+asks for the CPU.
+
+On a mesh (parallel/mesh.py: 'data' and 'model' axes, one process driving
+every position, as the JAX package's jitted step is one program over its
+mesh):
+  - `place` splits the masters by `param_pspecs` after
+    `tp_prepare_dense_params` (Megatron TP: qkv and fc1 by columns, proj
+    and fc2 by rows, qkv's [q; k; v] permuted so each shard holds its own
+    heads) where 'model' is larger than 1, `tensor_parallel` is on and the
+    heads split; everything else is replicated. A replica on one device is
+    one tensor, as `place` makes it; across devices each position holds
+    its own copy. The optimizer state is initialized on the distinct
+    masters (`masters_of`), so it sits beside them;
+  - `shard_batch` splits images and labels over 'data' (replicated on a
+    pure 'model' mesh);
+  - `step` runs each 'data' slice on its 'model' group (the TP training
+    forward, parallel/tp_fused.py::make_tp_train_forward, or the
+    single-device forward on the slice's replica), gathers the logits on
+    the mesh's first device for the mean cross-entropy over the whole
+    batch, takes one backward, sums the gradients of the replicas of every
+    (leaf, shard) (parallel/mesh.py::reduce_replica_grads, which GSPMD does
+    in the JAX package) and updates each distinct master once;
+  - `unplace` gives the logical tree back (the shards concatenated, the
+    permutation undone) for checkpoints and export.
 
 `place` makes the parameters f32 master leaves that require grad on the
 device (copies: the caller's tree is left alone) and the optimizer state
 beside them. `step` updates both in place (PyTorch has no donation; the JAX
 step donates its arguments, which comes to the same) and returns them.
 
-The optimizer is a functional AdamW on `torch._foreach_*` ops, not
+The optimizer is any object with `init(params)` and `update_(params,
+grads, state)` (grads in `tree_leaves(params)` order). `make_trainer`'s
+is a functional AdamW on `torch._foreach_*` ops, not
 `torch.optim.AdamW`: it computes what `optax.adamw(lr, weight_decay=wd)`
 computes, b1 0.9, b2 0.999, eps 1e-8, decay on every leaf, update
 `-lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)`. `torch.optim.AdamW`
@@ -52,6 +75,22 @@ from dinov2_tpu_torch.models.config import DinoConfig
 from dinov2_tpu_torch.models.params import trainable_params, tree_leaves, tree_map
 from dinov2_tpu_torch.models.vit import ModelOptions, forward_features, head_logits
 from dinov2_tpu_torch.ops.qmatmul import set_cuda_matmul_precision
+from dinov2_tpu_torch.parallel.mesh import (
+    Mesh,
+    _walk,
+    gather,
+    param_pspecs,
+    place,
+    reduce_replica_grads,
+    shard_batch,
+    unplace,
+)
+from dinov2_tpu_torch.parallel.tp_fused import (
+    make_tp_train_forward,
+    tp_prepare_dense_params,
+    tp_restore_dense_params,
+)
+from dinov2_tpu_torch.utils.logging import get_logger
 
 
 @dataclass(frozen=True)
@@ -91,32 +130,134 @@ class AdamW:
         torch._foreach_add_(leaves, update, alpha=-self.learning_rate)
 
 
+def masters_of(placed: list) -> dict:
+    """Every distinct tensor of a placed tree once: {position: the tree of
+    the leaves first held at that position}. A tensor shared by several
+    positions (replicas on one device) belongs to the first; a position
+    that holds no tensor of its own is left out."""
+    owners = _owners(placed)
+    masters: dict = {}
+    for position, tree in enumerate(placed):
+        def own(path: tuple, t):
+            if _at(owners[position], path) == position:
+                node = masters.setdefault(position, {})
+                for key in path[:-1]:
+                    node = node.setdefault(key, {})
+                node[path[-1]] = t
+
+        _walk(own, tree)
+    return masters
+
+
+def _owners(placed: list) -> list:
+    """For each position a tree of the position that first holds its leaf."""
+    first: dict = {}
+
+    def owner(position: int):
+        return lambda path, t: first.setdefault(id(t), position)
+
+    return [_walk(owner(position), tree) for position, tree in enumerate(placed)]
+
+
+def _at(tree: Any, path: tuple) -> Any:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _structure(tree: Any) -> Any:
+    return {k: _structure(v) for k, v in tree.items()} if isinstance(tree, dict) else None
+
+
+def apply_gradients(optimizer, placed: list, opt_state: Any, loss: torch.Tensor, mesh: Mesh,
+                    specs: Any) -> None:
+    """One backward of `loss` to the distinct masters of `placed`, the
+    replica reduction (parallel/mesh.py::reduce_replica_grads) and one
+    optimizer update of every distinct master, in place. A master the loss
+    does not reach gets a zero gradient, as in JAX."""
+    masters = masters_of(placed)
+    leaves = tree_leaves(masters)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    reduced = reduce_replica_grads(placed, {id(t): g for t, g in zip(leaves, grads)}, mesh, specs)
+    optimizer.update_(masters, [reduced[id(t)] for t in leaves], opt_state)
+
+
+def place_masters(params: Any, mesh: Mesh, specs: Any) -> list:
+    """`place` of the tree as f32 masters that require grad: one new tensor
+    for each distinct placed tensor, so replicas on one device stay one
+    tensor; the caller's tree is left alone."""
+    made: dict = {}
+
+    def master(path: tuple, t: torch.Tensor) -> torch.Tensor:
+        if id(t) not in made:  # trainable_params refuses quantized leaves
+            made[id(t)] = trainable_params(t, t.device if torch.is_tensor(t) else None)
+        return made[id(t)]
+
+    placed = place(params, mesh, specs)
+    return [_walk(master, tree) for tree in placed]
+
+
+def as_tensor(x) -> torch.Tensor:
+    """A host array (or a tensor, as it is) as a tensor."""
+    return x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+
+
 @dataclass
 class Trainer:
-    """Holds the train step and the placement of its state on one device."""
+    """Holds the train step and the placement of its state on one device or
+    a mesh."""
 
     config: DinoConfig
     opts: ModelOptions
-    optimizer: AdamW
+    optimizer: Any
     mesh: Any = None
     tensor_parallel: bool = True
     preprocess_in_step: bool = True
     device: Any = "cuda"
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the multi-device training step (a 'data'/'model' mesh) is not ported to "
-                "dinov2_tpu_torch yet (see ROADMAP.md, 'Modules to port'); pass mesh=None"
-            )
         self.device = torch.device(self.device)
+        devices = [self.device] if self.mesh is None else list(self.mesh.devices.flat)
+        if self.mesh is not None:
+            if not set(self.mesh.axis_names) <= {"data", "model"}:
+                raise ValueError(
+                    f"Trainer: mesh axes {self.mesh.axis_names}; the step takes 'data' and "
+                    "'model' (a 'stage' mesh trains through "
+                    "parallel/pipeline.py::make_pipeline_train_step)"
+                )
+            others = sorted({str(d) for d in devices if d.type != self.device.type})
+            if others:
+                raise ValueError(
+                    f"Trainer(device={str(self.device)!r}): the mesh places shards on {others}; "
+                    "pass the device type of the mesh"
+                )
+            self.device = devices[0]
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(
                     "Trainer(device='cuda'): no CUDA device is available "
                     "(use device='cpu' for the plain PyTorch path)"
                 )
+            count = torch.cuda.device_count()
+            missing = sorted({str(d) for d in devices if (d.index or 0) >= count})
+            if missing:
+                raise ValueError(f"the mesh names {missing}, have {count} CUDA device(s)")
             set_cuda_matmul_precision()
+        self._tp = 1
+        if self.mesh is not None:
+            tp = self.mesh.shape.get("model", 1) if self.tensor_parallel else 1
+            if tp > 1 and self.config.num_attention_heads % tp:
+                get_logger().warning(
+                    "%d heads do not split over tp=%d; replicating over the 'model' axis",
+                    self.config.num_attention_heads, tp)
+            elif tp > 1:
+                self._tp = tp
+                self._tp_forward = make_tp_train_forward(self.config, self.opts, self.mesh)
+            axis = "data" if "data" in self.mesh.axis_names else None
+            n = self.mesh.shape[axis] if axis else 1
+            # each 'data' slice's first position: where a replicated slice
+            # runs and where its labels are read
+            self._slice_positions = [self.mesh.position({"data": i}) for i in range(n)]
 
     def loss_fn(self, params, images: torch.Tensor, labels: torch.Tensor):
         """(mean cross-entropy, accuracy) of a batch on the device."""
@@ -127,24 +268,100 @@ class Trainer:
         accuracy = (logits.argmax(dim=-1) == labels).float().mean()
         return loss, accuracy
 
+    def _mesh_logits(self, placed: list, images: list) -> torch.Tensor:
+        """The logits of the whole batch on the mesh's first device."""
+        xs = [classify_preprocess(x) if self.preprocess_in_step else x for x in images]
+        if self._tp > 1:
+            return self._tp_forward(placed, xs)
+        logits = []
+        for position in self._slice_positions:
+            tokens = forward_features(placed[position], xs[position], self.config, self.opts)
+            logits.append(head_logits(placed[position], tokens, self.config, self.opts))
+        return gather(logits, self.device)
+
     # ------------------------------------------------------------------
-    def place(self, params):
+    def _layout(self, params) -> tuple[Any, Any]:
+        """The tree as the mesh holds it (TP-permuted where TP is on) and its
+        specs."""
+        if self._tp > 1:
+            return tp_prepare_dense_params(params, self.config, self._tp)
+        return params, None
+
+    def specs(self, placed: list) -> Any:
+        """The specs of a tree this trainer placed: `param_pspecs` under TP,
+        None (every leaf replicated) otherwise."""
+        return param_pspecs(placed[0]) if self._tp > 1 else None
+
+    def place(self, params, opt_state=None):
         """The parameters as f32 master leaves that require grad on the
-        device, and the optimizer state initialized beside them."""
-        params = trainable_params(params, self.device)
-        return params, self.optimizer.init(params)
+        device (a placed list on a mesh), and the optimizer state: `opt_state`
+        (a logical state, as `unplace` gives it) placed beside them, or a new
+        one."""
+        if self.mesh is None:
+            params = trainable_params(params, self.device)
+            return params, self.optimizer.init(params) if opt_state is None else opt_state
+        layout, specs = self._layout(params)
+        placed = place_masters(layout, self.mesh, specs)
+        if opt_state is None:
+            return placed, self.optimizer.init(masters_of(placed))
+        logical = _structure(params)
+
+        def state(node):
+            if _structure(node) == logical:
+                node = place(self._layout(node)[0], self.mesh, specs)
+                return {
+                    position: _walk(
+                        lambda path, _: _at(node[position], path).detach().to(
+                            torch.float32, copy=True), tree)
+                    for position, tree in masters_of(placed).items()
+                }
+            return {k: state(v) for k, v in node.items()} if isinstance(node, dict) else node
+
+        return placed, state(opt_state)
+
+    def unplace(self, params, opt_state=None):
+        """The logical (params, opt_state) of a placed state: the shards
+        concatenated on the mesh's first device and the TP permutation
+        undone (parallel/mesh.py::unplace); on one device the state as it
+        is."""
+        if self.mesh is None:
+            return params, opt_state
+        owners = _owners(params)
+        masters = _structure(masters_of(params))
+
+        def logical(placed: list):
+            tree = unplace(placed, self.mesh, self.specs(placed))
+            return tp_restore_dense_params(tree, self.config, self._tp) if self._tp > 1 else tree
+
+        def state(node):
+            if _structure(node) == masters:
+                return logical([
+                    _walk(lambda path, owner: _at(node[owner], path), tree) for tree in owners])
+            return {k: state(v) for k, v in node.items()} if isinstance(node, dict) else node
+
+        return logical(params), state(opt_state)
 
     def shard_batch(self, images, labels):
-        """Host arrays (or tensors) -> tensors on the device; labels int64."""
-        def tensor(x):
-            return x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
-
-        return tensor(images).to(self.device), tensor(labels).to(self.device, torch.int64)
+        """Host arrays (or tensors) -> tensors on the device, labels int64; on
+        a mesh, lists of each position's slice (parallel/mesh.py::shard_batch)."""
+        images, labels = as_tensor(images), as_tensor(labels).to(torch.int64)
+        if self.mesh is None:
+            return images.to(self.device), labels.to(self.device)
+        return shard_batch(images, self.mesh), shard_batch(labels, self.mesh)
 
     def step(self, params, opt_state, images, labels):
         """One training step; params and opt_state are updated in place and
         returned with {"loss", "accuracy"}."""
         images, labels = self.shard_batch(images, labels)
+        if self.mesh is not None:
+            with torch.enable_grad():
+                logits = self._mesh_logits(params, images)
+                labels = gather([labels[p] for p in self._slice_positions], self.device)
+                loss = F.cross_entropy(logits, labels)
+                apply_gradients(self.optimizer, params, opt_state, loss, self.mesh,
+                                self.specs(params))
+            accuracy = (logits.detach().argmax(dim=-1) == labels).float().mean()
+            return params, opt_state, {"loss": loss.detach(), "accuracy": accuracy}
         with torch.enable_grad():
             loss, accuracy = self.loss_fn(params, images, labels)
             # a leaf the loss does not reach gets a zero gradient, as in JAX
@@ -172,7 +389,9 @@ def make_trainer(
     attention kernels take bf16 only), so the defaults take a step there as
     they do on the CPU; its f32 products run in full f32, TF32 stays off
     (ops/qmatmul.py::set_cuda_matmul_precision). Pass
-    `ModelOptions(compute_dtype=torch.bfloat16, ...)` for the kernels."""
+    `ModelOptions(compute_dtype=torch.bfloat16, ...)` for the kernels. With
+    a `mesh` the step runs on its devices (module docstring); their type
+    must be `device`'s."""
     opts = opts or ModelOptions(parity="hf", compute_dtype=torch.float32, remat=True)
     return Trainer(
         config=config,

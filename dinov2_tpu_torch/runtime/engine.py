@@ -41,7 +41,9 @@ axis, even of size 1, which the CLIs never build):
 Batches are padded to a multiple of the 'data' size. On "cuda" the mesh
 takes the visible cards and raises when it needs more; on "cpu" it names
 the CPU once per position (several shards on one device), as the JAX
-package's tests use eight virtual host devices. On a mesh the engine keeps
+package's tests use eight virtual host devices, and on a card named by its
+index ("cuda:0") that card once per position
+(parallel/mesh.py::mesh_devices). On a mesh the engine keeps
 only the placed trees: the unsharded one (`loaded.params`) is dropped once
 they are made, and no single-device `model` is built.
 """
@@ -67,7 +69,13 @@ from dinov2_tpu_torch.models.config import DinoConfig
 from dinov2_tpu_torch.models.params import load_params
 from dinov2_tpu_torch.models.vit import DinoViT, ModelOptions, forward
 from dinov2_tpu_torch.ops.qmatmul import set_cuda_matmul_precision
-from dinov2_tpu_torch.parallel.mesh import make_mesh, place, replicate, shard_map_data_parallel
+from dinov2_tpu_torch.parallel.mesh import (
+    make_mesh,
+    mesh_devices,
+    place,
+    replicate,
+    shard_map_data_parallel,
+)
 from dinov2_tpu_torch.utils.debug import check_finite
 from dinov2_tpu_torch.utils.logging import get_logger, log_model_banner
 from dinov2_tpu_torch.utils.timing import time_blocked
@@ -124,9 +132,8 @@ class DinoEngine:
         self.mesh = None
         self._mesh_forward = None  # {classify: fn(placed, x)} on a mesh
         if mesh_axes is not None:
-            devices = None if self.device.type == "cuda" else [self.device] * int(
-                np.prod(list(mesh_axes.values())))
-            self.mesh = make_mesh(mesh_axes, devices)
+            self.mesh = make_mesh(mesh_axes, mesh_devices(
+                self.device, int(np.prod(list(mesh_axes.values())))))
         elif data_parallel and self.device.type == "cuda" and torch.cuda.device_count() > 1:
             self.mesh = make_mesh()
         self.loaded = load_params(model_path, dtype=dtype, device=self.device, quant_mode=quant_mode)

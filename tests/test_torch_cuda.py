@@ -1355,3 +1355,73 @@ def test_mesh_pipeline_bit_for_bit(cuda, tmp_path):
         want = forward(loaded.params, x, MESH_CONFIG, opts, classify=True)
     for key in want:
         assert torch.equal(got[key], want[key]), key
+
+
+class _SGD:
+    """p -= g: after one step p0 - p1 is the step's raw gradient."""
+
+    def init(self, params):
+        return {}
+
+    @torch.no_grad()
+    def update_(self, params, grads, state):
+        from dinov2_tpu_torch.models.params import tree_leaves
+
+        torch._foreach_add_(tree_leaves(params), grads, alpha=-1.0)
+
+
+@pytest.mark.parametrize("axes, route, sp", [
+    ({"data": 2, "model": 2}, True, False),
+    ({"data": 2, "model": 2}, "auto", False),
+    ({"data": 2, "model": 2}, True, True),
+    ({"data": 4}, "auto", False),
+], ids=["tp-flash", "tp-auto", "tp-sp-flash", "dp-auto"])
+def test_mesh_train_step_on_one_card(cuda, axes, route, sp):
+    """One Trainer(mesh=) step with every position on the card, bf16 over f32
+    masters, remat, SGD(1.0): its launches (TP: K4 with lse twice and K6 once
+    a shard a layer on the flash route; K3 twice, K4 with lse and K6 once in
+    its backward on "auto"; DP: K1 twice a replica a layer), and each leaf's
+    raw gradient (p0 - p1) within twice the single-device bf16 step's
+    distance from the single-device f32 step (plain attention), plus 1e-3
+    of the leaf's max|g|."""
+    from dinov2_tpu_torch.models.params import init_params, tree_leaves
+    from dinov2_tpu_torch.models.vit import ModelOptions
+    from dinov2_tpu_torch.parallel.mesh import make_mesh
+    from dinov2_tpu_torch.parallel.train import Trainer
+
+    source = init_params(MESH_CONFIG, seed=5, dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    images = rng.integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)
+    labels = rng.integers(0, MESH_CONFIG.num_classes, 8)
+    counters = {"K1": slab_layer_block, "K3": slab_attention, "K4": flash_attention}
+
+    def step(mesh, route, dtype, sp=False):
+        from dinov2_tpu_torch.ops.flash_attention import flash_backward
+
+        opts = ModelOptions(parity="hf", flash_attention=route, compute_dtype=dtype, remat=True,
+                            sequence_parallel=sp)
+        trainer = Trainer(MESH_CONFIG, opts, _SGD(), mesh=mesh, device="cuda")
+        params, state = trainer.place(source)
+        before = {k: c.launches for k, c in {**counters, "K6": flash_backward}.items()}
+        trainer.step(params, state, images, labels)
+        torch.cuda.synchronize()
+        launches = {k: c.launches - before[k]
+                    for k, c in {**counters, "K6": flash_backward}.items()}
+        after = tree_leaves(trainer.unplace(params)[0])
+        return [s.to(cuda) - p for s, p in zip(tree_leaves(source), after)], launches
+
+    grads32, _ = step(None, False, torch.float32)
+    single, _ = step(None, route, torch.bfloat16)
+    mesh = make_mesh(axes, devices=[cuda] * int(np.prod(list(axes.values()))))
+    got, launches = step(mesh, route, torch.bfloat16, sp)
+    n, layers = mesh.size, MESH_CONFIG.num_hidden_layers
+    if "model" not in axes:
+        want = {"K1": 2 * layers * n}
+    elif route is True:
+        want = {"K4": 2 * layers * n, "K6": layers * n}
+    else:
+        want = {"K3": 2 * layers * n, "K4": layers * n, "K6": layers * n}
+    assert launches == {k: want.get(k, 0) for k in launches}
+    for g, s, w in zip(got, single, grads32):
+        bound = 2 * (s - w).abs().max().item() + 1e-3 * w.abs().max().item()
+        assert (g - w).abs().max().item() <= bound

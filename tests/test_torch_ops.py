@@ -192,6 +192,15 @@ def test_resize_bicubic_matches_jax():
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
+def test_resize_grid_bicubic_matches_jax():
+    """A (H, W, D) feature grid, as the pos-embed resize holds it."""
+    grid = np.random.default_rng(7).standard_normal((37, 37, 24)).astype(np.float32)
+    want = np.asarray(jresize.resize_grid_bicubic(jnp.asarray(grid), 16, 23))
+    got = resize.resize_grid_bicubic(torch.from_numpy(grid), 16, 23).numpy()
+    assert got.shape == (16, 23, 24)
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
 def test_classify_preprocess_matches_jax():
     img = np.random.default_rng(5).integers(0, 256, (2, 100, 120, 3), dtype=np.uint8)
     want = np.asarray(jpre.classify_preprocess(jnp.asarray(img)))

@@ -216,13 +216,28 @@ def test_trainer_without_preprocess_takes_preprocessed_input():
     assert torch.isfinite(metrics["loss"])
 
 
-def test_trainer_refuses_a_mesh_and_a_missing_gpu():
+def test_trainer_refuses_a_mesh_and_a_missing_gpu(monkeypatch):
+    """A mesh is taken (its devices must be of the trainer's device type);
+    a missing card, and a CUDA mesh larger than the cards, still raise."""
+    from dinov2_tpu_torch.parallel.mesh import make_mesh
+
     config = DinoConfig(**TINY)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_trainer(config, mesh=object(), device="cpu")
+    cpu_mesh = make_mesh({"data": 2, "model": 2}, [torch.device("cpu")] * 4)
+    trainer = make_trainer(config, mesh=cpu_mesh, device="cpu")
+    assert trainer.mesh is cpu_mesh and trainer.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="pass the device type of the mesh"):
+        make_trainer(config, mesh=cpu_mesh)  # the default device is the card
+    with pytest.raises(ValueError, match="'data' and 'model'"):
+        make_trainer(config, mesh=make_mesh({"stage": 2}, [torch.device("cpu")] * 2),
+                     device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_trainer(config)  # the default device is the card
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    two_cards = make_mesh({"data": 2}, [torch.device("cuda", 0), torch.device("cuda", 1)])
+    with pytest.raises(ValueError, match=r"names \['cuda:1'\], have 1 CUDA device"):
+        make_trainer(config, mesh=two_cards)
 
 
 def test_trainable_params_refuses_quantized_leaves():
@@ -432,12 +447,29 @@ def test_train_refuses_dataset_smaller_than_batch(dataset, backbone):
                         "--device", "cpu"])
 
 
-def test_train_refuses_a_mesh(dataset, backbone):
+def test_train_refuses_a_mesh(dataset, backbone, monkeypatch):
+    """`--mesh 2` trains on a {"data": 2} mesh (every position the CPU here)
+    and exports the logical tree; on a card without an index the mesh takes
+    the cards and refuses one that needs more."""
     from dinov2_tpu_torch.cli import train as train_cli
 
-    with pytest.raises(SystemExit, match="not ported"):
+    meshes = []
+    real_make = parallel_train.make_trainer
+
+    def spy(*a, **k):
+        meshes.append(k["mesh"])
+        return real_make(*a, **k)
+
+    monkeypatch.setattr(parallel_train, "make_trainer", spy)
+    rc = train_cli.main(["-m", str(backbone), "--data", str(dataset), "--batch", "8",
+                         "--mesh", "2", "--device", "cpu"])
+    assert rc == 0
+    assert meshes[0].shape == {"data": 2}
+    assert list(meshes[0].devices.flat) == [torch.device("cpu")] * 2
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         train_cli.main(["-m", str(backbone), "--data", str(dataset), "--batch", "8",
-                        "--mesh", "2", "--device", "cpu"])
+                        "--mesh", "2"])
 
 
 def test_train_defaults_to_the_card():
