@@ -85,7 +85,21 @@ with random f16 weights from a seed, bf16, parity="reference":
     twice the single-device bf16 step's distance from f32, its exact
     launches a step, ms a step and peak memory beside the single-device
     step's; then `cli.train --mesh 2,2 --device cuda:0 --flash-attn` with
-    --export and --checkpoint-dir, and `cli.inference -c` on the export.
+    --export and --checkpoint-dir, and `cli.inference -c` on the export;
+  - several processes (the multi-process slice): two rank processes of
+    this script (`chip_smoke.py --rank ...`) call
+    parallel/mesh.py::init_distributed with backend="gloo", both on this
+    card, and run the same ViT-B/14 (a synthetic GGUF) and batch through
+    Trainer(mesh=...) across them for three AdamW steps: DP {"data": 2}
+    "auto" (K1), TP {"data": 1, "model": 2} on the flash route (K4 with
+    lse, K6) and on "auto" (K3), TP + SP, and {"data": 2, "model": 2}
+    (two positions a rank); each rank's losses and parameters bit for bit
+    the one-process mesh's on this card, its exact launches, ms a step and
+    peak memory; the ranks' checkpoint restored in this process bit for
+    bit; DinoEngine(mesh_axes={"model": 2}) classify across the ranks bit
+    for bit the one-process engine (K3); and NCCL asked for this one card
+    by two ranks must fail in both. With 2 or more cards the cases also
+    run over NCCL, rank k on card k.
 On the way it builds every hand-written kernel of those paths from the
 sources in this checkout (one nvcc per source, all at once) and holds each
 against its plain PyTorch version on the card, with its time beside its
@@ -117,7 +131,9 @@ feature slice, PCA, feature cross-check, ViT-g/14 slice at its three levels
 and its cross-check, ViT-g/14 int8 slice, mesh slice (one line a case),
 training slice on both routes with its cross-check and
 export, long-sequence training, mesh training slice (K4 with lse and K6 at
-a shard's shape, one line a case, the CLI); then a check that no "auto" attention route
+a shard's shape, one line a case, the CLI), multi-process slice (each
+rank's kernel checks, one line a case, the checkpoint and the engine, the
+NCCL refusal); then a check that no "auto" attention route
 of these bf16 paths fell to plain PyTorch on the card. Any failure exits
 non-zero. The line before the last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. With no CUDA device, or run from a directory
@@ -3836,6 +3852,373 @@ def phase_mesh_train(card: str, source) -> dict:
     return found
 
 
+# ---------------------------------------------------------------------------
+# The multi-process slice: two rank processes of their own
+# (parallel/mesh.py::init_distributed), Trainer(mesh=) and the engine across
+# them, each case held bit for bit to the one-process mesh of the same axes
+# ---------------------------------------------------------------------------
+
+MP_WORLD = 2
+MP_STEPS = 3
+MP_RANK_TIMEOUT_S = 420
+MP_REFUSAL_TIMEOUT_S = 120
+# (label, mesh axes, attention route, sequence_parallel); with two ranks DP
+# puts a 'data' slice on each, TP a 'model' shard on each, and DP x TP a
+# whole 'model' group on each (two positions a rank)
+MP_CASES = (
+    ("DP", {"data": 2}, "auto", False),
+    ("TP", {"data": 1, "model": 2}, True, False),
+    ("TP", {"data": 1, "model": 2}, "auto", False),
+    ("TP + SP", {"data": 1, "model": 2}, True, True),
+    ("DP x TP", {"data": 2, "model": 2}, True, False),
+)
+MP_CHECKPOINT_CASE = 1  # the ranks save this case's state; this process restores it
+
+
+def _mp_case_name(label, axes, route) -> str:
+    route_name = "flash_attention=True" if route is True else f'flash_attention="{route}"'
+    return f"ViT-B/14 {label} {axes} {route_name}"
+
+
+def _mp_expected(label, route, positions: int, layers: int) -> dict:
+    """Launches a step of `positions` positions (remat: each forward kernel
+    twice a step)."""
+    if "TP" not in label:
+        return {"K1": 2 * layers * positions}
+    if route is True:
+        return {"K4": 2 * layers * positions, "K6": layers * positions}
+    return {"K3": 2 * layers * positions, "K4": layers * positions, "K6": layers * positions}
+
+
+def _mp_batch(config):
+    rng = np.random.default_rng(SEED + 7)
+    return (rng.integers(0, 256, (TRAIN_BATCH, IMAGE_PX, IMAGE_PX, 3), dtype=np.uint8),
+            rng.integers(0, config.num_classes, TRAIN_BATCH))
+
+
+def _digest(tree) -> str:
+    """A hash of a tree's leaves' bytes, in tree order."""
+    import hashlib
+
+    from dinov2_tpu_torch.models.params import tree_leaves
+
+    h = hashlib.blake2b(digest_size=16)
+    for leaf in tree_leaves(tree):
+        h.update(leaf.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mp_trainer(config, axes, route, sp, device):
+    from dinov2_tpu_torch.models.vit import ModelOptions
+    from dinov2_tpu_torch.parallel.mesh import make_mesh
+    from dinov2_tpu_torch.parallel.train import AdamW, Trainer
+
+    opts = ModelOptions(parity="hf", flash_attention=route, compute_dtype=torch.bfloat16,
+                        remat=True, sequence_parallel=sp)
+    n = int(np.prod(list(axes.values())))
+    return Trainer(config, opts, AdamW(1e-4, 0.05),
+                   mesh=make_mesh(axes, devices=[device] * n), device=device)
+
+
+def _mp_run_case(config, case, source, images, labels, device) -> tuple[dict, Any, Any, Any]:
+    """MP_STEPS AdamW steps of one case (this process's positions): the
+    losses, ms a step, launches, peak device MB and each own position's
+    digest; and the trainer and its state."""
+    label, axes, route, sp = case
+    trainer = _mp_trainer(config, axes, route, sp, device)
+    params, state = trainer.place(source)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _zero_launches()
+    losses, seconds = [], []
+    for _ in range(MP_STEPS):
+        start = time.perf_counter()
+        params, state, metrics = trainer.step(params, state, images, labels)
+        losses.append(float(metrics["loss"]))  # waits for the device
+        seconds.append(time.perf_counter() - start)
+    found = {
+        "losses": losses, "ms": 1e3 * statistics.median(seconds),
+        "launches": {k: c.launches for k, c in counters.items() if c.launches},
+        "peak_mb": torch.cuda.max_memory_allocated() / 1e6,
+        "digests": {p: _digest(params[p]) for p in trainer.mesh.local_positions},
+    }
+    return found, trainer, params, state
+
+
+def _mp_kernel_checks(card: str) -> None:
+    """The slice's kernels at the shapes each rank gives them, against their
+    plain versions, on this rank's card: K1 on a DP slice (B=16), K3 and K4
+    with lse and K6 on a TP shard's 6 heads (B=32)."""
+    from dinov2_tpu_torch.ops.fused_attention import (
+        _slab_reference,
+        slab_attention,
+        slab_layer_block,
+        slab_layer_reference,
+    )
+    from dinov2_tpu_torch.ops.attention import split_heads
+
+    b, t, d, heads = TRAIN_BATCH // 2, 257, 768, 12
+    args = _half_layer_args(np.random.default_rng(SEED + 8), b, t, d)
+    args32 = [a.float() for a in args]
+    check_kernel(
+        f"rank slab_layer_block B={b} T={t} D={d} H={heads}", "K1",
+        lambda: slab_layer_block(*args, heads, 0.125, 1e-6),
+        lambda: slab_layer_reference(*args, heads, 0.125, 1e-6),
+        lambda: slab_layer_reference(*args32, heads, 0.125, 1e-6),
+        card, half_layer_flops(b, t, d, heads), nbytes(*args, args[0]))
+    b, heads = TRAIN_BATCH, 6
+    rng = np.random.default_rng(SEED + 9)
+    qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * 64 * heads)) * 1.5).to("cuda",
+                                                                              torch.bfloat16)
+    q, k, v = split_heads(qkv, heads)
+    check_kernel(
+        f"rank slab_attention B={b} T={t} H={heads}", "K3",
+        partial(slab_attention, qkv, heads, 0.125), partial(_slab_reference, qkv, heads, 0.125),
+        partial(_slab_reference, qkv.float(), heads, 0.125),
+        card, attention_flops(b, t, heads), nbytes(qkv, q), library=partial(sdpa, q, k, v, 0.125))
+    _flash_training_shape(card, b, t, heads, forward_check=True)
+
+
+def mp_rank(argv: list) -> int:
+    """One rank of the multi-process slice (`chip_smoke.py --rank R WORLD
+    PORT DIR BACKEND [refusal]`): init_distributed, the kernel checks, every
+    MP_CASES case through Trainer(mesh=) on this rank's positions, the
+    checkpoint of MP_CHECKPOINT_CASE, and DinoEngine(mesh_axes={"model":
+    WORLD}) classify; its numbers into DIR/rank<R>.json, the probs into
+    DIR/probs<R>.npy. `refusal`: init_distributed alone (the NCCL check)."""
+    from dinov2_tpu_torch.models.params import load_params
+    from dinov2_tpu_torch.parallel import mesh
+    from dinov2_tpu_torch.parallel.checkpoint import save_train_state
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    rank, world, port = (int(a) for a in argv[:3])
+    out, backend = Path(argv[3]), argv[4]
+    mesh.init_distributed(f"127.0.0.1:{port}", num_processes=world, process_id=rank,
+                          backend=backend)
+    device = torch.device("cuda", torch.cuda.current_device())
+    if argv[5:] == ["refusal"]:
+        torch.distributed.all_reduce(torch.ones(1, device=device))
+        return 0
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          "-i", str(device.index)], capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip()
+    card = smi.replace(",", "")
+    found: dict = {"rank": mesh.process_index(), "count": mesh.process_count(),
+                   "backend": torch.distributed.get_backend(), "device": str(device),
+                   "card": smi}
+    _mp_kernel_checks(card)
+    config = _vit_b14_config()
+    source = load_params(out / "vit_b14.gguf", dtype=torch.float32, device="cpu").params
+    images, labels = _mp_batch(config)
+    for i, case in enumerate(MP_CASES):
+        got, trainer, params, state = _mp_run_case(config, case, source, images, labels, device)
+        found[_mp_case_name(*case[:3])] = got
+        if i == MP_CHECKPOINT_CASE:
+            save_train_state(out / "ck", MP_STEPS, params, state, trainer=trainer)
+        del trainer, params, state
+        gc.collect()
+    engine = DinoEngine(out / "vit_b14.gguf", dtype=torch.bfloat16, device=device,
+                        mesh_axes={"model": world})
+    counters = _zero_launches()
+    np.save(out / f"probs{rank}.npy", engine.classify_probs(_classify_images()))
+    found["engine"] = {"mesh": repr(engine.mesh),
+                       "launches": {k: c.launches for k, c in counters.items() if c.launches}}
+    (out / f"rank{rank}.json").write_text(json.dumps(found))
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_ranks(directory: Path, backend: str, timeout: float, one_card: bool,
+               refusal: bool = False) -> list:
+    """MP_WORLD rank processes of this script under one time limit;
+    (returncode, stdout, stderr) of each. `one_card`: every rank sees only
+    this process's first card (else rank k takes card k). Once one rank
+    fails the others are stopped (they would wait on its collectives until
+    the group's timeout), unless `refusal` (each rank's own failure is the
+    point); a rank still running at the limit is killed and its returncode
+    is None."""
+    import os
+
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    if one_card:
+        env["CUDA_VISIBLE_DEVICES"] = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    logs = [(directory / f"rank{r}.out", directory / f"rank{r}.err") for r in range(MP_WORLD)]
+    procs = []
+    for r, (out, err) in enumerate(logs):
+        with open(out, "w") as stdout, open(err, "w") as stderr:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", str(r), str(MP_WORLD),
+                 str(port), str(directory), backend, *(["refusal"] if refusal else [])],
+                stdout=stdout, stderr=stderr, env=env, cwd=ROOT))
+    deadline = time.monotonic() + timeout
+    while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+        if not refusal and any(p.poll() not in (None, 0) for p in procs):
+            break
+        time.sleep(0.2)
+    codes = [p.poll() for p in procs]
+    for p in procs:  # no rank outlives the phase
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    return [(code, out.read_text(), err.read_text()) for code, (out, err) in zip(codes, logs)]
+
+
+def phase_multi_process(card: str) -> dict:
+    """The multi-process path: two rank processes of this script
+    (parallel/mesh.py::init_distributed, backend="gloo": both ranks on this
+    card), ViT-B/14 at full width from a synthetic GGUF, 32 uint8 images of
+    256 px, bf16 over f32 masters, remat, AdamW, MP_STEPS steps through
+    Trainer(mesh=) at MP_CASES, and DinoEngine(mesh_axes={"model": 2})
+    classify on 64 images (K3). Each rank first checks K1, K3, K4 with lse
+    and K6 at its shapes. This process runs every case's one-process mesh on
+    this card first (the reference) and frees its caches; then for each case
+    both ranks' losses must equal each other and the reference's step by
+    step, each rank's positions (parameters) must be bit for bit the
+    reference's at those positions, and each rank's launches a step must be
+    exact. The checkpoint the ranks save restores here bit for bit; the
+    engine's probs are bit for bit on both ranks and the one-process
+    engine's. Then two ranks ask NCCL for this one card, which must fail in
+    both. With 2 or more cards the cases also run over NCCL, rank k on card
+    k (the gloo ranks keep to the first card). Returns {kernel: {case:
+    launches a step a rank}}."""
+    from dinov2_tpu_torch.models.params import load_params
+    from dinov2_tpu_torch.parallel.checkpoint import restore_train_state
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    config = _vit_b14_config()
+    layers = config.num_hidden_layers
+    device = torch.device("cuda", 0)
+    found: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_vit_b14(tmp)
+        source = load_params(tmp / "vit_b14.gguf", dtype=torch.float32, device="cpu").params
+        images, labels = _mp_batch(config)
+        reference = {}
+        for i, case in enumerate(MP_CASES):
+            got, trainer, params, state = _mp_run_case(config, case, source, images, labels,
+                                                       device)
+            name = _mp_case_name(*case[:3])
+            n = trainer.mesh.size
+            want = _mp_expected(case[0], case[2], n, layers)
+            require(got["launches"] == {k: MP_STEPS * v for k, v in want.items()},
+                    f"{name} in one process: launches {got['launches']}")
+            if i == MP_CHECKPOINT_CASE:
+                logical, logical_state = trainer.unplace(params, state)
+                got["state_digest"] = _digest({"p": logical, "mu": logical_state["mu"],
+                                               "nu": logical_state["nu"]})
+                del logical, logical_state
+            reference[name] = got
+            del trainer, params, state
+            gc.collect()
+        engine = DinoEngine(tmp / "vit_b14.gguf", dtype=torch.bfloat16, device=device,
+                            mesh_axes={"model": MP_WORLD})
+        probs = engine.classify_probs(_classify_images())
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        runs = [("gloo", "both ranks on this card")]
+        if torch.cuda.device_count() >= MP_WORLD:
+            runs.append(("nccl", f"rank k on card k of {torch.cuda.device_count()}"))
+        for backend, where in runs:
+            shutil.rmtree(tmp / "ck", ignore_errors=True)
+            start = time.perf_counter()
+            results = _run_ranks(tmp, backend, MP_RANK_TIMEOUT_S, one_card=backend == "gloo")
+            ranks_s = time.perf_counter() - start
+            for rank, (code, out, err) in enumerate(results):
+                for line in out.splitlines():
+                    print(f"multi-process slice: rank {rank}: {line}")
+                require(code == 0, f"multi-process slice: rank {rank} ({backend}) "
+                                   f"{'timed out' if code is None else f'exited {code}'}:\n"
+                                   f"{err[-4000:]}")
+            ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(MP_WORLD)]
+            print(f"multi-process slice: {MP_WORLD} ranks over {backend} "
+                  f"({ranks[0]['backend']}), {where}: "
+                  f"{[(r['rank'], r['device'], r['card']) for r in ranks]}, the ranks' "
+                  f"processes {ranks_s:.1f} s from start to exit")
+            for case in MP_CASES:
+                name = _mp_case_name(*case[:3])
+                want = reference[name]
+                positions = int(np.prod(list(case[1].values()))) // MP_WORLD
+                expected = _mp_expected(case[0], case[2], positions, layers)
+                for r in ranks:
+                    got = r[name]
+                    require(got["losses"] == want["losses"],
+                            f"{name} rank {r['rank']} ({backend}): losses {got['losses']}, one "
+                            f"process {want['losses']}")
+                    require(all(want["digests"][int(p)] == d for p, d in got["digests"].items())
+                            and len(got["digests"]) == positions,
+                            f"{name} rank {r['rank']} ({backend}): its positions' parameters "
+                            "are not the one-process mesh's bit for bit")
+                    require(got["launches"] == {k: MP_STEPS * v for k, v in expected.items()},
+                            f"{name} rank {r['rank']} ({backend}): launches in {MP_STEPS} steps "
+                            f"{got['launches']}, expected {expected} a step")
+                if backend == "gloo":
+                    for kernel, count in expected.items():
+                        found.setdefault(kernel, {})[name] = count
+                counted = ", ".join(f"{k} {v}" for k, v in expected.items())
+                print(
+                    f"multi-process slice: {name}, {MP_WORLD} ranks over {backend} ({where}), "
+                    f"{TRAIN_BATCH}x{IMAGE_PX}px uint8, bf16 over f32 masters, remat, AdamW: "
+                    f"losses {want['losses']} on both ranks and in one process, each rank's "
+                    f"{positions} position(s) bit for bit the one-process mesh's after "
+                    f"{MP_STEPS} steps; launches a step a rank {counted}, the other kernels 0; "
+                    f"ms a step (median of {MP_STEPS}) rank 0 {ranks[0][name]['ms']:.1f}, rank 1 "
+                    f"{ranks[1][name]['ms']:.1f}, one-process mesh {want['ms']:.1f}; peak device "
+                    f"MB rank 0 {ranks[0][name]['peak_mb']:.0f}, rank 1 "
+                    f"{ranks[1][name]['peak_mb']:.0f}, one process {want['peak_mb']:.0f} ({card})"
+                )
+            name = _mp_case_name(*MP_CASES[MP_CHECKPOINT_CASE][:3])
+            label, axes, route, sp = MP_CASES[MP_CHECKPOINT_CASE]
+            trainer = _mp_trainer(config, axes, route, sp, device)
+            step, params, state = restore_train_state(tmp / "ck", *trainer.place(source),
+                                                      trainer=trainer)
+            logical, logical_state = trainer.unplace(params, state)
+            restored = _digest({"p": logical, "mu": logical_state["mu"],
+                                "nu": logical_state["nu"]})
+            require(step == MP_STEPS and restored == reference[name]["state_digest"],
+                    f"{name}: the checkpoint the ranks saved ({backend}) does not restore into "
+                    "one process bit for bit")
+            del trainer, params, state, logical, logical_state
+            gc.collect()
+            got = [np.load(tmp / f"probs{r}.npy") for r in range(MP_WORLD)]
+            engine_launches = [r["engine"]["launches"] for r in ranks]
+            require(all(np.array_equal(g, probs) for g in got),
+                    f"DinoEngine across {MP_WORLD} ranks ({backend}): probs differ from the "
+                    "one-process engine's")
+            require(all(e == {"K3": layers} for e in engine_launches),
+                    f"DinoEngine across ranks ({backend}): launches {engine_launches}")
+            if backend == "gloo":
+                found.setdefault("K3", {})["ViT-B/14 DinoEngine classify {'model': 2}"] = layers
+            print(f"multi-process slice: the checkpoint of {name} saved by the {MP_WORLD} ranks "
+                  f"({backend}) restores into one process bit for bit (params, mu, nu after "
+                  f"{MP_STEPS} steps); DinoEngine(mesh_axes={{'model': {MP_WORLD}}}) classify "
+                  f"b{len(probs)} 224 px across the ranks ({ranks[0]['engine']['mesh']}): probs "
+                  f"bit for bit on both ranks and the one-process engine's, K3 {layers} a rank "
+                  f"a call ({card})")
+
+        start = time.perf_counter()
+        results = _run_ranks(tmp, "nccl", MP_REFUSAL_TIMEOUT_S, one_card=True, refusal=True)
+        refused = [err.strip().splitlines()[-1] if err.strip() else "" for _, _, err in results]
+        require(all(code not in (0, None) for code, _, _ in results),
+                f"init_distributed(backend='nccl') with two ranks on one card: exit codes "
+                f"{[code for code, _, _ in results]} ({refused})")
+        print(f"multi-process slice: init_distributed(backend='nccl') with {MP_WORLD} ranks on "
+              f"one card fails in both ranks in {time.perf_counter() - start:.1f} s, as it should "
+              f"(no fallback to gloo): {refused}")
+    return found
+
+
 def timed_phase(name: str, phase, *args):
     """Run one phase and print the seconds it took."""
     start = time.perf_counter()
@@ -3850,6 +4233,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == ["--rank"]:
+        return mp_rank(sys.argv[2:])
     start = time.perf_counter()
     smi = phase_device()
     card = smi.replace(",", "")
@@ -3891,6 +4276,10 @@ def main() -> int:
     train_launches, source = timed_phase("training slice", phase_train, card)
     timed_phase("long-sequence training", phase_train_long, card, source)
     mesh_train = timed_phase("mesh training slice", phase_mesh_train, card, source)
+    del source
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share this card
+    mp_train = timed_phase("multi-process slice", phase_multi_process, card)
     from dinov2_tpu_torch.ops.attention import vanilla_route_warnings
 
     require(vanilla_route_warnings() == 0,
@@ -3907,6 +4296,7 @@ def main() -> int:
             "launches": k1_launches,
             "mesh_launches": mesh_launches.get("K1", {}),
             "mesh_train_launches": mesh_train.get("K1", {}),
+            "mp_train_launches": mp_train.get("K1", {}),
             "serve_launches": k1_serve,
             "aot_launches": aot_launches["K1"],
             **k1_measured,
@@ -3927,6 +4317,7 @@ def main() -> int:
             "launches": k3_launches,
             "mesh_launches": mesh_launches.get("K3", {}),
             "mesh_train_launches": mesh_train.get("K3", {}),
+            "mp_train_launches": mp_train.get("K3", {}),
             "mesh_shard_checks": mesh_launches["shard checks"]["K3"],
             **k3_measured,
             **k3_backward,
@@ -3940,6 +4331,7 @@ def main() -> int:
             "launches": k4_launches,
             "mesh_launches": mesh_launches.get("K4", {}),
             "mesh_train_launches": mesh_train.get("K4", {}),
+            "mp_train_launches": mp_train.get("K4", {}),
             "mesh_shard_checks": {**mesh_launches["shard checks"]["K4"],
                                   **mesh_train["shard checks"]["K4"]},
             "serve_launches": k4_serve,
@@ -3956,6 +4348,7 @@ def main() -> int:
             "also_replaces": "dinov2_tpu/ops/flash_attention.py:499",
             "launches": train_launches["K6"],
             "mesh_train_launches": mesh_train.get("K6", {}),
+            "mp_train_launches": mp_train.get("K6", {}),
             "mesh_shard_checks": mesh_train["shard checks"]["K6"],
             **k6_measured,
         },

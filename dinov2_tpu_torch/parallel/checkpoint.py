@@ -15,6 +15,12 @@ Trainer that placed it; Trainer.unplace concatenates the shards and undoes
 the tensor-parallel permutation) and placed again at restore
 (Trainer.place), so one file serves every layout: a file written under a
 mesh restores on one device, and the reverse.
+
+On a mesh across ranks (parallel/mesh.py::init_distributed) both are
+called by every rank: saving unplaces collectively, the mesh's lowest rank
+writes the file, and every rank waits for it; restoring, every rank reads
+the file and places its own positions. A file saved by several ranks
+restores in one process, and the reverse.
 """
 
 from __future__ import annotations
@@ -47,9 +53,14 @@ def _like(value: Any, like: Any) -> Any:
 def save_train_state(directory: str | Path, step: int, params: Any, opt_state: Any,
                      trainer: Any = None) -> None:
     """Write `<directory>/step_<step>.pt`; a mesh-placed state is written as
-    `trainer.unplace` gives it."""
+    `trainer.unplace` gives it (by the lowest rank of a mesh across ranks,
+    after which every rank returns)."""
+    mesh = getattr(trainer, "mesh", None)
     if trainer is not None:
         params, opt_state = trainer.unplace(params, opt_state)
+    if mesh is not None and mesh.rank != mesh.all_ranks[0]:
+        mesh.barrier()  # the lowest rank writes
+        return
     directory = Path(directory).resolve()
     directory.mkdir(parents=True, exist_ok=True)
     path = directory / f"step_{step:08d}.pt"
@@ -58,6 +69,8 @@ def save_train_state(directory: str | Path, step: int, params: Any, opt_state: A
         {"step": int(step), "params": _to_cpu(params), "opt_state": _to_cpu(opt_state)}, tmp
     )
     os.replace(tmp, path)  # a reader never sees a partial file
+    if mesh is not None:
+        mesh.barrier()
 
 
 def latest_step(directory: str | Path) -> int | None:

@@ -22,6 +22,10 @@ where `opts.remat` is on, and the gradients of the replicated embedding,
 final norm and head summed over the stages
 (parallel/mesh.py::reduce_replica_grads), as the JAX package's psum of a
 replicated input's cotangent does.
+
+One process drives every stage: a 'stage' mesh whose positions span ranks
+(parallel/mesh.py::init_distributed) raises. Across ranks the hand-off
+would be a send/recv pair whose backward is the reverse (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,7 +48,13 @@ from dinov2_tpu_torch.models.vit import (
     run_encoder_layer,
 )
 from dinov2_tpu_torch.parallel.mesh import Mesh, _walk, place
-from dinov2_tpu_torch.parallel.train import apply_gradients, as_tensor, masters_of, place_masters
+from dinov2_tpu_torch.parallel.train import (
+    apply_gradients,
+    as_tensor,
+    masters_of,
+    place_masters,
+    position_aliases,
+)
 
 STAGE = "stage"
 
@@ -93,6 +103,11 @@ def _pipeline_tokens(
     m = num_microbatches
     if x.shape[0] % m:
         raise ValueError(f"batch {x.shape[0]} % microbatches {m} != 0")
+    if mesh.spans_ranks:
+        raise NotImplementedError(
+            f"{mesh}: the pipeline runs every stage in one process; a 'stage' axis across "
+            "ranks is not ported (ROADMAP.md, 'Still to port')"
+        )
     positions = [mesh.position({STAGE: s}) for s in range(n_stages)]
     devices = [mesh.device(p) for p in positions]
     tokens = embed_tokens(placed[positions[0]], x.to(devices[0]), config, opts)
@@ -167,12 +182,14 @@ def make_pipeline_train_step(
     def train_step(params: list, opt_state: Any, x, labels):
         x = as_tensor(x).to(stage0)
         labels = as_tensor(labels).to(mesh.device(last), torch.int64)
+        aliases = position_aliases(params)
         with torch.enable_grad():
-            tokens = _pipeline_tokens(params, x, config, opts, mesh, num_microbatches)
-            tokens = layer_norm(tokens.float(), params[last]["final_norm"], config.eps)
-            logits = head_logits(params[last], tokens, config, opts)
+            tokens = _pipeline_tokens(aliases, x, config, opts, mesh, num_microbatches)
+            tokens = layer_norm(tokens.float(), aliases[last]["final_norm"], config.eps)
+            logits = head_logits(aliases[last], tokens, config, opts)
             loss = F.cross_entropy(logits, labels)
-            apply_gradients(optimizer, params, opt_state, loss, mesh, layer_pspecs(params[0]))
+            apply_gradients(optimizer, params, aliases, opt_state, loss, mesh,
+                            layer_pspecs(params[0]))
         accuracy = (logits.detach().argmax(dim=-1) == labels).float().mean()
         return params, opt_state, {"loss": loss.detach(), "accuracy": accuracy}
 

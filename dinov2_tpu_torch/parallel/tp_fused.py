@@ -63,9 +63,12 @@ from dinov2_tpu_torch.models.vit import (
 from dinov2_tpu_torch.ops.attention import resolve_attention_path, split_heads, vanilla_attention
 from dinov2_tpu_torch.ops.qmatmul import apply_linear
 from dinov2_tpu_torch.parallel.mesh import (
+    Group,
     Mesh,
     all_gather_tokens,
+    first_local,
     gather,
+    gather_to_every,
     param_pspecs,
     psum,
     reduce_scatter_tokens,
@@ -293,23 +296,28 @@ def _attention_core(qkv: torch.Tensor, local_heads: int, head_dim: int,
 
 
 def _tp_attention_half(xs: list, layers: list, config: DinoConfig,
-                       opts: ModelOptions) -> list:
+                       opts: ModelOptions, group: Group | None = None) -> list:
     """The attention half-layer over the shards of a 'model' group: xs[j]
     the (replicated) activations on shard j's device, layers[j] its
-    weights. LN1, the shard's QKV columns, attention on its heads and its
-    proj rows, then the psum, the proj bias, LayerScale and the residual."""
+    weights (both None for another rank's shard, `group` the members).
+    LN1, the shard's QKV columns, attention on its heads and its proj rows,
+    then the psum, the proj bias, LayerScale and the residual."""
     head_dim = config.head_dim
     backend = opts.quant_backend
     parts = []
     for x, layer in zip(xs, layers):
+        if x is None:
+            parts.append(None)
+            continue
         h = layer_norm(x, layer["norm1"], config.eps)
         qkv = apply_linear(h, layer["qkv"], backend=backend)  # (B, T, 3*D/S) local columns
         out = _attention_core(qkv, qkv.shape[-1] // 3 // head_dim, head_dim, opts)
         parts.append(apply_linear(out, {"kernel": layer["proj"]["kernel"]}, backend=backend))
     return [
+        None if x is None else
         x + (att + layer["proj"]["bias"].to(att.dtype) if "bias" in layer["proj"] else att)
         * layer["ls1"].to(x.dtype)
-        for x, att, layer in zip(xs, psum(parts), layers)
+        for x, att, layer in zip(xs, psum(parts, group), layers)
     ]
 
 
@@ -319,6 +327,9 @@ def _tp_mlp_parts(xs: list, layers: list, config: DinoConfig, opts: ModelOptions
     backend = opts.quant_backend
     parts = []
     for x, layer in zip(xs, layers):
+        if x is None:
+            parts.append(None)
+            continue
         h = layer_norm(x, layer["norm2"], config.eps)
         mlp = layer["mlp"]
         if "win" in mlp:
@@ -333,41 +344,45 @@ def _tp_mlp_parts(xs: list, layers: list, config: DinoConfig, opts: ModelOptions
 
 def _tp_mlp_residual(xs: list, ys: list, layers: list) -> list:
     """x + (the summed MLP output + its row bias) * LayerScale, per shard."""
-    row = "wout" if "win" in layers[0]["mlp"] else "fc2"
+    row = "wout" if "win" in next(w for w in layers if w is not None)["mlp"] else "fc2"
     return [
+        None if x is None else
         x + (y + layer["mlp"][row]["bias"].to(y.dtype) if "bias" in layer["mlp"][row] else y)
         * layer["ls2"].to(x.dtype)
         for x, y, layer in zip(xs, ys, layers)
     ]
 
 
-def _tp_encoder_layer(xs: list, layers: list, config: DinoConfig, opts: ModelOptions) -> list:
+def _tp_encoder_layer(xs: list, layers: list, config: DinoConfig, opts: ModelOptions,
+                      group: Group | None = None) -> list:
     """One encoder layer over the shards of a 'model' group: xs[j] the
-    (replicated) activations on shard j's device, layers[j] its weights."""
-    xs = _tp_attention_half(xs, layers, config, opts)
-    return _tp_mlp_residual(xs, psum(_tp_mlp_parts(xs, layers, config, opts)), layers)
+    (replicated) activations on shard j's device, layers[j] its weights
+    (None for another rank's shard, `group` the members)."""
+    xs = _tp_attention_half(xs, layers, config, opts, group)
+    return _tp_mlp_residual(xs, psum(_tp_mlp_parts(xs, layers, config, opts), group), layers)
 
 
 def _slices(xs: list) -> list:
-    """Shard j's token slice of its (B, T, D) activations."""
-    bounds = token_slices(xs[0].shape[1], len(xs))
-    return [x.narrow(1, start, length) for x, (start, length) in zip(xs, bounds)]
+    """Shard j's token slice of its (B, T, D) activations (None stays None)."""
+    bounds = token_slices(next(x for x in xs if x is not None).shape[1], len(xs))
+    return [None if x is None else x.narrow(1, start, length)
+            for x, (start, length) in zip(xs, bounds)]
 
 
 def _tp_sequence_parallel_layer(slices: list, layers: list, config: DinoConfig,
-                                opts: ModelOptions) -> list:
+                                opts: ModelOptions, group: Group | None = None) -> list:
     """One encoder layer with the residual stream held as token slices
     (Megatron-SP): the all-gather before LN1, the attention half-layer on
     every token, the reduce-scatter in place of the MLP's psum and the
     MLP residual on the slices."""
-    xs = _tp_attention_half(all_gather_tokens(slices), layers, config, opts)
-    ys = reduce_scatter_tokens(_tp_mlp_parts(xs, layers, config, opts))
+    xs = _tp_attention_half(all_gather_tokens(slices, group=group), layers, config, opts, group)
+    ys = reduce_scatter_tokens(_tp_mlp_parts(xs, layers, config, opts), group=group)
     return _tp_mlp_residual(_slices(xs), ys, layers)
 
 
 def _groups(mesh: Mesh, axis: str) -> tuple[str | None, int, list]:
     """(the data axis or None, its size, the positions of each 'data'
-    slice's 'model' group)."""
+    slice's 'model' group, in 'model' order)."""
     data_axes = [a for a in mesh.axis_names if a != axis]
     data = data_axes[0] if data_axes else None
     n_data = mesh.shape[data] if data else 1
@@ -388,9 +403,17 @@ def make_tp_forward(config: DinoConfig, opts: ModelOptions, mesh: Mesh, axis: st
     layers over its 'model' group; the final LN and the head run on the
     group's first shard, and the slices are gathered in order. Numerics
     are the single-device forward's (same products in the same dtypes; the
-    psums add partials in the compute dtype)."""
+    psums add partials in the compute dtype).
+
+    On a mesh across ranks each rank runs its shards, the psums cross the
+    ranks, and each rank takes the final LN and the head on its first shard
+    of each group: the shards' activations are replicas, bit for bit, so
+    every rank returns the same outputs. A 'data' axis across ranks raises
+    (Mesh.require_local_slices)."""
     data, n_data, groups = _groups(mesh, axis)
-    first = mesh.device(0)
+    mesh.require_local_slices("make_tp_forward", data or "data")
+    first = mesh.local_device
+    members = [mesh.group(group) for group in groups]
 
     def run(classify: bool, placed: list, x: torch.Tensor) -> dict:
         if x.shape[0] % n_data:
@@ -399,16 +422,19 @@ def make_tp_forward(config: DinoConfig, opts: ModelOptions, mesh: Mesh, axis: st
         tokens = []
         for i, group in enumerate(groups):
             part = x.narrow(0, i * rows, rows)
-            tokens.append([embed_tokens(placed[k], part.to(mesh.device(k)), config, opts)
+            tokens.append([None if placed[k] is None else
+                           embed_tokens(placed[k], part.to(mesh.device(k)), config, opts)
                            for k in group])
         for index in range(config.num_hidden_layers):
             for i, group in enumerate(groups):
                 tokens[i] = _tp_encoder_layer(
-                    tokens[i], [_layer(placed[k]["layers"], index) for k in group], config, opts)
+                    tokens[i], [None if placed[k] is None else _layer(placed[k]["layers"], index)
+                                for k in group], config, opts, members[i])
         outs = []
         for i, group in enumerate(groups):
-            params = placed[group[0]]
-            t = layer_norm(tokens[i][0].float(), params["final_norm"], config.eps)
+            own = next(j for j, k in enumerate(group) if placed[k] is not None)
+            params = placed[group[own]]
+            t = layer_norm(tokens[i][own].float(), params["final_norm"], config.eps)
             out = {
                 "cls_token": t.select(1, 0),
                 "patch_tokens": _tokens_from(t, 1 + config.num_register_tokens),
@@ -450,17 +476,24 @@ class _RematLayer(torch.autograd.Function):
 
 
 def _remat_layer(layer_fn, xs: list, weights: list, config: DinoConfig,
-                 opts: ModelOptions) -> list:
-    """layer_fn(xs, weights, config, opts) through _RematLayer, the weights'
-    dense leaves passed as its inputs so that their gradients flow."""
-    leaves = [leaf for w in weights for leaf in tree_leaves(w)]
+                 opts: ModelOptions, group: Group | None = None) -> list:
+    """layer_fn(xs, weights, config, opts, group) through _RematLayer, the
+    weights' dense leaves passed as its inputs so that their gradients
+    flow; another rank's shards (None) stay None."""
+    mine = [j for j, x in enumerate(xs) if x is not None]
+    leaves = [leaf for j in mine for leaf in tree_leaves(weights[j])]
 
     def run(flat):
-        rest = iter(flat[len(xs):])
-        return layer_fn(list(flat[:len(xs)]), [tree_map(lambda _: next(rest), w) for w in weights],
-                        config, opts)
+        full = [None] * len(xs)
+        for j, x in zip(mine, flat[:len(mine)]):
+            full[j] = x
+        rest = iter(flat[len(mine):])
+        ws = [None if w is None else tree_map(lambda _: next(rest), w) for w in weights]
+        out = layer_fn(full, ws, config, opts, group)
+        return [out[j] for j in mine]
 
-    return list(_RematLayer.apply(run, *xs, *leaves))
+    outs = iter(_RematLayer.apply(run, *(xs[j] for j in mine), *leaves))
+    return [None if x is None else next(outs) for x in xs]
 
 
 def make_tp_train_forward(config: DinoConfig, opts: ModelOptions, mesh: Mesh,
@@ -479,33 +512,59 @@ def make_tp_train_forward(config: DinoConfig, opts: ModelOptions, mesh: Mesh,
     (_RematLayer), so it launches its forward kernels twice a step. Under `opts.sequence_parallel`
     the residual stream between layers is held as token slices, shard j's
     slice `token_slices(T, S)[j]` (parallel/mesh.py), and gathered on the
-    group's first shard after the last layer."""
+    group's first shard after the last layer.
+
+    On a mesh across ranks each rank runs its shards (None elsewhere in
+    `placed` and xs), the head still runs on each group's first shard
+    alone, and the logits of every slice are gathered on every rank
+    (parallel/mesh.py::gather_to_every). A rank's shards that the head does
+    not read (the others of a group that spans ranks) are the gather's
+    tails: zero gradients reach them, so that their backward runs the
+    collectives the head's shard waits for."""
     _, _, groups = _groups(mesh, axis)
-    first = mesh.device(0)
+    first = mesh.local_device
+    members = [mesh.group(group) for group in groups]
+    heads = mesh.group([group[0] for group in groups], everyone=True)
     layer_fn = _tp_sequence_parallel_layer if opts.sequence_parallel else _tp_encoder_layer
 
     def run(placed: list, xs: list) -> torch.Tensor:
         remat = opts.remat and torch.is_grad_enabled()
         tokens = []
         for group in groups:
-            embedded = [embed_tokens(placed[k], xs[k], config, opts) for k in group]
-            tokens.append(_slices(embedded) if opts.sequence_parallel else embedded)
+            embedded = [None if placed[k] is None else embed_tokens(placed[k], xs[k], config, opts)
+                        for k in group]
+            tokens.append(_slices(embedded) if opts.sequence_parallel and any(
+                e is not None for e in embedded) else embedded)
         for index in range(config.num_hidden_layers):
             for i, group in enumerate(groups):
+                if all(placed[k] is None for k in group):
+                    continue  # no shard of this rank's
                 # the layer's weights are views of the stacked leaves, so
                 # gradients land in those either way
-                weights = [_layer(placed[k]["layers"], index) for k in group]
+                weights = [None if placed[k] is None else _layer(placed[k]["layers"], index)
+                           for k in group]
                 if remat:
-                    tokens[i] = _remat_layer(layer_fn, tokens[i], weights, config, opts)
+                    tokens[i] = _remat_layer(layer_fn, tokens[i], weights, config, opts,
+                                             members[i])
                 else:
-                    tokens[i] = layer_fn(tokens[i], weights, config, opts)
-        logits = []
+                    tokens[i] = layer_fn(tokens[i], weights, config, opts, members[i])
+        logits, tails = [], []
         for i, group in enumerate(groups):
+            t = tokens[i]
+            if opts.sequence_parallel and members[i].process_group is not None:
+                t = all_gather_tokens(t, group=members[i])
+            elif opts.sequence_parallel and placed[group[0]] is not None:
+                t = [gather(t, mesh.device(group[0]), dim=1)]
+            if members[i].process_group is not None:
+                tails += [x for x in t[1:] if x is not None]
+            if placed[group[0]] is None:
+                logits.append(None)
+                continue
             params = placed[group[0]]
-            t = (gather(tokens[i], mesh.device(group[0]), dim=1) if opts.sequence_parallel
-                 else tokens[i][0])
-            t = layer_norm(t.float(), params["final_norm"], config.eps)
+            t = layer_norm(t[0].float(), params["final_norm"], config.eps)
             logits.append(head_logits(params, t, config, opts))
-        return gather(logits, first)
+        if not mesh.spans_ranks:
+            return gather(logits, first)
+        return gather_to_every(logits, heads, first, tails=tails)
 
     return run

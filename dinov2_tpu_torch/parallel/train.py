@@ -30,11 +30,24 @@ mesh):
     forward, parallel/tp_fused.py::make_tp_train_forward, or the
     single-device forward on the slice's replica), gathers the logits on
     the mesh's first device for the mean cross-entropy over the whole
-    batch, takes one backward, sums the gradients of the replicas of every
-    (leaf, shard) (parallel/mesh.py::reduce_replica_grads, which GSPMD does
-    in the JAX package) and updates each distinct master once;
+    batch, takes one backward to each position's own leaf aliases (so that
+    every position's gradient is its own, also where positions share a
+    tensor), sums the gradients of the positions that hold each (leaf,
+    shard) in position order (parallel/mesh.py::reduce_replica_grads,
+    which GSPMD does in the JAX package) and updates each distinct master
+    once;
   - `unplace` gives the logical tree back (the shards concatenated, the
     permutation undone) for checkpoints and export.
+
+Across processes (parallel/mesh.py::init_distributed, a mesh whose
+positions span ranks) every rank runs `step` on the same global batch,
+places and updates only its own positions, and gets the same metrics:
+each rank computes the loss from the logits of every slice, gathered on
+every rank (parallel/mesh.py::gather_to_every); the backward reaches each
+rank's own positions only from the rows its head computed, zero gradients
+reach the shards whose outputs the head does not read, and the replica
+sums cross the ranks in position order. The step is then bit for bit the
+one-process mesh of the same axes.
 
 `place` makes the parameters f32 master leaves that require grad on the
 device (copies: the caller's tree is left alone) and the optimizer state
@@ -77,8 +90,11 @@ from dinov2_tpu_torch.models.vit import ModelOptions, forward_features, head_log
 from dinov2_tpu_torch.ops.qmatmul import set_cuda_matmul_precision
 from dinov2_tpu_torch.parallel.mesh import (
     Mesh,
+    _at,
     _walk,
+    first_local,
     gather,
+    gather_to_every,
     param_pspecs,
     place,
     reduce_replica_grads,
@@ -134,10 +150,13 @@ def masters_of(placed: list) -> dict:
     """Every distinct tensor of a placed tree once: {position: the tree of
     the leaves first held at that position}. A tensor shared by several
     positions (replicas on one device) belongs to the first; a position
-    that holds no tensor of its own is left out."""
+    that holds no tensor of its own (or another process's) is left out."""
     owners = _owners(placed)
     masters: dict = {}
     for position, tree in enumerate(placed):
+        if tree is None:
+            continue
+
         def own(path: tuple, t):
             if _at(owners[position], path) == position:
                 node = masters.setdefault(position, {})
@@ -150,36 +169,51 @@ def masters_of(placed: list) -> dict:
 
 
 def _owners(placed: list) -> list:
-    """For each position a tree of the position that first holds its leaf."""
+    """For each position a tree of the position that first holds its leaf
+    (None for another process's position)."""
     first: dict = {}
 
     def owner(position: int):
         return lambda path, t: first.setdefault(id(t), position)
 
-    return [_walk(owner(position), tree) for position, tree in enumerate(placed)]
-
-
-def _at(tree: Any, path: tuple) -> Any:
-    for key in path:
-        tree = tree[key]
-    return tree
+    return [None if tree is None else _walk(owner(position), tree)
+            for position, tree in enumerate(placed)]
 
 
 def _structure(tree: Any) -> Any:
     return {k: _structure(v) for k, v in tree.items()} if isinstance(tree, dict) else None
 
 
-def apply_gradients(optimizer, placed: list, opt_state: Any, loss: torch.Tensor, mesh: Mesh,
-                    specs: Any) -> None:
-    """One backward of `loss` to the distinct masters of `placed`, the
-    replica reduction (parallel/mesh.py::reduce_replica_grads) and one
-    optimizer update of every distinct master, in place. A master the loss
-    does not reach gets a zero gradient, as in JAX."""
+def position_aliases(placed: list) -> list:
+    """Each position's tree of leaves of its own: new leaves that require
+    grad on the masters' storage (None stays None). The step runs each
+    position on its aliases, so that the backward gives each position its
+    own gradient, also where positions share one master."""
+    return [None if tree is None else tree_map(lambda t: t.detach().requires_grad_(True), tree)
+            for tree in placed]
+
+
+def apply_gradients(optimizer, placed: list, aliases: list, opt_state: Any, loss: torch.Tensor,
+                    mesh: Mesh, specs: Any) -> None:
+    """One backward of `loss` to every position's aliases (the trees the
+    forward ran on, `position_aliases(placed)`), the replica reduction in
+    position order (parallel/mesh.py::reduce_replica_grads) and one
+    optimizer update of every distinct master of `placed`, in place. A
+    leaf the loss does not reach gets a zero gradient, as in JAX."""
+    leaves = [leaf for tree in aliases if tree is not None for leaf in tree_leaves(tree)]
+    if loss.requires_grad:
+        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                         materialize_grads=True))
+    else:  # this rank's positions do not reach the loss
+        grads = iter(torch.zeros_like(leaf) for leaf in leaves)
+    per_position = [None if tree is None else tree_map(lambda _: next(grads), tree)
+                    for tree in aliases]
+    reduced = reduce_replica_grads(per_position, mesh, specs)
     masters = masters_of(placed)
-    leaves = tree_leaves(masters)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-    reduced = reduce_replica_grads(placed, {id(t): g for t, g in zip(leaves, grads)}, mesh, specs)
-    optimizer.update_(masters, [reduced[id(t)] for t in leaves], opt_state)
+    optimizer.update_(masters, tree_leaves({
+        position: _walk(lambda path, _, p=position: _at(reduced[p], path), tree)
+        for position, tree in masters.items()
+    }), opt_state)
 
 
 def place_masters(params: Any, mesh: Mesh, specs: Any) -> list:
@@ -194,7 +228,7 @@ def place_masters(params: Any, mesh: Mesh, specs: Any) -> list:
         return made[id(t)]
 
     placed = place(params, mesh, specs)
-    return [_walk(master, tree) for tree in placed]
+    return [None if tree is None else _walk(master, tree) for tree in placed]
 
 
 def as_tensor(x) -> torch.Tensor:
@@ -217,7 +251,8 @@ class Trainer:
 
     def __post_init__(self):
         self.device = torch.device(self.device)
-        devices = [self.device] if self.mesh is None else list(self.mesh.devices.flat)
+        devices = [self.device] if self.mesh is None else [
+            self.mesh.device(p) for p in self.mesh.local_positions]
         if self.mesh is not None:
             if not set(self.mesh.axis_names) <= {"data", "model"}:
                 raise ValueError(
@@ -256,8 +291,9 @@ class Trainer:
             axis = "data" if "data" in self.mesh.axis_names else None
             n = self.mesh.shape[axis] if axis else 1
             # each 'data' slice's first position: where a replicated slice
-            # runs and where its labels are read
+            # runs and its logits are taken
             self._slice_positions = [self.mesh.position({"data": i}) for i in range(n)]
+            self._slices = self.mesh.group(self._slice_positions, everyone=True)
 
     def loss_fn(self, params, images: torch.Tensor, labels: torch.Tensor):
         """(mean cross-entropy, accuracy) of a batch on the device."""
@@ -269,14 +305,21 @@ class Trainer:
         return loss, accuracy
 
     def _mesh_logits(self, placed: list, images: list) -> torch.Tensor:
-        """The logits of the whole batch on the mesh's first device."""
-        xs = [classify_preprocess(x) if self.preprocess_in_step else x for x in images]
+        """The logits of the whole batch on the mesh's first device (on a
+        mesh across ranks, on this rank's first device, on every rank)."""
+        xs = [None if x is None else classify_preprocess(x) if self.preprocess_in_step else x
+              for x in images]
         if self._tp > 1:
             return self._tp_forward(placed, xs)
         logits = []
         for position in self._slice_positions:
+            if placed[position] is None:
+                logits.append(None)
+                continue
             tokens = forward_features(placed[position], xs[position], self.config, self.opts)
             logits.append(head_logits(placed[position], tokens, self.config, self.opts))
+        if self.mesh.spans_ranks:
+            return gather_to_every(logits, self._slices, self.device)
         return gather(logits, self.device)
 
     # ------------------------------------------------------------------
@@ -290,7 +333,7 @@ class Trainer:
     def specs(self, placed: list) -> Any:
         """The specs of a tree this trainer placed: `param_pspecs` under TP,
         None (every leaf replicated) otherwise."""
-        return param_pspecs(placed[0]) if self._tp > 1 else None
+        return param_pspecs(first_local(placed)) if self._tp > 1 else None
 
     def place(self, params, opt_state=None):
         """The parameters as f32 master leaves that require grad on the
@@ -322,8 +365,9 @@ class Trainer:
     def unplace(self, params, opt_state=None):
         """The logical (params, opt_state) of a placed state: the shards
         concatenated on the mesh's first device and the TP permutation
-        undone (parallel/mesh.py::unplace); on one device the state as it
-        is."""
+        undone (parallel/mesh.py::unplace; a collective on a mesh across
+        ranks, which gives every rank the whole state); on one device the
+        state as it is."""
         if self.mesh is None:
             return params, opt_state
         owners = _owners(params)
@@ -336,14 +380,16 @@ class Trainer:
         def state(node):
             if _structure(node) == masters:
                 return logical([
-                    _walk(lambda path, owner: _at(node[owner], path), tree) for tree in owners])
+                    None if tree is None else _walk(lambda path, owner: _at(node[owner], path), tree)
+                    for tree in owners])
             return {k: state(v) for k, v in node.items()} if isinstance(node, dict) else node
 
         return logical(params), state(opt_state)
 
     def shard_batch(self, images, labels):
         """Host arrays (or tensors) -> tensors on the device, labels int64; on
-        a mesh, lists of each position's slice (parallel/mesh.py::shard_batch)."""
+        a mesh, lists of each position's slice (parallel/mesh.py::shard_batch;
+        None at another process's positions)."""
         images, labels = as_tensor(images), as_tensor(labels).to(torch.int64)
         if self.mesh is None:
             return images.to(self.device), labels.to(self.device)
@@ -351,17 +397,20 @@ class Trainer:
 
     def step(self, params, opt_state, images, labels):
         """One training step; params and opt_state are updated in place and
-        returned with {"loss", "accuracy"}."""
-        images, labels = self.shard_batch(images, labels)
+        returned with {"loss", "accuracy"}. On a mesh across ranks every
+        rank passes the same global batch and gets the same metrics."""
         if self.mesh is not None:
+            labels = as_tensor(labels).to(self.device, torch.int64)
+            images = shard_batch(as_tensor(images), self.mesh)
+            aliases = position_aliases(params)
             with torch.enable_grad():
-                logits = self._mesh_logits(params, images)
-                labels = gather([labels[p] for p in self._slice_positions], self.device)
+                logits = self._mesh_logits(aliases, images)
                 loss = F.cross_entropy(logits, labels)
-                apply_gradients(self.optimizer, params, opt_state, loss, self.mesh,
+                apply_gradients(self.optimizer, params, aliases, opt_state, loss, self.mesh,
                                 self.specs(params))
             accuracy = (logits.detach().argmax(dim=-1) == labels).float().mean()
             return params, opt_state, {"loss": loss.detach(), "accuracy": accuracy}
+        images, labels = self.shard_batch(images, labels)
         with torch.enable_grad():
             loss, accuracy = self.loss_fn(params, images, labels)
             # a leaf the loss does not reach gets a zero gradient, as in JAX

@@ -46,6 +46,13 @@ index ("cuda:0") that card once per position
 (parallel/mesh.py::mesh_devices). On a mesh the engine keeps
 only the placed trees: the unsharded one (`loaded.params`) is dropped once
 they are made, and no single-device `model` is built.
+
+Across processes (parallel/mesh.py::init_distributed, the same program in
+every rank): `mesh_axes={"model": n}` spans the ranks, each rank holds its
+shards, the psums cross the ranks, and every rank returns the same
+outputs. A 'data' axis larger than 1 whose slices lie on different ranks
+raises a ValueError: their outputs would live on other processes, which the
+JAX engine cannot fetch either.
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ from dinov2_tpu_torch.models.params import load_params
 from dinov2_tpu_torch.models.vit import DinoViT, ModelOptions, forward
 from dinov2_tpu_torch.ops.qmatmul import set_cuda_matmul_precision
 from dinov2_tpu_torch.parallel.mesh import (
+    first_local,
     make_mesh,
     mesh_devices,
     place,
@@ -136,6 +144,8 @@ class DinoEngine:
                 self.device, int(np.prod(list(mesh_axes.values())))))
         elif data_parallel and self.device.type == "cuda" and torch.cuda.device_count() > 1:
             self.mesh = make_mesh()
+        if self.mesh is not None:
+            self.mesh.require_local_slices(f"DinoEngine(mesh_axes={self.mesh.shape})")
         self.loaded = load_params(model_path, dtype=dtype, device=self.device, quant_mode=quant_mode)
         self.config = self.loaded.config
         self.id2label = self.loaded.id2label
@@ -191,7 +201,7 @@ class DinoEngine:
 
         params_tp, specs = prepare(self.loaded.params, self.config, tp)
         placed = place(params_tp, self.mesh, specs)
-        refused = kernel_refusals(placed[0])
+        refused = kernel_refusals(first_local(placed))
         if refused and self.device.type == "cuda" and self.opts.quant_backend != "dequant":
             raise NotImplementedError(
                 f"tp={tp}: the K7 kernel does not take the weight shards {refused} "

@@ -130,11 +130,15 @@ def test_make_mesh_default_takes_the_cards(monkeypatch):
         mesh.make_mesh()
 
 
-def test_init_distributed():
+def test_init_distributed(monkeypatch):
+    """One process is a no-op, as in the JAX package: no arguments and no
+    WORLD_SIZE, or num_processes=1. Several processes form a group
+    (tests/test_torch_distributed.py)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     mesh.init_distributed()
     mesh.init_distributed("localhost:1234", num_processes=1, process_id=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mesh.init_distributed("localhost:1234", num_processes=2, process_id=0)
+    assert not torch.distributed.is_initialized()
+    assert mesh.process_index() == 0 and mesh.process_count() == 1
 
 
 def test_collectives_on_repeated_devices():

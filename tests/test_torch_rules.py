@@ -14,9 +14,11 @@ PACKAGE = ROOT / "dinov2_tpu_torch"
 
 def test_no_source_file_imports_jax():
     """Nor optax or orbax, which the JAX package's trainer and checkpoint
-    module use and the card's machine does not have."""
+    module use and the card's machine does not have; nor does the rank
+    process of tests/test_torch_distributed.py."""
     pattern = re.compile(r"^\s*(import|from) (jax|optax|orbax)\b", re.MULTILINE)
-    files = [*sorted(PACKAGE.rglob("*.py")), ROOT / "chip_smoke.py"]
+    files = [*sorted(PACKAGE.rglob("*.py")), ROOT / "chip_smoke.py",
+             ROOT / "tests" / "torch_rank_worker.py"]
     assert len(files) > 10
     assert [str(p.relative_to(ROOT)) for p in files if pattern.search(p.read_text())] == []
 
@@ -27,7 +29,8 @@ def test_only_the_reexport_modules_name_the_jax_package():
     (models/config.py, io/gguf.py, io/synthetic.py, quant/, utils/native.py;
     tests/test_torch_host_copies.py holds them against the originals)."""
     pattern = re.compile(r"^\s*(import|from) dinov2_tpu(\.|\s|$)", re.MULTILINE)
-    files = [*sorted(PACKAGE.rglob("*.py")), ROOT / "chip_smoke.py"]
+    files = [*sorted(PACKAGE.rglob("*.py")), ROOT / "chip_smoke.py",
+             ROOT / "tests" / "torch_rank_worker.py"]
     assert len(files) > 10
     assert [str(p.relative_to(ROOT)) for p in files if pattern.search(p.read_text())] == []
 
