@@ -96,7 +96,13 @@ with random f16 weights from a seed, bf16, parity="reference":
     (two positions a rank); each rank's losses and parameters bit for bit
     the one-process mesh's on this card, its exact launches, ms a step and
     peak memory; the ranks' checkpoint restored in this process bit for
-    bit; DinoEngine(mesh_axes={"model": 2}) classify across the ranks bit
+    bit; the pipeline across the ranks ({"stage": 4}, 4 microbatches, two
+    stages a rank): pipeline_forward classify on 64 images (K1) and three
+    AdamW steps of make_pipeline_train_step on "auto" (K1, with the stages
+    in rank blocks and interleaved 0, 1, 0, 1) and on the flash route (K4
+    with lse, K6), each rank's outputs or losses and positions bit for bit
+    the one-process pipeline's on this card, with its exact launches;
+    DinoEngine(mesh_axes={"model": 2}) classify across the ranks bit
     for bit the one-process engine (K3); and NCCL asked for this one card
     by two ranks must fail in both. With 2 or more cards the cases also
     run over NCCL, rank k on card k.
@@ -132,8 +138,8 @@ and its cross-check, ViT-g/14 int8 slice, mesh slice (one line a case),
 training slice on both routes with its cross-check and
 export, long-sequence training, mesh training slice (K4 with lse and K6 at
 a shard's shape, one line a case, the CLI), multi-process slice (each
-rank's kernel checks, one line a case, the checkpoint and the engine, the
-NCCL refusal); then a check that no "auto" attention route
+rank's kernel checks, one line a case, the pipeline cases, the checkpoint
+and the engine, the NCCL refusal); then a check that no "auto" attention route
 of these bf16 paths fell to plain PyTorch on the card. Any failure exits
 non-zero. The line before the last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. With no CUDA device, or run from a directory
@@ -3873,6 +3879,15 @@ MP_CASES = (
     ("DP x TP", {"data": 2, "model": 2}, True, False),
 )
 MP_CHECKPOINT_CASE = 1  # the ranks save this case's state; this process restores it
+# the pipeline across the ranks, {"stage": PP_STAGES}: (what, attention route,
+# the rank of each stage; None: make_mesh's blocks, stages 0, 1 on rank 0 and
+# 2, 3 on rank 1)
+MP_PIPELINE_CASES = (
+    ("pipeline_forward", "auto", None),
+    ("make_pipeline_train_step", "auto", None),
+    ("make_pipeline_train_step", "auto", (0, 1, 0, 1)),
+    ("make_pipeline_train_step", True, None),
+)
 
 
 def _mp_case_name(label, axes, route) -> str:
@@ -3897,14 +3912,14 @@ def _mp_batch(config):
 
 
 def _digest(tree) -> str:
-    """A hash of a tree's leaves' bytes, in tree order."""
+    """A hash of a tree's leaves' bytes, in tree order (any dtype)."""
     import hashlib
 
     from dinov2_tpu_torch.models.params import tree_leaves
 
     h = hashlib.blake2b(digest_size=16)
     for leaf in tree_leaves(tree):
-        h.update(leaf.detach().contiguous().cpu().numpy().tobytes())
+        h.update(leaf.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -3945,6 +3960,90 @@ def _mp_run_case(config, case, source, images, labels, device) -> tuple[dict, An
     return found, trainer, params, state
 
 
+def _mp_pipeline_name(what, route, placement) -> str:
+    route_name = "flash_attention=True" if route is True else f'flash_attention="{route}"'
+    ranks = list(placement or [s * MP_WORLD // PP_STAGES for s in range(PP_STAGES)])
+    return (f"ViT-B/14 {what} {{'stage': {PP_STAGES}}} x {PP_MICROBATCHES} microbatches, "
+            f"stage ranks {ranks}, {route_name}")
+
+
+def _mp_pipeline_expected(what, route, layers: int) -> dict:
+    """Launches a call or a step of `layers` layers (remat in training: each
+    forward kernel twice a step)."""
+    if what == "pipeline_forward":
+        return {"K1": PP_MICROBATCHES * layers}
+    if route is True:
+        return {"K4": 2 * layers * PP_MICROBATCHES, "K6": layers * PP_MICROBATCHES}
+    return {"K1": 2 * layers * PP_MICROBATCHES}
+
+
+def _mp_pipeline_run(config, case, path: Path, source, device) -> dict:
+    """MP_STEPS calls of one pipeline case on this process's stages (every
+    stage in one process, as make_mesh's blocks over the ranks otherwise):
+    pipeline_forward classify on BATCH images (the engine's options) or
+    make_pipeline_train_step AdamW steps on the _mp_batch (bf16 over f32
+    masters, remat, parity "hf"). The launches, ms a call, peak device MB,
+    the outputs' digest or the losses, and each own position's digest."""
+    from dinov2_tpu_torch.image.preprocess import classify_preprocess
+    from dinov2_tpu_torch.models.params import load_params
+    from dinov2_tpu_torch.models.vit import ModelOptions
+    from dinov2_tpu_torch.parallel.mesh import Mesh, make_mesh, process_count
+    from dinov2_tpu_torch.parallel.pipeline import (
+        make_pipeline_train_step,
+        pipeline_forward,
+        place_pipeline_params,
+    )
+    from dinov2_tpu_torch.parallel.train import AdamW
+
+    what, route, placement = case
+    if placement is None or process_count() == 1:
+        mesh = make_mesh({"stage": PP_STAGES}, devices=[device] * PP_STAGES)
+    else:
+        grid = np.empty(PP_STAGES, dtype=object)
+        grid[:] = [device] * PP_STAGES
+        mesh = Mesh(grid, ("stage",), ranks=list(placement))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds, found = [], {}
+    if what == "pipeline_forward":
+        opts = ModelOptions(flash_attention=route)  # the engine's: bf16, parity "reference"
+        placed = place_pipeline_params(
+            load_params(path, dtype=torch.bfloat16, device=device).params, mesh)
+        x = classify_preprocess(torch.from_numpy(_classify_images()).to(device))
+        counters = _zero_launches()
+        with torch.inference_mode():
+            for _ in range(MP_STEPS):
+                start = time.perf_counter()
+                out = pipeline_forward(placed, x, config, opts, mesh,
+                                       num_microbatches=PP_MICROBATCHES, classify=True)
+                found["digest"] = _digest(out)  # waits for the device
+                seconds.append(time.perf_counter() - start)
+        found["finite"] = all(bool(torch.isfinite(v).all()) for v in out.values())
+        found["shape"] = list(out["probs"].shape)
+    else:
+        opts = ModelOptions(parity="hf", flash_attention=route, compute_dtype=torch.bfloat16,
+                            remat=True)
+        step, place = make_pipeline_train_step(config, opts, mesh, AdamW(1e-4, 0.05),
+                                               PP_MICROBATCHES)
+        placed, state = place(source)
+        images, labels = _mp_batch(config)
+        x = classify_preprocess(torch.from_numpy(images).to(device))
+        counters = _zero_launches()
+        found["losses"] = []
+        for _ in range(MP_STEPS):
+            start = time.perf_counter()
+            placed, state, metrics = step(placed, state, x, labels)
+            found["losses"].append(float(metrics["loss"]))  # waits for the device
+            seconds.append(time.perf_counter() - start)
+    found.update({
+        "ms": 1e3 * statistics.median(seconds),
+        "launches": {k: c.launches for k, c in counters.items() if c.launches},
+        "peak_mb": torch.cuda.max_memory_allocated() / 1e6,
+        "digests": {p: _digest(placed[p]) for p in mesh.local_positions},
+    })
+    return found
+
+
 def _mp_kernel_checks(card: str) -> None:
     """The slice's kernels at the shapes each rank gives them, against their
     plain versions, on this rank's card: K1 on a DP slice (B=16), K3 and K4
@@ -3976,6 +4075,17 @@ def _mp_kernel_checks(card: str) -> None:
         partial(slab_attention, qkv, heads, 0.125), partial(_slab_reference, qkv, heads, 0.125),
         partial(_slab_reference, qkv.float(), heads, 0.125),
         card, attention_flops(b, t, heads), nbytes(qkv, q), library=partial(sdpa, q, k, v, 0.125))
+    _flash_training_shape(card, b, t, heads, forward_check=True)
+    # the pipeline train step's microbatch: K1, and K4 with lse and K6, at B=8
+    b, heads = TRAIN_BATCH // PP_MICROBATCHES, 12
+    args = _half_layer_args(np.random.default_rng(SEED + 10), b, t, d)
+    args32 = [a.float() for a in args]
+    check_kernel(
+        f"rank pipeline slab_layer_block B={b} T={t} D={d} H={heads}", "K1",
+        lambda: slab_layer_block(*args, heads, 0.125, 1e-6),
+        lambda: slab_layer_reference(*args, heads, 0.125, 1e-6),
+        lambda: slab_layer_reference(*args32, heads, 0.125, 1e-6),
+        card, half_layer_flops(b, t, d, heads), nbytes(*args, args[0]))
     _flash_training_shape(card, b, t, heads, forward_check=True)
 
 
@@ -4016,6 +4126,10 @@ def mp_rank(argv: list) -> int:
         if i == MP_CHECKPOINT_CASE:
             save_train_state(out / "ck", MP_STEPS, params, state, trainer=trainer)
         del trainer, params, state
+        gc.collect()
+    for case in MP_PIPELINE_CASES:
+        found[_mp_pipeline_name(*case)] = _mp_pipeline_run(
+            config, case, out / "vit_b14.gguf", source, device)
         gc.collect()
     engine = DinoEngine(out / "vit_b14.gguf", dtype=torch.bfloat16, device=device,
                         mesh_axes={"model": world})
@@ -4086,10 +4200,16 @@ def phase_multi_process(card: str) -> dict:
     reference's at those positions, and each rank's launches a step must be
     exact. The checkpoint the ranks save restores here bit for bit; the
     engine's probs are bit for bit on both ranks and the one-process
-    engine's. Then two ranks ask NCCL for this one card, which must fail in
-    both. With 2 or more cards the cases also run over NCCL, rank k on card
-    k (the gloo ranks keep to the first card). Returns {kernel: {case:
-    launches a step a rank}}."""
+    engine's. The pipeline cases (MP_PIPELINE_CASES, {"stage": PP_STAGES}
+    across the ranks, two stages a rank) likewise: each rank's
+    pipeline_forward outputs, or its losses, equal the one-process
+    pipeline's on this card and each rank's stages are bit for bit its
+    stages there, with exact launches a rank (K1 24 a forward; K1 48, or
+    K4 with lse 48 and K6 24, a train step). Then two ranks ask NCCL for
+    this one card, which must fail in both. With 2 or more cards the cases
+    also run over NCCL, rank k on card k (the gloo ranks keep to the first
+    card). Returns {kernel: {case: launches a step a rank}}, the pipeline
+    cases' under "pipeline"."""
     from dinov2_tpu_torch.models.params import load_params
     from dinov2_tpu_torch.parallel.checkpoint import restore_train_state
     from dinov2_tpu_torch.runtime.engine import DinoEngine
@@ -4097,7 +4217,7 @@ def phase_multi_process(card: str) -> dict:
     config = _vit_b14_config()
     layers = config.num_hidden_layers
     device = torch.device("cuda", 0)
-    found: dict = {}
+    found: dict = {"pipeline": {}}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         write_vit_b14(tmp)
@@ -4119,6 +4239,21 @@ def phase_multi_process(card: str) -> dict:
                 del logical, logical_state
             reference[name] = got
             del trainer, params, state
+            gc.collect()
+        for case in MP_PIPELINE_CASES:
+            name = _mp_pipeline_name(*case)
+            got = _mp_pipeline_run(config, case, tmp / "vit_b14.gguf", source, device)
+            want = {k: MP_STEPS * v
+                    for k, v in _mp_pipeline_expected(case[0], case[1], layers).items()}
+            require(got["launches"] == want,
+                    f"{name} in one process: launches {got['launches']}, expected {want}")
+            if case[0] == "pipeline_forward":
+                require(got["finite"] and got["shape"] == [BATCH, config.num_classes],
+                        f"{name} in one process: probs {got['shape']}, finite {got['finite']}")
+            else:
+                require(all(np.isfinite(got["losses"])),
+                        f"{name} in one process: losses {got['losses']}")
+            reference[name] = got
             gc.collect()
         engine = DinoEngine(tmp / "vit_b14.gguf", dtype=torch.bfloat16, device=device,
                             mesh_axes={"model": MP_WORLD})
@@ -4176,6 +4311,44 @@ def phase_multi_process(card: str) -> dict:
                     f"ms a step (median of {MP_STEPS}) rank 0 {ranks[0][name]['ms']:.1f}, rank 1 "
                     f"{ranks[1][name]['ms']:.1f}, one-process mesh {want['ms']:.1f}; peak device "
                     f"MB rank 0 {ranks[0][name]['peak_mb']:.0f}, rank 1 "
+                    f"{ranks[1][name]['peak_mb']:.0f}, one process {want['peak_mb']:.0f} ({card})"
+                )
+            for case in MP_PIPELINE_CASES:
+                name = _mp_pipeline_name(*case)
+                want = reference[name]
+                expected = _mp_pipeline_expected(case[0], case[1], layers // MP_WORLD)
+                same = "digest" if case[0] == "pipeline_forward" else "losses"
+                for r in ranks:
+                    got = r[name]
+                    require(got[same] == want[same],
+                            f"{name} rank {r['rank']} ({backend}): {same} {got[same]}, one "
+                            f"process {want[same]}")
+                    require(len(got["digests"]) == PP_STAGES // MP_WORLD
+                            and all(want["digests"][int(p)] == d
+                                    for p, d in got["digests"].items()),
+                            f"{name} rank {r['rank']} ({backend}): its stages' parameters are "
+                            "not the one-process pipeline's bit for bit")
+                    require(got["launches"] == {k: MP_STEPS * v for k, v in expected.items()},
+                            f"{name} rank {r['rank']} ({backend}): launches in {MP_STEPS} calls "
+                            f"{got['launches']}, expected {expected} a call")
+                if backend == "gloo":
+                    for kernel, count in expected.items():
+                        found["pipeline"].setdefault(kernel, {})[name] = count
+                counted = ", ".join(f"{k} {v}" for k, v in expected.items())
+                outcome = (f"probs digest {want['digest']} on both ranks and in one process"
+                           if same == "digest" else
+                           f"losses {want['losses']} on both ranks and in one process, each "
+                           f"rank's {PP_STAGES // MP_WORLD} stages bit for bit the one-process "
+                           f"pipeline's after {MP_STEPS} AdamW steps")
+                kind = (f"{BATCH}x{IMAGE_PX}px classify, bf16, parity reference"
+                        if same == "digest" else f"{TRAIN_BATCH}x{IMAGE_PX}px uint8, bf16 over "
+                        "f32 masters, remat, parity hf")
+                print(
+                    f"multi-process slice: {name}, {MP_WORLD} ranks over {backend} ({where}), "
+                    f"{kind}: {outcome}; launches a call a rank {counted}, the other kernels "
+                    f"0; ms a call (median of {MP_STEPS}) rank 0 {ranks[0][name]['ms']:.1f}, "
+                    f"rank 1 {ranks[1][name]['ms']:.1f}, one process {want['ms']:.1f}; peak "
+                    f"device MB rank 0 {ranks[0][name]['peak_mb']:.0f}, rank 1 "
                     f"{ranks[1][name]['peak_mb']:.0f}, one process {want['peak_mb']:.0f} ({card})"
                 )
             name = _mp_case_name(*MP_CASES[MP_CHECKPOINT_CASE][:3])
@@ -4297,6 +4470,7 @@ def main() -> int:
             "mesh_launches": mesh_launches.get("K1", {}),
             "mesh_train_launches": mesh_train.get("K1", {}),
             "mp_train_launches": mp_train.get("K1", {}),
+            "mp_pipeline_launches": mp_train["pipeline"].get("K1", {}),
             "serve_launches": k1_serve,
             "aot_launches": aot_launches["K1"],
             **k1_measured,
@@ -4332,6 +4506,7 @@ def main() -> int:
             "mesh_launches": mesh_launches.get("K4", {}),
             "mesh_train_launches": mesh_train.get("K4", {}),
             "mp_train_launches": mp_train.get("K4", {}),
+            "mp_pipeline_launches": mp_train["pipeline"].get("K4", {}),
             "mesh_shard_checks": {**mesh_launches["shard checks"]["K4"],
                                   **mesh_train["shard checks"]["K4"]},
             "serve_launches": k4_serve,
@@ -4349,6 +4524,7 @@ def main() -> int:
             "launches": train_launches["K6"],
             "mesh_train_launches": mesh_train.get("K6", {}),
             "mp_train_launches": mp_train.get("K6", {}),
+            "mp_pipeline_launches": mp_train["pipeline"].get("K6", {}),
             "mesh_shard_checks": mesh_train["shard checks"]["K6"],
             **k6_measured,
         },

@@ -18,7 +18,8 @@ is explicit here:
     `psum` over an axis and `gather` over 'data', and for sequence
     parallelism `all_gather_tokens` and `reduce_scatter_tokens` over
     'model' (each the other's transpose). All are differentiable. The
-    pipeline's stage hand-off is a copy to the next stage's device
+    pipeline's stage hand-off (`hand_off`) is a copy to the next stage's
+    device, or a point-to-point message where that stage is another rank's
     (parallel/pipeline.py);
   - `unplace` is `np.asarray` of a sharded array: the logical tree back
     from its shards;
@@ -537,12 +538,12 @@ _WIRE_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64, tor
 _MAX_DIMS = 6
 
 
-def _wire_device(group: Group, device: torch.device) -> torch.device:
-    """Where `group`'s buffers cross: the device itself, or the host for a
-    card's tensors under gloo. Gloo's all_gather takes CPU tensors only, so
-    such a collective stages through the host: that is the backend's
-    transport (two ranks on one card take gloo), not a fallback."""
-    if device.type != "cpu" and dist.get_backend(group.process_group) == "gloo":
+def _wire_device(process_group, device: torch.device) -> torch.device:
+    """Where a process group's buffers cross: the device itself, or the host
+    for a card's tensors under gloo. Gloo's all_gather, send and recv take
+    CPU tensors only, so such a message stages through the host: that is the
+    backend's transport (two ranks on one card take gloo), not a fallback."""
+    if device.type != "cpu" and dist.get_backend(process_group) == "gloo":
         return torch.device("cpu")
     return device
 
@@ -577,7 +578,7 @@ def _exchange(group: Group, tensors: list, device: torch.device, shapes: list | 
     rank's); a member of this rank is its own tensor, another's a copy on
     `device`. `shapes` (one a member) and `dtype` are the members' where the
     caller knows them, else they come from the owners (_exchange_layout)."""
-    wire = _wire_device(group, device)
+    wire = _wire_device(group.process_group, device)
     if shapes is None:
         shapes, dtype = _exchange_layout(group, tensors, wire)
     itemsize = torch.empty((), dtype=dtype).element_size()
@@ -726,6 +727,51 @@ def gather_to_every(parts: list, group: Group, device: torch.device, dim: int = 
     zero gradients."""
     local = [p for p in parts if p is not None]
     return _GatherToEvery.apply(group, device, dim, len(local), *local, *tails)
+
+
+def hand_off(mesh: Mesh, messages: list) -> dict:
+    """One schedule step's stage hand-offs. `messages` are (key, source
+    position, destination position, the tensor at the source or None where
+    another rank owns it, its shape, its dtype, tag), in one order on every
+    rank. Returns {key: the tensor on the destination's device} for the
+    destinations this rank owns. A hand-off within this rank is
+    `Tensor.to` the destination's device (the tensor itself on its own
+    device); across ranks it is an isend / irecv pair of the tensor's bytes
+    as they are, its dtype and shape unchanged, over the mesh's process
+    group: on the host under gloo (`_wire_device`), card to card under
+    NCCL. All of a step's messages are issued at once
+    (dist.batch_isend_irecv): gloo matches each by its tag, NCCL by the
+    order both ends issue them in, which is `messages`' order on both. Every
+    send and receive is waited on before this returns, so no buffer is
+    reused while it is in flight, and no message is blocking: a rank issues
+    its sends and receives of the step before it waits on any."""
+    got, ops, arriving = {}, [], []
+    group = None
+    for key, source, destination, tensor, shape, dtype, tag in messages:
+        here, there = mesh.is_local(source), mesh.is_local(destination)
+        if here and there:
+            got[key] = tensor.to(mesh.device(destination))
+            continue
+        if not (here or there):
+            continue
+        if group is None:  # made on every rank at Mesh construction
+            group = _process_group(mesh.all_ranks)
+        wire = _wire_device(group, mesh.device(source if here else destination))
+        if here:
+            raw = tensor.detach().contiguous().reshape(-1).view(torch.uint8).to(wire)
+            ops.append(dist.P2POp(dist.isend, raw, int(mesh.ranks.flat[destination]), group,
+                                  tag))
+            continue
+        size = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        raw = torch.empty(size, dtype=torch.uint8, device=wire)
+        arriving.append((key, raw, shape, dtype, mesh.device(destination)))
+        ops.append(dist.P2POp(dist.irecv, raw, int(mesh.ranks.flat[source]), group, tag))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for key, raw, shape, dtype, device in arriving:
+        got[key] = raw.view(dtype).reshape(shape).to(device)
+    return got
 
 
 # ---------------------------------------------------------------------------

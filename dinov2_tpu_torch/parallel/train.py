@@ -208,7 +208,16 @@ def apply_gradients(optimizer, placed: list, aliases: list, opt_state: Any, loss
         grads = iter(torch.zeros_like(leaf) for leaf in leaves)
     per_position = [None if tree is None else tree_map(lambda _: next(grads), tree)
                     for tree in aliases]
-    reduced = reduce_replica_grads(per_position, mesh, specs)
+    update_from_gradients(optimizer, placed, per_position, opt_state, mesh, specs)
+
+
+def update_from_gradients(optimizer, placed: list, grads: list, opt_state: Any, mesh: Mesh,
+                          specs: Any) -> None:
+    """The replica reduction of each position's gradient tree (`grads`, a
+    list like `placed`, None at another rank's positions) in position order
+    (parallel/mesh.py::reduce_replica_grads, on every rank) and one
+    optimizer update of every distinct master of `placed`, in place."""
+    reduced = reduce_replica_grads(grads, mesh, specs)
     masters = masters_of(placed)
     optimizer.update_(masters, tree_leaves({
         position: _walk(lambda path, _, p=position: _at(reduced[p], path), tree)

@@ -1425,3 +1425,93 @@ def test_mesh_train_step_on_one_card(cuda, axes, route, sp):
     for g, s, w in zip(got, single, grads32):
         bound = 2 * (s - w).abs().max().item() + 1e-3 * w.abs().max().item()
         assert (g - w).abs().max().item() <= bound
+
+
+@pytest.fixture
+def two_cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def _mesh_batch():
+    rng = np.random.default_rng(2)
+    return (rng.integers(0, 256, (8, 256, 256, 3), dtype=np.uint8),
+            rng.integers(0, MESH_CONFIG.num_classes, 8))
+
+
+@pytest.mark.parametrize("route", [True, "auto"], ids=["flash", "auto"])
+def test_tp_remat_across_two_cards_is_one_card(two_cards, route):
+    """A TP {"data": 1, "model": 2} Trainer step with remat, its positions
+    on cuda:0 and cuda:1, against the same mesh with both positions on
+    cuda:0: the loss and every unplaced parameter bit for bit. Each layer's
+    shards then span two cards, and its recompute is reached from both
+    devices' autograd threads: torch.utils.checkpoint raced there (one
+    counted 61 saved tensors against 60), which
+    parallel/tp_fused.py::_RematLayer repairs; a return of the race fails
+    here."""
+    from dinov2_tpu_torch.models.params import init_params, tree_leaves
+    from dinov2_tpu_torch.models.vit import ModelOptions
+    from dinov2_tpu_torch.parallel.mesh import make_mesh
+    from dinov2_tpu_torch.parallel.train import AdamW, Trainer
+
+    source = init_params(MESH_CONFIG, seed=5, dtype=torch.float32)
+    images, labels = _mesh_batch()
+
+    def run(devices):
+        opts = ModelOptions(parity="hf", flash_attention=route, compute_dtype=torch.bfloat16,
+                            remat=True)
+        trainer = Trainer(MESH_CONFIG, opts, AdamW(1e-4, 0.05),
+                          mesh=make_mesh({"data": 1, "model": 2}, devices=devices),
+                          device="cuda")
+        params, state = trainer.place(source)
+        params, state, metrics = trainer.step(params, state, images, labels)
+        return float(metrics["loss"]), tree_leaves(trainer.unplace(params)[0])
+
+    loss_two, two = run(two_cards)
+    loss_one, one = run([two_cards[0]] * 2)
+    assert loss_two == loss_one
+    for a, b in zip(two, one):
+        assert torch.equal(a.to(b.device), b)
+
+
+def test_pipeline_across_two_cards_is_one_card(two_cards):
+    """{"stage": 2} in one process with stage s on cuda:s (each hand-off a
+    copy between the cards, forward and backward) against both stages on
+    cuda:0: pipeline_forward's outputs, and the losses and every unplaced
+    parameter after two AdamW steps of make_pipeline_train_step ("auto",
+    remat), bit for bit."""
+    from dinov2_tpu_torch.image.preprocess import classify_preprocess
+    from dinov2_tpu_torch.models.params import init_params, tree_leaves
+    from dinov2_tpu_torch.models.vit import ModelOptions
+    from dinov2_tpu_torch.parallel.mesh import make_mesh, unplace
+    from dinov2_tpu_torch.parallel.pipeline import (
+        layer_pspecs,
+        make_pipeline_train_step,
+        pipeline_forward,
+        place_pipeline_params,
+    )
+    from dinov2_tpu_torch.parallel.train import AdamW
+
+    source = init_params(MESH_CONFIG, seed=5, dtype=torch.float32)
+    images, labels = _mesh_batch()
+    x = classify_preprocess(torch.from_numpy(images).to(two_cards[0]))
+
+    def run(devices):
+        mesh = make_mesh({"stage": 2}, devices=devices)
+        opts = ModelOptions(parity="hf", compute_dtype=torch.bfloat16, remat=True)
+        with torch.inference_mode():
+            out = pipeline_forward(place_pipeline_params(source, mesh), x, MESH_CONFIG, opts,
+                                   mesh, num_microbatches=4, classify=True)
+        step, place = make_pipeline_train_step(MESH_CONFIG, opts, mesh, AdamW(1e-4, 0.05), 4)
+        params, state = place(source)
+        losses = [float(step(params, state, x, labels)[2]["loss"]) for _ in range(2)]
+        return out, losses, tree_leaves(unplace(params, mesh, layer_pspecs(params[0])))
+
+    out_two, losses_two, two = run(two_cards)
+    out_one, losses_one, one = run([two_cards[0]] * 2)
+    for key in out_one:
+        assert torch.equal(out_two[key].to(two_cards[0]), out_one[key]), key
+    assert losses_two == losses_one
+    for a, b in zip(two, one):
+        assert torch.equal(a.to(b.device), b)

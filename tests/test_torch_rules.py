@@ -14,11 +14,13 @@ PACKAGE = ROOT / "dinov2_tpu_torch"
 
 def test_no_source_file_imports_jax():
     """Nor optax or orbax, which the JAX package's trainer and checkpoint
-    module use and the card's machine does not have; nor does the rank
-    process of tests/test_torch_distributed.py."""
+    module use and the card's machine does not have; nor do the rank
+    processes of tests/test_torch_distributed.py and
+    tests/test_torch_pipeline_ranks.py."""
     pattern = re.compile(r"^\s*(import|from) (jax|optax|orbax)\b", re.MULTILINE)
     files = [*sorted(PACKAGE.rglob("*.py")), ROOT / "chip_smoke.py",
-             ROOT / "tests" / "torch_rank_worker.py"]
+             ROOT / "tests" / "torch_rank_worker.py",
+             ROOT / "tests" / "torch_pipeline_rank_worker.py"]
     assert len(files) > 10
     assert [str(p.relative_to(ROOT)) for p in files if pattern.search(p.read_text())] == []
 
@@ -30,7 +32,8 @@ def test_only_the_reexport_modules_name_the_jax_package():
     tests/test_torch_host_copies.py holds them against the originals)."""
     pattern = re.compile(r"^\s*(import|from) dinov2_tpu(\.|\s|$)", re.MULTILINE)
     files = [*sorted(PACKAGE.rglob("*.py")), ROOT / "chip_smoke.py",
-             ROOT / "tests" / "torch_rank_worker.py"]
+             ROOT / "tests" / "torch_rank_worker.py",
+             ROOT / "tests" / "torch_pipeline_rank_worker.py"]
     assert len(files) > 10
     assert [str(p.relative_to(ROOT)) for p in files if pattern.search(p.read_text())] == []
 
