@@ -106,6 +106,19 @@ with random f16 weights from a seed, bf16, parity="reference":
     for bit the one-process engine (K3); and NCCL asked for this one card
     by two ranks must fail in both. With 2 or more cards the cases also
     run over NCCL, rank k on card k.
+  - f32, the trainer's default dtype and every --dtype f32 run, on the f32
+    kernels of K1 to K4 and K6 (their own C entries and counts,
+    `.f32_launches`): DinoEngine(dtype=torch.float32).classify on the
+    classify slice's file and images (K1 f32) and at slab_fusion "proj"
+    (K2 f32) and "core" (K3 f32); a ViT-B/14 with 4 register tokens (T=261,
+    a masked tail) in bf16 and f32 (K1); the ViT-L/14 feature slice in f32
+    (K4 f32); make_trainer(config) as shipped (f32 over f32 masters, parity
+    "hf", remat, "auto": K1 f32), on the flash route (K4 with lse and K6
+    f32) and at T=1370. Each against the CPU f32 run of the same weights and
+    preprocessed input: tokens within 2e-5 of max(1, max|token|) and probs
+    within 1e-5 with the same top-5 (in parity "hf"), step 1's loss within
+    1e-5 and its raw gradients with at most 1e-4 of a leaf beyond 1e-5; the
+    launches exact.
 On the way it builds every hand-written kernel of those paths from the
 sources in this checkout (one nvcc per source, all at once) and holds each
 against its plain PyTorch version on the card, with its time beside its
@@ -139,8 +152,12 @@ training slice on both routes with its cross-check and
 export, long-sequence training, mesh training slice (K4 with lse and K6 at
 a shard's shape, one line a case, the CLI), multi-process slice (each
 rank's kernel checks, one line a case, the pipeline cases, the checkpoint
-and the engine, the NCCL refusal); then a check that no "auto" attention route
-of these bf16 paths fell to plain PyTorch on the card. Any failure exits
+and the engine, the NCCL refusal), and the f32 phases (f32 kernel checks after
+K9's, each f32 kernel within 1e-5 (gradients 2e-5) of max(1, max|y|) of its
+plain f32 version beside its bound at 67 TFLOP/s and SDPA or one f32 linear
+call; the f32 classify slice; the f32 run of the feature slice; the f32
+training slice); then a check that no "auto" attention route of these paths
+fell to plain PyTorch on the card. Any failure exits
 non-zero. The line before the last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. With no CUDA device, or run from a directory
 that holds only this file, it exits non-zero and prints no result.
@@ -2041,17 +2058,20 @@ def _agree_u8(a: np.ndarray, b: np.ndarray) -> float:
     return float((np.abs(a.astype(np.int32) - b.astype(np.int32)) <= 1).mean())
 
 
-def phase_features(card: str) -> int:
+def phase_features(card: str) -> tuple[int, int]:
     """DinoEngine.extract_features and pca_visualizations with a full-width
     ViT-L/14 on 8 images of 512 px; returns K4 launches of that run (K1 must
-    launch no time: T=1370 takes the flash route). Then, as a routing
-    finding and no check, the same batch on the slab route (K1 at T=1370)."""
+    launch no time: T=1370 takes the flash route) and the f32 run's K4 f32
+    launches. Then, as a routing finding and no check, the same
+    batch on the slab route (K1 at T=1370); then the same file and images in
+    f32 (K4 f32, 24 launches a forward), against the CPU f32 forward."""
     from dinov2_tpu_torch.image.pca import pca_visualization_batch, resize_nearest_host
     from dinov2_tpu_torch.image.preprocess import feature_preprocess
     from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
     from dinov2_tpu_torch.models.config import PRESETS
     from dinov2_tpu_torch.models.params import load_params
-    from dinov2_tpu_torch.models.vit import ModelOptions, forward
+    from dinov2_tpu_torch.models.vit import ModelOptions, forward, forward_features
+    from dinov2_tpu_torch.ops.attention import vanilla_route_warnings
     from dinov2_tpu_torch.ops.flash_attention import flash_attention
     from dinov2_tpu_torch.ops.fused_attention import slab_layer_block
     from dinov2_tpu_torch.runtime.engine import DinoEngine
@@ -2068,6 +2088,7 @@ def phase_features(card: str) -> int:
                               flash_attention=route, device="cuda")
             for route in ("auto", "slab")
         }
+        f32_engine = DinoEngine(path, dtype=torch.float32, parity="reference", device="cuda")
         cpu_model = load_params(path, dtype=torch.float32, device="cpu")
     engine = engines["auto"]
 
@@ -2167,7 +2188,37 @@ def phase_features(card: str) -> int:
         f"max|dtokens|/max|tokens| {tok_rel:.4g} (bound {TOKEN_REL_BOUND})"
     )
     require(tok_rel <= TOKEN_REL_BOUND, "forward: feature tokens differ from the CPU f32 forward")
-    return launches
+
+    # f32: the same file through DinoEngine(dtype=torch.float32): K4 f32
+    # (the cross-check in parity "hf", as _f32_against_cpu says why)
+    warnings = vanilla_route_warnings()
+    f32_engine.warmup(hw, batch=FEATURE_BATCH, classify=False)
+    _zero_counts()
+    feats32 = f32_engine.extract_features(images)
+    f32_seconds, f32_forward_ms = timed(f32_engine)
+    forwards = 1 + FEATURE_TIMED_CALLS
+    counts = _require_counts("f32 features", {"K4": config.num_hidden_layers * forwards})
+    with torch.inference_mode():
+        hf = dataclasses.replace(f32_engine.opts, parity="hf")
+        tok_hf = forward_features(f32_engine.model.params, pre32.cuda(), config, hf).cpu()
+        tok_hf32 = forward_features(cpu_model.params, pre32, config, hf)
+    ref_err = (torch.from_numpy(np.concatenate(
+        [feats32["cls_token"][:1, None], feats32["patch_tokens"][:1]], axis=1)) - tok32).abs().max()
+    f32_err = (tok_hf - tok_hf32).abs().max().item()
+    f32_bound = F32_TOKEN_TOL * max(1.0, tok_hf32.abs().max().item())
+    print(
+        f"f32 features: ViT-L/14 extract_features {FEATURE_BATCH}x{FEATURE_PX}px, f32 on "
+        f"{card}: K4 f32 launches {counts.get('K4', 0)} = {config.num_hidden_layers} x "
+        f"{forwards} forwards, every other kernel 0; "
+        f"{FEATURE_BATCH * FEATURE_TIMED_CALLS / sum(f32_seconds):.1f} img/s (median "
+        f"{1e3 * statistics.median(f32_seconds):.2f} ms/call, forward {f32_forward_ms:.2f} ms); "
+        f"1 image against the CPU f32 forward on the same preprocessed input, parity hf: "
+        f"max|dtokens| {f32_err:.3g} (bound {f32_bound:.3g}); a finding, not a check: the "
+        f"engine's parity reference tokens against the CPU's {ref_err.item():.3g} (the f16 GELU)"
+    )
+    require(f32_err <= f32_bound, "f32 features: tokens differ from the CPU f32 forward")
+    require(vanilla_route_warnings() == warnings, 'f32 features: an "auto" route fell to plain')
+    return launches, counts["K4"]
 
 
 def _http(url: str, data: bytes | None = None, timeout: float = 300) -> tuple[int, bytes]:
@@ -4392,6 +4443,487 @@ def phase_multi_process(card: str) -> dict:
     return found
 
 
+# ---------------------------------------------------------------------------
+# The f32 slice: f32 activations on the f32 kernels of K1 to K4 and K6 (the
+# trainer's defaults, cli.train, every --dtype f32 run), each kernel against
+# its plain f32 version, then the paths against the CPU f32 run
+# ---------------------------------------------------------------------------
+
+# forward and lse, of max(1, max|plain|): the f32 bound of tests/test_torch_flash_tiles.py
+F32_TOL = 1e-5
+F32_GRAD_TOL = 2e-5  # gradients, likewise
+F32_TOKEN_TOL = 2e-5  # tokens against the CPU f32 forward, of max(1, max|token|)
+F32_PROB_TOL = 1e-5  # probs against the CPU f32 forward, absolute
+F32_LOSS_TOL = 1e-5  # step 1's loss against the CPU f32 step, absolute
+# raw gradients against the CPU f32 step, leaf by leaf, with the leaf bound of
+# tests/test_torch_train.py::test_three_trainer_steps_match_jax: at most one
+# element in 10^4 beyond 1e-5 (here of max(1, max|g|) of the leaf)
+F32_GRAD_ELEMENT_TOL = 1e-5
+F32_GRAD_OUTLIER_SHARE = 1e-4
+F32_CROSS_CHECK_IMAGES = 4
+REGISTER_TOKENS = 4
+
+
+def _f32_check(label, kernel, plain, card, flops, moved_bytes, library=None,
+               tol=F32_TOL, library_name="scaled_dot_product_attention f32") -> dict:
+    """One f32 kernel call (an output or a tuple of them) against its plain
+    f32 version on the same inputs: every output within tol of
+    max(1, max|plain|). Then CUDA-event medians of the kernel, the plain
+    version and, where given, the library call, and the bound at the f32
+    rate outside the tensor cores."""
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    worst, parts = 0.0, []
+    for i, (a, r) in enumerate(zip(got, ref)):
+        require(a.dtype == torch.float32, f"{label}: output {i} is {a.dtype}")
+        require(bool(torch.isfinite(a).all()), f"{label}: output {i} is not finite")
+        err = (a.reshape(r.shape) - r).abs().max().item()
+        bound = tol * max(1.0, r.abs().max().item())
+        parts.append(f"max|d| {err:.3g} (bound {bound:.3g})")
+        require(err <= bound, f"{label}: output {i} error {err} exceeds {bound}")
+        worst = max(worst, err)
+    measured = {
+        "max_abs_err": worst,
+        "ms": cuda_median_ms(kernel),
+        "plain_ms": cuda_median_ms(plain, reps=10),
+        **roofline(flops, moved_bytes, PEAK_F32_FLOPS),
+        "library_ms": cuda_median_ms(library) if library else None,
+    }
+    line = (f"f32 kernel check: {label}: {'; '.join(parts)}; median {measured['ms']:.4f} ms, "
+            f"plain f32 {measured['plain_ms']:.4f} ms, bound {measured['bound_ms']:.4f} ms "
+            f"({measured['bound_by']}, 67 TFLOP/s f32)")
+    if library:
+        line += f", {library_name} {measured['library_ms']:.4f} ms"
+    print(f"{line} ({card})")
+    return measured
+
+
+def _f32_linear_ms(a2, w) -> float:
+    """One f32 torch.nn.functional.linear on a GEMM launch's operands (a
+    (M, K) and an (in, out) weight), TF32 off: a yardstick beside the FFMA
+    GEMMs, which the port never calls."""
+    wt = w.t().contiguous()
+    return cuda_median_ms(lambda: torch.nn.functional.linear(a2, wt))
+
+
+def phase_f32_kernel_checks(card: str) -> dict:
+    """Each f32 kernel against its plain f32 version on the card: K1 at the
+    classify shape, K3 at ViT-B's and ViT-g's slab shapes, K2 at ViT-g's, K4
+    at the feature shape with and without lse, K6 at the two training
+    shapes. Returns {kernel: numbers} for the JSON line."""
+    from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
+    from dinov2_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_slab,
+        flash_backward,
+        flash_backward_reference,
+        flash_forward_lse,
+        flash_forward_reference,
+    )
+    from dinov2_tpu_torch.ops.fused_attention import (
+        _slab_block_reference,
+        _slab_reference,
+        slab_attention,
+        slab_attention_block,
+        slab_layer_block,
+        slab_layer_reference,
+    )
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for f32 matmuls")
+    scale, eps = 0.125, 1e-6
+    found = {}
+
+    b, t, d, heads = BATCH, 257, 768, 12
+    args = [a.float() for a in _half_layer_args(np.random.default_rng(SEED), b, t, d)]
+    found["K1"] = _f32_check(
+        f"slab_layer_block f32 B={b} T={t} D={d} H={heads}",
+        lambda: slab_layer_block(*args, heads, scale, eps),
+        lambda: slab_layer_reference(*args, heads, scale, eps),
+        card, half_layer_flops(b, t, d, heads), nbytes(*args, args[0]))
+    x2 = args[0].reshape(-1, d)
+    found["K1"]["qkv_linear_ms"] = _f32_linear_ms(x2, args[3])
+    found["K1"]["proj_linear_ms"] = _f32_linear_ms(x2, args[5])
+    print(f"f32 kernel check: K1's two GEMM launches beside one f32 linear call each: qkv "
+          f"{found['K1']['qkv_linear_ms']:.4f} ms, proj {found['K1']['proj_linear_ms']:.4f} ms "
+          f"({card})")
+
+    for b, t, heads in ((BATCH, 257, 12), (GIANT_BATCH, 257, 24)):
+        rng = np.random.default_rng(SEED + heads)
+        qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * 64 * heads)) * 1.5).to(
+            "cuda", torch.float32)
+        q, k, v = split_heads(qkv, heads)
+        shape = f"B={b} T={t} D={64 * heads} H={heads}"
+        k3 = _f32_check(
+            f"slab_attention f32 {shape}", partial(slab_attention, qkv, heads, scale),
+            partial(_slab_reference, qkv, heads, scale), card, attention_flops(b, t, heads),
+            nbytes(qkv, q), library=partial(sdpa, q, k, v, scale))
+        if heads == 12:
+            found["K3"] = k3
+            continue
+        worst = max(found["K3"]["max_abs_err"], k3["max_abs_err"])
+        found["K3"].update({f"{key}_giant": value for key, value in k3.items()})
+        found["K3"]["max_abs_err"] = worst
+        d = 64 * heads
+        x = torch.from_numpy(rng.standard_normal((b, t, d))).to("cuda", torch.float32)
+        w_proj = torch.from_numpy(rng.standard_normal((d, d)) * 0.05).to("cuda", torch.float32)
+        b_proj = torch.from_numpy(rng.standard_normal(d) * 0.1).to("cuda", torch.float32)
+        ls1 = torch.from_numpy(rng.uniform(0.1, 1.0, d)).to("cuda", torch.float32)
+        block = (x, qkv, w_proj, b_proj, ls1)
+        found["K2"] = _f32_check(
+            f"slab_attention_block f32 {shape}",
+            lambda: slab_attention_block(*block, heads, scale),
+            lambda: _slab_block_reference(*block, heads, scale), card,
+            attention_flops(b, t, heads) + 2.0 * b * t * d * d, nbytes(*block, x))
+        found["K2"]["proj_linear_ms"] = _f32_linear_ms(x.reshape(-1, d), w_proj)
+
+    b, t, heads = FEATURE_BATCH, 1370, 16
+    rng = np.random.default_rng(SEED + t)
+    qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * 64 * heads)) * 1.5).to(
+        "cuda", torch.float32)
+    q, k, v = split_heads(qkv, heads)
+    shape = f"B={b} T={t} H={heads} hd=64"
+    found["K4"] = _f32_check(
+        f"flash_attention_slab f32 {shape}", partial(flash_attention_slab, qkv, heads, scale),
+        partial(vanilla_attention, q, k, v, scale), card, attention_flops(b, t, heads),
+        nbytes(q, k, v, q), library=partial(sdpa, q, k, v, scale))
+    out, _ = flash_forward_lse(q, k, v, scale)
+    same = torch.equal(out, flash_attention(q, k, v, scale))
+    print(f"f32 kernel check: flash_forward_lse f32 {shape}: out equals K4's without lse bit "
+          f"for bit: {same}")
+    require(same, f"the f32 with_lse forward's out differs from K4's at {shape}")
+    found["K4-lse"] = _f32_check(
+        f"flash_forward_lse f32 {shape} (out, lse)", partial(flash_forward_lse, q, k, v, scale),
+        partial(flash_forward_reference, q, k, v, scale), card, attention_flops(b, t, heads),
+        nbytes(q, k, v, q) + b * heads * t * 4, library=partial(sdpa, q, k, v, scale))
+
+    for b, t, heads in ((TRAIN_BATCH, 257, 12), (TRAIN_LONG_BATCH, 1370, 16)):
+        rng = np.random.default_rng(SEED + t + heads)
+        qkv = torch.from_numpy(rng.standard_normal((b, t, 3 * 64 * heads)) * 1.5).to(
+            "cuda", torch.float32)
+        g = torch.from_numpy(rng.standard_normal((b, t, heads, 64))).to("cuda", torch.float32)
+        q, k, v = split_heads(qkv, heads)
+        out, lse = flash_forward_lse(q, k, v, scale)
+        k6 = _f32_check(
+            f"flash_backward f32 B={b} T={t} H={heads} hd=64 (dq, dk, dv)",
+            partial(flash_backward, q, k, v, out, lse, g, scale),
+            partial(flash_backward_reference, q, k, v, out, lse, g, scale), card,
+            10.0 * b * heads * t * t * 64, nbytes(q, k, v, out, g, lse, q, q, q),
+            library=sdpa_backward(q, k, v, g, scale), tol=F32_GRAD_TOL,
+            library_name="scaled_dot_product_attention f32 backward")
+        if t == 257:
+            found["K6"] = k6
+        else:
+            worst = max(found["K6"]["max_abs_err"], k6["max_abs_err"])
+            found["K6"].update({f"{key}_t1370": value for key, value in k6.items()})
+            found["K6"]["max_abs_err"] = worst
+    return found
+
+
+def _all_counters() -> dict:
+    """Every kernel wrapper of the port, by kernel."""
+    from dinov2_tpu_torch.ops.flash_attention import flash_backward
+
+    return {**_int8_counters(), "K6": flash_backward}
+
+
+def _zero_counts() -> None:
+    """Every kernel count of the port at 0, bf16 and f32."""
+    for counter in _all_counters().values():
+        counter.launches = 0
+        if hasattr(counter, "f32_launches"):
+            counter.f32_launches = 0
+
+
+def _read_counts() -> tuple[dict, dict]:
+    """(the f32 counts of K1, K2, K3, K4 and K6; every other count that is
+    not 0)."""
+    f32, other = {}, {}
+    for name, counter in _all_counters().items():
+        if hasattr(counter, "f32_launches"):
+            f32[name] = counter.f32_launches
+        if counter.launches:
+            other[name] = counter.launches
+    return f32, other
+
+
+def _require_counts(what: str, want: dict) -> dict:
+    """The f32 counts since _zero_counts are `want`, the rest 0, and no
+    other kernel launched; returns the counts that are not 0."""
+    f32, other = _read_counts()
+    expected = {name: want.get(name, 0) for name in f32}
+    require(f32 == expected, f"{what}: f32 launches {f32}, expected {expected}")
+    require(not other, f"{what}: other kernels launched {other}")
+    return {name: n for name, n in f32.items() if n}
+
+
+def _f32_against_cpu(engine, cpu_params, images, config, what: str) -> str:
+    """The first F32_CROSS_CHECK_IMAGES images through the engine's f32
+    forward on the card (its device weights and kernels) and the port's
+    plain f32 forward on the CPU, both on the CPU's preprocessed input and
+    in parity "hf": tokens within F32_TOKEN_TOL of max(1, max|token|), probs
+    within F32_PROB_TOL and the same top-5. Parity "reference" rounds the
+    GELU's input and output to f16 (ggml's lookup table), which turns a
+    last-bit difference of f32 sums into an f16 step of an activation, so
+    its distance is printed as a finding beside the check, as is the
+    preprocess's on the card."""
+    from dinov2_tpu_torch.image.preprocess import classify_preprocess
+    from dinov2_tpu_torch.models.vit import forward_features, forward_head
+
+    sub = images[:F32_CROSS_CHECK_IMAGES]
+    hf = dataclasses.replace(engine.opts, parity="hf")
+    with torch.inference_mode():
+        pre32 = classify_preprocess(torch.from_numpy(sub))
+        pre_err = (classify_preprocess(torch.from_numpy(sub).cuda()).cpu() - pre32).abs().max()
+        ref_err = (forward_features(engine.model.params, pre32.cuda(), config, engine.opts).cpu()
+                   - forward_features(cpu_params, pre32, config, engine.opts)).abs().max()
+        tok = forward_features(engine.model.params, pre32.cuda(), config, hf)
+        prob = forward_head(engine.model.params, tok, config, hf).cpu()
+        tok = tok.cpu()
+        tok32 = forward_features(cpu_params, pre32, config, hf)
+        prob32 = forward_head(cpu_params, tok32, config, hf)
+    tok_err = (tok - tok32).abs().max().item()
+    tok_bound = F32_TOKEN_TOL * max(1.0, tok32.abs().max().item())
+    prob_err = (prob - prob32).abs().max().item()
+    same_top5 = torch.equal(prob.topk(5).indices, prob32.topk(5).indices)
+    line = (f"{what}: {len(sub)} images against the CPU f32 forward, the same preprocessed "
+            f"input, parity hf: max|dtokens| {tok_err:.3g} (bound {tok_bound:.3g}), max|dprobs| "
+            f"{prob_err:.3g} (bound {F32_PROB_TOL}), top-5 identical: {same_top5}; findings, not "
+            f"checks: parity reference max|dtokens| {ref_err.item():.3g} (the f16 GELU), the "
+            f"preprocess on the card against the CPU's max|d| {pre_err.item():.3g}")
+    print(line)
+    require(tok_err <= tok_bound, f"{what}: tokens differ from the CPU f32 forward")
+    require(prob_err <= F32_PROB_TOL, f"{what}: probs differ from the CPU f32 forward")
+    require(same_top5, f"{what}: the top-5 differ from the CPU f32 forward's")
+    return line
+
+
+def phase_f32_classify(card: str, path: Path) -> dict:
+    """DinoEngine(path, dtype=torch.float32, device="cuda").classify on the
+    classify slice's 64 images (T=257): K1 f32 12 times a forward; the same
+    weights at slab_fusion "proj" (K2 f32) and "core" (K3 f32). Then
+    ViT-B/14 with REGISTER_TOKENS register tokens (T=261: a masked tail) in
+    bf16 and f32 through K1. Each against the CPU f32 forward. Returns the
+    launches of each run."""
+    from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
+    from dinov2_tpu_torch.models.params import load_params
+    from dinov2_tpu_torch.ops.attention import vanilla_route_warnings
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    warnings = vanilla_route_warnings()
+    config = _vit_b14_config()
+    layers = config.num_hidden_layers
+    images = _classify_images()
+    engine = DinoEngine(path, dtype=torch.float32, parity="reference", device="cuda")
+    cpu_params = load_params(path, dtype=torch.float32, device="cpu").params
+    found = {}
+
+    def run(eng, what, want):
+        eng.warmup((IMAGE_PX, IMAGE_PX), batch=BATCH)
+        _zero_counts()
+        top5 = eng.classify(images, topk=5)
+        probs = eng.classify_probs(images)
+        rate, median_ms = _timed_classify(eng, images)
+        forwards = 2 + TIMED_CALLS
+        counts = _require_counts(what, {name: n * forwards for name, n in want.items()})
+        row_err = _check_probs(top5, probs, eng.config)
+        print(f"{what}: {BATCH}x{IMAGE_PX}px on {card}: probs finite, max|row sum - 1| "
+              f"{row_err:.3g}; launches in {forwards} forwards {counts}, every other kernel 0; "
+              f"{rate:.1f} img/s (median {median_ms:.2f} ms/call)")
+        return counts
+
+    found["layer"] = run(engine, "f32 classify: ViT-B/14 f32", {"K1": layers})
+    _f32_against_cpu(engine, cpu_params, images, config, "f32 classify cross-check")
+    for level, kernel in (("proj", "K2"), ("core", "K3")):
+        other = _same_weights(engine, slab_fusion=level)
+        found[level] = run(other, f'f32 classify: ViT-B/14 f32 slab_fusion="{level}"',
+                           {kernel: layers})
+        _f32_against_cpu(other, cpu_params, images, config,
+                         f'f32 classify cross-check, slab_fusion="{level}"')
+        del other
+    del engine, cpu_params
+
+    reg_config = dataclasses.replace(config, num_register_tokens=REGISTER_TOKENS)
+    reg_path = write_synthetic_gguf(path.parent / "vit_b14_reg4.gguf", reg_config, seed=SEED + 7)
+    reg_cpu = load_params(reg_path, dtype=torch.float32, device="cpu").params
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        eng = DinoEngine(reg_path, dtype=dtype, parity="reference", device="cuda")
+        require(eng.config.num_register_tokens == REGISTER_TOKENS, "the register tokens")
+        eng.warmup((IMAGE_PX, IMAGE_PX), batch=BATCH)
+        _zero_counts()
+        probs = eng.classify_probs(images)
+        top5 = eng.classify(images, topk=5)
+        f32, other = _read_counts()
+        want = 2 * layers
+        if dtype == torch.float32:
+            require(f32 == {**{k: 0 for k in f32}, "K1": want} and not other,
+                    f"register tokens f32: f32 launches {f32}, other {other}")
+            found["registers f32"] = {"K1": want}
+            line = _f32_against_cpu(eng, reg_cpu, images, reg_config,
+                                    "register-token cross-check f32")
+        else:
+            require(other == {"K1": want} and not any(f32.values()),
+                    f"register tokens bf16: launches {other}, f32 {f32}")
+            found["registers bf16"] = {"K1": want}
+            tok_rel, prob_err = _cpu_cross_check(eng, reg_cpu, images, reg_config)
+            require(tok_rel <= TOKEN_REL_BOUND and prob_err <= PROB_ABS_BOUND,
+                    f"register tokens bf16: tokens {tok_rel}, probs {prob_err} from the CPU f32")
+            line = (f"cross-check: {CROSS_CHECK_IMAGES} images against the CPU f32 forward: "
+                    f"max|dtokens|/max|tokens| {tok_rel:.4g} (bound {TOKEN_REL_BOUND}), "
+                    f"max|dprobs| {prob_err:.4g} (bound {PROB_ABS_BOUND})")
+        row_err = _check_probs(top5, probs, reg_config)
+        print(f"register tokens: ViT-B/14 with {REGISTER_TOKENS} registers (T=261), {name}, "
+              f"{BATCH}x{IMAGE_PX}px classify on {card}: max|row sum - 1| {row_err:.3g}, K1 "
+              f"launches {want} in 2 forwards, every other kernel 0; {line}")
+        del eng
+    require(vanilla_route_warnings() == warnings, 'f32 classify: an "auto" route fell to plain')
+    return found
+
+
+def _raw_step(trainer, params, images, labels) -> tuple[float, list]:
+    """Step 1's loss and raw gradients (leaf by leaf, on the CPU) of a
+    trainer's loss on a batch, with no update."""
+    from dinov2_tpu_torch.models.params import tree_leaves
+
+    x, y = trainer.shard_batch(images, labels)
+    leaves = tree_leaves(params)
+    loss, _ = trainer.loss_fn(params, x, y)
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.detach().cpu() for g in grads]
+
+
+def _against_cpu_step(what: str, got, want) -> str:
+    """Step 1's loss within F32_LOSS_TOL of the CPU f32 step's; each leaf's
+    raw gradient with at most F32_GRAD_OUTLIER_SHARE of its elements beyond
+    F32_GRAD_ELEMENT_TOL of max(1, max|g|)."""
+    (loss, grads), (loss32, grads32) = got, want
+    loss_bound = F32_LOSS_TOL
+    require(abs(loss - loss32) <= loss_bound,
+            f"{what}: step-1 loss {loss} against {loss32} on the CPU")
+    worst_share, worst = 0.0, 0.0
+    for g, w in zip(grads, grads32):
+        require(bool(torch.isfinite(g).all()), f"{what}: a gradient is not finite")
+        delta = (g - w).abs()
+        bound = F32_GRAD_ELEMENT_TOL * max(1.0, w.abs().max().item())
+        worst_share = max(worst_share, (delta > bound).float().mean().item())
+        worst = max(worst, delta.max().item())
+    require(worst_share <= F32_GRAD_OUTLIER_SHARE,
+            f"{what}: {worst_share:.3g} of a leaf's raw gradient beyond {F32_GRAD_ELEMENT_TOL}")
+    return (f"step-1 loss {loss:.7f} against {loss32:.7f} on the CPU (bound {loss_bound:.3g}); "
+            f"raw gradients: max|dg| {worst:.3g}, at most {worst_share:.3g} of a leaf beyond "
+            f"{F32_GRAD_ELEMENT_TOL} (bound {F32_GRAD_OUTLIER_SHARE})")
+
+
+def phase_f32_train(card: str, source) -> dict:
+    """The trainer's defaults on the card: make_trainer(ViT-B/14) (f32
+    compute over f32 masters, parity "hf", remat, "auto") takes TRAIN_STEPS
+    steps on the training slice's 32 images (T=257: K1 f32 24 times a step,
+    the recompute backward plain); the same with flash_attention=True (K4
+    with lse 24, K6 12 a step); then TRAIN_LONG_STEPS default steps on 8
+    preprocessed 518 px images (T=1370: the flash route). Step 1's loss and
+    raw gradients against the CPU f32 step on the same images (at T=1370 one
+    image's loss). Returns the launches of each run and the default step's
+    wall, device and idle ms."""
+    from dinov2_tpu_torch.image.preprocess import classify_preprocess, feature_preprocess
+    from dinov2_tpu_torch.models.vit import ModelOptions
+    from dinov2_tpu_torch.ops.attention import vanilla_route_warnings
+    from dinov2_tpu_torch.parallel.train import make_trainer
+
+    warnings = vanilla_route_warnings()
+    config = _vit_b14_config()
+    layers = config.num_hidden_layers
+    rng = np.random.default_rng(SEED)
+    images = rng.integers(0, 256, (TRAIN_BATCH, IMAGE_PX, IMAGE_PX, 3), dtype=np.uint8)
+    labels = rng.integers(0, config.num_classes, TRAIN_BATCH)
+    # the cross-check takes the CPU's preprocessed images on both sides (see
+    # _f32_against_cpu), through trainers with the step's own options
+    n = TRAIN_CROSS_CHECK_IMAGES
+    x_check = classify_preprocess(torch.from_numpy(images[:n]))
+    start = time.perf_counter()
+    cpu = make_trainer(config, preprocess_in_step=False, device="cpu")
+    cpu_params, _ = cpu.place(source)
+    want = _raw_step(cpu, cpu_params, x_check, labels[:n])
+    del cpu_params
+    print(f"f32 training reference: the default trainer's step-1 loss and raw gradients on "
+          f"the CPU on {n} images in {time.perf_counter() - start:.1f} s")
+    found = {}
+    for route, per_step in (("auto", {"K1": 2 * layers}),
+                            (True, {"K4": 2 * layers, "K6": layers})):
+        opts = None if route == "auto" else ModelOptions(
+            parity="hf", compute_dtype=torch.float32, remat=True, flash_attention=True)
+        name = "make_trainer(config) defaults" if opts is None else "flash_attention=True"
+        trainer = make_trainer(config, opts=opts)
+        require(trainer.opts.compute_dtype == torch.float32 and trainer.opts.remat
+                and trainer.opts.parity == "hf", "make_trainer's defaults")
+        params, opt_state = trainer.place(source)
+        checker = make_trainer(config, opts=opts, preprocess_in_step=False)
+        line = _against_cpu_step(f"f32 training {name}",
+                                 _raw_step(checker, params, x_check, labels[:n]), want)
+        _zero_counts()
+        params, opt_state, losses, seconds, _, peak = _timed_steps(
+            trainer, params, opt_state, images, labels, TRAIN_STEPS)
+        counts = _require_counts(f"f32 training {name}",
+                                 {k: v * TRAIN_STEPS for k, v in per_step.items()})
+        found[name] = counts
+        require(all(np.isfinite(losses)) and all(b < a for a, b in zip(losses, losses[1:])),
+                f"f32 training {name}: losses {losses} are not finite and falling")
+        step_ms = 1e3 * statistics.median(seconds[1:])
+        print(f"f32 training: ViT-B/14 {name}, {TRAIN_BATCH}x{IMAGE_PX}px uint8, f32 over f32 "
+              f"masters, parity hf, remat on {card}: losses "
+              f"{', '.join(f'{v:.5f}' for v in losses)} (falling); {line}; launches in "
+              f"{TRAIN_STEPS} steps {counts}, every other kernel 0; median step "
+              f"{step_ms:.2f} ms (steps 2-{TRAIN_STEPS}), peak memory {peak / 1e6:.0f} MB")
+        if opts is None:
+            state = [params, opt_state]
+
+            def step():
+                state[0], state[1], _ = trainer.step(state[0], state[1], images, labels)
+
+            device_ms = device_ms_per_call(step, calls=3)
+            found["default step ms"] = {"wall": step_ms, "device": device_ms,
+                                        "idle": step_ms - device_ms}
+            print(f"f32 training, where the time goes: the default step {step_ms:.2f} ms wall, "
+                  f"{device_ms:.2f} ms of kernels on the card (torch.profiler, 3 steps), "
+                  f"{step_ms - device_ms:.2f} ms idle ({card})")
+        del trainer, params, opt_state
+
+    rng = np.random.default_rng(SEED + 4)
+    long_images = rng.integers(0, 256, (TRAIN_LONG_BATCH, FEATURE_PX, FEATURE_PX, 3),
+                               dtype=np.uint8)
+    long_labels = rng.integers(0, config.num_classes, TRAIN_LONG_BATCH)
+    x = feature_preprocess(torch.from_numpy(long_images).cuda(), config.patch_size)
+    trainer = make_trainer(config, preprocess_in_step=False)
+    params, opt_state = trainer.place(source)
+    with torch.no_grad():
+        loss1 = float(trainer.loss_fn(params, x[:1], torch.from_numpy(long_labels[:1]).cuda())[0])
+        cpu = make_trainer(config, preprocess_in_step=False, device="cpu")
+        cpu_params, _ = cpu.place(source)
+        loss32 = float(cpu.loss_fn(cpu_params, x[:1].cpu(), torch.from_numpy(long_labels[:1]))[0])
+        del cpu_params
+    loss_bound = F32_LOSS_TOL
+    require(abs(loss1 - loss32) <= loss_bound,
+            f"f32 training at T=1370: loss {loss1} against {loss32} on the CPU")
+    _zero_counts()
+    params, opt_state, losses, seconds, _, peak = _timed_steps(
+        trainer, params, opt_state, x, long_labels, TRAIN_LONG_STEPS)
+    counts = _require_counts("f32 training at T=1370", {"K4": 2 * layers * TRAIN_LONG_STEPS,
+                                                        "K6": layers * TRAIN_LONG_STEPS})
+    found["T=1370"] = counts
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"f32 training at T=1370: losses {losses} are not finite and falling")
+    print(f"f32 training at T=1370: make_trainer(config, preprocess_in_step=False), "
+          f"{TRAIN_LONG_BATCH} preprocessed images of 518 px, \"auto\" -> flash on {card}: loss "
+          f"of one image {loss1:.7f} against {loss32:.7f} on the CPU (bound {loss_bound:.3g}); "
+          f"losses {', '.join(f'{v:.5f}' for v in losses)}; launches in {TRAIN_LONG_STEPS} steps "
+          f"{counts}, "
+          f"every other kernel 0; steps {', '.join(f'{1e3 * v:.1f}' for v in seconds)} ms, "
+          f"peak memory {peak / 1e6:.0f} MB")
+    require(vanilla_route_warnings() == warnings, 'f32 training: an "auto" route fell to plain')
+    return found
+
+
 def timed_phase(name: str, phase, *args):
     """Run one phase and print the seconds it took."""
     start = time.perf_counter()
@@ -4426,6 +4958,7 @@ def main() -> int:
     k8_measured = timed_phase("K8 check", phase_quant_layer_check, card)
     k8_measured.update(timed_phase("K8 launch by launch", phase_quant_layer_split, card))
     k9_measured = timed_phase("K9 check", phase_int8_check, card)
+    f32_measured = timed_phase("f32 kernel checks", phase_f32_kernel_checks, card)
     timed_phase("output digests", phase_output_digests)
     with tempfile.TemporaryDirectory() as tmp:
         vit_b14 = timed_phase("ViT-B/14 GGUF", write_vit_b14, Path(tmp))
@@ -4442,12 +4975,14 @@ def main() -> int:
             "int8 feature slice", phase_int8_features, card, int8_engine, vit_b14))
         timed_phase("int8 CLI slice", phase_int8_cli, card, vit_b14, int8_engine)
         del int8_engine
-    k4_launches = timed_phase("feature slice", phase_features, card)
+        f32_classify = timed_phase("f32 classify slice", phase_f32_classify, card, vit_b14)
+    k4_launches, k4_f32_launches = timed_phase("feature slice", phase_features, card)
     k3_launches, k2_launches = timed_phase("ViT-g/14 slice", phase_giant, card)
     k9_found.update(timed_phase("ViT-g/14 int8 slice", phase_int8_giant, card))
     mesh_launches = timed_phase("mesh slice", phase_mesh, card)
     train_launches, source = timed_phase("training slice", phase_train, card)
     timed_phase("long-sequence training", phase_train_long, card, source)
+    f32_train = timed_phase("f32 training slice", phase_f32_train, card, source)
     mesh_train = timed_phase("mesh training slice", phase_mesh_train, card, source)
     del source
     gc.collect()
@@ -4574,6 +5109,68 @@ def main() -> int:
             **k9_found,
         },
     ]
+    # the f32 variants: their own C entries in the same sources, their own
+    # counts (`.f32_launches`) from the f32 paths
+    headers = "dinov2_tpu_torch/csrc/f32_gemm.cuh, dinov2_tpu_torch/csrc/f32_attention.cuh"
+    defaults, flash = f32_train["make_trainer(config) defaults"], f32_train["flash_attention=True"]
+    kernels += [
+        {
+            "name": "slab_layer_block_f32",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/slab_layer.cu",
+            "also_source": headers,
+            "replaces": f"{fused}:593",
+            "launches": f32_classify["layer"]["K1"],
+            "train_launches": defaults["K1"],
+            "register_token_launches": f32_classify["registers f32"]["K1"],
+            "library_call": "one f32 torch.nn.functional.linear per GEMM launch "
+                            "(qkv_linear_ms, proj_linear_ms)",
+            **f32_measured["K1"],
+        },
+        {
+            "name": "slab_attention_block_f32",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/slab_attention.cu",
+            "also_source": headers,
+            "replaces": f"{fused}:478",
+            "launches": f32_classify["proj"]["K2"],
+            **f32_measured["K2"],
+        },
+        {
+            "name": "slab_attention_f32",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/slab_attention.cu",
+            "also_source": "dinov2_tpu_torch/csrc/f32_attention.cuh",
+            "replaces": f"{fused}:331",
+            "launches": f32_classify["core"]["K3"],
+            **f32_measured["K3"],
+        },
+        {
+            "name": "flash_attention_f32",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/flash_attention.cu",
+            "also_source": "dinov2_tpu_torch/csrc/f32_attention.cuh",
+            "replaces": "dinov2_tpu/ops/flash_attention.py:95",
+            "also_replaces": "dinov2_tpu/ops/flash_attention.py:34",
+            "launches": k4_f32_launches,
+            **f32_measured["K4"],
+            "lse_launches": flash["K4"],
+            "lse_launches_t1370": f32_train["T=1370"]["K4"],
+            **{f"lse_{key}": value for key, value in f32_measured["K4-lse"].items()},
+        },
+        {
+            "name": "flash_backward_f32",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/flash_backward.cu",
+            "also_source": "dinov2_tpu_torch/csrc/f32_backward.cuh",
+            "replaces": "dinov2_tpu/ops/flash_attention.py:468",
+            "also_replaces": "dinov2_tpu/ops/flash_attention.py:499",
+            "launches": flash["K6"],
+            "launches_t1370": f32_train["T=1370"]["K6"],
+            **f32_measured["K6"],
+        },
+    ]
+    print(f"f32 training, the default step: {f32_train['default step ms']} ({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -66,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     # inference-compat behavior, not a training semantic) and the default
     # compute dtype is f32 (opt into bf16 compute with --dtype bf16;
     # master weights are f32 either way); on a card f32 activations take
-    # the plain PyTorch attention route (ops/attention.py)
+    # the f32 attention kernels (ops/attention.py)
     p.set_defaults(parity="hf", dtype="f32")
     return p
 

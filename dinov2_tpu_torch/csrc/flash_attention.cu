@@ -67,6 +67,7 @@
 // registers a thread, no spills. Every entry point returns
 // cudaGetLastError() after its launch.
 
+#include "f32_attention.cuh"
 #include "flash_forward.cuh"
 
 using namespace dinov2;
@@ -93,6 +94,28 @@ int dinov2_flash_attention_lse_bf16(const void* q, const void* k, const void* v,
                                     void* stream) {
   return launch_forward_by_shape<true>(q, k, v, out, lse, b, t, heads, batch_stride,
                                        token_stride, head_stride, scale, stream);
+}
+
+// The f32 variants (f32_attention.cuh): q, k, v and out f32, strides
+// multiples of 4 elements; lse as above.
+int dinov2_flash_attention_f32(const void* q, const void* k, const void* v, void* out,
+                               int b, int t, int heads, long long batch_stride,
+                               long long token_stride, long long head_stride, float scale,
+                               void* stream) {
+  return launch_f32_forward<false>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), nullptr, b, t, heads, batch_stride, token_stride, head_stride,
+      scale, static_cast<cudaStream_t>(stream));
+}
+
+int dinov2_flash_attention_lse_f32(const void* q, const void* k, const void* v, void* out,
+                                   void* lse, int b, int t, int heads, long long batch_stride,
+                                   long long token_stride, long long head_stride, float scale,
+                                   void* stream) {
+  return launch_f32_forward<true>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), static_cast<float*>(lse), b, t, heads, batch_stride,
+      token_stride, head_stride, scale, static_cast<cudaStream_t>(stream));
 }
 
 // Query rows a block of the variant the two entries above take at this shape.

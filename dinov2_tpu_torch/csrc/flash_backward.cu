@@ -70,11 +70,11 @@
 // SM), 122 in the dQ kernel (capped at 128: two blocks an SM), no spills.
 // Every entry point returns cudaGetLastError() after its launches.
 
+#include "f32_backward.cuh"
 #include "wgmma_tiles.cuh"
 
+namespace dinov2 {
 namespace {
-
-using namespace dinov2;
 
 constexpr int kBackwardStages = 3;
 constexpr int kAhead = kBackwardStages - 1;      // tiles in flight ahead of the arithmetic
@@ -442,6 +442,9 @@ int launch_dq(const BackwardArgs& a) {
 }
 
 }  // namespace
+}  // namespace dinov2
+
+using namespace dinov2;
 
 extern "C" {
 
@@ -484,6 +487,24 @@ int dinov2_flash_backward_bf16(const void* q, const void* k, const void* v, cons
   const int code = launch_dkv<kBackwardKeyRows / kTile>(a);
   if (code != cudaSuccess) return code;
   return launch_dq<kBackwardQueryRows / kTile>(a);
+}
+
+// The f32 variant (f32_backward.cuh): q, k, v, o, d_out, dq, dk and dv f32,
+// strides multiples of 4 elements; lse and delta_scratch as above.
+int dinov2_flash_backward_f32(const void* q, const void* k, const void* v, const void* o,
+                              const void* d_out, const void* lse, void* delta_scratch,
+                              void* dq, void* dk, void* dv, int b, int t, int heads,
+                              long long batch_stride, long long token_stride,
+                              long long head_stride, long long out_batch_stride,
+                              long long out_token_stride, long long out_head_stride,
+                              float scale, void* stream) {
+  return launch_f32_backward(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(o), static_cast<const float*>(d_out),
+      static_cast<const float*>(lse), static_cast<float*>(delta_scratch),
+      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), b, t, heads,
+      batch_stride, token_stride, head_stride, out_batch_stride, out_token_stride,
+      out_head_stride, scale, static_cast<cudaStream_t>(stream));
 }
 
 // Rows a block of the variants the entry above takes: the dK/dV kernel's

@@ -45,8 +45,16 @@
 // the tensor cores (flash_attention.cu's note), so K3 does not come near its
 // bound of bytes.
 //
+// The f32 entries run the same launches on f32 activations and weights
+// (f32_attention.cuh's tile loop, f32_gemm.cuh's FFMA GEMM with the residual
+// epilogue), with the JAX package's f32 numerics. At ViT-g/14's shape K3 in
+// f32 is 6.5 GFLOP over 101 MB: 0.10 ms at 67 TFLOP/s f32 outside the
+// tensor cores against 0.03 ms for the bytes; operations bind it, and K2.
+//
 // Every entry point returns cudaGetLastError() after its launches.
 
+#include "f32_attention.cuh"
+#include "f32_gemm.cuh"
 #include "half_layer.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -78,6 +86,32 @@ int dinov2_slab_attention_block_bf16(const void* x, const void* qkv, const void*
       attn, static_cast<const bf16*>(w_proj),
       ResidualEpilogue{static_cast<const float*>(b_proj), static_cast<const float*>(ls1),
                        static_cast<const bf16*>(x), static_cast<bf16*>(out), d},
+      b * t, d, d, s);
+}
+
+// K3 in f32: qkv (B, T, 3D) -> out (B, T, D), both f32 and contiguous.
+int dinov2_slab_attention_f32(const void* qkv, void* out, int b, int t, int d, int heads,
+                              float scale, void* stream) {
+  return dinov2::launch_f32_slab_attention(static_cast<const float*>(qkv),
+                                           static_cast<float*>(out), b, t, d, heads, scale,
+                                           static_cast<cudaStream_t>(stream));
+}
+
+// K2 in f32: x, qkv, w_proj, attn_scratch and out f32; D % 16 == 0.
+int dinov2_slab_attention_block_f32(const void* x, const void* qkv, const void* w_proj,
+                                    const void* b_proj, const void* ls1, void* attn_scratch,
+                                    void* out, int b, int t, int d, int heads, float scale,
+                                    void* stream) {
+  using namespace dinov2;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* attn = static_cast<float*>(attn_scratch);
+  const cudaError_t err =
+      launch_f32_slab_attention(static_cast<const float*>(qkv), attn, b, t, d, heads, scale, s);
+  if (err != cudaSuccess) return err;
+  return launch_f32_gemm(
+      attn, static_cast<const float*>(w_proj),
+      F32Residual{static_cast<const float*>(b_proj), static_cast<const float*>(ls1),
+                          static_cast<const float*>(x), static_cast<float*>(out), d},
       b * t, d, d, s);
 }
 

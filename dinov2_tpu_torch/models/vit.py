@@ -47,6 +47,13 @@ two options in place of the JAX package's environment knobs:
 On a card "auto" therefore always reaches a kernel; the JAX package's
 "auto" picks the dequant routes, a choice measured on a TPU.
 
+f32 activations on a card take the f32 kernels of K1 to K4 and K6 on the
+routes above, but K5 and K8 take bf16 only (`fused_mlp_applies`,
+`resolve_quant_slab`): under `fuse_mlp` an f32 MLP half-layer stays plain
+PyTorch, and `quant_slab="auto"` takes "dequant" (K1 f32 on the layer's
+dequantized weights, the same bits as K8 would give), each with one log
+warning per reason; an explicit "kernel" raises in K8's wrapper.
+
 W8A8 int8 weights (Int8Linear, quant_mode="int8") route as in the JAX
 package:
   - slab route, qkv and proj int8, `quant_slab` "auto", "kernel" and
@@ -84,6 +91,7 @@ exact row max) and batch chunking (TPU scheduling).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -111,6 +119,7 @@ from dinov2_tpu_torch.ops.qmatmul import (
     dequant_weight,
     refuse_quant_grad,
 )
+from dinov2_tpu_torch.utils.logging import get_logger
 
 QUANT_SLAB_MODES = ("auto", "kernel", "dequant", "off")
 SLAB_FUSION_LEVELS = ("auto", "layer", "proj", "core")
@@ -170,6 +179,42 @@ def swiglu_block(x: torch.Tensor, p: dict, backend: str = "auto") -> torch.Tenso
     return apply_linear(F.silu(x1) * x2, p["wout"], backend=backend)
 
 
+@functools.cache
+def _warn_plain_route(reason: str) -> None:
+    """One warning per reason for the life of the process."""
+    get_logger().warning("%s", reason)
+
+
+def fused_mlp_applies(dtype: torch.dtype, device_type: str) -> bool:
+    """Whether `fuse_mlp` may take the K5 kernel for activations of `dtype`
+    on a device of `device_type`: K5 takes bf16 only, so on a card other
+    activations keep the plain MLP half-layer, with one warning. On the CPU
+    K5's plain version takes any dtype."""
+    if device_type == "cuda" and dtype != torch.bfloat16:
+        _warn_plain_route(
+            f"fuse_mlp: activations are {dtype}, which the CUDA MLP kernel (K5) does not take "
+            "(it takes bf16); the MLP half-layer stays plain PyTorch"
+        )
+        return False
+    return True
+
+
+def resolve_quant_slab(mode: str, dtype: torch.dtype, device_type: str) -> str:
+    """The `quant_slab` route of a quantized attention half-layer for
+    activations of `dtype` on a device of `device_type`: K8 takes bf16 only,
+    so on a card "auto" takes "dequant" for other activations (K1 on the
+    dequantized weights, which gives K8's bits), with one warning. Every
+    other mode stays: an explicit "kernel" raises in K8's wrapper."""
+    if mode == "auto" and device_type == "cuda" and dtype != torch.bfloat16:
+        _warn_plain_route(
+            f'quant_slab "auto": activations are {dtype}, which the CUDA quantized half-layer '
+            'kernel (K8) does not take (it takes bf16); taking "dequant" (K1 on the dequantized '
+            "weights)"
+        )
+        return "dequant"
+    return mode
+
+
 def _attention_path(x: torch.Tensor, config: DinoConfig, opts: ModelOptions) -> str:
     """The route of (B, T, D) activations x: by the option, T, x's dtype and
     device and the model's head_dim (ops/attention.py)."""
@@ -197,13 +242,16 @@ def _attention_half_layer(
         path == "slab" and opts.slab_fusion in ("auto", "layer")
         and "bias" in layer["qkv"] and "bias" in layer["proj"]
     )
-    if whole and all(quantized) and opts.quant_slab in ("auto", "kernel"):
+    quant_slab = opts.quant_slab
+    if whole and all(quantized):
+        quant_slab = resolve_quant_slab(quant_slab, x.dtype, x.device.type)
+    if whole and all(quantized) and quant_slab in ("auto", "kernel"):
         return slab_layer_block_quant(
             x, layer["norm1"]["scale"], layer["norm1"]["bias"], w_qkv, layer["qkv"]["bias"],
             w_proj, layer["proj"]["bias"], layer["ls1"], heads, scale, config.eps,
         )
-    if whole and (all(quantized) and opts.quant_slab == "dequant"
-                  or int8 and opts.quant_slab != "off"):
+    if whole and (all(quantized) and quant_slab == "dequant"
+                  or int8 and quant_slab != "off"):
         refuse_quant_grad("the quantized attention half-layer", x, *_tensor_leaves(layer))
         # the layer's weights dequantized into K1's dense (in, out) layout
         w_qkv = dequant_weight(w_qkv, x.dtype).T.contiguous()
@@ -228,12 +276,14 @@ def _mlp_half_layer(
     `fuse_mlp`, on the slab route, a GELU MLP with both biases is one call of
     the K5 kernel; a quantized (QuantLinear or Int8Linear) fc1/fc2 pair is
     dequantized into it unless quant_slab is "off"; a mixed dense/quantized
-    pair takes no fused route."""
+    pair takes no fused route; on a card only bf16 takes it
+    (`fused_mlp_applies`)."""
     mlp = layer["mlp"]
     if (
         opts.fuse_mlp and not config.swiglu
         and _attention_path(x, config, opts) == "slab"
         and "bias" in mlp["fc1"] and "bias" in mlp["fc2"]
+        and fused_mlp_applies(x.dtype, x.device.type)
     ):
         w1, w2 = mlp["fc1"]["kernel"], mlp["fc2"]["kernel"]
         quantized = isinstance(w1, PACKED_WEIGHTS), isinstance(w2, PACKED_WEIGHTS)

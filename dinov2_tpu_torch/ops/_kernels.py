@@ -140,6 +140,21 @@ def flash_backward_lib() -> ctypes.CDLL:
     return lib
 
 
+def entry(lib: ctypes.CDLL, bf16_name: str, f32: bool):
+    """The C entry `bf16_name` of lib, or with `f32` its f32 namesake (K1,
+    K2, K3, K4 with and without lse, K6: the same arguments, f32 tensors
+    where the bf16 entry takes bf16), bound here at first use rather than
+    in the library loader, so that a library built from sources without
+    the f32 entries still loads (scripts/compare_kernel_builds.py)."""
+    fn = getattr(lib, bf16_name)
+    if not f32:
+        return fn
+    f32_fn = getattr(lib, bf16_name.replace("_bf16", "_f32"))
+    if f32_fn.argtypes is None:
+        f32_fn.argtypes, f32_fn.restype = fn.argtypes, fn.restype
+    return f32_fn
+
+
 # a QuantLinear as the C entry points take it: codes, d, m, qh_lo, qh_hi,
 # packed, zero point
 _QUANT_WEIGHT_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2

@@ -50,3 +50,14 @@ def check_device(x: torch.Tensor, what: str) -> None:
     refuses any other device before its operator is called."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no {what} for device {x.device}")
+
+
+
+def count_launch(wrapper, dtype: torch.dtype) -> None:
+    """One kernel call more on a wrapper's counter: `wrapper.f32_launches`
+    for the f32 kernel, `wrapper.launches` for the bf16 one, so that a run
+    can tell which of the two its path went through."""
+    if dtype == torch.float32:
+        wrapper.f32_launches += 1
+    else:
+        wrapper.launches += 1

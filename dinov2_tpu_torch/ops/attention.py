@@ -27,7 +27,9 @@ from dinov2_tpu_torch.utils.logging import get_logger
 # (T=257) on the slab route and 518 px feature mode (T=1370) on flash, as the
 # JAX package routes them for every preset.
 FLASH_MIN_TOKENS = 1024
-KERNEL_DTYPE = torch.bfloat16  # what the CUDA attention kernels (K1 to K4, K6, K8) take
+# what the CUDA attention kernels take: K1 to K4 and K6 in bf16 and f32 (K8 in
+# bf16 only: models/vit.py routes f32 around it)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_HEAD_DIM = 64
 
 
@@ -36,7 +38,7 @@ def _warn_vanilla_route(reason: str) -> None:
     """One warning per reason for the life of the process."""
     get_logger().warning(
         'attention route "auto": %s, which the CUDA attention kernels do not take (they take '
-        "bf16 at head_dim 64); taking the plain PyTorch route (\"vanilla\")", reason,
+        "bf16 and f32 at head_dim 64); taking the plain PyTorch route (\"vanilla\")", reason,
     )
 
 
@@ -78,12 +80,14 @@ def resolve_attention_path(
     einsum; the three names select themselves, whatever the input (a kernel
     route with an input its kernel does not take raises in the wrapper).
     "auto" takes "flash" from FLASH_MIN_TOKENS tokens on and "slab" (the K1
-    half-layer, which takes any T) below; on a CUDA device it takes "vanilla"
-    instead for an input the kernels do not take (not bf16, or head_dim other
-    than 64), with one warning, as the JAX package's resolver takes the item
-    size and the backend into account and lands on its plain route. The
-    arguments left None are not considered. Plain f32 attention on the card
-    runs its products in full f32 (TF32 stays off)."""
+    half-layer, which takes any T) below, in bf16 and in f32 alike, as the
+    JAX package's TPU gate lands for f32 ViT-S/B/L (fits_slab(257, D, 4)
+    holds for D = 384, 768 and 1024); on a CUDA device it takes "vanilla"
+    instead for an input the kernels do not take (neither bf16 nor f32, or
+    head_dim other than 64), with one warning, as the JAX package's resolver
+    lands on its plain route. The arguments left None are not considered.
+    The f32 kernels and plain f32 attention on the card run their products in
+    full f32 (TF32 stays off)."""
     if flash is True:
         return "flash"
     if flash is False:
@@ -93,7 +97,7 @@ def resolve_attention_path(
     if flash != "auto":
         raise ValueError(f"unknown attention route {flash!r}")
     if device_type == "cuda":
-        if dtype is not None and dtype != KERNEL_DTYPE:
+        if dtype is not None and dtype not in KERNEL_DTYPES:
             _warn_vanilla_route(f"activations are {dtype}")
             return "vanilla"
         if head_dim is not None and head_dim != KERNEL_HEAD_DIM:

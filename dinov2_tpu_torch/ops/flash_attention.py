@@ -6,7 +6,9 @@ dinov2_tpu/ops/flash_attention.py).
 
 On CUDA tensors both launch the hand-written kernel in
 csrc/flash_attention.cu, which replaces the Pallas TPU kernels
-`_attn_kernel_1kv` and `_attn_kernel`. It reads q, k and v through their
+`_attn_kernel_1kv` and `_attn_kernel`: in bf16 its wgmma tile loop, in f32
+its f32 entries (csrc/f32_attention.cuh, full f32 products on the CUDA
+cores, P kept in f32 as the JAX kernels keep it). It reads q, k and v through their
 strides, so `flash_attention_slab` hands it the head views of the qkv slab
 (`split_heads`) and no head transpose goes through HBM, for any head_dim
 (the JAX package gates its slab variant to hd % 128 for a Mosaic rule only).
@@ -16,8 +18,8 @@ product with f32 accumulation.
 
 The kernel streams 64-key tiles with an exact online softmax (running row
 max, f32 statistics), so the TPU kernels' block picking, their CLS-shift
-core and its overflow rescue have no counterpart here. K4 and K6 run their
-products as wgmma on 128-byte-swizzled shared tiles filled by a cp.async
+core and its overflow rescue have no counterpart here. In bf16 K4 and K6 run
+their products as wgmma on 128-byte-swizzled shared tiles filled by a cp.async
 ring (csrc/wgmma_tiles.cuh); a block's rows (64 or 128) are picked by shape
 in the C entry points (`kernel_tile_rows` reports them).
 
@@ -37,9 +39,12 @@ p * (dO v^T - delta) * scale are computed in f32 and rounded to the inputs'
 dtype before the products p^T dO, dS^T q and dS k, which accumulate in f32
 (the JAX kernels multiply them as f32; tensor cores take bf16 operands, as
 the forward's P.V does). In f32 nothing rounds and the plain version meets
-the JAX kernels'. dS carries `scale`; dQ and dK take no second one. K6 is
+the JAX kernels'; K6's f32 variant (csrc/f32_backward.cuh) rounds nowhere
+either. dS carries `scale`; dQ and dK take no second one. K6 is
 two deterministic kernels (dK/dV over query tiles, dQ over key tiles) and a
 delta prologue, no atomics: the same inputs give the same bits every run.
+Each wrapper counts its kernel calls in `.launches` (bf16) and
+`.f32_launches` (f32).
 """
 
 from __future__ import annotations
@@ -49,8 +54,8 @@ from functools import partial
 import torch
 from torch.autograd.function import once_differentiable
 
-from dinov2_tpu_torch.ops._library import check_device, define
-from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
+from dinov2_tpu_torch.ops._library import check_device, count_launch, define
+from dinov2_tpu_torch.ops.attention import KERNEL_DTYPES, split_heads, vanilla_attention
 from dinov2_tpu_torch.ops.qmatmul import needs_grad
 
 HEAD_DIM = 64  # the kernels' head_dim: every DINOv2 preset has it
@@ -106,15 +111,18 @@ def flash_backward_reference(
 def _check_cuda_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      names=("q", "k", "v"), aligned: bool = True) -> tuple[int, ...]:
     """What the kernels take of three tensors read (or written) through one
-    set of strides; returns the (batch, token, head) strides in elements that
-    they share. `aligned` False skips the data pointers' alignment (a tensor
-    with no storage: the operators' fake implementations)."""
+    set of strides, all bf16 or all f32; returns the (batch, token, head)
+    strides in elements that they share (multiples of 16 bytes). `aligned`
+    False skips the data pointers' alignment (a tensor with no storage: the
+    operators' fake implementations)."""
     named = tuple(zip(names, (q, k, v)))
     for name, tensor in named:
-        if tensor.dtype != torch.bfloat16:
+        if tensor.dtype not in KERNEL_DTYPES:
             raise NotImplementedError(
-                f"the CUDA flash attention kernel takes bf16, got {name} {tensor.dtype}"
+                f"the CUDA flash attention kernel takes bf16 or f32, got {name} {tensor.dtype}"
             )
+        if tensor.dtype != q.dtype:
+            raise ValueError(f"{name} is {tensor.dtype}, {names[0]} {q.dtype}")
         if tensor.dim() != 4 or tensor.shape != q.shape:
             raise ValueError(
                 f"{', '.join(names)} must share one (B, T, H, hd) shape, "
@@ -132,15 +140,16 @@ def _check_cuda_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return tuple(s if n > 1 else 0 for s, n in zip(tensor.stride(), tensor.shape))
 
     shared = strides(q)
+    step = 16 // q.element_size()  # elements in 16 bytes
     for name, tensor in named:
         if strides(tensor) != shared or shared[3] != 1:
             raise ValueError(
                 f"{', '.join(names)} must share their strides with unit stride over head_dim, "
                 f"got {name} {tensor.stride()} against {names[0]} {q.stride()}"
             )
-        if any(s % 8 for s in shared[:3]) or (aligned and tensor.data_ptr() % 16):
+        if any(s % step for s in shared[:3]) or (aligned and tensor.data_ptr() % 16):
             raise ValueError(
-                f"{name}: strides {tensor.stride()} must be multiples of 8 elements "
+                f"{name}: strides {tensor.stride()} must be multiples of {step} elements "
                 "and the data 16-byte aligned"
             )
     return shared[:3]
@@ -148,29 +157,31 @@ def _check_cuda_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch_forward(q, k, v, scale: float, with_lse: bool):
     """One K4 launch on CUDA tensors: out, or (out, lse) from the kernel's
-    `with_lse` variant. Adds one to `flash_attention.launches`."""
+    `with_lse` variant, bf16 or f32. Adds one to `flash_attention.launches`
+    or `.f32_launches`."""
     batch_stride, token_stride, head_stride = _check_cuda_args(q, k, v)
     b, t, heads, hd = q.shape
     out = torch.empty((b, t, heads, hd), dtype=q.dtype, device=q.device)
-    from dinov2_tpu_torch.ops._kernels import check_status, flash_attention_lib
+    from dinov2_tpu_torch.ops._kernels import check_status, entry, flash_attention_lib
 
     lib = flash_attention_lib()
+    f32 = q.dtype == torch.float32
     shape_and_strides = (b, t, heads, batch_stride, token_stride, head_stride, scale)
     with torch.cuda.device(q.device):  # the launch goes to the current device
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if with_lse:
             lse = torch.empty((b, heads, t), dtype=torch.float32, device=q.device)
-            code = lib.dinov2_flash_attention_lse_bf16(
+            code = entry(lib, "dinov2_flash_attention_lse_bf16", f32)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 *shape_and_strides, stream,
             )
         else:
-            code = lib.dinov2_flash_attention_bf16(
+            code = entry(lib, "dinov2_flash_attention_bf16", f32)(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 *shape_and_strides, stream,
             )
     check_status(lib, code, "flash_attention")
-    flash_attention.launches += 1
+    count_launch(flash_attention, q.dtype)
     return (out, lse) if with_lse else out
 
 
@@ -180,7 +191,8 @@ def flash_forward_lse(
     """The training forward: (out, lse), out as `flash_attention`'s bit for
     bit and lse the (B, H, T) f32 row logsumexp of the scaled scores. CPU
     tensors run `flash_forward_reference`; CUDA tensors launch the K4
-    kernel's `with_lse` variant (counted in `flash_attention.launches`);
+    kernel's `with_lse` variant (counted in `flash_attention.launches`, or
+    `.f32_launches` in f32);
     both through the operator `dinov2_tpu_torch::flash_attention_lse`."""
     check_device(q, "flash_attention")
     return _FLASH_LSE_OP(q, k, v, scale)
@@ -212,9 +224,9 @@ def flash_backward(
     slab) to write them to; otherwise they are new and contiguous.
 
     CPU tensors run `flash_backward_reference`. CUDA tensors launch the K6
-    kernels (bf16 and head_dim 64 only; anything else raises) and add one to
-    `flash_backward.launches`; q, k, v and the outputs may be strided views
-    and are never copied."""
+    kernels (bf16 or f32 and head_dim 64 only; anything else raises) and add
+    one to `flash_backward.launches` (bf16) or `.f32_launches` (f32); q, k,
+    v and the outputs may be strided views and are never copied."""
     if q.device.type == "cpu":
         grads = flash_backward_reference(q, k, v, o, lse, g, scale)
         if into is None:
@@ -228,12 +240,12 @@ def flash_backward(
     b, t, heads, hd = q.shape
     g = g.contiguous()
     for name, tensor in (("o", o), ("g", g)):
-        if (tensor.dtype != torch.bfloat16 or tensor.shape != q.shape
+        if (tensor.dtype != q.dtype or tensor.shape != q.shape
                 or tensor.device != q.device or not tensor.is_contiguous()
                 or tensor.data_ptr() % 16):
             raise ValueError(
-                f"{name} must be a contiguous bf16 {tuple(q.shape)} tensor on {q.device}, got "
-                f"{tensor.dtype} {tuple(tensor.shape)} on {tensor.device}"
+                f"{name} must be a contiguous {q.dtype} {tuple(q.shape)} tensor on {q.device}, "
+                f"got {tensor.dtype} {tuple(tensor.shape)} on {tensor.device}"
             )
     if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, heads, t)
             or lse.device != q.device or not lse.is_contiguous()):
@@ -244,27 +256,32 @@ def flash_backward(
     if into is None:
         into = tuple(torch.empty_like(o) for _ in range(3))
     out_strides = _check_cuda_args(*into, names=("dq", "dk", "dv"))
-    if into[0].shape != q.shape:
-        raise ValueError(f"dq, dk, dv must be {tuple(q.shape)}, got {tuple(into[0].shape)}")
+    if into[0].shape != q.shape or into[0].dtype != q.dtype:
+        raise ValueError(
+            f"dq, dk, dv must be {q.dtype} {tuple(q.shape)}, got {into[0].dtype} "
+            f"{tuple(into[0].shape)}"
+        )
     if q.numel() == 0:
         return tuple(into)
     delta = torch.empty((b, heads, t), dtype=torch.float32, device=q.device)
-    from dinov2_tpu_torch.ops._kernels import check_status, flash_backward_lib
+    from dinov2_tpu_torch.ops._kernels import check_status, entry, flash_backward_lib
 
     lib = flash_backward_lib()
+    launch = entry(lib, "dinov2_flash_backward_bf16", q.dtype == torch.float32)
     with torch.cuda.device(q.device):  # the launches go to the current device
-        code = lib.dinov2_flash_backward_bf16(
+        code = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(d.data_ptr() for d in into),
             b, t, heads, *strides, *out_strides, scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     check_status(lib, code, "flash_backward")
-    flash_backward.launches += 1
+    count_launch(flash_backward, q.dtype)
     return tuple(into)
 
 
-flash_backward.launches = 0  # K6 calls on CUDA tensors (three kernel launches each)
+flash_backward.launches = 0  # bf16 K6 calls on CUDA tensors (three kernel launches each)
+flash_backward.f32_launches = 0  # f32 K6 calls on CUDA tensors
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -316,11 +333,11 @@ def flash_attention(
     (B, T, H, hd), contiguous.
 
     CPU tensors run the plain version. CUDA tensors launch the K4 kernel
-    (bf16 and head_dim 64 only; anything else raises) and add one to
-    `flash_attention.launches`. q, k and v may be strided views (e.g. of a
-    qkv slab); they are never copied. Where an input requires grad the
-    result carries the gradient of the module docstring (the `with_lse`
-    forward, K6 backward). Without grad both go through the operator
+    (bf16 or f32 and head_dim 64 only; anything else raises) and add one to
+    `flash_attention.launches` (bf16) or `.f32_launches` (f32). q, k and v
+    may be strided views (e.g. of a qkv slab); they are never copied. Where
+    an input requires grad the result carries the gradient of the module
+    docstring (the `with_lse` forward, K6 backward). Without grad both go through the operator
     `dinov2_tpu_torch::flash_attention` (ops/_library.py)."""
     if needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, scale)
@@ -328,7 +345,8 @@ def flash_attention(
     return _FLASH_OP(q, k, v, scale)
 
 
-flash_attention.launches = 0  # K4 launches on CUDA tensors, from any entry, with lse or without
+flash_attention.launches = 0  # bf16 K4 launches on CUDA tensors, any entry, with lse or without
+flash_attention.f32_launches = 0  # f32 K4 launches likewise
 _FLASH_OP = define(
     "flash_attention(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
     lambda q, k, v, scale: vanilla_attention(q, k, v, scale).contiguous(),

@@ -10,12 +10,15 @@ On a CUDA tensor each launches its hand-written kernel (csrc/slab_layer.cu,
 csrc/slab_attention.cu for K2 and K3, csrc/slab_mlp.cu), which replace the
 Pallas TPU kernels `_slab_layer_kernel`, `_slab_proj_kernel`, `_slab_kernel`
 and `_slab_mlp_kernel`/`_slab_mlp_flat_kernel` of
-`dinov2_tpu/ops/fused_attention.py`; bf16 only, anything else raises. On a
-CPU tensor each runs its plain PyTorch version (`slab_layer_reference`,
+`dinov2_tpu/ops/fused_attention.py`. K1, K2 and K3 take bf16 and f32
+activations (f32: the f32 entries of the same sources, csrc/f32_gemm.cuh
+and csrc/f32_attention.cuh, full f32 products on the CUDA cores), K5 bf16
+only; anything else raises. On a CPU tensor each runs its plain PyTorch
+version (`slab_layer_reference`,
 `_slab_block_reference`, `_slab_reference`, `slab_mlp_reference`), which
 keeps the JAX package's unfused ordering. Every wrapper counts its calls
-that launch kernels in `.launches` (one a call, however many launches the
-entry makes). Each dispatches through its PyTorch operator
+that launch kernels in `.launches` for bf16 and `.f32_launches` for f32
+(one a call, however many launches the entry makes). Each dispatches through its PyTorch operator
 (`dinov2_tpu_torch::slab_layer_block`, `::slab_attention_block`,
 `::slab_attention`, `::slab_mlp_block`; ops/_library.py), whose CUDA
 implementation is the launch and whose CPU implementation is the plain
@@ -47,10 +50,11 @@ version under `torch.enable_grad()` (`_slab_layer_bwd`, `_slab_block_bwd`,
 `_slab_bwd_fn`) recomputes through the plain attention below
 `SLAB_BWD_FLASH_MIN_T` tokens and through `flash_attention_slab` from there
 on: the K4 `with_lse` forward and the K6 backward, with no (T, T) tensor in
-HBM. The kernels take bf16 weights and training holds f32 masters: the
-wrappers cast weights to x's dtype on the way in, the plain versions cast
-inside the differentiated function, so every gradient comes back in its
-input's own dtype.
+HBM. In f32 those routes reach the f32 kernels. The kernels take weights in
+x's dtype and training holds f32 masters: the wrappers cast weights to x's
+dtype on the way in (no copy in f32), the plain versions cast inside the
+differentiated function, so every gradient comes back in its input's own
+dtype.
 """
 
 from __future__ import annotations
@@ -58,8 +62,8 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from dinov2_tpu_torch.ops._library import check_device, define
-from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
+from dinov2_tpu_torch.ops._library import check_device, count_launch, define
+from dinov2_tpu_torch.ops.attention import KERNEL_DTYPES, split_heads, vanilla_attention
 from dinov2_tpu_torch.ops.qmatmul import apply_activation, needs_grad
 from dinov2_tpu_torch.ops.qmatmul_kernel import ACTIVATIONS
 
@@ -200,10 +204,12 @@ def _check_tensors(x: torch.Tensor, expected: dict, aligned: bool = True) -> Non
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _check_bf16_head64(x: torch.Tensor, d: int, num_heads: int, what: str) -> None:
-    """The attention kernels take bf16 (B, T, .) with head_dim 64."""
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(f"the CUDA {what} kernel takes bf16 activations, got {x.dtype}")
+def _check_kernel_dtype_head64(x: torch.Tensor, d: int, num_heads: int, what: str) -> None:
+    """The attention kernels take bf16 or f32 (B, T, .) with head_dim 64."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise NotImplementedError(
+            f"the CUDA {what} kernel takes bf16 or f32 activations, got {x.dtype}"
+        )
     if x.dim() != 3:
         raise ValueError(f"{what}: expected a (B, T, .) tensor, got {tuple(x.shape)}")
     if d != 64 * num_heads:
@@ -217,9 +223,10 @@ def check_half_layer_args(
     aligned: bool = True,
 ):
     """What the CUDA half-layer kernels (K1, and K8 with quantized weights)
-    take: bf16 x (B, T, D) with head_dim 64 and f32 rows; the dense (in, out)
-    weights too where they are given. `aligned`: as `_check_tensors`."""
-    _check_bf16_head64(x, x.shape[-1], num_heads, "half-layer")
+    take: bf16 or f32 x (B, T, D) with head_dim 64 and f32 rows; the dense
+    (in, out) weights in x's dtype too where they are given. K8 takes bf16
+    only and checks that itself. `aligned`: as `_check_tensors`."""
+    _check_kernel_dtype_head64(x, x.shape[-1], num_heads, "half-layer")
     d = x.shape[-1]
     expected = {
         "ln_scale": (ln_scale, (d,), torch.float32),
@@ -229,8 +236,8 @@ def check_half_layer_args(
         "ls1": (ls1, (d,), torch.float32),
     }
     if w_qkv is not None:
-        expected["w_qkv"] = (w_qkv, (d, 3 * d), torch.bfloat16)
-        expected["w_proj"] = (w_proj, (d, d), torch.bfloat16)
+        expected["w_qkv"] = (w_qkv, (d, 3 * d), x.dtype)
+        expected["w_proj"] = (w_proj, (d, d), x.dtype)
     _check_tensors(x, expected, aligned)
 
 
@@ -252,8 +259,9 @@ def slab_layer_block(
     b_qkv (3D,) in f32.
 
     CPU tensors run the plain version. CUDA tensors launch the K1 kernel
-    (bf16 activations only; anything else raises; weights are cast to x's
-    dtype) and add one to `slab_layer_block.launches`. Both go through the
+    (bf16 or f32 activations; anything else raises; weights are cast to x's
+    dtype) and add one to `slab_layer_block.launches` (bf16) or
+    `.f32_launches` (f32). Both go through the
     operator `dinov2_tpu_torch::slab_layer_block` (ops/_library.py). Where
     an input requires grad the result carries the recompute gradient of the
     module docstring."""
@@ -292,26 +300,28 @@ def slab_layer_buffers(
     (out, the (B, T, 3D) qkv slab, the (B, T, D) attention output). The
     checks that hold K2 and K3 against K1 on K1's own slab read them."""
     check_half_layer_args(x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads, w_qkv, w_proj)
-    from dinov2_tpu_torch.ops._kernels import check_status, slab_layer_lib
+    from dinov2_tpu_torch.ops._kernels import check_status, entry, slab_layer_lib
 
     lib = slab_layer_lib()
+    launch = entry(lib, "dinov2_slab_layer_bf16", x.dtype == torch.float32)
     b, t, d = x.shape
     qkv = torch.empty((b, t, 3 * d), dtype=x.dtype, device=x.device)
     attn = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):  # the launches go to the current device
-        code = lib.dinov2_slab_layer_bf16(
+        code = launch(
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w_qkv.data_ptr(),
             b_qkv.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(), ls1.data_ptr(),
             qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
             b, t, d, num_heads, scale, eps, torch.cuda.current_stream(x.device).cuda_stream,
         )
     check_status(lib, code, "slab_layer_block")
-    slab_layer_block.launches += 1
+    count_launch(slab_layer_block, x.dtype)
     return out, qkv, attn
 
 
-slab_layer_block.launches = 0  # kernel launches on CUDA tensors
+slab_layer_block.launches = 0  # bf16 kernel calls on CUDA tensors
+slab_layer_block.f32_launches = 0  # f32 kernel calls on CUDA tensors
 _SLAB_LAYER_OP = define(
     "slab_layer_block(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor w_qkv, Tensor b_qkv, "
     "Tensor w_proj, Tensor b_proj, Tensor ls1, int num_heads, float scale, float eps) -> Tensor",
@@ -321,24 +331,21 @@ _SLAB_LAYER_OP = define(
 
 def check_slab_attention_args(qkv, num_heads, x=None, w_proj=None, b_proj=None, ls1=None,
                               aligned: bool = True):
-    """What the CUDA slab attention kernels take: a bf16 (B, T, 3D) slab with
-    head_dim 64 (K3); with x given, K2's bf16 x (B, T, D) and w_proj (D, D)
-    and f32 b_proj and ls1 rows too. `aligned`: as `_check_tensors`."""
+    """What the CUDA slab attention kernels take: a bf16 or f32 (B, T, 3D)
+    slab with head_dim 64 (K3); with x given, K2's x (B, T, D) and w_proj
+    (D, D) in the slab's dtype and f32 b_proj and ls1 rows too. `aligned`: as
+    `_check_tensors`."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"qkv must be (B, T, 3D), got {tuple(qkv.shape)}")
     b, t, three_d = qkv.shape
     d = three_d // 3
-    _check_bf16_head64(qkv, d, num_heads, "slab attention")
+    _check_kernel_dtype_head64(qkv, d, num_heads, "slab attention")
     if x is None:
         return _check_tensors(qkv, {}, aligned)
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"the CUDA slab attention kernel takes bf16 activations, got {x.dtype}"
-        )
     _check_tensors(x, {
-        "x": (x, (b, t, d), torch.bfloat16),
-        "qkv": (qkv, (b, t, 3 * d), torch.bfloat16),
-        "w_proj": (w_proj, (d, d), torch.bfloat16),
+        "x": (x, (b, t, d), qkv.dtype),
+        "qkv": (qkv, (b, t, 3 * d), qkv.dtype),
+        "w_proj": (w_proj, (d, d), qkv.dtype),
         "b_proj": (b_proj, (d,), torch.float32),
         "ls1": (ls1, (d,), torch.float32),
     }, aligned)
@@ -349,9 +356,10 @@ def slab_attention(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Ten
     attention output, per head softmax(q k^T * scale) v, no head transposes.
 
     CPU tensors run the plain version. CUDA tensors launch the K3 kernel
-    (bf16, head_dim 64; anything else raises) and add one to
-    `slab_attention.launches`. Where qkv requires grad the result carries
-    the gradient of `slab_attention_backward`."""
+    (bf16 or f32, head_dim 64; anything else raises) and add one to
+    `slab_attention.launches` (bf16) or `.f32_launches` (f32). Where qkv
+    requires grad the result carries the gradient of
+    `slab_attention_backward`."""
     if needs_grad(qkv):
         return _SlabAttention.apply(qkv, num_heads, scale)
     return _slab_attention_forward(qkv, num_heads, scale)
@@ -376,21 +384,23 @@ def _slab_attention_cuda(qkv: torch.Tensor, num_heads: int, scale: float) -> tor
     check_slab_attention_args(qkv, num_heads)
     b, t, three_d = qkv.shape
     d = three_d // 3
-    from dinov2_tpu_torch.ops._kernels import check_status, slab_attention_lib
+    from dinov2_tpu_torch.ops._kernels import check_status, entry, slab_attention_lib
 
     lib = slab_attention_lib()
+    launch = entry(lib, "dinov2_slab_attention_bf16", qkv.dtype == torch.float32)
     out = torch.empty((b, t, d), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):  # the launch goes to the current device
-        code = lib.dinov2_slab_attention_bf16(
+        code = launch(
             qkv.data_ptr(), out.data_ptr(), b, t, d, num_heads, scale,
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     check_status(lib, code, "slab_attention")
-    slab_attention.launches += 1
+    count_launch(slab_attention, qkv.dtype)
     return out
 
 
-slab_attention.launches = 0  # kernel launches on CUDA tensors
+slab_attention.launches = 0  # bf16 kernel calls on CUDA tensors
+slab_attention.f32_launches = 0  # f32 kernel calls on CUDA tensors
 _SLAB_ATTENTION_OP = define(
     "slab_attention(Tensor qkv, int num_heads, float scale) -> Tensor",
     _slab_reference, _slab_attention_cuda, _slab_attention_fake,
@@ -411,10 +421,11 @@ def slab_attention_block(
     and ls1 (D,) in f32.
 
     CPU tensors run the plain version. CUDA tensors launch the K2 kernel
-    (bf16, head_dim 64; anything else raises) and add one to
-    `slab_attention_block.launches`. Both go through the operator
-    `dinov2_tpu_torch::slab_attention_block`. On the slab K1 makes, the
-    output is K1's bit for bit: both run the same two launches on it. Where
+    (bf16 or f32, head_dim 64; anything else raises) and add one to
+    `slab_attention_block.launches` (bf16) or `.f32_launches` (f32). Both go
+    through the operator `dinov2_tpu_torch::slab_attention_block`. On the
+    slab K1 makes, the output is K1's bit for bit: both run the same two
+    launches on it. Where
     an input requires grad the result carries the recompute gradient of the
     module docstring."""
     tensors = (x, qkv, w_proj, b_proj, ls1)
@@ -440,23 +451,25 @@ def _slab_attention_block_cuda(x, qkv, w_proj, b_proj, ls1, num_heads, scale):
     w_proj = w_proj.to(x.dtype)
     check_slab_attention_args(qkv, num_heads, x, w_proj, b_proj, ls1)
     b, t, d = x.shape
-    from dinov2_tpu_torch.ops._kernels import check_status, slab_attention_lib
+    from dinov2_tpu_torch.ops._kernels import check_status, entry, slab_attention_lib
 
     lib = slab_attention_lib()
+    launch = entry(lib, "dinov2_slab_attention_block_bf16", x.dtype == torch.float32)
     attn = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):  # the launches go to the current device
-        code = lib.dinov2_slab_attention_block_bf16(
+        code = launch(
             x.data_ptr(), qkv.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(), ls1.data_ptr(),
             attn.data_ptr(), out.data_ptr(), b, t, d, num_heads, scale,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     check_status(lib, code, "slab_attention_block")
-    slab_attention_block.launches += 1
+    count_launch(slab_attention_block, x.dtype)
     return out
 
 
-slab_attention_block.launches = 0  # kernel launches on CUDA tensors
+slab_attention_block.launches = 0  # bf16 kernel calls on CUDA tensors
+slab_attention_block.f32_launches = 0  # f32 kernel calls on CUDA tensors
 _SLAB_ATTENTION_BLOCK_OP = define(
     "slab_attention_block(Tensor x, Tensor qkv, Tensor w_proj, Tensor b_proj, Tensor ls1, "
     "int num_heads, float scale) -> Tensor",

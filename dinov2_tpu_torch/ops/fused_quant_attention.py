@@ -90,6 +90,10 @@ def _operator_args(args: tuple) -> tuple:
 
 def _check_quant_layer_args(x, ln_scale, ln_bias, qkv_ql, b_qkv, proj_ql, b_proj, ls1, num_heads,
                             aligned: bool = True) -> None:
+    if x.dtype != torch.bfloat16:  # K1 takes f32 too; K8 has no f32 variant yet
+        raise NotImplementedError(
+            f"the CUDA quantized half-layer kernel takes bf16 activations, got {x.dtype}"
+        )
     check_half_layer_args(x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads, aligned=aligned)
     d = x.shape[-1]
     check_quant_weight(qkv_ql, "qkv", x.device, 3 * d, d, aligned=aligned)

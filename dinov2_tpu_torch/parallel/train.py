@@ -64,14 +64,13 @@ multiplies p by (1 - lr * wd) first and so differs by an `lr² * wd` cross
 term. The state is {"count", "mu", "nu"}, the moments in the parameters'
 tree.
 
-On a card the compute dtype is bf16 (`ModelOptions(compute_dtype=
-torch.bfloat16)`) over the f32 masters: the attention kernels take bf16
-only, so f32 compute on CUDA reaches their NotImplementedError unless
-`flash_attention=False` (the plain route); f32 kernels are listed in
-ROADMAP.md. With `flash_attention=True` the attention core is the K4
-`with_lse` forward and the K6 backward; on the slab route the forward is K1
-(or K2, K3, K5 by `slab_fusion` and `fuse_mlp`) and the backward recomputes
-through the plain versions (ops/fused_attention.py).
+On a card the compute dtype is f32 (the defaults) or bf16
+(`ModelOptions(compute_dtype=torch.bfloat16)`) over the f32 masters; the
+attention kernels K1 to K4 and K6 take both (K5 bf16 only: an f32 MLP stays
+plain). With `flash_attention=True` the attention core is the K4 `with_lse`
+forward and the K6 backward; on the slab route the forward is K1 (or K2,
+K3, K5 by `slab_fusion` and `fuse_mlp`) and the backward recomputes through
+the plain versions (ops/fused_attention.py).
 """
 
 from __future__ import annotations
@@ -442,12 +441,12 @@ def make_trainer(
 ) -> Trainer:
     """A Trainer with the JAX package's defaults: parity "hf", f32 compute,
     remat, AdamW, attention route "auto", on the card unless `device` says
-    otherwise. On a CUDA device "auto" sends f32 activations to the plain
-    PyTorch attention (ops/attention.py::resolve_attention_path: the CUDA
-    attention kernels take bf16 only), so the defaults take a step there as
-    they do on the CPU; its f32 products run in full f32, TF32 stays off
-    (ops/qmatmul.py::set_cuda_matmul_precision). Pass
-    `ModelOptions(compute_dtype=torch.bfloat16, ...)` for the kernels. With
+    otherwise. On a CUDA device "auto" sends the f32 activations to the f32
+    kernels (ops/attention.py::resolve_attention_path): K1 forward with its
+    recompute backward below FLASH_MIN_TOKENS tokens, K4 with lse and K6 from
+    there on; their products and the plain ones run in full f32, TF32 stays
+    off (ops/qmatmul.py::set_cuda_matmul_precision). Pass
+    `ModelOptions(compute_dtype=torch.bfloat16, ...)` for the bf16 kernels. With
     a `mesh` the step runs on its devices (module docstring); their type
     must be `device`'s."""
     opts = opts or ModelOptions(parity="hf", compute_dtype=torch.float32, remat=True)

@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
 from dinov2_tpu_torch.models.config import DinoConfig

@@ -22,6 +22,7 @@ import cv2
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from dinov2_tpu.cli import benchmark as jbenchmark
 from dinov2_tpu.cli import eval as jeval

@@ -9,6 +9,7 @@ The GPU machine has no jax, and tests/conftest.py imports it, so run there:
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
 from dinov2_tpu_torch.models.config import DinoConfig
@@ -88,10 +89,17 @@ def test_launch_counter_counts_kernel_calls_only(cuda):
 
 
 def test_kernel_refuses_f32_activations(cuda):
+    """K1 takes bf16 and f32 activations (f32: its own kernel, counted in
+    `.f32_launches`); f16 it refuses, and counts nothing."""
     args = _half_layer_args(1, 5, 64, seed=0, device=cuda)
-    args[0] = args[0].float()
-    with pytest.raises(NotImplementedError, match="bf16"):
+    args[0] = args[0].half()
+    before = (slab_layer_block.launches, slab_layer_block.f32_launches)
+    with pytest.raises(NotImplementedError, match="bf16 or f32"):
         slab_layer_block(*args, 1, 0.125, 1e-6)
+    args[0] = args[0].float()
+    slab_layer_block(*args, 1, 0.125, 1e-6)
+    assert (slab_layer_block.launches, slab_layer_block.f32_launches) == (before[0],
+                                                                          before[1] + 1)
 
 
 def test_engine_on_cuda_close_to_cpu_f32(cuda, tmp_path):
@@ -157,10 +165,10 @@ def test_flash_launch_counter_counts_kernel_calls_only(cuda):
     assert flash_attention.launches == before + 2
 
 
-@pytest.mark.parametrize("case", ["f32", "head_dim 32"])
+@pytest.mark.parametrize("case", ["f16", "head_dim 32"])
 def test_flash_kernel_refuses(cuda, case):
-    if case == "f32":
-        qkv, heads = _slab(1, 5, 2, seed=0, device=cuda, dtype=torch.float32), 2
+    if case == "f16":  # the kernels take bf16 and f32
+        qkv, heads = _slab(1, 5, 2, seed=0, device=cuda, dtype=torch.float16), 2
     else:
         qkv, heads = _slab(1, 5, 2, seed=0, device=cuda, hd=32), 2
     before = flash_attention.launches
@@ -597,19 +605,19 @@ def test_slab_launch_counters_count_kernel_calls_only(cuda):
             slab_mlp_block.launches) == (before[0] + 1, before[1] + 1, before[2] + 2)
 
 
-@pytest.mark.parametrize("case", ["K3 f32", "K3 head_dim 32", "K2 f32", "K5 f32", "K5 DH = 2 D",
+@pytest.mark.parametrize("case", ["K3 f16", "K3 head_dim 32", "K2 f16", "K5 f32", "K5 DH = 2 D",
                                   "K5 D=128"])
 def test_slab_kernels_refuse(cuda, case):
     counts = (slab_attention.launches, slab_attention_block.launches, slab_mlp_block.launches)
     with pytest.raises(NotImplementedError):
-        if case == "K3 f32":
-            slab_attention(_slab(1, 5, 2, seed=0, device=cuda, dtype=torch.float32), 2, 0.125)
+        if case == "K3 f16":  # K3 and K2 take bf16 and f32, K5 bf16 only
+            slab_attention(_slab(1, 5, 2, seed=0, device=cuda, dtype=torch.float16), 2, 0.125)
         elif case == "K3 head_dim 32":
             slab_attention(_slab(1, 5, 2, seed=0, device=cuda, hd=32), 2, 0.125)
-        elif case == "K2 f32":
+        elif case == "K2 f16":
             x, _, _, _, _, wp, bp, ls = _half_layer_args(1, 5, 128, seed=0, device=cuda)
-            qkv = _slab(1, 5, 2, seed=0, device=cuda, dtype=torch.float32)
-            slab_attention_block(x.float(), qkv, wp, bp, ls, 2, 0.125)
+            qkv = _slab(1, 5, 2, seed=0, device=cuda, dtype=torch.float16)
+            slab_attention_block(x.half(), qkv, wp, bp, ls, 2, 0.125)
         elif case == "K5 f32":
             args = _mlp_args(1, 5, 384, seed=0, device=cuda)
             slab_mlp_block(args[0].float(), *args[1:], "gelu_erf", 1e-6)
@@ -992,10 +1000,11 @@ def test_flash_kernels_report_their_tile_rows(cuda):
 
 def test_default_trainer_takes_a_step_on_cuda(cuda):
     """`make_trainer(config)` with its own options (f32 compute, route
-    "auto", device "cuda") takes a step on the card: f32 activations go to
-    the plain attention route, no kernel launches, and the loss equals the
-    CPU's f32 step within f32 summation noise. An explicit kernel route with
-    f32 activations still raises in the wrapper."""
+    "auto", device "cuda") takes a step on the card through the f32 K1
+    (twice a layer with remat; the backward recomputes through the plain
+    version), no bf16 kernel, and the loss equals the CPU's f32 step within
+    1e-5. The explicit routes take the f32 kernels too: "slab" K1, True K4
+    with lse and K6."""
     from dinov2_tpu_torch.models.params import init_params
     from dinov2_tpu_torch.models.vit import ModelOptions
     from dinov2_tpu_torch.ops.flash_attention import flash_backward
@@ -1008,8 +1017,11 @@ def test_default_trainer_takes_a_step_on_cuda(cuda):
     images = rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
     labels = rng.integers(0, 7, 4)
     counters = (slab_layer_block, slab_attention, flash_attention, flash_backward)
-    before = [c.launches for c in counters]
 
+    def counts():
+        return [(c.launches, c.f32_launches) for c in counters]
+
+    before = counts()
     trainer = make_trainer(config)
     assert trainer.device.type == "cuda" and trainer.opts.compute_dtype == torch.float32
     assert trainer.opts.flash_attention == "auto"
@@ -1018,14 +1030,64 @@ def test_default_trainer_takes_a_step_on_cuda(cuda):
     cpu = make_trainer(config, device="cpu")
     _, _, cpu_metrics = cpu.step(*cpu.place(source), images, labels)
     assert torch.isfinite(metrics["loss"])
-    assert abs(float(metrics["loss"]) - float(cpu_metrics["loss"])) <= 1e-4
-    assert [c.launches for c in counters] == before
+    assert abs(float(metrics["loss"]) - float(cpu_metrics["loss"])) <= 1e-5
+    layers = config.num_hidden_layers
+    want = [before[0][:1] + (before[0][1] + 2 * layers,), *before[1:]]
+    assert counts() == want
 
-    for route in ("slab", True):
+    for route, kernels in (("slab", {0: 2 * layers}), (True, {2: 2 * layers, 3: layers})):
         forced = make_trainer(config, opts=ModelOptions(
             parity="hf", compute_dtype=torch.float32, remat=True, flash_attention=route))
-        with pytest.raises(NotImplementedError):
-            forced.step(*forced.place(source), images, labels)
+        before = counts()
+        _, _, forced_metrics = forced.step(*forced.place(source), images, labels)
+        assert abs(float(forced_metrics["loss"]) - float(cpu_metrics["loss"])) <= 1e-5
+        assert counts() == [(n, f + kernels.get(i, 0)) for i, (n, f) in enumerate(before)]
+
+
+# The f32 kernels (csrc/f32_gemm.cuh, f32_attention.cuh, f32_backward.cuh):
+# each against its plain f32 version on the same card, within 1e-5 (forward,
+# lse) and 2e-5 (gradients) of max(1, max|plain|), at ragged T.
+
+
+def _f32_close(got, want, tol):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        err = (a.reshape(w.shape) - w).abs().max().item()
+        assert err <= tol * max(1.0, w.abs().max().item()), err
+
+
+@pytest.mark.parametrize("t", [1, 5, 64, 65, 130, 261])
+def test_f32_kernels_match_plain(cuda, t):
+    from dinov2_tpu_torch.ops.flash_attention import (
+        flash_backward,
+        flash_backward_reference,
+        flash_forward_lse,
+        flash_forward_reference,
+    )
+
+    b, heads, d, scale = 2, 2, 128, 0.125
+    qkv = _slab(b, t, heads, seed=t, device=cuda, dtype=torch.float32)
+    q, k, v = split_heads(qkv, heads)
+    args = [a.float() for a in _half_layer_args(b, t, d, seed=t, device=cuda)]
+    x, _, _, _, _, wp, bp, ls = args
+    counters = (slab_layer_block, slab_attention_block, slab_attention, flash_attention)
+    before = [(c.launches, c.f32_launches) for c in counters]
+    _f32_close(slab_layer_block(*args, heads, scale, 1e-6),
+               slab_layer_reference(*args, heads, scale, 1e-6), 1e-5)
+    _f32_close(slab_attention_block(x, qkv, wp, bp, ls, heads, scale),
+               _slab_block_reference(x, qkv, wp, bp, ls, heads, scale), 1e-5)
+    _f32_close(slab_attention(qkv, heads, scale), _slab_reference(qkv, heads, scale), 1e-5)
+    _f32_close(flash_attention_slab(qkv, heads, scale), vanilla_attention(q, k, v, scale), 1e-5)
+    assert [(c.launches, c.f32_launches) for c in counters] == [(n, f + 1) for n, f in before]
+    out, lse = flash_forward_lse(q, k, v, scale)
+    _f32_close((out, lse), flash_forward_reference(q, k, v, scale), 1e-5)
+    assert torch.equal(out, flash_attention(q, k, v, scale))
+    g = torch.from_numpy(np.random.default_rng(t).standard_normal((b, t, heads, 64))).to(
+        cuda, torch.float32)
+    _f32_close(flash_backward(q, k, v, out, lse, g, scale),
+               flash_backward_reference(q, k, v, out, lse, g, scale), 2e-5)
 
 
 # K9, the int8 matmul (csrc/int8_matmul.cu): each launch bit for bit its

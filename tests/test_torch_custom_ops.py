@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from dinov2_tpu_torch.models.params import quantize_linear
@@ -144,12 +145,12 @@ def test_fake_cuda_builds_nothing(name, monkeypatch):
 @pytest.mark.parametrize(
     "name, index, value, error",
     [
-        ("slab_layer_block", 0, "f32", NotImplementedError),
+        ("slab_layer_block", 0, "f16", NotImplementedError),  # bf16 and f32 only
         ("slab_layer_block", 8, 4, NotImplementedError),  # head_dim 32
-        ("slab_attention", 0, "f32", NotImplementedError),
+        ("slab_attention", 0, "f16", NotImplementedError),
         ("slab_attention_block", 4, "bf16", ValueError),  # ls1 in bf16
         ("slab_mlp_block", 8, "relu", ValueError),
-        ("flash_attention", 0, "f32", NotImplementedError),
+        ("flash_attention", 0, "f16", NotImplementedError),
         ("quant_matmul", 0, "f16", NotImplementedError),
         ("slab_layer_block_quant", 0, "f32", NotImplementedError),
     ],

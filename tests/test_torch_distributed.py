@@ -35,6 +35,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from dinov2_tpu.models import params as jparams
 from dinov2_tpu.models import vit as jvit

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from dinov2_tpu.ops import attention as jattn
 from dinov2_tpu.ops import flash_attention as jfa
@@ -145,7 +146,7 @@ def _slab_views(t=5, heads=2, dtype=torch.bfloat16):
 @pytest.mark.parametrize(
     "case, error",
     [
-        ("f32", NotImplementedError),
+        ("f16", NotImplementedError),
         ("head_dim 32", NotImplementedError),
         ("shapes differ", ValueError),
         ("strides differ", ValueError),
@@ -160,8 +161,8 @@ def test_cuda_argument_checks(case, error):
     assert flash_attention._check_cuda_args(q, k, v) == (5 * 384, 384, 64)
     c = q.contiguous()
     assert flash_attention._check_cuda_args(c, c.clone(), c.clone()) == (5 * 128, 128, 64)
-    if case == "f32":
-        q, k, v = _slab_views(dtype=torch.float32)
+    if case == "f16":  # the kernels take bf16 and f32
+        q, k, v = _slab_views(dtype=torch.float16)
     elif case == "head_dim 32":
         q, k, v = attention.split_heads(torch.zeros((2, 5, 3 * 64), dtype=torch.bfloat16), 2)
     elif case == "shapes differ":

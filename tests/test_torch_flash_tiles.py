@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from dinov2_tpu.models.config import DinoConfig as JaxDinoConfig
 from dinov2_tpu.models.params import init_params as jax_init_params
@@ -218,9 +219,10 @@ def test_backward_tile_loops_match_plain_version(t, heads, slab, dtype):
 @pytest.mark.parametrize(
     ("flash", "t", "dtype", "head_dim", "device_type", "route"),
     [
-        # "auto" on a card: what the kernels do not take goes to the plain route
-        ("auto", 257, torch.float32, 64, "cuda", "vanilla"),
-        ("auto", 1370, torch.float32, 64, "cuda", "vanilla"),
+        # "auto" on a card: bf16 and f32 at head_dim 64 take the kernels, what
+        # the kernels do not take goes to the plain route
+        ("auto", 257, torch.float32, 64, "cuda", "slab"),
+        ("auto", 1370, torch.float32, 64, "cuda", "flash"),
         ("auto", 257, torch.float16, 64, "cuda", "vanilla"),
         ("auto", 257, torch.bfloat16, 32, "cuda", "vanilla"),
         ("auto", 1370, torch.bfloat16, 128, "cuda", "vanilla"),
@@ -244,24 +246,30 @@ def test_resolve_attention_path_by_dtype_head_dim_and_device(
     assert resolve_attention_path(flash, t, dtype, head_dim, device_type) == route
 
 
-def test_auto_route_of_f32_lands_where_the_jax_resolver_lands():
-    """The JAX resolver sends "auto" to its plain route off the TPU and for
-    what its kernels' gates refuse; f32 on a card is the port's such case."""
-    assert jax_attention.resolve_attention_path("auto", 257, 768, 4) == "vanilla"
-    assert resolve_attention_path("auto", 257, torch.float32, 64, "cuda") == "vanilla"
+def test_auto_route_of_f32_lands_where_the_jax_resolver_lands(monkeypatch):
+    """f32 on a card lands where the JAX resolver's TPU gate lands for f32
+    (itemsize 4): the slab for ViT-S/B/L at 224 px (fits_slab(257, D, 4)),
+    flash at 518 px (T=1370, past the slab budget)."""
+    monkeypatch.setattr(jax_attention.jax, "default_backend", lambda: "tpu")
+    for t in (257, 1370):
+        for d in (384, 768, 1024):
+            want = jax_attention.resolve_attention_path("auto", t, d, 4)
+            assert want == ("slab" if t == 257 else "flash"), (t, d)
+            assert resolve_attention_path("auto", t, torch.float32, 64, "cuda") == want
 
 
 def test_auto_route_warns_once_per_reason(caplog):
     attention._warn_vanilla_route.cache_clear()
     with caplog.at_level(logging.WARNING, logger="dinov2_tpu_torch"):
         for _ in range(3):
-            resolve_attention_path("auto", 257, torch.float32, 64, "cuda")
+            resolve_attention_path("auto", 257, torch.float16, 64, "cuda")
         resolve_attention_path("auto", 1370, torch.bfloat16, 32, "cuda")
         resolve_attention_path("auto", 257, torch.bfloat16, 64, "cuda")
-        resolve_attention_path("slab", 257, torch.float32, 64, "cuda")
+        resolve_attention_path("auto", 257, torch.float32, 64, "cuda")
+        resolve_attention_path("slab", 257, torch.float16, 64, "cuda")
     messages = [r.getMessage() for r in caplog.records if r.name == "dinov2_tpu_torch"]
     assert len(messages) == 2
-    assert "torch.float32" in messages[0] and "vanilla" in messages[0]
+    assert "torch.float16" in messages[0] and "vanilla" in messages[0]
     assert "head_dim is 32" in messages[1]
     attention._warn_vanilla_route.cache_clear()
 

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 from test_torch_flash_tiles import emulate_forward
 
 from dinov2_tpu.ops import fused_attention as jfused

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from dinov2_tpu.io.synthetic import write_synthetic_gguf
 from dinov2_tpu.models import params as jparams
@@ -150,7 +151,7 @@ def _k2_args(d=128, dtype=torch.bfloat16):
 
 
 @pytest.mark.parametrize("case, error", [
-    ("f32 slab", NotImplementedError),
+    ("f16 slab", NotImplementedError),
     ("head_dim 32", NotImplementedError),
     ("slab not (B, T, 3D)", ValueError),
     ("w_proj in f32", ValueError),
@@ -161,8 +162,8 @@ def test_slab_attention_argument_checks(case, error):
     """What K3 and K2 refuse on a card, checked before any launch (the
     checks read metadata only, so CPU tensors do)."""
     args = _k2_args()
-    if case == "f32 slab":
-        args = _k2_args(dtype=torch.float32)
+    if case == "f16 slab":  # the kernels take bf16 and f32
+        args = _k2_args(dtype=torch.float16)
     elif case == "head_dim 32":
         args["num_heads"] = 4
     elif case == "slab not (B, T, 3D)":

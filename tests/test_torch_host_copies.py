@@ -7,6 +7,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from dinov2_tpu.io import gguf as jgguf
 from dinov2_tpu.io.synthetic import write_synthetic_gguf as jwrite_synthetic_gguf

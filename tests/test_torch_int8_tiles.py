@@ -29,6 +29,7 @@ csrc/activation.cuh does, on all 65,536 bf16 inputs.
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from dinov2_tpu_torch.models.params import Int8Linear
 from dinov2_tpu_torch.ops.int8_matmul_kernel import (

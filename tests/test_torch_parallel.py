@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from dinov2_tpu.io.synthetic import write_synthetic_gguf
 from dinov2_tpu.models import params as jparams

@@ -7,6 +7,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "dinov2_tpu_torch"

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from dinov2_tpu.models import params as jparams
 from dinov2_tpu.models import vit as jvit

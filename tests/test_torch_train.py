@@ -17,6 +17,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 
 from dinov2_tpu.io.export import export_gguf as jax_export_gguf
 from dinov2_tpu.models.config import DinoConfig as JaxDinoConfig
@@ -476,8 +477,8 @@ def test_train_defaults_to_the_card():
     """The CLIs and the Trainer run on the card unless the caller asks for the
     CPU, and the defaults resolve together to something that runs there: the
     train CLI's and `make_trainer`'s f32 compute with the route "auto" takes
-    the plain attention on a card (the CUDA kernels take bf16), the slab route
-    on the CPU, and bf16 the kernels."""
+    the slab route on a card (the f32 kernels) as on the CPU, and bf16 the
+    bf16 kernels."""
     import argparse
     import inspect
 
@@ -501,9 +502,9 @@ def test_train_defaults_to_the_card():
     opts = make_trainer(config, device="cpu").opts
     assert (opts.compute_dtype, opts.flash_attention) == (torch.float32, "auto")
     head_dim = config.hidden_size // config.num_attention_heads
-    assert resolve_attention_path("auto", 257, dtype_of(args), head_dim, args.device) == "vanilla"
+    assert resolve_attention_path("auto", 257, dtype_of(args), head_dim, args.device) == "slab"
     assert resolve_attention_path(
-        opts.flash_attention, 257, opts.compute_dtype, head_dim, "cuda") == "vanilla"
+        opts.flash_attention, 257, opts.compute_dtype, head_dim, "cuda") == "slab"
     assert resolve_attention_path(
         opts.flash_attention, 257, opts.compute_dtype, head_dim, "cpu") == "slab"
     assert resolve_attention_path(
