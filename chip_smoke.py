@@ -107,14 +107,19 @@ with random f16 weights from a seed, bf16, parity="reference":
     by two ranks must fail in both. With 2 or more cards the cases also
     run over NCCL, rank k on card k.
   - f32, the trainer's default dtype and every --dtype f32 run, on the f32
-    kernels of K1 to K4 and K6 (their own C entries and counts,
-    `.f32_launches`): DinoEngine(dtype=torch.float32).classify on the
-    classify slice's file and images (K1 f32) and at slab_fusion "proj"
-    (K2 f32) and "core" (K3 f32); a ViT-B/14 with 4 register tokens (T=261,
-    a masked tail) in bf16 and f32 (K1); the ViT-L/14 feature slice in f32
-    (K4 f32); make_trainer(config) as shipped (f32 over f32 masters, parity
-    "hf", remat, "auto": K1 f32), on the flash route (K4 with lse and K6
-    f32) and at T=1370. Each against the CPU f32 run of the same weights and
+    kernels of K1 to K6 and K8 (their own C entries and counts,
+    `.f32_launches`) and K7's f32 kernel: DinoEngine(dtype=torch.float32)
+    .classify on the classify slice's file and images (K1 f32), at
+    slab_fusion "proj" (K2 f32) and "core" (K3 f32), and with fuse_mlp=True
+    (K1 and K5 f32); the same file in q4_0 through quant_mode="fused" (K8
+    f32 and K7), with fuse_mlp=True (K8 f32, K5 f32 on the dequantized
+    fc1/fc2, K7 for the head), and `inference -c --dtype f32 --quant-mode
+    fused` on it; a ViT-B/14 with 4 register tokens (T=261, a masked tail)
+    in bf16 and f32 (K1); the ViT-L/14 feature slice in f32 (K4 f32);
+    make_trainer(config) as shipped (f32 over f32 masters, parity "hf",
+    remat, "auto": K1 f32), on the flash route (K4 with lse and K6 f32),
+    with fuse_mlp=True (K1 and K5 f32) and at T=1370. Each against the CPU
+    f32 run of the same weights and
     preprocessed input: tokens within 2e-5 of max(1, max|token|) and probs
     within 1e-5 with the same top-5 (in parity "hf"), step 1's loss within
     1e-5 and its raw gradients with at most 1e-4 of a leaf beyond 1e-5; the
@@ -153,9 +158,11 @@ export, long-sequence training, mesh training slice (K4 with lse and K6 at
 a shard's shape, one line a case, the CLI), multi-process slice (each
 rank's kernel checks, one line a case, the pipeline cases, the checkpoint
 and the engine, the NCCL refusal), and the f32 phases (f32 kernel checks after
-K9's, each f32 kernel within 1e-5 (gradients 2e-5) of max(1, max|y|) of its
+K9's, each f32 kernel within 1e-5 (gradients 2e-5; K5 and K7 with
+gelu_tanh_f16 5e-4, one f16 step of the GELU) of max(1, max|y|) of its
 plain f32 version beside its bound at 67 TFLOP/s and SDPA or one f32 linear
-call; the f32 classify slice; the f32 run of the feature slice; the f32
+call, K8 f32 bit for bit K1 f32 on the dequantized weights; the f32
+classify slice; the f32 run of the feature slice; the f32
 training slice); then a check that no "auto" attention route of these paths
 fell to plain PyTorch on the card. Any failure exits
 non-zero. The line before the last is a JSON object with one entry per kernel; the last line is
@@ -4461,6 +4468,7 @@ F32_LOSS_TOL = 1e-5  # step 1's loss against the CPU f32 step, absolute
 F32_GRAD_ELEMENT_TOL = 1e-5
 F32_GRAD_OUTLIER_SHARE = 1e-4
 F32_CROSS_CHECK_IMAGES = 4
+F32_FUSE_MLP_STEPS = 3
 REGISTER_TOKENS = 4
 
 
@@ -4621,6 +4629,134 @@ def phase_f32_kernel_checks(card: str) -> dict:
     return found
 
 
+# gelu_tanh_f16 rounds g to f16: where the kernel's and the plain version's
+# f32 sums of fc1 straddle an f16 boundary, g moves by one f16 step and fc2
+# carries it into the output (tests/test_torch_mlp_tiles.py's
+# F32_ATOL_F16_GELU); the share of elements past F32_TOL is printed beside it
+F32_GELU_F16_TOL = 5e-4
+F32_MLP_RAGGED = (3, 43)  # (B, T): 129 rows, one past the FFMA GEMM's 128-row tile
+
+
+def phase_f32_mlp_quant_checks(card: str) -> dict:
+    """K5 f32 against its plain f32 version at the fuse_mlp slice's shape
+    (B=64, T=257, D=768) and at a ragged M, for the three activations; K8
+    f32 at the classify shape for q4_0, q5_1 (packed) and q8_0 (int8 SoA),
+    bit for bit K1 f32 on the dequantized weights and within F32_TOL of its
+    plain version; K7's f32 kernel at the f32 q4_0 path's fc1, fc2 and
+    head. Each timed beside its bound, its plain version and one f32
+    F.linear per GEMM. Returns {kernel: numbers} for the JSON line."""
+    from dinov2_tpu_torch.models.params import quantize_linear
+    from dinov2_tpu_torch.ops.fused_attention import (
+        slab_layer_block,
+        slab_mlp_block,
+        slab_mlp_reference,
+    )
+    from dinov2_tpu_torch.ops.fused_quant_attention import (
+        quant_layer_reference,
+        slab_layer_block_quant,
+    )
+    from dinov2_tpu_torch.ops.qmatmul import apply_activation, dequant_weight
+    from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel, quant_matmul_reference
+
+    require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for f32 matmuls")
+    eps, found = 1e-6, {}
+    d = 768
+    for b, t in ((BATCH, 257), F32_MLP_RAGGED):
+        args = [a.float() for a in _mlp_args(b, t, d)]
+        for act in ("gelu_tanh_f16", "gelu_erf", "gelu_tanh"):
+            run = partial(slab_mlp_block, *args, act, eps)
+            plain = partial(slab_mlp_reference, *args, act, eps)
+            label = f"slab_mlp_block f32 B={b} T={t} D={d} DH={4 * d} {act}"
+            numbers = _f32_check(
+                label, run, plain, card, 4.0 * b * t * d * 4 * d, nbytes(*args, args[0]),
+                tol=F32_GELU_F16_TOL if act == "gelu_tanh_f16" else F32_TOL)
+            if act == "gelu_tanh_f16":
+                ref = plain()
+                past = (run() - ref).abs() > F32_TOL * max(1.0, ref.abs().max().item())
+                print(f"f32 kernel check: {label}: {past.float().mean().item():.3g} of the "
+                      f"elements past {F32_TOL} of max(1, max|y|) (one f16 step of g)")
+            found[b, act] = numbers
+    main = found[BATCH, "gelu_tanh_f16"]
+    x, lns, lnb, w1, b1, w2, _, _ = [a.float() for a in _mlp_args(BATCH, 257, d)]
+    x2 = x.reshape(-1, d)
+    h = torch.nn.functional.layer_norm(x2, (d,), lns, lnb, eps)
+    hidden = apply_activation(torch.matmul(h, w1) + b1, "gelu_tanh_f16")
+    k5 = {
+        **main,
+        "max_abs_err": max(v["max_abs_err"] for v in found.values()),
+        **{f"{key}_{act}": found[BATCH, act][key] for act in ("gelu_erf", "gelu_tanh")
+           for key in ("ms", "plain_ms")},
+        "ms_ragged": found[F32_MLP_RAGGED[0], "gelu_tanh_f16"]["ms"],
+        "fc1_linear_ms": _f32_linear_ms(h, w1),
+        "fc2_linear_ms": _f32_linear_ms(hidden, w2),
+    }
+    print(f"f32 kernel check: K5 f32's two GEMM launches beside one f32 linear call each: fc1 "
+          f"{k5['fc1_linear_ms']:.4f} ms, fc2 {k5['fc2_linear_ms']:.4f} ms ({card})")
+    del args, x, x2, h, hidden
+
+    b, t, heads = BATCH, 257, 12
+    scale = 1.0 / 64**0.5
+    quant = {}
+    for fmt in ("q4_0", "q5_1", "q8_0"):
+        rng = np.random.default_rng(SEED)
+        x, lns, lnb, _, bq, _, bp, ls = [a.float() for a in _half_layer_args(rng, b, t, d)]
+        wq = quantize_linear(rng.standard_normal((3 * d, d)) * 0.05, fmt, device="cuda")
+        wp = quantize_linear(rng.standard_normal((d, d)) * 0.05, fmt, device="cuda")
+        rest = (lns, lnb, wq, bq, wp, bp, ls, heads, scale, eps)
+        dense = [dequant_weight(w, torch.float32).T.contiguous() for w in (wq, wp)]
+        k1 = slab_layer_block(x, lns, lnb, dense[0], bq, dense[1], bp, ls, heads, scale, eps)
+        same = torch.equal(slab_layer_block_quant(x, *rest), k1)
+        layout = "packed" if wq.packed else "int8 SoA"
+        print(f"f32 kernel check: slab_layer_block_quant f32 {fmt} ({layout}) B={b} T={t} D={d}: "
+              f"bit for bit K1 f32 on dequant_weight(W, f32).T: {same}")
+        require(same, f"K8 f32 {fmt} differs from K1 f32 on the dequantized weights")
+        quant[fmt] = _f32_check(
+            f"slab_layer_block_quant f32 {fmt} ({layout}) B={b} T={t} D={d} H={heads}",
+            partial(slab_layer_block_quant, x, *rest), partial(quant_layer_reference, x, *rest),
+            card, half_layer_flops(b, t, d, heads), nbytes(x, lns, lnb, wq, bq, wp, bp, ls, x))
+        if fmt == QUANT_SLICE_FORMAT:
+            x2 = x.reshape(-1, d)
+            quant["qkv_linear_ms"] = _f32_linear_ms(x2, dense[0])
+            quant["proj_linear_ms"] = _f32_linear_ms(x2, dense[1])
+    k8 = {
+        **quant[QUANT_SLICE_FORMAT],
+        "max_abs_err": max(quant[fmt]["max_abs_err"] for fmt in ("q4_0", "q5_1", "q8_0")),
+        **{f"ms_{fmt}": quant[fmt]["ms"] for fmt in ("q5_1", "q8_0")},
+        "qkv_linear_ms": quant["qkv_linear_ms"], "proj_linear_ms": quant["proj_linear_ms"],
+    }
+    print(f"f32 kernel check: K8 f32's two GEMM launches beside one f32 linear call each on "
+          f"the decoded weights: qkv {k8['qkv_linear_ms']:.4f} ms, proj "
+          f"{k8['proj_linear_ms']:.4f} ms ({card})")
+
+    shapes = {  # name -> (M, K, N, activation): the f32 q4_0 classify path's K7 launches
+        "fc1": (BATCH * 257, 768, 3072, "gelu_tanh_f16"),
+        "fc2": (BATCH * 257, 3072, 768, None),
+        "head": (BATCH, 1536, 1000, None),
+    }
+    k7 = {}
+    for name, (m, k, n, act) in shapes.items():
+        rng = np.random.default_rng(SEED + k)
+        ql = quantize_linear(rng.standard_normal((n, k)) * 0.05, QUANT_SLICE_FORMAT, device="cuda")
+        x = torch.from_numpy(rng.standard_normal((m, k))).to("cuda", torch.float32)
+        bias = torch.from_numpy(rng.standard_normal(n) * 0.1).to("cuda", torch.float32)
+        k7[name] = _f32_check(
+            f"quant_matmul_kernel f32 {QUANT_SLICE_FORMAT} {name} M={m} K={k} N={n} {act}",
+            partial(quant_matmul_kernel, x, ql, bias, act),
+            partial(quant_matmul_reference, x, ql, bias, act), card, 2.0 * m * k * n,
+            nbytes(x, ql, bias) + m * n * 4,
+            library=partial(torch.nn.functional.linear, x, dequant_weight(ql, torch.float32),
+                            bias),
+            library_name="one f32 F.linear on the decoded weight (no activation)",
+            tol=F32_GELU_F16_TOL if act == "gelu_tanh_f16" else F32_TOL)
+    k7_f32 = {
+        **k7["fc1"],
+        "max_abs_err": max(v["max_abs_err"] for v in k7.values()),
+        **{f"{key}_{name}": k7[name][key] for name in ("fc2", "head")
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+    }
+    return {"K5": k5, "K8": k8, "K7": k7_f32}
+
+
 def _all_counters() -> dict:
     """Every kernel wrapper of the port, by kernel."""
     from dinov2_tpu_torch.ops.flash_attention import flash_backward
@@ -4637,8 +4773,8 @@ def _zero_counts() -> None:
 
 
 def _read_counts() -> tuple[dict, dict]:
-    """(the f32 counts of K1, K2, K3, K4 and K6; every other count that is
-    not 0)."""
+    """(the f32 counts of K1 to K6 and K8; every other count that is not
+    0)."""
     f32, other = {}, {}
     for name, counter in _all_counters().items():
         if hasattr(counter, "f32_launches"):
@@ -4648,14 +4784,17 @@ def _read_counts() -> tuple[dict, dict]:
     return f32, other
 
 
-def _require_counts(what: str, want: dict) -> dict:
-    """The f32 counts since _zero_counts are `want`, the rest 0, and no
-    other kernel launched; returns the counts that are not 0."""
+def _require_counts(what: str, want: dict, other_want: dict | None = None) -> dict:
+    """The f32 counts since _zero_counts are `want`, the rest 0, and the
+    other counts (`.launches`: K7 counts its f32 kernel there) are
+    `other_want`, no other kernel launched; returns the counts that are not
+    0."""
     f32, other = _read_counts()
     expected = {name: want.get(name, 0) for name in f32}
     require(f32 == expected, f"{what}: f32 launches {f32}, expected {expected}")
-    require(not other, f"{what}: other kernels launched {other}")
-    return {name: n for name, n in f32.items() if n}
+    require(other == (other_want or {}),
+            f"{what}: other kernels launched {other}, expected {other_want or {}}")
+    return {**{name: n for name, n in f32.items() if n}, **other}
 
 
 def _f32_against_cpu(engine, cpu_params, images, config, what: str) -> str:
@@ -4702,13 +4841,21 @@ def _f32_against_cpu(engine, cpu_params, images, config, what: str) -> str:
 def phase_f32_classify(card: str, path: Path) -> dict:
     """DinoEngine(path, dtype=torch.float32, device="cuda").classify on the
     classify slice's 64 images (T=257): K1 f32 12 times a forward; the same
-    weights at slab_fusion "proj" (K2 f32) and "core" (K3 f32). Then
-    ViT-B/14 with REGISTER_TOKENS register tokens (T=261: a masked tail) in
-    bf16 and f32 through K1. Each against the CPU f32 forward. Returns the
-    launches of each run."""
+    weights at slab_fusion "proj" (K2 f32) and "core" (K3 f32), and with
+    fuse_mlp=True (K1 f32 and K5 f32 12 each). The same file quantized to
+    q4_0 through quant_mode="fused" in f32: K8 f32 12 and K7 (its f32
+    kernel) 25 a forward; with fuse_mlp=True K8 f32 12, K5 f32 12 (on the
+    dequantized fc1/fc2) and K7 1 (the head); and `cli.inference -c --dtype
+    f32 --quant-mode fused` on that file against the engine. Then ViT-B/14
+    with REGISTER_TOKENS register tokens (T=261: a masked tail) in bf16 and
+    f32 through K1. Each against the CPU f32 forward. Returns the launches
+    of each run."""
+    import re
+
     from dinov2_tpu_torch.io.synthetic import write_synthetic_gguf
     from dinov2_tpu_torch.models.params import load_params
     from dinov2_tpu_torch.ops.attention import vanilla_route_warnings
+    from dinov2_tpu_torch.quant import quantize_gguf
     from dinov2_tpu_torch.runtime.engine import DinoEngine
 
     warnings = vanilla_route_warnings()
@@ -4719,14 +4866,16 @@ def phase_f32_classify(card: str, path: Path) -> dict:
     cpu_params = load_params(path, dtype=torch.float32, device="cpu").params
     found = {}
 
-    def run(eng, what, want):
+    def run(eng, what, want, other_want=None):
         eng.warmup((IMAGE_PX, IMAGE_PX), batch=BATCH)
         _zero_counts()
         top5 = eng.classify(images, topk=5)
         probs = eng.classify_probs(images)
         rate, median_ms = _timed_classify(eng, images)
         forwards = 2 + TIMED_CALLS
-        counts = _require_counts(what, {name: n * forwards for name, n in want.items()})
+        counts = _require_counts(
+            what, {name: n * forwards for name, n in want.items()},
+            {name: n * forwards for name, n in (other_want or {}).items()})
         row_err = _check_probs(top5, probs, eng.config)
         print(f"{what}: {BATCH}x{IMAGE_PX}px on {card}: probs finite, max|row sum - 1| "
               f"{row_err:.3g}; launches in {forwards} forwards {counts}, every other kernel 0; "
@@ -4742,7 +4891,50 @@ def phase_f32_classify(card: str, path: Path) -> dict:
         _f32_against_cpu(other, cpu_params, images, config,
                          f'f32 classify cross-check, slab_fusion="{level}"')
         del other
-    del engine, cpu_params
+    fused = _same_weights(engine, fuse_mlp=True)
+    found["fuse_mlp"] = run(fused, "f32 classify: ViT-B/14 f32 fuse_mlp=True",
+                            {"K1": layers, "K5": layers})
+    _f32_against_cpu(fused, cpu_params, images, config, "f32 classify cross-check, fuse_mlp=True")
+    del engine, fused, cpu_params
+
+    start = time.perf_counter()
+    q_path = quantize_gguf(path, path.parent / f"vit_b14.{QUANT_SLICE_FORMAT}.f32.gguf",
+                           QUANT_SLICE_FORMAT)
+    print(f"f32 quantized classify: quantize_gguf to {QUANT_SLICE_FORMAT} took "
+          f"{time.perf_counter() - start:.1f} s")
+    engine = DinoEngine(q_path, dtype=torch.float32, parity="reference", device="cuda",
+                        quant_mode="fused")
+    require(engine.loaded.quantized, "the q4_0 file did not load as QuantLinear weights")
+    q_cpu = load_params(q_path, dtype=torch.float32, device="cpu", quant_mode="fused").params
+    name = f"ViT-B/14 {QUANT_SLICE_FORMAT} f32 (quant_mode=\"fused\")"
+    found[QUANT_SLICE_FORMAT] = run(engine, f"f32 classify: {name}", {"K8": layers},
+                                    {"K7": 2 * layers + 1})
+    _f32_against_cpu(engine, q_cpu, images, config, f"f32 {QUANT_SLICE_FORMAT} cross-check")
+    fused = _same_weights(engine, fuse_mlp=True)
+    found[f"{QUANT_SLICE_FORMAT} fuse_mlp"] = run(
+        fused, f"f32 classify: {name} fuse_mlp=True", {"K8": layers, "K5": layers}, {"K7": 1})
+    _f32_against_cpu(fused, q_cpu, images, config,
+                     f"f32 {QUANT_SLICE_FORMAT} cross-check, fuse_mlp=True")
+    del fused, q_cpu
+    one = images[:1]
+    with tempfile.TemporaryDirectory() as tmp:
+        image = Path(tmp) / "im.png"
+        image.write_bytes(_encode_images(one, ".png")[0])
+        start = time.perf_counter()
+        proc = _cli("inference", "-m", str(q_path), "-i", str(image), "-c", "--dtype", "f32",
+                    "--quant-mode", "fused")
+        cli_s = time.perf_counter() - start
+    line = re.compile(r"^ > (.*) : ([0-9.]+)$")
+    top5 = [list(line.match(row).groups()) for row in proc.stdout.splitlines()]
+    same, err = _top5_against([[(label, float(p)) for label, p in top5]],
+                              engine.classify_probs(one), engine.id2label)
+    require(len(top5) == 5 and same == 1 and err <= PRINTED_PROB_BOUND,
+            f"CLI inference -c --dtype f32 on the {QUANT_SLICE_FORMAT} file: top-5 {top5}")
+    print(f"f32 quantized CLI: inference -c --dtype f32 --quant-mode fused on the "
+          f"{QUANT_SLICE_FORMAT} file: exit 0 in {cli_s:.1f} s, top-5 "
+          f"{[label for label, _ in top5]}, the f32 engine's in order, max|printed prob - "
+          f"engine prob| {err:.4g} (bound {PRINTED_PROB_BOUND:.4g}) ({card})")
+    del engine
 
     reg_config = dataclasses.replace(config, num_register_tokens=REGISTER_TOKENS)
     reg_path = write_synthetic_gguf(path.parent / "vit_b14_reg4.gguf", reg_config, seed=SEED + 7)
@@ -4821,7 +5013,9 @@ def phase_f32_train(card: str, source) -> dict:
     compute over f32 masters, parity "hf", remat, "auto") takes TRAIN_STEPS
     steps on the training slice's 32 images (T=257: K1 f32 24 times a step,
     the recompute backward plain); the same with flash_attention=True (K4
-    with lse 24, K6 12 a step); then TRAIN_LONG_STEPS default steps on 8
+    with lse 24, K6 12 a step); F32_FUSE_MLP_STEPS with fuse_mlp=True (K1
+    f32 and K5 f32 24 each a step, K5's backward the plain recompute);
+    then TRAIN_LONG_STEPS default steps on 8
     preprocessed 518 px images (T=1370: the flash route). Step 1's loss and
     raw gradients against the CPU f32 step on the same images (at T=1370 one
     image's loss). Returns the launches of each run and the default step's
@@ -4849,11 +5043,15 @@ def phase_f32_train(card: str, source) -> dict:
     print(f"f32 training reference: the default trainer's step-1 loss and raw gradients on "
           f"the CPU on {n} images in {time.perf_counter() - start:.1f} s")
     found = {}
-    for route, per_step in (("auto", {"K1": 2 * layers}),
-                            (True, {"K4": 2 * layers, "K6": layers})):
-        opts = None if route == "auto" else ModelOptions(
-            parity="hf", compute_dtype=torch.float32, remat=True, flash_attention=True)
-        name = "make_trainer(config) defaults" if opts is None else "flash_attention=True"
+    f32 = {"parity": "hf", "compute_dtype": torch.float32, "remat": True}
+    runs = (
+        ("make_trainer(config) defaults", None, {"K1": 2 * layers}, TRAIN_STEPS),
+        ("flash_attention=True", ModelOptions(**f32, flash_attention=True),
+         {"K4": 2 * layers, "K6": layers}, TRAIN_STEPS),
+        ("fuse_mlp=True", ModelOptions(**f32, fuse_mlp=True),
+         {"K1": 2 * layers, "K5": 2 * layers}, F32_FUSE_MLP_STEPS),
+    )
+    for name, opts, per_step, steps in runs:
         trainer = make_trainer(config, opts=opts)
         require(trainer.opts.compute_dtype == torch.float32 and trainer.opts.remat
                 and trainer.opts.parity == "hf", "make_trainer's defaults")
@@ -4863,9 +5061,9 @@ def phase_f32_train(card: str, source) -> dict:
                                  _raw_step(checker, params, x_check, labels[:n]), want)
         _zero_counts()
         params, opt_state, losses, seconds, _, peak = _timed_steps(
-            trainer, params, opt_state, images, labels, TRAIN_STEPS)
+            trainer, params, opt_state, images, labels, steps)
         counts = _require_counts(f"f32 training {name}",
-                                 {k: v * TRAIN_STEPS for k, v in per_step.items()})
+                                 {k: v * steps for k, v in per_step.items()})
         found[name] = counts
         require(all(np.isfinite(losses)) and all(b < a for a, b in zip(losses, losses[1:])),
                 f"f32 training {name}: losses {losses} are not finite and falling")
@@ -4873,8 +5071,8 @@ def phase_f32_train(card: str, source) -> dict:
         print(f"f32 training: ViT-B/14 {name}, {TRAIN_BATCH}x{IMAGE_PX}px uint8, f32 over f32 "
               f"masters, parity hf, remat on {card}: losses "
               f"{', '.join(f'{v:.5f}' for v in losses)} (falling); {line}; launches in "
-              f"{TRAIN_STEPS} steps {counts}, every other kernel 0; median step "
-              f"{step_ms:.2f} ms (steps 2-{TRAIN_STEPS}), peak memory {peak / 1e6:.0f} MB")
+              f"{steps} steps {counts}, every other kernel 0; median step "
+              f"{step_ms:.2f} ms (steps 2-{steps}), peak memory {peak / 1e6:.0f} MB")
         if opts is None:
             state = [params, opt_state]
 
@@ -4959,6 +5157,8 @@ def main() -> int:
     k8_measured.update(timed_phase("K8 launch by launch", phase_quant_layer_split, card))
     k9_measured = timed_phase("K9 check", phase_int8_check, card)
     f32_measured = timed_phase("f32 kernel checks", phase_f32_kernel_checks, card)
+    f32_measured.update(timed_phase("K5 f32, K8 f32 and K7 f32 checks",
+                                    phase_f32_mlp_quant_checks, card))
     timed_phase("output digests", phase_output_digests)
     with tempfile.TemporaryDirectory() as tmp:
         vit_b14 = timed_phase("ViT-B/14 GGUF", write_vit_b14, Path(tmp))
@@ -5168,6 +5368,51 @@ def main() -> int:
             "launches": flash["K6"],
             "launches_t1370": f32_train["T=1370"]["K6"],
             **f32_measured["K6"],
+        },
+    ]
+    q4_classify, q4_fused = f32_classify[QUANT_SLICE_FORMAT], f32_classify[
+        f"{QUANT_SLICE_FORMAT} fuse_mlp"]
+    kernels += [
+        {
+            "name": "slab_mlp_block_f32",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/slab_mlp.cu",
+            "also_source": "dinov2_tpu_torch/csrc/f32_gemm.cuh",
+            "replaces": f"{fused}:811",
+            "also_replaces": f"{fused}:859",
+            "launches": f32_classify["fuse_mlp"]["K5"],
+            "quant_launches": q4_fused["K5"],
+            "train_launches": f32_train["fuse_mlp=True"]["K5"],
+            "library_call": "one f32 torch.nn.functional.linear per GEMM launch "
+                            "(fc1_linear_ms, fc2_linear_ms)",
+            **f32_measured["K5"],
+        },
+        {
+            "name": "slab_layer_block_quant_f32",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/quant_layer.cu",
+            "also_source": "dinov2_tpu_torch/csrc/dequant_tile.cuh, "
+                           "dinov2_tpu_torch/csrc/half_layer.cuh, " + headers,
+            "replaces": "dinov2_tpu/ops/fused_quant_attention.py:183",
+            "launches": q4_classify["K8"],
+            "fuse_mlp_launches": q4_fused["K8"],
+            "library_call": "one f32 torch.nn.functional.linear per GEMM launch on the decoded "
+                            "weights (qkv_linear_ms, proj_linear_ms)",
+            **f32_measured["K8"],
+        },
+        {
+            "name": "quant_matmul_kernel_f32",
+            "route": "cuda",
+            "source": "dinov2_tpu_torch/csrc/quant_matmul.cu",
+            "also_source": "dinov2_tpu_torch/csrc/dequant_tile.cuh",
+            "replaces": "dinov2_tpu/ops/pallas_qmatmul.py:215",
+            "also_replaces": "dinov2_tpu/ops/pallas_qmatmul.py:81, "
+                             "dinov2_tpu/ops/pallas_qmatmul.py:104",
+            "launches": q4_classify["K7"],
+            "fuse_mlp_launches": q4_fused["K7"],
+            "library_call": "one f32 torch.nn.functional.linear on the decoded weight, no "
+                            "activation",
+            **f32_measured["K7"],
         },
     ]
     print(f"f32 training, the default step: {f32_train['default step ms']} ({card})")

@@ -1,7 +1,7 @@
 // Reading a ggml-quantized linear weight (models/params.py::QuantLinear)
 // straight from its packed form, for K7 (quant_matmul.cu: its dequantize
 // launch and its f32 kernel) and K8 (quant_layer.cu: its two dequantize
-// launches).
+// launches, bf16 (N, K) or, for K8 f32, f32 (K, N) transposed).
 //
 // Layouts, as the loader writes them (QuantLinear's docstring):
 //   packed (q4_0/q4_1/q5_0/q5_1): codes (N, K/2) u8 natural-order planes,
@@ -16,9 +16,9 @@
 // Numerics are ops/qmatmul.py::dequant_weight's, bit for bit: the integer
 // code to f32, times d, plus m, each rounded in f32 (explicit __fmul_rn /
 // __fadd_rn, so nvcc cannot contract them into one fused multiply-add), then
-// one cast to the GEMM's type. The TPU kernel's bf16 scale rounding and its
-// blocksums(x)·mᵀ correction (dinov2_tpu/ops/pallas_qmatmul.py) are MXU
-// artefacts and are not copied.
+// one cast to the GEMM's type (none for f32). The TPU kernel's bf16 scale
+// rounding and its blocksums(x)·mᵀ correction (dinov2_tpu/ops/
+// pallas_qmatmul.py) are MXU artefacts and are not copied.
 //
 // The Python wrappers ask packed weights for K/2 % 64 == 0 (every DINOv2
 // width has it) and SoA weights for K % 64 == 0: a 16-byte piece of codes
@@ -163,6 +163,40 @@ cudaError_t launch_dequant_weight(const QuantWeight& w, bf16* out, cudaStream_t 
   const size_t pieces = static_cast<size_t>(w.n) * ((w.packed ? w.k / 2 : w.k) / 16);
   const unsigned blocks = static_cast<unsigned>((pieces + kDequantThreads - 1) / kDequantThreads);
   dequant_weight_kernel<<<blocks, kDequantThreads, 0, s>>>(w, out);
+  return cudaGetLastError();
+}
+
+constexpr int kDequantTRows = 32;   // weight rows (output columns) a block transposes
+constexpr int kDequantTDepth = 64;  // k a block transposes
+
+// W^T (K, N) f32 = dequant(W)^T, the (in, out) layout f32_gemm.cuh reads,
+// bit for bit dequant_weight(W, f32).T: a block turns a 32-row x 64-deep
+// piece of W into f32 (a thread 8 values of one row, QuantWeight::dequant8,
+// no cast), through shared memory, and writes it as 64 rows of 32 floats
+// of W^T, a warp 128 contiguous bytes a row. Rows past N are neither read
+// nor written; K % 64 == 0 (the wrappers' condition).
+__global__ void __launch_bounds__(kDequantThreads)
+    dequant_weight_t_f32_kernel(QuantWeight w, float* __restrict__ out) {
+  __shared__ float tile[kDequantTDepth][kDequantTRows + 1];
+  const int n0 = blockIdx.y * kDequantTRows, k0 = blockIdx.x * kDequantTDepth;
+  const int r = threadIdx.x >> 3, piece = (threadIdx.x & 7) * 8;
+  float v[8];
+  if (n0 + r < w.n) {
+    w.dequant8(n0 + r, k0 + piece, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) tile[piece + i][r] = v[i];
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  if (n0 + lane >= w.n) return;
+  for (int kk = threadIdx.x >> 5; kk < kDequantTDepth; kk += kDequantThreads / 32) {
+    out[static_cast<size_t>(k0 + kk) * w.n + n0 + lane] = tile[kk][lane];
+  }
+}
+
+cudaError_t launch_dequant_weight_t_f32(const QuantWeight& w, float* out, cudaStream_t s) {
+  const dim3 grid(w.k / kDequantTDepth, (w.n + kDequantTRows - 1) / kDequantTRows);
+  dequant_weight_t_f32_kernel<<<grid, kDequantThreads, 0, s>>>(w, out);
   return cudaGetLastError();
 }
 

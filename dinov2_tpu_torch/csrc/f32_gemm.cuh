@@ -1,16 +1,20 @@
-// The f32 half of K1's and K2's GEMM launches, and K1's f32 layer norm:
+// The f32 half of K1's, K2's, K5's and K8's GEMM launches, and their f32
+// layer norm:
 //
 //     h (M, K)   = LN(x)                            f32_row_norm_kernel
 //     out (M, N) = ep(A @ W)                        f32_ffma_gemm_kernel
 //
 // for f32 A (M, K) row-major and W (K, N) row-major, the (in, out) layout of
-// the dense weights; with F32Bias (acc + b_qkv) or F32Residual (x + (acc +
-// b_proj) * ls1). K % 16 == 0, N % 4 == 0, any M >= 1.
+// the dense weights (K8 dequantizes into it); with F32Bias (acc + b_qkv),
+// F32Residual (x + (acc + b_proj) * ls1, K5's fc2 likewise with b2 and ls2)
+// or F32Act (act(acc + b1), K5's fc1). K % 16 == 0, N % 4 == 0, any M >= 1.
 //
 // The TPU kernels behind them (dinov2_tpu/ops/fused_attention.py::
-// _slab_layer_kernel, _slab_proj_kernel) are generic in dtype: with f32
-// activations every "cast to the compute dtype" is a no-op, the products
-// accumulate in f32 and the bias, LayerScale and residual are added in f32.
+// _slab_layer_kernel, _slab_proj_kernel, _slab_mlp_kernel,
+// _slab_mlp_flat_kernel; fused_quant_attention.py::_quant_layer_kernel)
+// are generic in dtype: with f32 activations every "cast to the compute
+// dtype" is a no-op, the products accumulate in f32 and the bias,
+// LayerScale, activation and residual are applied in f32.
 // Those numerics need the products in full f32: one-pass TF32 on the tensor
 // cores keeps 10 mantissa bits (about 1e-3 relative), far outside the f32
 // envelope the port is held to (docs/PARITY.md). So this is a CUDA-core FFMA
@@ -42,6 +46,7 @@
 
 #pragma once
 
+#include "activation.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace dinov2 {
@@ -89,6 +94,27 @@ struct F32Residual {
     *reinterpret_cast<float4*>(out + at) =
         make_float4(step(acc.x, b.x, l.x, x.x), step(acc.y, b.y, l.y, x.y),
                     step(acc.z, b.z, l.z, x.z), step(acc.w, b.w, l.w, x.w));
+  }
+};
+
+// out (M, N) = act(acc + bias): K5's fc1 in the JAX order (a1 + b1, then
+// apply_activation, fused_attention.py:876-877), the bias add rounded once
+// before the activation; activation.cuh's formulas, gelu_tanh_f16 through
+// f16 on both sides (round to nearest even, +-inf past 65504, no clamp)
+template <int kAct>
+struct F32Act {
+  const float* bias;
+  float* out;
+  int n;
+
+  __device__ __forceinline__ static float step(float a, float b) {
+    return activate(__fadd_rn(a, b), kAct);
+  }
+
+  __device__ __forceinline__ void store4(int row, int c, float4 acc) const {
+    const float4 b = __ldg(reinterpret_cast<const float4*>(bias + c));
+    *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * n + c) =
+        make_float4(step(acc.x, b.x), step(acc.y, b.y), step(acc.z, b.z), step(acc.w, b.w));
   }
 };
 

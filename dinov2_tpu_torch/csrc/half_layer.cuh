@@ -19,9 +19,17 @@
 // (kKMajorWeight) (out, in) row-major, the layout of a dequantized
 // QuantLinear, as the k-major operand. Both add the same k16 products into
 // f32 in the same order.
+//
+// launch_f32_half_layer is the same four launches on f32 activations and
+// f32 (in, out) weights, shared by K1 f32 (dense weights) and K8 f32 (its
+// weights dequantized transposed into that layout first): f32_gemm.cuh's
+// layer norm and FFMA GEMM with F32Bias and F32Residual, and
+// f32_attention.cuh's tile loop on the slab's head views.
 
 #pragma once
 
+#include "f32_attention.cuh"
+#include "f32_gemm.cuh"
 #include "flash_forward.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -60,6 +68,26 @@ cudaError_t launch_half_layer(const bf16* x, const float* ln_scale, const float*
   if (err != cudaSuccess) return err;
   return launch_wgmma_gemm<kKMajorWeight>(attn, w_proj,
                                           ResidualEpilogue{b_proj, ls1, x, out, d}, m, d, d, s);
+}
+
+// The four f32 launches on s: x, out (B, T, D), w_qkv (D, 3D) and w_proj
+// (D, D) f32 (in, out); qkv (B, T, 3D) and attn (B, T, D) f32 scratch the
+// caller allocated (attn holds LN1's rows until the attention launch).
+// D % 16 == 0. Returns the first launch error.
+inline cudaError_t launch_f32_half_layer(const float* x, const float* ln_scale,
+                                         const float* ln_bias, const float* w_qkv,
+                                         const float* b_qkv, const float* w_proj,
+                                         const float* b_proj, const float* ls1, float* qkv,
+                                         float* attn, float* out, int b, int t, int d, int heads,
+                                         float scale, float eps, cudaStream_t s) {
+  const int m = b * t;
+  cudaError_t err = launch_f32_layer_norm_rows(x, ln_scale, ln_bias, attn, m, d, eps, s);
+  if (err != cudaSuccess) return err;
+  err = launch_f32_gemm(attn, w_qkv, F32Bias{b_qkv, qkv, 3 * d}, m, 3 * d, d, s);
+  if (err != cudaSuccess) return err;
+  err = launch_f32_slab_attention(qkv, attn, b, t, d, heads, scale, s);
+  if (err != cudaSuccess) return err;
+  return launch_f32_gemm(attn, w_proj, F32Residual{b_proj, ls1, x, out, d}, m, d, d, s);
 }
 
 }  // namespace

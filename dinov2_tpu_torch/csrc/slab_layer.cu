@@ -44,16 +44,15 @@
 //
 // The f32 entry (dinov2_slab_layer_f32) runs the same four launches on f32
 // activations and f32 weights, with the JAX package's f32 numerics (every
-// cast to the compute dtype a no-op): f32_gemm.cuh's layer norm and FFMA
-// GEMM with the bias and residual epilogues, and f32_attention.cuh's tile
-// loop on the slab's head views. At the main path's shape its ~91 GFLOP are
+// cast to the compute dtype a no-op): half_layer.cuh's
+// launch_f32_half_layer, which K8 f32 runs too, on f32_gemm.cuh's layer
+// norm and FFMA GEMM with the bias and residual epilogues and
+// f32_attention.cuh's tile loop on the slab's head views. At the main path's shape its ~91 GFLOP are
 // 1.36 ms at 67 TFLOP/s f32 outside the tensor cores: operations bind it.
 //
 // Every entry point returns the first launch's error, else
 // cudaGetLastError() after the last.
 
-#include "f32_attention.cuh"
-#include "f32_gemm.cuh"
 #include "half_layer.cuh"
 
 extern "C" {
@@ -85,27 +84,13 @@ int dinov2_slab_layer_f32(const void* x, const void* ln_scale, const void* ln_bi
                           const void* b_proj, const void* ls1, void* qkv_scratch,
                           void* attn_scratch, void* out, int b, int t, int d, int heads,
                           float scale, float eps, void* stream) {
-  using namespace dinov2;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  float* qkv = static_cast<float*>(qkv_scratch);
-  float* attn = static_cast<float*>(attn_scratch);
-  const int m = b * t;
-  cudaError_t err = launch_f32_layer_norm_rows(xf, static_cast<const float*>(ln_scale),
-                                               static_cast<const float*>(ln_bias), attn, m, d,
-                                               eps, s);
-  if (err != cudaSuccess) return err;
-  err = launch_f32_gemm(attn, static_cast<const float*>(w_qkv),
-                        F32Bias{static_cast<const float*>(b_qkv), qkv, 3 * d}, m, 3 * d,
-                        d, s);
-  if (err != cudaSuccess) return err;
-  err = launch_f32_slab_attention(qkv, attn, b, t, d, heads, scale, s);
-  if (err != cudaSuccess) return err;
-  return launch_f32_gemm(attn, static_cast<const float*>(w_proj),
-                         F32Residual{static_cast<const float*>(b_proj),
-                                             static_cast<const float*>(ls1), xf,
-                                             static_cast<float*>(out), d},
-                         m, d, d, s);
+  return dinov2::launch_f32_half_layer(
+      static_cast<const float*>(x), static_cast<const float*>(ln_scale),
+      static_cast<const float*>(ln_bias), static_cast<const float*>(w_qkv),
+      static_cast<const float*>(b_qkv), static_cast<const float*>(w_proj),
+      static_cast<const float*>(b_proj), static_cast<const float*>(ls1),
+      static_cast<float*>(qkv_scratch), static_cast<float*>(attn_scratch),
+      static_cast<float*>(out), b, t, d, heads, scale, eps, static_cast<cudaStream_t>(stream));
 }
 
 const char* dinov2_cuda_error_string(int code) {

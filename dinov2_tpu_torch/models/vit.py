@@ -47,12 +47,14 @@ two options in place of the JAX package's environment knobs:
 On a card "auto" therefore always reaches a kernel; the JAX package's
 "auto" picks the dequant routes, a choice measured on a TPU.
 
-f32 activations on a card take the f32 kernels of K1 to K4 and K6 on the
-routes above, but K5 and K8 take bf16 only (`fused_mlp_applies`,
-`resolve_quant_slab`): under `fuse_mlp` an f32 MLP half-layer stays plain
-PyTorch, and `quant_slab="auto"` takes "dequant" (K1 f32 on the layer's
-dequantized weights, the same bits as K8 would give), each with one log
-warning per reason; an explicit "kernel" raises in K8's wrapper.
+f32 activations on a card take the f32 kernels of K1 to K6 and K8 on the
+routes above (K7's f32 kernel runs every f32 quantized linear): under
+`fuse_mlp` an f32 MLP half-layer is one K5 f32 call (a quantized fc1/fc2
+pair dequantized into it), and `quant_slab` "auto" and "kernel" run K8
+f32, bit for bit "dequant" (K1 f32 on the layer's dequantized weights).
+Activations no kernel takes (f16) keep the plain MLP under `fuse_mlp` and
+take "dequant" for "auto" (`fused_mlp_applies`, `resolve_quant_slab`), with
+one log warning per reason; an explicit "kernel" raises in K8's wrapper.
 
 W8A8 int8 weights (Int8Linear, quant_mode="int8") route as in the JAX
 package:
@@ -110,7 +112,11 @@ from dinov2_tpu_torch.models.params import (
     tree_leaves,
 )
 from dinov2_tpu_torch.image.posembed import interpolate_pos_embed
-from dinov2_tpu_torch.ops.attention import resolve_attention_path, self_attention_block
+from dinov2_tpu_torch.ops.attention import (
+    KERNEL_DTYPES,
+    resolve_attention_path,
+    self_attention_block,
+)
 from dinov2_tpu_torch.ops.fused_attention import slab_layer_block, slab_mlp_block
 from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
 from dinov2_tpu_torch.ops.qmatmul import (
@@ -187,13 +193,13 @@ def _warn_plain_route(reason: str) -> None:
 
 def fused_mlp_applies(dtype: torch.dtype, device_type: str) -> bool:
     """Whether `fuse_mlp` may take the K5 kernel for activations of `dtype`
-    on a device of `device_type`: K5 takes bf16 only, so on a card other
-    activations keep the plain MLP half-layer, with one warning. On the CPU
-    K5's plain version takes any dtype."""
-    if device_type == "cuda" and dtype != torch.bfloat16:
+    on a device of `device_type`: K5 takes bf16 and f32, so on a card other
+    activations (f16) keep the plain MLP half-layer, with one warning. On
+    the CPU K5's plain version takes any dtype."""
+    if device_type == "cuda" and dtype not in KERNEL_DTYPES:
         _warn_plain_route(
             f"fuse_mlp: activations are {dtype}, which the CUDA MLP kernel (K5) does not take "
-            "(it takes bf16); the MLP half-layer stays plain PyTorch"
+            "(it takes bf16 and f32); the MLP half-layer stays plain PyTorch"
         )
         return False
     return True
@@ -201,15 +207,15 @@ def fused_mlp_applies(dtype: torch.dtype, device_type: str) -> bool:
 
 def resolve_quant_slab(mode: str, dtype: torch.dtype, device_type: str) -> str:
     """The `quant_slab` route of a quantized attention half-layer for
-    activations of `dtype` on a device of `device_type`: K8 takes bf16 only,
-    so on a card "auto" takes "dequant" for other activations (K1 on the
-    dequantized weights, which gives K8's bits), with one warning. Every
-    other mode stays: an explicit "kernel" raises in K8's wrapper."""
-    if mode == "auto" and device_type == "cuda" and dtype != torch.bfloat16:
+    activations of `dtype` on a device of `device_type`: K8 takes bf16 and
+    f32, so on a card "auto" takes "dequant" for other activations (f16:
+    the layer's weights dequantized for the dense route), with one warning.
+    Every other mode stays: an explicit "kernel" raises in K8's wrapper."""
+    if mode == "auto" and device_type == "cuda" and dtype not in KERNEL_DTYPES:
         _warn_plain_route(
             f'quant_slab "auto": activations are {dtype}, which the CUDA quantized half-layer '
-            'kernel (K8) does not take (it takes bf16); taking "dequant" (K1 on the dequantized '
-            "weights)"
+            'kernel (K8) does not take (it takes bf16 and f32); taking "dequant" (the '
+            "dequantized weights on the dense route)"
         )
         return "dequant"
     return mode
@@ -276,7 +282,7 @@ def _mlp_half_layer(
     `fuse_mlp`, on the slab route, a GELU MLP with both biases is one call of
     the K5 kernel; a quantized (QuantLinear or Int8Linear) fc1/fc2 pair is
     dequantized into it unless quant_slab is "off"; a mixed dense/quantized
-    pair takes no fused route; on a card only bf16 takes it
+    pair takes no fused route; on a card bf16 and f32 take it
     (`fused_mlp_applies`)."""
     mlp = layer["mlp"]
     if (

@@ -142,10 +142,10 @@ def flash_backward_lib() -> ctypes.CDLL:
 
 def entry(lib: ctypes.CDLL, bf16_name: str, f32: bool):
     """The C entry `bf16_name` of lib, or with `f32` its f32 namesake (K1,
-    K2, K3, K4 with and without lse, K6: the same arguments, f32 tensors
-    where the bf16 entry takes bf16), bound here at first use rather than
-    in the library loader, so that a library built from sources without
-    the f32 entries still loads (scripts/compare_kernel_builds.py)."""
+    K2, K3, K4 with and without lse, K5, K6, K8: the same arguments, f32
+    tensors where the bf16 entry takes bf16), bound here at first use
+    rather than in the library loader, so that a library built from sources
+    without the f32 entries still loads (scripts/compare_kernel_builds.py)."""
     fn = getattr(lib, bf16_name)
     if not f32:
         return fn

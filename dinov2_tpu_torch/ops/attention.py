@@ -27,8 +27,7 @@ from dinov2_tpu_torch.utils.logging import get_logger
 # (T=257) on the slab route and 518 px feature mode (T=1370) on flash, as the
 # JAX package routes them for every preset.
 FLASH_MIN_TOKENS = 1024
-# what the CUDA attention kernels take: K1 to K4 and K6 in bf16 and f32 (K8 in
-# bf16 only: models/vit.py routes f32 around it)
+# what the CUDA attention kernels take: K1 to K4, K6 and K8 in bf16 and f32
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 KERNEL_HEAD_DIM = 64
 

@@ -10,11 +10,11 @@ On a CUDA tensor each launches its hand-written kernel (csrc/slab_layer.cu,
 csrc/slab_attention.cu for K2 and K3, csrc/slab_mlp.cu), which replace the
 Pallas TPU kernels `_slab_layer_kernel`, `_slab_proj_kernel`, `_slab_kernel`
 and `_slab_mlp_kernel`/`_slab_mlp_flat_kernel` of
-`dinov2_tpu/ops/fused_attention.py`. K1, K2 and K3 take bf16 and f32
-activations (f32: the f32 entries of the same sources, csrc/f32_gemm.cuh
-and csrc/f32_attention.cuh, full f32 products on the CUDA cores), K5 bf16
-only; anything else raises. On a CPU tensor each runs its plain PyTorch
-version (`slab_layer_reference`,
+`dinov2_tpu/ops/fused_attention.py`. Each takes bf16 and f32 activations
+(f32: the f32 entries of the same sources, csrc/f32_gemm.cuh and
+csrc/f32_attention.cuh, full f32 products on the CUDA cores); anything
+else raises. On a CPU tensor each runs its plain PyTorch version
+(`slab_layer_reference`,
 `_slab_block_reference`, `_slab_reference`, `slab_mlp_reference`), which
 keeps the JAX package's unfused ordering. Every wrapper counts its calls
 that launch kernels in `.launches` for bf16 and `.f32_launches` for f32
@@ -34,7 +34,8 @@ bias/LayerScale/residual epilogue on a pipelined wgmma GEMM core
 slab's head views (csrc/flash_forward.cuh), which is K3's kernel and K4's.
 It writes and re-reads LN1's rows, the 76 MB qkv slab and the 25 MB attention
 output in HBM each call, which the TPU kernel keeps on chip: later work
-(ROADMAP.md). K5 is three launches on the same blocks: LN2 of every row, fc1
+(ROADMAP.md). K5 is three launches on the same blocks (in f32 on
+csrc/f32_gemm.cuh's, the activation in fc1's epilogue): LN2 of every row, fc1
 with the activation epilogue into an (M, 4D) hidden buffer in HBM, and fc2
 with the bias/LayerScale/residual epilogue.
 
@@ -224,8 +225,8 @@ def check_half_layer_args(
 ):
     """What the CUDA half-layer kernels (K1, and K8 with quantized weights)
     take: bf16 or f32 x (B, T, D) with head_dim 64 and f32 rows; the dense
-    (in, out) weights in x's dtype too where they are given. K8 takes bf16
-    only and checks that itself. `aligned`: as `_check_tensors`."""
+    (in, out) weights in x's dtype too where they are given. `aligned`: as
+    `_check_tensors`."""
     _check_kernel_dtype_head64(x, x.shape[-1], num_heads, "half-layer")
     d = x.shape[-1]
     expected = {
@@ -476,20 +477,29 @@ _SLAB_ATTENTION_BLOCK_OP = define(
     _slab_block_reference, _slab_attention_block_cuda, _slab_attention_block_fake,
 )
 
-MLP_KERNEL_WIDTHS = (384, 768, 1024)  # the D the K5 kernel is built for, with DH = 4 D
+MLP_KERNEL_WIDTHS = (384, 768, 1024)  # the D the bf16 K5 kernel is built for, with DH = 4 D
+MLP_F32_WIDTH_STEP = 16  # the f32 K5 kernel takes any D % 16 == 0 (its GEMMs' k-step)
 
 
 def check_slab_mlp_args(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, aligned: bool = True):
-    """What the CUDA MLP kernel takes: bf16 x (B, T, D) with D in
-    MLP_KERNEL_WIDTHS, bf16 (in, out) weights with DH = 4 D, f32 rows.
-    `aligned`: as `_check_tensors`."""
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(f"the CUDA MLP kernel takes bf16 activations, got {x.dtype}")
+    """What the CUDA MLP kernels take: bf16 x (B, T, D) with D in
+    MLP_KERNEL_WIDTHS or f32 x with D % MLP_F32_WIDTH_STEP == 0, (in, out)
+    weights in x's dtype with DH = 4 D, f32 rows. `aligned`: as
+    `_check_tensors`."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise NotImplementedError(
+            f"the CUDA MLP kernel takes bf16 or f32 activations, got {x.dtype}")
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, D), got {tuple(x.shape)}")
     d = x.shape[-1]
     dh = w1.shape[-1]
-    if d not in MLP_KERNEL_WIDTHS or dh != 4 * d:
+    if x.dtype == torch.float32:
+        if d % MLP_F32_WIDTH_STEP or dh != 4 * d:
+            raise NotImplementedError(
+                f"the CUDA f32 MLP kernel takes D % {MLP_F32_WIDTH_STEP} == 0 with DH = 4 D, "
+                f"got D={d}, DH={dh}"
+            )
+    elif d not in MLP_KERNEL_WIDTHS or dh != 4 * d:
         raise NotImplementedError(
             f"the CUDA MLP kernel is built for D in {MLP_KERNEL_WIDTHS} with DH = 4 D, "
             f"got D={d}, DH={dh}"
@@ -497,9 +507,9 @@ def check_slab_mlp_args(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, aligned: bool
     _check_tensors(x, {
         "ln_scale": (ln_scale, (d,), torch.float32),
         "ln_bias": (ln_bias, (d,), torch.float32),
-        "w1": (w1, (d, dh), torch.bfloat16),
+        "w1": (w1, (d, dh), x.dtype),
         "b1": (b1, (dh,), torch.float32),
-        "w2": (w2, (dh, d), torch.bfloat16),
+        "w2": (w2, (dh, d), x.dtype),
         "b2": (b2, (d,), torch.float32),
         "ls2": (ls2, (d,), torch.float32),
     }, aligned)
@@ -522,13 +532,15 @@ def slab_mlp_block(
     (DH,) in f32; activation "gelu_tanh_f16" | "gelu_erf" | "gelu_tanh".
 
     CPU tensors run the plain version. CUDA tensors launch the K5 kernels
-    (bf16, D in MLP_KERNEL_WIDTHS, DH = 4 D, any T; anything else raises):
-    LN2, fc1 with the activation into a (B*T, DH) bf16 hidden buffer
+    (bf16 with D in MLP_KERNEL_WIDTHS, or f32 with D % 16 == 0; DH = 4 D,
+    any T; anything else raises; weights are cast to x's dtype): LN2, fc1
+    with the activation into a (B*T, DH) hidden buffer of x's dtype
     allocated in the operator for the call (it goes through device memory,
     written once and read once), fc2 with the residual; and add one to
-    `slab_mlp_block.launches`. Both go through the operator
-    `dinov2_tpu_torch::slab_mlp_block`. Where an input requires grad the
-    result carries the recompute gradient of the module docstring."""
+    `slab_mlp_block.launches` (bf16) or `.f32_launches` (f32). Both go
+    through the operator `dinov2_tpu_torch::slab_mlp_block`. Where an input
+    requires grad the result carries the recompute gradient of the module
+    docstring."""
     _check_activation(activation)
     tensors = (x, ln_scale, ln_bias, w1, b1, w2, b2, ls2)
     if needs_grad(*tensors):
@@ -564,23 +576,25 @@ def _slab_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, activation, eps):
     out = torch.empty_like(x)
     if b * t == 0:
         return out
-    from dinov2_tpu_torch.ops._kernels import check_status, slab_mlp_lib
+    from dinov2_tpu_torch.ops._kernels import check_status, entry, slab_mlp_lib
 
     lib = slab_mlp_lib()
+    launch = entry(lib, "dinov2_slab_mlp_bf16", x.dtype == torch.float32)
     hidden = torch.empty((b * t, dh), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):  # the launches go to the current device
-        code = lib.dinov2_slab_mlp_bf16(
+        code = launch(
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), ls2.data_ptr(), out.data_ptr(), b * t, d, dh,
             ACTIVATIONS[activation], eps, torch.cuda.current_stream(x.device).cuda_stream,
             hidden.data_ptr(),
         )
     check_status(lib, code, "slab_mlp_block")
-    slab_mlp_block.launches += 1
+    count_launch(slab_mlp_block, x.dtype)
     return out
 
 
-slab_mlp_block.launches = 0  # kernel launches on CUDA tensors
+slab_mlp_block.launches = 0  # bf16 kernel calls on CUDA tensors
+slab_mlp_block.f32_launches = 0  # f32 kernel calls on CUDA tensors
 _SLAB_MLP_OP = define(
     "slab_mlp_block(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor w1, Tensor b1, Tensor w2, "
     "Tensor b2, Tensor ls2, str activation, float eps) -> Tensor",

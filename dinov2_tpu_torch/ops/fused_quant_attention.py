@@ -9,11 +9,15 @@ one cast to x's dtype). On a CUDA tensor it launches the hand-written kernel
 in csrc/quant_layer.cu, which replaces the Pallas TPU kernel
 `_quant_layer_kernel`: both weights dequantized once a call into a (4D, D)
 bf16 scratch buffer (K7's dequantize kernel, one launch each), then K1's
-four launches (ops/fused_attention.py) on that scratch. The dense weights
-exist only for the call, in that buffer: the TPU kernel's VMEM scratch, in
-HBM. On a CPU tensor it runs the plain PyTorch version,
-`quant_layer_reference`: dequant_weight, then K1's plain version, as the
-JAX package's reference does.
+four launches (ops/fused_attention.py) on that scratch. f32 activations
+take the f32 entry: both weights dequantized into 4 D^2 f32 of scratch,
+each written transposed as K1 f32's (in, out) operand, then K1 f32's four
+launches, so its output is bit for bit that of K1 f32 on
+`dequant_weight(W, f32).T` (quant_slab "dequant"). The dense weights exist
+only for the call, in that buffer: the TPU kernel's VMEM scratch, in HBM.
+On a CPU tensor it runs the plain PyTorch version, `quant_layer_reference`:
+dequant_weight, then K1's plain version, as the JAX package's reference
+does.
 
 The TPU kernel keeps the qkv slab and the attention output on chip; this
 version writes and re-reads both through HBM, as K1 does.
@@ -23,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from dinov2_tpu_torch.ops._library import check_device, define
+from dinov2_tpu_torch.ops._library import check_device, count_launch, define
 from dinov2_tpu_torch.ops.fused_attention import check_half_layer_args, slab_layer_reference
 from dinov2_tpu_torch.ops.qmatmul import dequant_weight, refuse_quant_grad
 from dinov2_tpu_torch.ops.qmatmul_kernel import (
@@ -64,11 +68,12 @@ def slab_layer_block_quant(
     (3D,) in f32.
 
     CPU tensors run the plain version. CUDA tensors launch the K8 kernel
-    (bf16 only; anything else raises; its six launches share scratch
-    allocated here for the call: the qkv slab, the attention output and the
-    (4D, D) dequantized weights) and add one to
-    `slab_layer_block_quant.launches`. Both go through the operator
-    `dinov2_tpu_torch::slab_layer_block_quant` (ops/_library.py). An input
+    (bf16 or f32; anything else raises; its six launches share scratch of
+    x's dtype allocated here for the call: the qkv slab, the attention
+    output and the 4 D^2 dequantized weights) and add one to
+    `slab_layer_block_quant.launches` (bf16) or `.f32_launches` (f32).
+    Both go through the operator `dinov2_tpu_torch::slab_layer_block_quant`
+    (ops/_library.py). An input
     that requires grad raises: the quantized weights are not trainable and
     the kernel has no backward."""
     refuse_quant_grad("slab_layer_block_quant", x, ln_scale, ln_bias, b_qkv, b_proj, ls1)
@@ -90,10 +95,6 @@ def _operator_args(args: tuple) -> tuple:
 
 def _check_quant_layer_args(x, ln_scale, ln_bias, qkv_ql, b_qkv, proj_ql, b_proj, ls1, num_heads,
                             aligned: bool = True) -> None:
-    if x.dtype != torch.bfloat16:  # K1 takes f32 too; K8 has no f32 variant yet
-        raise NotImplementedError(
-            f"the CUDA quantized half-layer kernel takes bf16 activations, got {x.dtype}"
-        )
     check_half_layer_args(x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads, aligned=aligned)
     d = x.shape[-1]
     check_quant_weight(qkv_ql, "qkv", x.device, 3 * d, d, aligned=aligned)
@@ -113,15 +114,17 @@ def _quant_layer_cuda(*args):
         _operator_args(args))
     _check_quant_layer_args(x, ln_scale, ln_bias, qkv_ql, b_qkv, proj_ql, b_proj, ls1, num_heads)
     b, t, d = x.shape
-    from dinov2_tpu_torch.ops._kernels import check_status, quant_layer_lib
+    from dinov2_tpu_torch.ops._kernels import check_status, entry, quant_layer_lib
 
     lib = quant_layer_lib()
+    launch = entry(lib, "dinov2_quant_layer_bf16", x.dtype == torch.float32)
     qkv = torch.empty((b, t, 3 * d), dtype=x.dtype, device=x.device)
     attn = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
-    weights = torch.empty((4 * d, d), dtype=x.dtype, device=x.device)  # qkv's rows, then proj's
+    # bf16: qkv's (3D, D) rows, then proj's; f32: qkv's (D, 3D), then proj's (D, D)
+    weights = torch.empty((4 * d, d), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):  # the launches go to the current device
-        code = lib.dinov2_quant_layer_bf16(
+        code = launch(
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             *quant_weight_args(qkv_ql), b_qkv.data_ptr(),
             *quant_weight_args(proj_ql), b_proj.data_ptr(), ls1.data_ptr(),
@@ -130,11 +133,12 @@ def _quant_layer_cuda(*args):
             weights.data_ptr(),
         )
     check_status(lib, code, "slab_layer_block_quant")
-    slab_layer_block_quant.launches += 1
+    count_launch(slab_layer_block_quant, x.dtype)
     return out
 
 
-slab_layer_block_quant.launches = 0  # kernel launches on CUDA tensors
+slab_layer_block_quant.launches = 0  # bf16 kernel calls on CUDA tensors
+slab_layer_block_quant.f32_launches = 0  # f32 kernel calls on CUDA tensors
 _QUANT_LAYER_OP = define(
     "slab_layer_block_quant(Tensor x, Tensor ln_scale, Tensor ln_bias, "
     f"{QUANT_OP_SCHEMA.format(p='qkv_')}, Tensor b_qkv, {QUANT_OP_SCHEMA.format(p='proj_')}, "

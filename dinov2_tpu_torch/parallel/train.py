@@ -66,8 +66,7 @@ tree.
 
 On a card the compute dtype is f32 (the defaults) or bf16
 (`ModelOptions(compute_dtype=torch.bfloat16)`) over the f32 masters; the
-attention kernels K1 to K4 and K6 take both (K5 bf16 only: an f32 MLP stays
-plain). With `flash_attention=True` the attention core is the K4 `with_lse`
+kernels K1 to K6 take both. With `flash_attention=True` the attention core is the K4 `with_lse`
 forward and the K6 backward; on the slab route the forward is K1 (or K2,
 K3, K5 by `slab_fusion` and `fuse_mlp`) and the backward recomputes through
 the plain versions (ops/fused_attention.py).

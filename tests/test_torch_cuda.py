@@ -421,19 +421,19 @@ def test_quant_launch_counters_count_kernel_calls_only(cuda):
     assert slab_layer_block_quant.launches == before + 1
 
 
-@pytest.mark.parametrize("case", ["K8 f32", "K8 packed D=64", "K7 packed K=64", "K7 f16"])
+@pytest.mark.parametrize("case", ["K8 f16", "K8 packed D=64", "K7 packed K=64", "K7 f16"])
 def test_quant_kernels_refuse(cuda, case):
     from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant
     from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel
 
     counts = (slab_layer_block_quant.launches, quant_matmul_kernel.launches)
     if case.startswith("K8"):
-        d = 128 if case == "K8 f32" else 64
+        d = 128 if case == "K8 f16" else 64
         x, lns, lnb, _, bq, _, bp, ls = _half_layer_args(1, 5, d, seed=0, device=cuda)
-        if case == "K8 f32":
-            x = x.float()
+        if case == "K8 f16":
+            x = x.half()
         wq, wp = _ql("q4_0", 3 * d, d, 1, cuda), _ql("q4_0", d, d, 2, cuda)
-        with pytest.raises(NotImplementedError, match="bf16" if case == "K8 f32" else "K/2"):
+        with pytest.raises(NotImplementedError, match="bf16" if case == "K8 f16" else "K/2"):
             slab_layer_block_quant(x, lns, lnb, wq, bq, wp, bp, ls, d // 64, 0.125, 1e-6)
     else:
         k = 64 if case == "K7 packed K=64" else 128
@@ -605,12 +605,12 @@ def test_slab_launch_counters_count_kernel_calls_only(cuda):
             slab_mlp_block.launches) == (before[0] + 1, before[1] + 1, before[2] + 2)
 
 
-@pytest.mark.parametrize("case", ["K3 f16", "K3 head_dim 32", "K2 f16", "K5 f32", "K5 DH = 2 D",
+@pytest.mark.parametrize("case", ["K3 f16", "K3 head_dim 32", "K2 f16", "K5 f16", "K5 DH = 2 D",
                                   "K5 D=128"])
 def test_slab_kernels_refuse(cuda, case):
     counts = (slab_attention.launches, slab_attention_block.launches, slab_mlp_block.launches)
     with pytest.raises(NotImplementedError):
-        if case == "K3 f16":  # K3 and K2 take bf16 and f32, K5 bf16 only
+        if case == "K3 f16":  # K2, K3 and K5 take bf16 and f32
             slab_attention(_slab(1, 5, 2, seed=0, device=cuda, dtype=torch.float16), 2, 0.125)
         elif case == "K3 head_dim 32":
             slab_attention(_slab(1, 5, 2, seed=0, device=cuda, hd=32), 2, 0.125)
@@ -618,9 +618,9 @@ def test_slab_kernels_refuse(cuda, case):
             x, _, _, _, _, wp, bp, ls = _half_layer_args(1, 5, 128, seed=0, device=cuda)
             qkv = _slab(1, 5, 2, seed=0, device=cuda, dtype=torch.float16)
             slab_attention_block(x.half(), qkv, wp, bp, ls, 2, 0.125)
-        elif case == "K5 f32":
+        elif case == "K5 f16":
             args = _mlp_args(1, 5, 384, seed=0, device=cuda)
-            slab_mlp_block(args[0].float(), *args[1:], "gelu_erf", 1e-6)
+            slab_mlp_block(args[0].half(), *args[1:], "gelu_erf", 1e-6)
         elif case == "K5 DH = 2 D":
             slab_mlp_block(*_mlp_args(1, 5, 384, seed=0, device=cuda, dh=768), "gelu_erf", 1e-6)
         else:
@@ -751,11 +751,13 @@ def test_flash_backward_kernel_matches_plain(cuda, b, t, heads, slab):
         assert err <= 2 * err_plain + 1e-3 * w.abs().max().item() + 1e-5
 
 
-@pytest.mark.parametrize("case", ["f32", "head_dim 32", "lse shape", "o strided"])
+@pytest.mark.parametrize("case", ["f16", "head_dim 32", "lse shape", "o strided"])
 def test_flash_backward_refuses(cuda, case):
+    """K6 takes bf16 and f32 (f32 since its f32 entry); f16 and bad shapes
+    or strides it refuses, and counts nothing."""
     from dinov2_tpu_torch.ops.flash_attention import flash_backward
 
-    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    dtype = torch.float16 if case == "f16" else torch.bfloat16
     hd = 32 if case == "head_dim 32" else 64
     q, k, v = split_heads(_slab(1, 5, 2, seed=0, device=cuda, dtype=dtype, hd=hd), 2)
     o = torch.zeros((1, 5, 2, hd), dtype=dtype, device=cuda)
@@ -1090,6 +1092,51 @@ def test_f32_kernels_match_plain(cuda, t):
                flash_backward_reference(q, k, v, out, lse, g, scale), 2e-5)
 
 
+@pytest.mark.parametrize("activation", ["gelu_tanh_f16", "gelu_erf", "gelu_tanh"])
+@pytest.mark.parametrize("b, t, d", [(1, 1, 64), (2, 37, 128), (1, 130, 384), (3, 43, 1024)])
+def test_f32_slab_mlp_kernel_matches_plain(cuda, b, t, d, activation):
+    """K5 f32 (csrc/slab_mlp.cu's f32 entry) against its plain f32 version
+    at widths the bf16 K5 is not built for and at ragged row counts, counted
+    in `.f32_launches`. gelu_tanh_f16 rounds g to f16, so a last-bit
+    difference of fc1's sums can move g by one f16 step: its bound is
+    tests/test_torch_mlp_tiles.py's F32_ATOL_F16_GELU."""
+    args = [a.float() for a in _mlp_args(b, t, d, seed=t + d, device=cuda)]
+    before = (slab_mlp_block.launches, slab_mlp_block.f32_launches)
+    _f32_close(slab_mlp_block(*args, activation, 1e-6),
+               slab_mlp_reference(*args, activation, 1e-6),
+               5e-4 if activation == "gelu_tanh_f16" else 1e-5)
+    assert (slab_mlp_block.launches, slab_mlp_block.f32_launches) == (before[0], before[1] + 1)
+
+
+@pytest.mark.parametrize("fmt, packed", [("q4_0", True), ("q5_1", True), ("q8_0", False),
+                                         ("q4_1", False)])
+@pytest.mark.parametrize("t", [5, 130])
+def test_f32_quant_layer_kernel_is_k1_f32_on_the_dequantized_weights(cuda, fmt, packed, t):
+    """K8 f32 (csrc/quant_layer.cu's f32 entry) is bit for bit K1 f32 on
+    dequant_weight(W, f32).T, the "dequant" route, and within 1e-5 of its
+    plain version; counted in `.f32_launches`."""
+    from dinov2_tpu_torch.ops.fused_quant_attention import (
+        quant_layer_reference,
+        slab_layer_block_quant,
+    )
+    from dinov2_tpu_torch.ops.qmatmul import dequant_weight
+
+    d, heads = 128, 2
+    x, lns, lnb, _, bq, _, bp, ls = [
+        a.float() for a in _half_layer_args(2, t, d, seed=t, device=cuda)]
+    wq = _ql(fmt, 3 * d, d, 1, cuda, packed=packed)
+    wp = _ql(fmt, d, d, 2, cuda, packed=packed)
+    before = (slab_layer_block_quant.launches, slab_layer_block_quant.f32_launches)
+    got = slab_layer_block_quant(x, lns, lnb, wq, bq, wp, bp, ls, heads, 0.125, 1e-6)
+    assert (slab_layer_block_quant.launches, slab_layer_block_quant.f32_launches) == (
+        before[0], before[1] + 1)
+    dense = [dequant_weight(w, torch.float32).T.contiguous() for w in (wq, wp)]
+    assert torch.equal(got, slab_layer_block(x, lns, lnb, dense[0], bq, dense[1], bp, ls, heads,
+                                             0.125, 1e-6))
+    _f32_close(got, quant_layer_reference(x, lns, lnb, wq, bq, wp, bp, ls, heads, 0.125, 1e-6),
+               1e-5)
+
+
 # K9, the int8 matmul (csrc/int8_matmul.cu): each launch bit for bit its
 # plain version on the same card. The plain GEMM is the exact s32 product
 # (ops/qmatmul.py::int8_product, f64 sums of integers below 2^53) and the
@@ -1234,7 +1281,8 @@ def test_operator_cuda_implementation_matches_plain(cuda, name):
     """Each dinov2_tpu_torch operator on CUDA tensors (the kernel launch)
     against its CPU implementation (the plain version) on the same inputs in
     bf16 and in f32, as test_slab_layer_kernel_matches_plain bounds K1; and
-    the wrapper's launch count gains one."""
+    the wrapper's launch count gains one (`.f32_launches` for f32 x where
+    the wrapper keeps one)."""
     from test_torch_custom_ops import _op, cases
 
     from dinov2_tpu_torch.ops import fused_attention, fused_quant_attention, qmatmul_kernel
@@ -1250,10 +1298,12 @@ def test_operator_cuda_implementation_matches_plain(cuda, name):
     }
     args, _ = cases()[name]
     counter = counters[name.split()[0]]
-    before = counter.launches
+    field = ("f32_launches" if args[0].dtype == torch.float32 and hasattr(counter, "f32_launches")
+             else "launches")
+    before = getattr(counter, field)
     got = _op(name)(*[a.to(cuda) if torch.is_tensor(a) else a for a in args])
     torch.cuda.synchronize()
-    assert counter.launches == before + 1
+    assert getattr(counter, field) == before + 1
     plain = _op(name)(*args)
     want = _op(name)(*[a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16 else a
                        for a in args])

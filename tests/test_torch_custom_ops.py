@@ -65,6 +65,12 @@ def cases(device="cpu"):
     xq, bias = _t(rng, (3, D), bf, device=device), _t(rng, 3 * D, f32, 0.1, device)
     head = _t(rng, (3, D), f32, device=device)
     layer = (x, *ln, w_qkv, b_qkv, w_proj, b_proj, ls)
+    # f32 x: K5 f32 at a width the bf16 K5 is not built for, K8 f32
+    mlp32 = [_t(rng, (B, T, D), f32, device=device), _rows(rng, D, device),
+             _t(rng, D, f32, 0.1, device), _t(rng, (D, 4 * D), f32, 0.05, device),
+             _t(rng, 4 * D, f32, 0.1, device), _t(rng, (4 * D, D), f32, 0.05, device),
+             _t(rng, D, f32, 0.1, device), _rows(rng, D, device)]
+    x32 = x.float()
     on_cpu = device == "cpu"
     return {
         "slab_layer_block": ((*layer, HEADS, SCALE, EPS), on_cpu and (
@@ -75,6 +81,8 @@ def cases(device="cpu"):
             lambda: _slab_reference(qkv, HEADS, SCALE))),
         "slab_mlp_block": ((*mlp, "gelu_tanh_f16", EPS), on_cpu and (
             lambda: slab_mlp_reference(*mlp, "gelu_tanh_f16", EPS))),
+        "slab_mlp_block f32": ((*mlp32, "gelu_erf", EPS), on_cpu and (
+            lambda: slab_mlp_reference(*mlp32, "gelu_erf", EPS))),
         "flash_attention": ((q, k, v, SCALE), on_cpu and (
             lambda: vanilla_attention(q, k, v, SCALE))),
         "flash_attention_lse": ((q, k, v, SCALE), on_cpu and (
@@ -88,6 +96,11 @@ def cases(device="cpu"):
              EPS), on_cpu and (
                 lambda: quant_layer_reference(x, *ln, wq4, b_qkv, wp4, b_proj, ls, HEADS, SCALE,
                                               EPS))),
+        "slab_layer_block_quant f32": (
+            (x32, *ln, *quant_op_args(wq4), b_qkv, *quant_op_args(wp4), b_proj, ls, HEADS, SCALE,
+             EPS), on_cpu and (
+                lambda: quant_layer_reference(x32, *ln, wq4, b_qkv, wp4, b_proj, ls, HEADS,
+                                              SCALE, EPS))),
     }
 
 
@@ -142,6 +155,19 @@ def test_fake_cuda_builds_nothing(name, monkeypatch):
         assert g.device.type == "cuda" and g.shape == w.shape and g.dtype == w.dtype
 
 
+@pytest.mark.parametrize("name", ["slab_mlp_block f32", "slab_layer_block_quant f32"])
+def test_fake_cuda_gives_f32_for_f32_x(name):
+    """K5's and K8's fakes on fake CUDA tensors: f32 x passes their checks
+    (the f32 entries) and the output is f32 of x's shape."""
+    args, _ = cases()[name]
+    assert args[0].dtype == torch.float32
+    with FakeTensorMode():
+        fake = _fake_cuda(args)
+        got = _op(name)(*fake)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert tuple(got.shape) == tuple(args[0].shape)
+
+
 @pytest.mark.parametrize(
     "name, index, value, error",
     [
@@ -152,7 +178,8 @@ def test_fake_cuda_builds_nothing(name, monkeypatch):
         ("slab_mlp_block", 8, "relu", ValueError),
         ("flash_attention", 0, "f16", NotImplementedError),
         ("quant_matmul", 0, "f16", NotImplementedError),
-        ("slab_layer_block_quant", 0, "f32", NotImplementedError),
+        ("slab_layer_block_quant", 0, "f16", NotImplementedError),  # bf16 and f32 only
+        ("slab_mlp_block", 0, "f16", NotImplementedError),  # bf16 and f32 only
     ],
 )
 def test_fake_cuda_refuses_what_the_kernel_refuses(name, index, value, error):

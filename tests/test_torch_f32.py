@@ -3,13 +3,15 @@
 The f32 kernels (csrc/f32_gemm.cuh, csrc/f32_attention.cuh,
 csrc/f32_backward.cuh) cannot run here. What can: the routing that sends f32
 to them on a card ("auto" lands where the JAX resolver's TPU gate lands for
-f32), the routes models/vit.py takes around the bf16-only K5 and K8, the
-argument checks that refuse what the kernels refuse, the FFMA GEMM's tile
-walk (its masks at ragged M and N, its k-steps and both epilogues' order)
+f32), the routes models/vit.py takes to K5 and K8 in f32 and around them in
+f16, the argument checks that refuse what the kernels refuse, the FFMA
+GEMM's tile walk (its masks at ragged M and N, its k-steps and both
+epilogues' order)
 against the plain version, and the plain f32 versions the kernels are held
 to on the card against the JAX functions they port. The attention tile
 loops in f32 are tests/test_torch_flash_tiles.py's emulations (64-row
-blocks, 64-key tiles), which the f32 kernels follow.
+blocks, 64-key tiles), which the f32 kernels follow; K5 f32's and K8 f32's
+walks are tests/test_torch_f32_mlp.py's.
 """
 
 import logging
@@ -25,6 +27,7 @@ from dinov2_tpu.ops import attention as jax_attention
 from dinov2_tpu.ops import flash_attention as jflash
 from dinov2_tpu.ops import fused_attention as jfused
 from dinov2_tpu_torch.models import vit
+from dinov2_tpu_torch.models.params import quantize_linear
 from dinov2_tpu_torch.ops import attention, fused_quant_attention
 from dinov2_tpu_torch.ops.attention import resolve_attention_path, split_heads
 from dinov2_tpu_torch.ops.flash_attention import flash_attention
@@ -70,7 +73,8 @@ def test_other_inputs_stay_on_the_plain_route(dtype, head_dim):
 
 @pytest.mark.parametrize("dtype, device_type, applies", [
     (torch.bfloat16, "cuda", True),
-    (torch.float32, "cuda", False),
+    (torch.float32, "cuda", True),  # K5 f32
+    (torch.float16, "cuda", False),  # no kernel takes f16: the plain MLP
     (torch.float32, "cpu", True),  # the plain version takes any dtype
     (torch.bfloat16, "cpu", True),
 ])
@@ -79,10 +83,11 @@ def test_fused_mlp_takes_k5_only_where_it_applies(dtype, device_type, applies):
 
 
 @pytest.mark.parametrize("mode, dtype, device_type, route", [
-    ("auto", torch.float32, "cuda", "dequant"),  # K1 f32 on the dequantized weights
+    ("auto", torch.float32, "cuda", "auto"),  # K8 f32
     ("auto", torch.bfloat16, "cuda", "auto"),
+    ("auto", torch.float16, "cuda", "dequant"),  # no kernel takes f16
     ("auto", torch.float32, "cpu", "auto"),
-    ("kernel", torch.float32, "cuda", "kernel"),  # asked for: K8's wrapper raises
+    ("kernel", torch.float32, "cuda", "kernel"),  # K8 f32, no longer refused
     ("dequant", torch.float32, "cuda", "dequant"),
     ("off", torch.float32, "cuda", "off"),
 ])
@@ -91,26 +96,39 @@ def test_quant_slab_route_of_f32(mode, dtype, device_type, route):
 
 
 def test_routes_around_k5_and_k8_warn_once_per_reason(caplog):
+    """bf16 and f32 take K5 and K8 on a card without a word; f16 keeps the
+    plain routes with one warning per reason, however many layers ask."""
     vit._warn_plain_route.cache_clear()
     with caplog.at_level(logging.WARNING, logger="dinov2_tpu_torch"):
         for _ in range(3):
-            vit.fused_mlp_applies(torch.float32, "cuda")
-            vit.resolve_quant_slab("auto", torch.float32, "cuda")
-        vit.fused_mlp_applies(torch.bfloat16, "cuda")
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                vit.fused_mlp_applies(dtype, "cuda")
+                vit.resolve_quant_slab("auto", dtype, "cuda")
     messages = [r.getMessage() for r in caplog.records if r.name == "dinov2_tpu_torch"]
     assert len(messages) == 2
     assert "K5" in messages[0] and "K8" in messages[1] and "dequant" in messages[1]
+    assert all("float16" in m for m in messages)
     vit._warn_plain_route.cache_clear()
 
 
-def test_k8_refuses_f32_activations():
-    """An explicit quant_slab="kernel" with f32 on a card reaches K8's
-    argument check, which refuses f32 before anything else (it reads
-    metadata only, so CPU tensors do)."""
-    x = torch.zeros((1, 5, 128))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fused_quant_attention._check_quant_layer_args(
-            x, None, None, None, None, None, None, None, 2, aligned=False)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_k8_argument_check_takes_f32_and_refuses_f16(dtype):
+    """An explicit quant_slab="kernel" on a card reaches K8's argument
+    check: f32 and bf16 pass it (f32 is K8 f32's entry), f16 it refuses
+    before anything else (the check reads metadata only, so CPU tensors
+    do)."""
+    d, heads = 128, 2
+    rng = np.random.default_rng(0)
+    x = torch.zeros((1, 5, d), dtype=dtype)
+    rows = [torch.ones(n) for n in (d, d, 3 * d, d, d)]
+    qkv_ql = quantize_linear(rng.standard_normal((3 * d, d)), "q4_0")
+    proj_ql = quantize_linear(rng.standard_normal((d, d)), "q4_0")
+    args = (x, rows[0], rows[1], qkv_ql, rows[2], proj_ql, rows[3], rows[4], heads)
+    if dtype == torch.float16:
+        with pytest.raises(NotImplementedError, match="bf16 or f32"):
+            fused_quant_attention._check_quant_layer_args(*args, aligned=False)
+    else:
+        fused_quant_attention._check_quant_layer_args(*args, aligned=False)
 
 
 # ------------------------------------------------- the FFMA GEMM's walk

@@ -180,17 +180,19 @@ def test_slab_attention_argument_checks(case, error):
         fused_attention.check_slab_attention_args(**args)
 
 
-def _k5_args(d=384, dh=None, dtype=torch.bfloat16):
+def _k5_args(d=384, dh=None, dtype=torch.bfloat16, wdtype=None):
     dh = 4 * d if dh is None else dh
-    bf = torch.bfloat16
+    w = dtype if wdtype is None else wdtype
     return [torch.zeros((2, 5, d), dtype=dtype), torch.ones(d), torch.zeros(d),
-            torch.zeros((d, dh), dtype=bf), torch.zeros(dh), torch.zeros((dh, d), dtype=bf),
+            torch.zeros((d, dh), dtype=w), torch.zeros(dh), torch.zeros((dh, d), dtype=w),
             torch.zeros(d), torch.ones(d)]
 
 
 @pytest.mark.parametrize("case, error", [
-    ("f32 activations", NotImplementedError),
-    ("D=128", NotImplementedError),
+    ("f16 activations", NotImplementedError),  # bf16 and f32 only
+    ("D=128", NotImplementedError),  # bf16 at a width its kernel is not built for
+    ("f32 D=120", NotImplementedError),  # f32 takes D % 16 == 0
+    ("f32 x, bf16 weights", ValueError),
     ("DH = 2 D", NotImplementedError),
     ("w2 transposed", ValueError),
     ("b1 in bf16", ValueError),
@@ -198,10 +200,14 @@ def _k5_args(d=384, dh=None, dtype=torch.bfloat16):
 def test_slab_mlp_argument_checks(case, error):
     """What K5 refuses on a card, checked before any launch."""
     args = _k5_args()
-    if case == "f32 activations":
-        args = _k5_args(dtype=torch.float32)
+    if case == "f16 activations":
+        args = _k5_args(dtype=torch.float16)
     elif case == "D=128":
         args = _k5_args(d=128)
+    elif case == "f32 D=120":
+        args = _k5_args(d=120, dtype=torch.float32)
+    elif case == "f32 x, bf16 weights":
+        args = _k5_args(dtype=torch.float32, wdtype=torch.bfloat16)
     elif case == "DH = 2 D":
         args = _k5_args(dh=768)
     elif case == "w2 transposed":
@@ -210,6 +216,8 @@ def test_slab_mlp_argument_checks(case, error):
         args[4] = args[4].to(torch.bfloat16)
     for d in fused_attention.MLP_KERNEL_WIDTHS:
         fused_attention.check_slab_mlp_args(*_k5_args(d=d))  # the valid sets pass
+    for d in (64, 128, 768):  # f32: any D % 16 == 0
+        fused_attention.check_slab_mlp_args(*_k5_args(d=d, dtype=torch.float32))
     with pytest.raises(error):
         fused_attention.check_slab_mlp_args(*args)
 
