@@ -246,7 +246,10 @@ CLI_REALTIME_FRAMES = 20
 # H100 SXM peaks (NVIDIA's data sheet, dense): a kernel's bound is the larger
 # of its operations over the first and its bytes over the second
 PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12  # outside the tensor cores: K7's f32 head
+PEAK_F32_FLOPS = 67e12  # f32 FFMA outside the tensor cores
+# f32-accurate products on the tensor cores: 3xTF32 (csrc/tf32x3.cuh), three
+# TF32 passes at 494.7 TFLOP/s dense; every f32 kernel's bound
+PEAK_TF32X3_FLOPS = 494.7e12 / 3
 PEAK_INT8_OPS = 1979e12  # K9's s8 x s8 -> s32 products
 PEAK_BYTES_PER_S = 3.35e12
 # the int8 slices (quant_mode="int8" on the classify slice's ViT-B/14 file,
@@ -528,6 +531,22 @@ def launch_order(run, count: int, calls: int = 3) -> list:
     `count` kernel records (profile_window)."""
     prof = profile_window(run, calls, lambda prof: len(_card_kernels(prof)) >= count)
     return [e.name for e in _card_kernels(prof)[-count:]]
+
+
+def require_kernels_in_window(run, words: dict, what: str, card: str) -> dict:
+    """A torch.profiler window (profile_window) over one call of run holds a
+    kernel record whose name has each word of `words` (a word -> what it
+    is); returns the records of each."""
+    def found(prof) -> dict:
+        names = [e.name for e in _card_kernels(prof)]
+        return {word: sum(word in name for name in names) for word in words}
+
+    counts = found(profile_window(run, 1, lambda prof: all(found(prof).values())))
+    print(f"{what}: torch.profiler records in one call: "
+          f"{', '.join(f'{label} ({word}) {counts[word]}' for word, label in words.items())} "
+          f"({card})")
+    require(all(counts.values()), f"{what}: no record of {[w for w, n in counts.items() if not n]}")
+    return counts
 
 
 def phase_half_layer_split(card: str) -> dict:
@@ -1129,7 +1148,7 @@ def phase_quant_matmul_check(card: str) -> dict:
                 partial(quant_matmul_reference, x, ql, bias, act),
                 partial(quant_matmul_reference, x.float(), ql, bias, act),
                 card, 2.0 * m * k * n, nbytes(x, ql, bias) + m * n * x.element_size(),
-                peak_flops=PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS,
+                peak_flops=PEAK_TF32X3_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS,
                 library=library, library_name="f32 linear on the decoded weight",
             )
     q = {name: measured[QUANT_SLICE_FORMAT, name] for name in shapes}
@@ -4477,8 +4496,9 @@ def _f32_check(label, kernel, plain, card, flops, moved_bytes, library=None,
     """One f32 kernel call (an output or a tuple of them) against its plain
     f32 version on the same inputs: every output within tol of
     max(1, max|plain|). Then CUDA-event medians of the kernel, the plain
-    version and, where given, the library call, and the bound at the f32
-    rate outside the tensor cores."""
+    version and, where given, the library call, and the bound at the rate
+    of f32-accurate products on the tensor cores (3xTF32), the FFMA bound
+    beside it."""
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -4496,12 +4516,14 @@ def _f32_check(label, kernel, plain, card, flops, moved_bytes, library=None,
         "max_abs_err": worst,
         "ms": cuda_median_ms(kernel),
         "plain_ms": cuda_median_ms(plain, reps=10),
-        **roofline(flops, moved_bytes, PEAK_F32_FLOPS),
+        **roofline(flops, moved_bytes, PEAK_TF32X3_FLOPS),
+        "ffma_bound_ms": roofline(flops, moved_bytes, PEAK_F32_FLOPS)["bound_ms"],
         "library_ms": cuda_median_ms(library) if library else None,
     }
     line = (f"f32 kernel check: {label}: {'; '.join(parts)}; median {measured['ms']:.4f} ms, "
             f"plain f32 {measured['plain_ms']:.4f} ms, bound {measured['bound_ms']:.4f} ms "
-            f"({measured['bound_by']}, 67 TFLOP/s f32)")
+            f"({measured['bound_by']}, 3xTF32 at {PEAK_TF32X3_FLOPS / 1e12:.1f} TFLOP/s; FFMA "
+            f"at 67 TFLOP/s {measured['ffma_bound_ms']:.4f} ms)")
     if library:
         line += f", {library_name} {measured['library_ms']:.4f} ms"
     print(f"{line} ({card})")
@@ -4519,8 +4541,9 @@ def _f32_linear_ms(a2, w) -> float:
 def phase_f32_kernel_checks(card: str) -> dict:
     """Each f32 kernel against its plain f32 version on the card: K1 at the
     classify shape, K3 at ViT-B's and ViT-g's slab shapes, K2 at ViT-g's, K4
-    at the feature shape with and without lse, K6 at the two training
-    shapes. Returns {kernel: numbers} for the JSON line."""
+    at the feature shape with and without lse, K6 (3xTF32) at the two
+    training shapes, and run twice there, bit for bit. Returns {kernel:
+    numbers} for the JSON line."""
     from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention
     from dinov2_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -4613,13 +4636,21 @@ def phase_f32_kernel_checks(card: str) -> dict:
         g = torch.from_numpy(rng.standard_normal((b, t, heads, 64))).to("cuda", torch.float32)
         q, k, v = split_heads(qkv, heads)
         out, lse = flash_forward_lse(q, k, v, scale)
+        shape = f"B={b} T={t} H={heads} hd=64"
         k6 = _f32_check(
-            f"flash_backward f32 B={b} T={t} H={heads} hd=64 (dq, dk, dv)",
+            f"flash_backward f32 {shape} (dq, dk, dv)",
             partial(flash_backward, q, k, v, out, lse, g, scale),
             partial(flash_backward_reference, q, k, v, out, lse, g, scale), card,
             10.0 * b * heads * t * t * 64, nbytes(q, k, v, out, g, lse, q, q, q),
             library=sdpa_backward(q, k, v, g, scale), tol=F32_GRAD_TOL,
             library_name="scaled_dot_product_attention f32 backward")
+        # deterministic: no atomics, every sum over T taken in one order
+        first, second = (flash_backward(q, k, v, out, lse, g, scale) for _ in range(2))
+        same = all(torch.equal(a, c) for a, c in zip(first, second))
+        print(f"f32 kernel check: flash_backward f32 {shape}: two calls on the same inputs "
+              f"equal bit for bit: {same}")
+        require(same, f"K6 f32 at {shape} differs between two calls on the same inputs")
+        del first, second
         if t == 257:
             found["K6"] = k6
         else:
@@ -4642,9 +4673,10 @@ def phase_f32_mlp_quant_checks(card: str) -> dict:
     (B=64, T=257, D=768) and at a ragged M, for the three activations; K8
     f32 at the classify shape for q4_0, q5_1 (packed) and q8_0 (int8 SoA),
     bit for bit K1 f32 on the dequantized weights and within F32_TOL of its
-    plain version; K7's f32 kernel at the f32 q4_0 path's fc1, fc2 and
-    head. Each timed beside its bound, its plain version and one f32
-    F.linear per GEMM. Returns {kernel: numbers} for the JSON line."""
+    plain version; K7's f32 route (3xTF32) at the f32 q4_0 path's fc1, fc2
+    and head, its two launches apart by torch.profiler. Each timed beside
+    its bound, its plain version and one f32 F.linear per GEMM. Returns
+    {kernel: numbers} for the JSON line."""
     from dinov2_tpu_torch.models.params import quantize_linear
     from dinov2_tpu_torch.ops.fused_attention import (
         slab_layer_block,
@@ -4748,11 +4780,23 @@ def phase_f32_mlp_quant_checks(card: str) -> dict:
                             bias),
             library_name="one f32 F.linear on the decoded weight (no activation)",
             tol=F32_GELU_F16_TOL if act == "gelu_tanh_f16" else F32_TOL)
+        # the two launches one by one: the TF32 planes of the weight, the GEMM
+        ms = device_ms_by_launch(
+            partial(quant_matmul_kernel, x, ql, bias, act),
+            {"Tf32SplitRows": "dequantize", "quant_matmul_tf32x3_kernel": "gemm"}, "K7 f32")
+        print(f"f32 kernel check: K7 f32 launch by launch, {QUANT_SLICE_FORMAT} {name} M={m} "
+              f"K={k} N={n} {act}: device ms of a launch (torch.profiler, 10 calls): dequantize "
+              f"to the TF32 planes {ms['dequantize']:.4f}, 3xTF32 GEMM {ms['gemm']:.4f} "
+              f"({2e-9 * m * k * n / ms['gemm']:.1f} TFLOP/s of f32 products), sum "
+              f"{sum(ms.values()):.4f} ({card})")
+        k7[name].update({f"ms_{key}": value for key, value in ms.items()})
     k7_f32 = {
         **k7["fc1"],
         "max_abs_err": max(v["max_abs_err"] for v in k7.values()),
         **{f"{key}_{name}": k7[name][key] for name in ("fc2", "head")
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        **{f"{key}_{name}": k7[name][key] for name in ("fc2", "head")
+           for key in ("ms_dequantize", "ms_gemm")},
     }
     return {"K5": k5, "K8": k8, "K7": k7_f32}
 
@@ -4843,8 +4887,9 @@ def phase_f32_classify(card: str, path: Path) -> dict:
     classify slice's 64 images (T=257): K1 f32 12 times a forward; the same
     weights at slab_fusion "proj" (K2 f32) and "core" (K3 f32), and with
     fuse_mlp=True (K1 f32 and K5 f32 12 each). The same file quantized to
-    q4_0 through quant_mode="fused" in f32: K8 f32 12 and K7 (its f32
-    kernel) 25 a forward; with fuse_mlp=True K8 f32 12, K5 f32 12 (on the
+    q4_0 through quant_mode="fused" in f32: K8 f32 12 and K7 (its 3xTF32
+    route, both kernels named in a profiler window) 25 a forward; with
+    fuse_mlp=True K8 f32 12, K5 f32 12 (on the
     dequantized fc1/fc2) and K7 1 (the head); and `cli.inference -c --dtype
     f32 --quant-mode fused` on that file against the engine. Then ViT-B/14
     with REGISTER_TOKENS register tokens (T=261: a masked tail) in bf16 and
@@ -4910,6 +4955,11 @@ def phase_f32_classify(card: str, path: Path) -> dict:
     found[QUANT_SLICE_FORMAT] = run(engine, f"f32 classify: {name}", {"K8": layers},
                                     {"K7": 2 * layers + 1})
     _f32_against_cpu(engine, q_cpu, images, config, f"f32 {QUANT_SLICE_FORMAT} cross-check")
+    require_kernels_in_window(
+        partial(engine.classify_probs, images),
+        {"Tf32SplitRows": "K7's dequantize to TF32 planes",
+         "quant_matmul_tf32x3_kernel": "K7's 3xTF32 GEMM"},
+        f"f32 classify: {name}", card)
     fused = _same_weights(engine, fuse_mlp=True)
     found[f"{QUANT_SLICE_FORMAT} fuse_mlp"] = run(
         fused, f"f32 classify: {name} fuse_mlp=True", {"K8": layers, "K5": layers}, {"K7": 1})
@@ -5014,7 +5064,8 @@ def phase_f32_train(card: str, source) -> dict:
     steps on the training slice's 32 images (T=257: K1 f32 24 times a step,
     the recompute backward plain); the same with flash_attention=True (K4
     with lse 24, K6 12 a step); F32_FUSE_MLP_STEPS with fuse_mlp=True (K1
-    f32 and K5 f32 24 each a step, K5's backward the plain recompute);
+    f32 and K5 f32 24 each a step, K5's backward the plain recompute; the
+    flash run's 3xTF32 K6 kernels named in a profiler window);
     then TRAIN_LONG_STEPS default steps on 8
     preprocessed 518 px images (T=1370: the flash route). Step 1's loss and
     raw gradients against the CPU f32 step on the same images (at T=1370 one
@@ -5073,19 +5124,24 @@ def phase_f32_train(card: str, source) -> dict:
               f"{', '.join(f'{v:.5f}' for v in losses)} (falling); {line}; launches in "
               f"{steps} steps {counts}, every other kernel 0; median step "
               f"{step_ms:.2f} ms (steps 2-{steps}), peak memory {peak / 1e6:.0f} MB")
+        state = [params, opt_state]
+
+        def step():
+            state[0], state[1], _ = trainer.step(state[0], state[1], images, labels)
+
+        if name == "flash_attention=True":
+            require_kernels_in_window(
+                step, {"tf32x3_backward_dkv_kernel": "K6 f32's dK/dV",
+                       "tf32x3_backward_dq_kernel": "K6 f32's dQ"},
+                f"f32 training {name}", card)
         if opts is None:
-            state = [params, opt_state]
-
-            def step():
-                state[0], state[1], _ = trainer.step(state[0], state[1], images, labels)
-
             device_ms = device_ms_per_call(step, calls=3)
             found["default step ms"] = {"wall": step_ms, "device": device_ms,
                                         "idle": step_ms - device_ms}
             print(f"f32 training, where the time goes: the default step {step_ms:.2f} ms wall, "
                   f"{device_ms:.2f} ms of kernels on the card (torch.profiler, 3 steps), "
                   f"{step_ms - device_ms:.2f} ms idle ({card})")
-        del trainer, params, opt_state
+        del trainer, params, opt_state, state
 
     rng = np.random.default_rng(SEED + 4)
     long_images = rng.integers(0, 256, (TRAIN_LONG_BATCH, FEATURE_PX, FEATURE_PX, 3),
@@ -5362,7 +5418,8 @@ def main() -> int:
             "name": "flash_backward_f32",
             "route": "cuda",
             "source": "dinov2_tpu_torch/csrc/flash_backward.cu",
-            "also_source": "dinov2_tpu_torch/csrc/f32_backward.cuh",
+            "also_source": "dinov2_tpu_torch/csrc/f32_backward.cuh, "
+                           "dinov2_tpu_torch/csrc/tf32x3.cuh",
             "replaces": "dinov2_tpu/ops/flash_attention.py:468",
             "also_replaces": "dinov2_tpu/ops/flash_attention.py:499",
             "launches": flash["K6"],
@@ -5404,7 +5461,9 @@ def main() -> int:
             "name": "quant_matmul_kernel_f32",
             "route": "cuda",
             "source": "dinov2_tpu_torch/csrc/quant_matmul.cu",
-            "also_source": "dinov2_tpu_torch/csrc/dequant_tile.cuh",
+            "also_source": "dinov2_tpu_torch/csrc/dequant_tile.cuh, "
+                           "dinov2_tpu_torch/csrc/tf32x3.cuh, "
+                           "dinov2_tpu_torch/csrc/tma_pipeline.cuh",
             "replaces": "dinov2_tpu/ops/pallas_qmatmul.py:215",
             "also_replaces": "dinov2_tpu/ops/pallas_qmatmul.py:81, "
                              "dinov2_tpu/ops/pallas_qmatmul.py:104",

@@ -1,7 +1,8 @@
 // Reading a ggml-quantized linear weight (models/params.py::QuantLinear)
 // straight from its packed form, for K7 (quant_matmul.cu: its dequantize
-// launch and its f32 kernel) and K8 (quant_layer.cu: its two dequantize
-// launches, bf16 (N, K) or, for K8 f32, f32 (K, N) transposed).
+// launch, bf16 (N, K) or, for f32 x, the two TF32 planes of the f32 weight,
+// (2, N, K)) and K8 (quant_layer.cu: its two dequantize launches, bf16
+// (N, K) or, for K8 f32, f32 (K, N) transposed).
 //
 // Layouts, as the loader writes them (QuantLinear's docstring):
 //   packed (q4_0/q4_1/q5_0/q5_1): codes (N, K/2) u8 natural-order planes,
@@ -16,9 +17,12 @@
 // Numerics are ops/qmatmul.py::dequant_weight's, bit for bit: the integer
 // code to f32, times d, plus m, each rounded in f32 (explicit __fmul_rn /
 // __fadd_rn, so nvcc cannot contract them into one fused multiply-add), then
-// one cast to the GEMM's type (none for f32). The TPU kernel's bf16 scale
-// rounding and its blocksums(x)·mᵀ correction (dinov2_tpu/ops/
-// pallas_qmatmul.py) are MXU artefacts and are not copied.
+// one cast to the GEMM's type (none for f32; the TF32 split of tf32x3.cuh
+// for K7's f32 GEMM, whose planes sum to the f32 value: exactly for q4_0,
+// q5_0 and q8_0, whose values have at most 19 significant bits, within
+// 2^-22 of it for q4_1 and q5_1). The TPU kernel's bf16 scale rounding and
+// its blocksums(x)·mᵀ correction (dinov2_tpu/ops/pallas_qmatmul.py) are MXU
+// artefacts and are not copied.
 //
 // The Python wrappers ask packed weights for K/2 % 64 == 0 (every DINOv2
 // width has it) and SoA weights for K % 64 == 0: a 16-byte piece of codes
@@ -27,7 +31,7 @@
 
 #pragma once
 
-#include "attention_core.cuh"
+#include "tf32x3.cuh"
 
 namespace dinov2 {
 
@@ -98,29 +102,60 @@ namespace {
 
 constexpr int kDequantThreads = 256;
 
-// dst[0..15] = bf16 of 16 codes, each code * scale (+ mn where the format
-// has m), rounded in f32 without fused multiply-add: QuantWeight::dequant8's
-// arithmetic, written as two 16-byte pieces.
-__device__ __forceinline__ void store_dequant16(bf16* dst, const int (&q)[16], float scale,
-                                                const float* mins, size_t blk) {
-  const float mn = mins ? __ldg(mins + blk) : 0.f;
-  uint4 piece[2];
-  bf16* e = reinterpret_cast<bf16*>(piece);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    float v = __fmul_rn(static_cast<float>(q[i]), scale);
-    if (mins) v = __fadd_rn(v, mn);
-    e[i] = __float2bfloat16(v);
-  }
-  reinterpret_cast<uint4*>(dst)[0] = piece[0];
-  reinterpret_cast<uint4*>(dst)[1] = piece[1];
+// The value of code q times scale, plus mn where the format has m (mins
+// not null), rounded in f32 without fused multiply-add: QuantWeight::
+// dequant8's arithmetic.
+__device__ __forceinline__ float dequant_value(int q, float scale, const float* mins, float mn) {
+  const float v = __fmul_rn(static_cast<float>(q), scale);
+  return mins ? __fadd_rn(v, mn) : v;
 }
 
-// W (N, K) bf16 = dequant(W): a thread a 16-byte piece of codes, that is 16
-// values of an int8 SoA row, or 16 bytes of a packed row, whose low nibbles
-// are values j0..j0+15 and high nibbles values K/2+j0..K/2+j0+15.
+// Where dequant_weight_kernel writes an (N, K) weight's values: bf16 rows,
+// the compute type of K7's and K8's bf16 GEMMs, two 16-byte pieces for 16
+// values.
+struct Bf16Rows {
+  bf16* out;
+
+  __device__ __forceinline__ void store16(size_t at, const int (&q)[16], float scale,
+                                          const float* mins, float mn) const {
+    uint4 piece[2];
+    bf16* e = reinterpret_cast<bf16*>(piece);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) e[i] = __float2bfloat16(dequant_value(q[i], scale, mins, mn));
+    reinterpret_cast<uint4*>(out + at)[0] = piece[0];
+    reinterpret_cast<uint4*>(out + at)[1] = piece[1];
+  }
+};
+
+// ... or the two TF32 planes of the f32 values, (2, N, K): hi = tf32(v) at
+// plane 0, lo = tf32(v - hi) at plane 1 (`plane` floats on), the B operand
+// of K7's 3xTF32 GEMM as it lies.
+struct Tf32SplitRows {
+  float* out;
+  size_t plane;
+
+  __device__ __forceinline__ void store16(size_t at, const int (&q)[16], float scale,
+                                          const float* mins, float mn) const {
+#pragma unroll
+    for (int i = 0; i < 16; i += 4) {
+      float4 hi, lo;
+      split_tf32(make_float4(dequant_value(q[i], scale, mins, mn),
+                             dequant_value(q[i + 1], scale, mins, mn),
+                             dequant_value(q[i + 2], scale, mins, mn),
+                             dequant_value(q[i + 3], scale, mins, mn)),
+                 hi, lo);
+      *reinterpret_cast<float4*>(out + at + i) = hi;
+      *reinterpret_cast<float4*>(out + plane + at + i) = lo;
+    }
+  }
+};
+
+// W (N, K) = dequant(W) into `rows`: a thread a 16-byte piece of codes, that
+// is 16 values of an int8 SoA row, or 16 bytes of a packed row, whose low
+// nibbles are values j0..j0+15 and high nibbles values K/2+j0..K/2+j0+15.
+template <class Rows>
 __global__ void __launch_bounds__(kDequantThreads)
-    dequant_weight_kernel(QuantWeight w, bf16* __restrict__ out) {
+    dequant_weight_kernel(QuantWeight w, Rows rows) {
   const int row_bytes = w.packed ? w.k / 2 : w.k;
   const int pieces = row_bytes / 16;
   const size_t piece = static_cast<size_t>(blockIdx.x) * kDequantThreads + threadIdx.x;
@@ -131,13 +166,13 @@ __global__ void __launch_bounds__(kDequantThreads)
       __ldg(reinterpret_cast<const uint4*>(w.codes + static_cast<size_t>(row) * row_bytes + j0));
   const uint8_t* bytes = reinterpret_cast<const uint8_t*>(&raw);
   const size_t row_blocks = static_cast<size_t>(row) * (w.k >> 5);
-  bf16* dst = out + static_cast<size_t>(row) * w.k;
+  const size_t dst = static_cast<size_t>(row) * w.k;
   int q[16];
   if (!w.packed) {
 #pragma unroll
     for (int i = 0; i < 16; ++i) q[i] = static_cast<int8_t>(bytes[i]);
     const size_t blk = row_blocks + (j0 >> 5);
-    store_dequant16(dst + j0, q, __ldg(w.d + blk), w.m, blk);
+    rows.store16(dst + j0, q, __ldg(w.d + blk), w.m, w.m ? __ldg(w.m + blk) : 0.f);
     return;
   }
 #pragma unroll
@@ -155,15 +190,27 @@ __global__ void __launch_bounds__(kDequantThreads)
     }
     const int k0 = j0 + high * row_bytes;
     const size_t blk = row_blocks + (k0 >> 5);
-    store_dequant16(dst + k0, q, __ldg(w.d + blk), w.m, blk);
+    rows.store16(dst + k0, q, __ldg(w.d + blk), w.m, w.m ? __ldg(w.m + blk) : 0.f);
   }
 }
 
-cudaError_t launch_dequant_weight(const QuantWeight& w, bf16* out, cudaStream_t s) {
+template <class Rows>
+cudaError_t launch_dequant_rows(const QuantWeight& w, Rows rows, cudaStream_t s) {
   const size_t pieces = static_cast<size_t>(w.n) * ((w.packed ? w.k / 2 : w.k) / 16);
   const unsigned blocks = static_cast<unsigned>((pieces + kDequantThreads - 1) / kDequantThreads);
-  dequant_weight_kernel<<<blocks, kDequantThreads, 0, s>>>(w, out);
+  dequant_weight_kernel<<<blocks, kDequantThreads, 0, s>>>(w, rows);
   return cudaGetLastError();
+}
+
+// W (N, K) bf16 = dequant(W), bit for bit dequant_weight(W, bf16)
+cudaError_t launch_dequant_weight(const QuantWeight& w, bf16* out, cudaStream_t s) {
+  return launch_dequant_rows(w, Bf16Rows{out}, s);
+}
+
+// planes (2, N, K) f32 = the TF32 hi and lo planes of dequant_weight(W, f32)
+cudaError_t launch_dequant_weight_split(const QuantWeight& w, float* planes, cudaStream_t s) {
+  return launch_dequant_rows(
+      w, Tf32SplitRows{planes, static_cast<size_t>(w.n) * static_cast<size_t>(w.k)}, s);
 }
 
 constexpr int kDequantTRows = 32;   // weight rows (output columns) a block transposes

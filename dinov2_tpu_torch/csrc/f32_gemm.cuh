@@ -18,7 +18,10 @@
 // Those numerics need the products in full f32: one-pass TF32 on the tensor
 // cores keeps 10 mantissa bits (about 1e-3 relative), far outside the f32
 // envelope the port is held to (docs/PARITY.md). So this is a CUDA-core FFMA
-// GEMM; a 3xTF32 wgmma version is later work (ROADMAP.md).
+// GEMM. tf32x3.cuh holds the 3xTF32 pieces (the split, wgmma .tf32, the
+// chunked sums) that K7's f32 GEMM (quant_matmul.cu) and K6 f32
+// (f32_backward.cuh) run on the tensor cores; moving this GEMM onto them
+// is later work (ROADMAP.md).
 //
 // What bounds it on an H100: at K1's shape (M = 64*257 = 16448, K = 768) the
 // QKV product is 58.2 GFLOP over 50.5 MB in, 151.6 MB out and 7.1 MB of

@@ -542,13 +542,6 @@ __global__ void __launch_bounds__(kInt8Threads, 1)
   }
 }
 
-inline int multiprocessors() {
-  int device = 0, sms = 0;
-  if (cudaGetDevice(&device) != cudaSuccess) return 1;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return 1;
-  return sms;
-}
-
 template <class Epilogue>
 cudaError_t launch_int8_gemm(const CUtensorMap& a_map, const CUtensorMap& w_map, Epilogue ep,
                              const uint16_t* table, int m, int n, int k, cudaStream_t s) {

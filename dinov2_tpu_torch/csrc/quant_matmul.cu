@@ -31,10 +31,31 @@
 //     The TPU kernel likewise dequantizes each weight tile once and reuses
 //     it across all of M. The held weights stay packed; the scratch lives
 //     for one call.
-//   - f32 x (the classifier head on f32 features): a plain FMA kernel on
-//     f32 tiles, the weight dequantized to f32, as dequant_weight(W, f32)
-//     and an f32 matmul compute it; epilogue acc + bias, then the
-//     activation. M and N are masked at the edges (the head has N = 1000).
+//   - f32 x (fc1, fc2 and the head of an f32 quantized run): two launches,
+//     3xTF32 on the tensor cores (tf32x3.cuh), as dequant_weight(W, f32)
+//     and an f32 matmul compute it.
+//       1. dequant_weight_kernel<Tf32SplitRows> turns the weight into its
+//          f32 values in dequant_weight's order and writes their two TF32
+//          planes, hi and lo, (2, N, K) K-major, into a scratch the caller
+//          allocated (18.9 MB at ViT-B's fc1). For q4_0, q5_0 and q8_0 hi +
+//          lo is the f32 value bit for bit.
+//       2. quant_matmul_tf32x3_kernel: persistent and warp-specialised, as
+//          K9's GEMM (int8_matmul.cu). One block an SM walks 128 x 128
+//          output tiles, N-fastest. A producer warpgroup's one thread keeps
+//          TMA loads (tma_pipeline.cuh) of each 32-deep k-step in flight
+//          through a 4-stage mbarrier ring: x's 128 rows (row-major, so
+//          K-major as wgmma wants A) and the 128 weight rows of each plane
+//          (the K-major B operand as it lies), all 128-byte swizzled, rows
+//          past M or N landing as zeros. Two consumer warpgroups own 64 rows
+//          each: a consumer splits its x rows once they land, hi in place and
+//          lo into a buffer of its own (two, taken in turn), then runs the
+//          step's 12 wgmma m64n128k8 (three products of four k8 steps) into a
+//          fresh chunk accumulator, waits for them and adds the chunk to its
+//          f32 sum with rounded adds (tf32x3.cuh's note: the tensor cores
+//          truncate as they sum). The epilogue keeps the FFMA kernel's order,
+//          act(acc + bias) in f32, and writes a thread's column pairs from
+//          the accumulator layout, masked at M and N (the head has N =
+//          1000), while the producer already loads the next tile.
 // K is a multiple of 64, and of 128 for packed weights (a k-step lies inside
 // one plane).
 //
@@ -42,83 +63,212 @@
 // N=3072) a call is 78 GFLOP and reads 1.2 MB of q4_0 weight (4.7 MB in
 // bf16), 25 MB of x and writes 101 MB of y: compute-bound, ~0.08 ms at the
 // card's bf16 peak. Dequantizing once adds 1.2 MB read and 4.7 MB written
-// and read again (~5 us of HBM time).
+// and read again (~5 us of HBM time). In f32 the same 78 GFLOP take 0.47 ms
+// at 3xTF32's 165 TFLOP/s (1.16 ms at the 67 TFLOP/s of FFMA), against
+// 0.09 ms for 25 MB of x, 202 MB of y and the 18.9 MB of planes written and
+// read: the products bind it. Each k-step a block reads 48 KB of shared
+// memory through the TMA for 3 x 2 x 128 x 128 x 32 operations.
 
 #include "dequant_tile.cuh"
+#include "tf32x3.cuh"
+#include "tma_pipeline.cuh"
 #include "wgmma_gemm.cuh"
 
-// The f32 kernel sits in dinov2's unnamed namespace, as the headers' kernels
+// The f32 kernels sit in dinov2's unnamed namespace, as the headers' kernels
 // do: kernels in a second unnamed namespace at file scope make nvcc's host
 // stubs ambiguous.
 namespace dinov2 {
 namespace {
 
-constexpr int kF32Threads = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kF32TileK = 32;     // one ggml block of k per step
-constexpr int kF32Lds = kTile + 4;
+constexpr int kQf32Depth = kTf32AtomFloats;  // k of a step: one 128-byte swizzle row of f32
+constexpr int kQf32Consumers = 2;            // consumer warpgroups, 64 rows each
+constexpr int kQf32TileRows = 64 * kQf32Consumers;
+constexpr int kQf32TileCols = 128;           // wgmma m64n128k8
+constexpr int kQf32Stages = 4;
+constexpr int kQf32XBytes = kQf32TileRows * 128;  // x's rows of a step, raw, then its hi plane
+constexpr int kQf32WBytes = kQf32TileCols * 128;  // one plane of the weight's rows of a step
+constexpr int kQf32StageBytes = kQf32XBytes + 2 * kQf32WBytes;
+// x's lo plane: a consumer's 64 rows, two buffers taken in turn by the steps
+constexpr int kQf32LoBytes = 2 * kQf32Consumers * kTileBytes;
+constexpr int kQf32Threads = 128 * (1 + kQf32Consumers);  // the producer warpgroup first
+constexpr int kQf32EmptyArrivals = 4 * kQf32Consumers;    // a warp each
+constexpr int kQf32ProducerRegisters = 40, kQf32ConsumerRegisters = 232;
+constexpr int kQf32SharedBytes =
+    1024 + kQf32Stages * kQf32StageBytes + kQf32LoBytes + 2 * 8 * kQf32Stages;
+static_assert(kQf32SharedBytes <= 232448, "the ring, x's lo planes and the barriers fit");
+static_assert(128 * kQf32ProducerRegisters + 128 * kQf32Consumers * kQf32ConsumerRegisters <=
+                  65536,
+              "the registers the warpgroups hold after setmaxnreg exist");
 
-// out (M, N) f32 = act(x (M, K) f32 @ dequant(W)^T + bias), one 64x64 output
-// tile per block; k-steps of 32 staged k-major in shared memory.
-__global__ void __launch_bounds__(kF32Threads)
-    quant_matmul_f32_kernel(const float* __restrict__ x, QuantWeight w,
-                            const float* __restrict__ bias, int act, float* __restrict__ out,
-                            int m) {
-  __shared__ __align__(16) float xs[kF32TileK][kF32Lds];
-  __shared__ __align__(16) float ws[kF32TileK][kF32Lds];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int row0 = blockIdx.y * kTile, col0 = blockIdx.x * kTile;
-  // the piece this thread stages per k-step: tile row r, k offsets c..c+7
-  const int r = tid >> 2, c = (tid & 3) * 8;
+// out (M, N) f32 = act(x (M, K) f32 @ W^T + bias) for W given as its TF32
+// planes (2, N, K), described by x_map (boxes of kQf32TileRows rows) and
+// hi_map, lo_map (boxes of kQf32TileCols rows): see the note at the head.
+template <int kAct>
+__global__ void __launch_bounds__(kQf32Threads, 1)
+    quant_matmul_tf32x3_kernel(const __grid_constant__ CUtensorMap x_map,
+                               const __grid_constant__ CUtensorMap hi_map,
+                               const __grid_constant__ CUtensorMap lo_map,
+                               const float* __restrict__ bias, float* __restrict__ out, int m,
+                               int n, int k) {
+  extern __shared__ uint8_t shared_raw[];
+  const uint32_t raw = shared_address(shared_raw);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  uint8_t* ring_ptr = shared_raw + (ring - raw);
+  const uint32_t lo0 = ring + kQf32Stages * kQf32StageBytes;
+  const uint32_t full0 = lo0 + kQf32LoBytes;
+  const uint32_t empty0 = full0 + 8 * kQf32Stages;  // stage s: full0 + 8s, empty0 + 8s
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const int tiles_n = (n + kQf32TileCols - 1) / kQf32TileCols;
+  const int tiles = (m + kQf32TileRows - 1) / kQf32TileRows * tiles_n;
+  const int steps = k / kQf32Depth;
 
-  for (int k0 = 0; k0 < w.k; k0 += kF32TileK) {
-    float xv[8], wv[8];
+  if (threadIdx.x == 0) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) xv[j] = wv[j] = 0.f;
-    if (row0 + r < m) {
-      const float4* src =
-          reinterpret_cast<const float4*>(x + static_cast<size_t>(row0 + r) * w.k + k0 + c);
-      const float4 lo = src[0], hi = src[1];
-      xv[0] = lo.x, xv[1] = lo.y, xv[2] = lo.z, xv[3] = lo.w;
-      xv[4] = hi.x, xv[5] = hi.y, xv[6] = hi.z, xv[7] = hi.w;
+    for (int s = 0; s < kQf32Stages; ++s) {
+      mbarrier_init(full0 + 8 * s, 1);
+      mbarrier_init(empty0 + 8 * s, kQf32EmptyArrivals);
     }
-    if (col0 + r < w.n) w.dequant8(col0 + r, k0 + c, wv);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      xs[c + j][r] = xv[j];
-      ws[c + j][r] = wv[j];
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kF32TileK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+    fence_barrier_init();
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx * 4 + j;
-      if (col >= w.n) continue;
-      float y = acc[i][j];
-      if (bias) y += bias[col];
-      out[static_cast<size_t>(row) * w.n + col] = activate(y, act);
+  if (threadIdx.x < 128) {
+    // the producer warpgroup: one thread issues every load
+    warpgroup_registers_down<kQf32ProducerRegisters>();
+    if (threadIdx.x == 0) {
+      prefetch_tensor_map(&x_map);
+      prefetch_tensor_map(&hi_map);
+      prefetch_tensor_map(&lo_map);
+      int pos = 0;  // the ring position of the next k-step: stage pos % S, round pos / S
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int row0 = tile / tiles_n * kQf32TileRows, col0 = tile % tiles_n * kQf32TileCols;
+        for (int j = 0; j < steps; ++j, ++pos) {
+          const int stage = pos % kQf32Stages;
+          mbarrier_wait(empty0 + 8 * stage, ((pos / kQf32Stages) & 1) ^ 1);
+          const uint32_t full = full0 + 8 * stage, s_at = ring + stage * kQf32StageBytes;
+          mbarrier_arrive_expect_tx(full, kQf32StageBytes);
+          tma_load_2d(s_at, &x_map, full, j * kQf32Depth, row0);
+          tma_load_2d(s_at + kQf32XBytes, &hi_map, full, j * kQf32Depth, col0);
+          tma_load_2d(s_at + kQf32XBytes + kQf32WBytes, &lo_map, full, j * kQf32Depth, col0);
+        }
+      }
     }
+  } else {
+    warpgroup_registers_up<kQf32ConsumerRegisters>();
+    const int consumer = (threadIdx.x >> 7) - 1;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tig = lane & 3, mine = threadIdx.x & 127;
+    // every tile of the block, i-th in its walk; this consumer's 64 rows of it
+    int i = 0, turn = 0;  // turn: which of the consumer's two lo buffers the step takes
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++i) {
+      const int row0 = tile / tiles_n * kQf32TileRows + consumer * kTile;
+      const int col0 = tile % tiles_n * kQf32TileCols;
+      float acc[64];
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+      int pos = i * steps;  // the producer loaded the block's tiles in order, `steps` each
+      for (int j = 0; j < steps; ++j, ++pos, turn ^= 1) {
+        const int stage = pos % kQf32Stages;
+        mbarrier_wait(full0 + 8 * stage, (pos / kQf32Stages) & 1);
+        // this consumer's 64 rows of x: the raw values become the hi plane in
+        // place, the lo plane goes to a buffer of its own (the one the step
+        // before last took, whose products every warp has waited for)
+        const uint32_t x_off = stage * kQf32StageBytes + consumer * kTileBytes;
+        const uint32_t lo_off = lo0 - ring + (2 * consumer + turn) * kTileBytes;
+        float4* x_hi = reinterpret_cast<float4*>(ring_ptr + x_off);
+        float4* x_lo = reinterpret_cast<float4*>(ring_ptr + lo_off);
+#pragma unroll
+        for (int q = 0; q < kTileBytes / 16 / 128; ++q) {
+          float4 hi, lo;
+          split_tf32(x_hi[mine + 128 * q], hi, lo);
+          x_hi[mine + 128 * q] = hi;
+          x_lo[mine + 128 * q] = lo;
+        }
+        fence_proxy_async();
+        named_barrier_sync(1 + consumer, 128);  // the consumer's planes are whole
+        const uint32_t w_s = ring + stage * kQf32StageBytes + kQf32XBytes;
+        float chunk[64];
+        fence_registers(chunk);
+        wgmma_fence();
+        tf32x3_product<kQf32TileCols, kQf32Depth / 8>(chunk, ring + x_off, ring + lo_off, w_s,
+                                                      w_s + kQf32WBytes, 0, 0, false);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_registers(chunk);
+        add_chunk(acc, chunk);
+        __syncwarp();
+        if (lane == 0) mbarrier_arrive(empty0 + 8 * stage);  // the stage goes back
+      }
+      // act(acc + bias) in f32, straight from the accumulator layout: a
+      // thread's two adjacent columns as one 8-byte store where N is even
+#pragma unroll
+      for (int nt = 0; nt < kQf32TileCols / 8; ++nt) {
+        const int c = col0 + nt * 8 + 2 * tig;
+        if (c >= n) continue;
+        const bool pair = c + 1 < n;
+        const float b0 = bias ? bias[c] : 0.f, b1 = bias && pair ? bias[c + 1] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + warp * 16 + g + 8 * h;
+          if (row >= m) continue;
+          float y0 = acc[4 * nt + 2 * h], y1 = acc[4 * nt + 2 * h + 1];
+          if (bias) y0 += b0, y1 += b1;
+          y0 = activate(y0, kAct);
+          y1 = activate(y1, kAct);
+          float* dst = out + static_cast<size_t>(row) * n + c;
+          if (pair && n % 2 == 0) {
+            *reinterpret_cast<float2*>(dst) = make_float2(y0, y1);
+          } else {
+            dst[0] = y0;
+            if (pair) dst[1] = y1;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int kAct>
+cudaError_t launch_quant_matmul_tf32x3(const CUtensorMap& x_map, const CUtensorMap& hi_map,
+                                       const CUtensorMap& lo_map, const float* bias, float* out,
+                                       int m, int n, int k, cudaStream_t s) {
+  auto kernel = quant_matmul_tf32x3_kernel<kAct>;
+  static SharedMemoryGrant grant;
+  const cudaError_t err = grant(kernel, kQf32SharedBytes);
+  if (err != cudaSuccess) return err;
+  const int tiles =
+      (m + kQf32TileRows - 1) / kQf32TileRows * ((n + kQf32TileCols - 1) / kQf32TileCols);
+  const int sms = multiprocessors();
+  kernel<<<tiles < sms ? tiles : sms, kQf32Threads, kQf32SharedBytes, s>>>(
+      x_map, hi_map, lo_map, bias, out, m, n, k);
+  return cudaGetLastError();
+}
+
+// The f32 path's two launches: the weight's TF32 planes into `planes` (2, N,
+// K), then the 3xTF32 GEMM on them.
+cudaError_t quant_matmul_f32(const float* x, const QuantWeight& w, const float* bias,
+                             int activation, float* out, int m, float* planes, cudaStream_t s) {
+  if (planes == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap x_map, hi_map, lo_map;
+  const size_t plane = static_cast<size_t>(w.n) * static_cast<size_t>(w.k);
+  cudaError_t err = encode_f32_rows(&x_map, x, m, w.k, kQf32TileRows);
+  if (err == cudaSuccess) err = encode_f32_rows(&hi_map, planes, w.n, w.k, kQf32TileCols);
+  if (err == cudaSuccess) err = encode_f32_rows(&lo_map, planes + plane, w.n, w.k, kQf32TileCols);
+  if (err != cudaSuccess) return err;
+  err = launch_dequant_weight_split(w, planes, s);
+  if (err != cudaSuccess) return err;
+  switch (activation) {
+    case kGeluTanhF16:
+      return launch_quant_matmul_tf32x3<kGeluTanhF16>(x_map, hi_map, lo_map, bias, out, m, w.n,
+                                                      w.k, s);
+    case kGeluErf:
+      return launch_quant_matmul_tf32x3<kGeluErf>(x_map, hi_map, lo_map, bias, out, m, w.n, w.k,
+                                                  s);
+    case kGeluTanh:
+      return launch_quant_matmul_tf32x3<kGeluTanh>(x_map, hi_map, lo_map, bias, out, m, w.n,
+                                                   w.k, s);
+    default:
+      return launch_quant_matmul_tf32x3<kNone>(x_map, hi_map, lo_map, bias, out, m, w.n, w.k, s);
   }
 }
 
@@ -132,9 +282,9 @@ extern "C" {
 // q4_0/q5_0/q8_0), qh_lo and qh_hi (null but for packed q5), its layout
 // (packed) and zero point. bias (N,) f32 may be null; activation is 0 none,
 // 1 gelu_tanh_f16, 2 gelu_erf, 3 gelu_tanh (another code returns
-// cudaErrorInvalidValue before any launch). weight_scratch: for bf16 x an
-// (N, K) bf16 buffer the caller allocated (dequantize, then the GEMM: two
-// launches), ignored for f32 x (one launch). Requires K % 64 == 0 (packed:
+// cudaErrorInvalidValue before any launch). weight_scratch: an (N, K) bf16
+// buffer for bf16 x, a (2, N, K) f32 one for f32 x, the caller's
+// (dequantize, then the GEMM: two launches). Requires K % 64 == 0 (packed:
 // K/2 % 64 == 0), 16-byte aligned pointers, and the tensors' device current
 // on the calling thread. Returns the first launch's error, else
 // cudaGetLastError() after the last.
@@ -145,14 +295,12 @@ int dinov2_quant_matmul(const void* x, int x_f32, const void* codes, const void*
   using namespace dinov2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const QuantWeight w = quant_weight(codes, d, mins, qh_lo, qh_hi, packed, zero, n, k);
-  if (x_f32) {
-    const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-    quant_matmul_f32_kernel<<<grid, kF32Threads, 0, s>>>(
-        static_cast<const float*>(x), w, static_cast<const float*>(bias), activation,
-        static_cast<float*>(out), m);
-    return cudaGetLastError();
-  }
   if (activation < kNone || activation > kGeluTanh) return cudaErrorInvalidValue;
+  if (x_f32) {
+    return quant_matmul_f32(static_cast<const float*>(x), w, static_cast<const float*>(bias),
+                            activation, static_cast<float*>(out), m,
+                            static_cast<float*>(weight_scratch), s);
+  }
   bf16* dense = static_cast<bf16*>(weight_scratch);
   const cudaError_t err = launch_dequant_weight(w, dense, s);
   if (err != cudaSuccess) return err;

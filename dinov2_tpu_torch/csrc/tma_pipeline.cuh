@@ -1,10 +1,11 @@
 // Hopper's asynchronous copy pieces for the port's persistent,
-// warp-specialised GEMMs (K9's s8 GEMM, int8_matmul.cu): shared-memory
+// warp-specialised GEMMs (K9's s8 GEMM, int8_matmul.cu; K7's f32 3xTF32
+// GEMM, quant_matmul.cu): shared-memory
 // barriers (mbarrier) that count both arrivals and the bytes a tensor copy
 // lands, 2-D tensor copies global -> shared (cp.async.bulk.tensor, the
 // Tensor Memory Accelerator), warpgroup register reallocation (setmaxnreg),
-// and the host helper that describes a row-major int8 matrix to the copy
-// engine (a CUtensorMap).
+// and the host helper that describes a row-major int8 or f32 matrix to the
+// copy engine (a CUtensorMap).
 //
 // A ring stage is filled by one thread of a producer warp: it waits for the
 // stage's "empty" barrier (its consumers are done with the last bytes it
@@ -101,12 +102,6 @@ __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
-// the named barrier `id` (1..15; 0 is __syncthreads') over `threads`
-// threads, whole warps
-__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // A warpgroup's registers a thread, taken or given back; all four warps of
 // the warpgroup execute it, on a path that never reconverges with another
 // role's (ptxas ignores it otherwise: C7508).
@@ -145,23 +140,47 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The map of a row-major (rows, cols) int8 matrix at `data` (16-byte
-// aligned, cols % 16 == 0) read in boxes of box_rows rows x 128 bytes, with
-// the 128-byte swizzle wgmma's descriptors read (row r's 16-byte chunk c at
-// chunk c ^ (r & 7)); out-of-bounds rows and columns fill with zeros.
-inline cudaError_t encode_int8_rows(CUtensorMap* map, const void* data, int rows, int cols,
-                                    int box_rows) {
+// The map of a row-major (rows, cols) matrix of `elem_bytes`-byte elements
+// of `type` at `data` (16-byte aligned, rows of a multiple of 16 bytes),
+// read in boxes of box_rows rows x 128 bytes, with the 128-byte swizzle
+// wgmma's descriptors read (row r's 16-byte chunk c at chunk c ^ (r & 7));
+// out-of-bounds rows and columns fill with zeros.
+inline cudaError_t encode_rows(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                               const void* data, int rows, int cols, int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};  // bytes from row to row
-  const cuuint32_t box[2] = {128, static_cast<cuuint32_t>(box_rows)};
+  // bytes from row to row
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem_bytes),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t element_strides[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(data), dims,
-                              strides, box, element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUresult res = encode(map, type, 2, const_cast<void*>(data), dims, strides, box,
+                              element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a row-major (rows, cols) int8 matrix, cols % 16 == 0: boxes of 128 codes
+inline cudaError_t encode_int8_rows(CUtensorMap* map, const void* data, int rows, int cols,
+                                    int box_rows) {
+  return encode_rows(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, data, rows, cols, box_rows);
+}
+
+// a row-major (rows, cols) f32 matrix, cols % 4 == 0: boxes of 32 floats
+inline cudaError_t encode_f32_rows(CUtensorMap* map, const void* data, int rows, int cols,
+                                   int box_rows) {
+  return encode_rows(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, data, rows, cols, box_rows);
+}
+
+// the streaming multiprocessors of the current device (1 if it cannot say):
+// a persistent kernel's grid
+inline int multiprocessors() {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess) return 1;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return 1;
+  return sms;
 }
 
 }  // namespace

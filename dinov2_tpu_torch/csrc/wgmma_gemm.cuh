@@ -101,20 +101,6 @@ static_assert(kGemmStages >= 3 && kGemmBlocksPerSm >= 1, "a ring with a stage to
 static_assert(kGemmThreads / 32 * kStripBytes <= kGemmStages * kGemmStageBytes,
               "the strips fit in the ring");
 
-#define DINOV2_ACC64(d)                                                                        \
-  DINOV2_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),            \
-      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),            \
-      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),            \
-      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),            \
-      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),            \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-
-#define DINOV2_ACC64_LIST                                                                      \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "     \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, " \
-  "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
-  "%55, %56, %57, %58, %59, %60, %61, %62, %63}"
-
 // d (64 x 128 of this warpgroup) += A . B for one k16 step: A (64 x 16)
 // k-major and B (16 x 128) mn-major (kTransposeB) or k-major, both in shared
 // memory. d is float[64]: element 4*nt + j is row 16*w + g + 8*(j >> 1),

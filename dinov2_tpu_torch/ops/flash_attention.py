@@ -40,9 +40,11 @@ dtype before the products p^T dO, dS^T q and dS k, which accumulate in f32
 (the JAX kernels multiply them as f32; tensor cores take bf16 operands, as
 the forward's P.V does). In f32 nothing rounds and the plain version meets
 the JAX kernels'; K6's f32 variant (csrc/f32_backward.cuh) rounds nowhere
-either. dS carries `scale`; dQ and dK take no second one. K6 is
+either: its products are 3xTF32 on the tensor cores (csrc/tf32x3.cuh),
+f32-accurate. dS carries `scale`; dQ and dK take no second one. K6 is
 two deterministic kernels (dK/dV over query tiles, dQ over key tiles) and a
-delta prologue, no atomics: the same inputs give the same bits every run.
+delta prologue, no atomics: the same inputs give the same bits every run,
+in f32 too.
 Each wrapper counts its kernel calls in `.launches` (bf16) and
 `.f32_launches` (f32).
 """

@@ -11,8 +11,11 @@ TPU kernels `_make_kernel_sym`, `_make_kernel_affine` and
 ggml blocks: for bf16 x a kernel dequantizes the whole weight once into an
 (N, K) bf16 buffer that lives for the call (`dequant_weight_kernel` is that
 launch alone), then the wgmma GEMM of csrc/wgmma_gemm.cuh takes it with the
-bias/activation epilogue; f32 x (the classifier head) runs an f32 FMA kernel
-on f32 tiles dequantized as they are staged. The held weights stay packed.
+bias/activation epilogue; for f32 x (fc1, fc2 and the head of an f32 run) a
+kernel writes the f32 weight's two TF32 planes (hi, lo) into a (2, N, K) f32
+scratch, and a 3xTF32 wgmma GEMM (csrc/tf32x3.cuh) takes them with x split
+the same way in shared memory, f32-accurate products on the tensor cores.
+The held weights stay packed.
 On a CPU tensor it runs the plain PyTorch version, `quant_matmul_reference`.
 
 Numerics: the kernel dequantizes in `dequant_weight`'s order (code -> f32,
@@ -123,8 +126,9 @@ def quant_matmul_kernel(
     bias (N,) f32 or None -> (..., N) in x's dtype.
 
     CPU tensors run the plain version. CUDA tensors launch the K7 kernels
-    (bf16 or f32 x; anything else raises; bf16 x: the dequantize kernel into
-    an (N, K) bf16 scratch allocated here, then the GEMM) and add one to
+    (bf16 or f32 x; anything else raises; the dequantize kernel into a
+    scratch allocated here, (N, K) bf16 or (2, N, K) f32 TF32 planes, then
+    the GEMM) and add one to
     `quant_matmul_kernel.launches`. Both go through the operator
     `dinov2_tpu_torch::quant_matmul` (ops/_library.py). An input that
     requires grad raises: the quantized weights are not trainable and the
@@ -176,13 +180,14 @@ def _quant_matmul_cuda(x, codes, d, m, qh_lo, qh_hi, ggml_type, packed, bias, ac
     out = torch.empty((*lead, n), dtype=x.dtype, device=x.device)
     if m:
         f32 = x.dtype == torch.float32
-        scratch = None if f32 else torch.empty((n, k), dtype=x.dtype, device=x.device)
+        # the weight's bf16 values, or its two TF32 planes for f32 x
+        scratch = torch.empty((2, n, k) if f32 else (n, k), dtype=x.dtype, device=x.device)
         with torch.cuda.device(x.device):  # the launches go to the current device
             code = lib.dinov2_quant_matmul(
                 x.data_ptr(), int(f32), *quant_weight_args(ql),
                 None if bias is None else bias.data_ptr(), ACTIVATIONS[activation],
                 out.data_ptr(), m, n, k, torch.cuda.current_stream(x.device).cuda_stream,
-                None if scratch is None else scratch.data_ptr(),
+                scratch.data_ptr(),
             )
         check_status(lib, code, "quant_matmul_kernel")
         quant_matmul_kernel.launches += 1

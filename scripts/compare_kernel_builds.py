@@ -5,23 +5,26 @@
 DIR holds another version of dinov2_tpu_torch/csrc/ (e.g. the parent
 commit's: `git archive <commit> dinov2_tpu_torch/csrc | tar -x -C <dir>`).
 For K1, K2, K3, K4 (with and without lse), K5, K6 (dq, dk, dv), K7 (bf16
-fc1 and fc2, f32 head), K8 and K9 (the whole call, its quantize and its
+fc1 and fc2, f32 fc1, fc2 and head), K8, K6 f32 at the two training
+shapes and K9 (the whole call, its quantize and its
 GEMM alone, at chip_smoke.py's INT8_SHAPES: fc1, fc2, the head and qkv at
 T=1370), at the shapes chip_smoke.py checks them at,
 it builds both versions, runs both wrappers on the same seeded inputs, and
 times them in turns (other, this, this, other; median CUDA-event ms, and the
 host's microseconds to issue one call with the card never waited for). K4
-(with and without lse), K6 and K7's f32 head kernel must be equal bit for
-bit, and so must K9 (integer sums, the JAX package's roundings); so must
+(with and without lse) and K6 must be equal bit for bit, and so must K9
+(integer sums, the JAX package's roundings); so must
 K3's backward on its flash route, which is K4 with lse and K6
 behind autograd (four launches: where the event time is the host time, the
 host binds it). The kernels that REDESIGNED names, whose f32 sums may run in
 another order in the two versions, must be equal within TOLERANCE of the
 output's scale (bf16 outputs: an ulp of the largest values is 0.4% of
-them): against the parent of K8's wgmma redesign, K8 alone; against an
-older tree, add the kernels redesigned since (K1, K2, K3 against a tree
-before their wgmma kernels; K5 and K7's bf16 path against one before
-theirs). Exits non-zero otherwise. Needs a CUDA device and nvcc.
+them): against the parent of the 3xTF32 redesign of K7's f32 route and K6
+f32, those two; against an older tree, add the kernels redesigned since
+(K8 against a tree before its wgmma kernel; K1, K2, K3 against one before
+theirs; K5 and K7's bf16 path against one before theirs). Exits non-zero
+otherwise. The f32 cases also print each build's distance from their plain
+f32 version on the same inputs. Needs a CUDA device and nvcc.
 
 The wrappers pass K5's hidden buffer, K7's and K8's weight scratch and
 K9's GELU table as the last argument of their C entries, so an entry from
@@ -65,6 +68,7 @@ from dinov2_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_slab,
     flash_backward,
+    flash_backward_reference,
     flash_forward_lse,
 )
 from dinov2_tpu_torch.ops.fused_attention import (  # noqa: E402
@@ -82,7 +86,10 @@ from dinov2_tpu_torch.ops.int8_matmul_kernel import (  # noqa: E402
     quantize_rows_int8_kernel,
 )
 from dinov2_tpu_torch.ops.qmatmul import quantize_rows_int8  # noqa: E402
-from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel  # noqa: E402
+from dinov2_tpu_torch.ops.qmatmul_kernel import (  # noqa: E402
+    quant_matmul_kernel,
+    quant_matmul_reference,
+)
 
 LIBS = ("slab_layer_lib", "slab_attention_lib", "slab_mlp_lib", "flash_attention_lib",
         "flash_backward_lib", "quant_matmul_lib", "quant_layer_lib", "int8_matmul_lib",
@@ -95,7 +102,7 @@ INT8_SHAPES = {
     "qkv_t1370": (8 * 1370, 768, 2304, None, torch.bfloat16),
 }
 # held within tolerance; every other kernel bit for bit
-REDESIGNED = ("K8",)
+REDESIGNED = ("K7 f32", "K6 f32")
 TOLERANCE = 1e-2  # of max|other|, plus 1e-5
 
 
@@ -168,8 +175,13 @@ def mlp_args(rng, b, t, d):
     return [torch.from_numpy(a).to("cuda", dt) for a, dt in arrays]
 
 
+# f32 cases -> their plain f32 version on the same inputs (filled by cases())
+PLAIN = {}
+
+
 def cases():
-    """name -> a call of the wrapper on seeded inputs on the card."""
+    """name -> a call of the wrapper on seeded inputs on the card; the f32
+    cases' plain versions go to PLAIN."""
     rng = np.random.default_rng(0)
     b, t, d, heads = 64, 257, 768, 12
     args = half_layer_args(rng, b, t, d)
@@ -198,6 +210,8 @@ def cases():
     quant_shapes = {  # (x dtype, layer) -> (M, K, N, activation), chip_smoke.py's
         ("bf16", "fc1"): (b * t, d, 4 * d, "gelu_tanh_f16"),
         ("bf16", "fc2"): (b * t, 4 * d, d, None),
+        ("f32", "fc1"): (b * t, d, 4 * d, "gelu_tanh_f16"),
+        ("f32", "fc2"): (b * t, 4 * d, d, None),
         ("f32", "head"): (b, 2 * d, 1000, None),
     }
     for (kind, layer), (m, k, n, act) in quant_shapes.items():
@@ -208,6 +222,9 @@ def cases():
         bias = torch.from_numpy(rng.standard_normal(n) * 0.1).to("cuda", torch.float32)
         calls[f"{name} M={m} K={k} N={n} {act}"] = partial(
             quant_matmul_kernel, xq, ql, bias, act)
+        if kind == "f32":
+            PLAIN[f"{name} M={m} K={k} N={n} {act}"] = partial(
+                quant_matmul_reference, xq, ql, bias, act)
     int8_gelu_table(torch.device("cuda"))  # made by this tree's library, read by both builds
     for name, (m, k, n, act, dtype) in INT8_SHAPES.items():
         w = rng.standard_normal((n, k)).astype(np.float32) * 0.05
@@ -240,11 +257,27 @@ def cases():
         calls[f"K4 with lse flash_forward_lse {shape}"] = partial(flash_forward_lse, q, k, v, 0.125)
         out, lse = flash_forward_lse(q, k, v, 0.125)
         calls[f"K6 flash_backward {shape}"] = partial(flash_backward, q, k, v, out, lse, g, 0.125)
+        if tt in (257, 1370):  # K6 f32 at the f32 training slices' shapes
+            q32, k32, v32 = split_heads(slab.float(), hh)
+            g32 = g.float()
+            out32, lse32 = flash_forward_lse(q32, k32, v32, 0.125)
+            calls[f"K6 f32 flash_backward {shape}"] = partial(
+                flash_backward, q32, k32, v32, out32, lse32, g32, 0.125)
+            PLAIN[f"K6 f32 flash_backward {shape}"] = partial(
+                flash_backward_reference, q32, k32, v32, out32, lse32, g32, 0.125)
         if tt == 257:
             calls[f"K6 and K4 with lse as K3's backward, slab_attention_backward flash {shape}"] = (
                 partial(slab_attention_backward, slab, g.reshape(bb, tt, 64 * hh), hh, 0.125,
                         "flash"))
     return calls
+
+
+def distance(got, plain) -> str:
+    """Each output's max|got - plain| / max(1, max|plain|)."""
+    got = got if isinstance(got, tuple) else (got,)
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    return ", ".join(f"{(a - p).abs().max().item() / max(1.0, p.abs().max().item()):.3g}"
+                     for a, p in zip(got, plain))
 
 
 def compare(name: str, ours, theirs) -> tuple[bool, str]:
@@ -385,6 +418,10 @@ def main() -> int:
             torch.cuda.synchronize()
             equal, verdict = compare(name, ours, theirs)
             same &= equal
+            if name in PLAIN:
+                plain = PLAIN[name]()
+                verdict += (f"; from the plain f32 version, of max(1, max|plain|): this "
+                            f"{distance(ours, plain)}, other {distance(theirs, plain)}")
             print(
                 f"{name}: {verdict}; other build {ms_other[0]:.4f} and "
                 f"{ms_other[1]:.4f} ms, this build {ms_this[0]:.4f} and {ms_this[1]:.4f} ms; "

@@ -24,11 +24,11 @@ eight kernel sources: both flash sources, csrc/slab_layer.cu (K1: the wgmma
 GEMM kernels of csrc/wgmma_gemm.cuh and the attention kernel as the slab
 kernels instantiate it), csrc/slab_attention.cu (K3, K2), csrc/slab_mlp.cu
 (K5: the layer norm and the GEMM with the activation and with the residual
-epilogue), csrc/quant_matmul.cu (K7: the dequantize kernel, the GEMM on a
-k-major weight, the f32 kernel), csrc/quant_layer.cu (K8: the dequantize
-kernel and K1's launches with the k-major weight) and csrc/int8_matmul.cu
-(K9: the quantize and the persistent s8 GEMM with each epilogue):
-registers, spills, shared memory, the count of HGMMA and IGMMA (wgmma,
+epilogue), csrc/quant_matmul.cu (K7: the dequantize kernels, the GEMM on a
+k-major weight, the f32 route's persistent 3xTF32 GEMM), csrc/quant_layer.cu
+(K8: the dequantize kernel and K1's launches with the k-major weight) and
+csrc/int8_matmul.cu (K9: the quantize and the persistent s8 GEMM with each
+epilogue): registers, spills, shared memory, the count of HGMMA and IGMMA (wgmma,
 float and integer), HMMA (mma.sync), LDGSTS (cp.async) and UTMALDG (TMA
 load) instructions in their SASS, the registers each warpgroup role holds
 after setmaxnreg, ptxas's C751x notes, and K9's GEMM build (variant, tile,

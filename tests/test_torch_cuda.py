@@ -219,14 +219,29 @@ def _ql(fmt, n, k, seed, device, packed=True, scale=0.05):
 @pytest.mark.parametrize("fmt", QUANT_FORMATS)
 def test_quant_matmul_kernel_dequantizes_exactly(cuda, fmt, packed):
     """Through an identity input K7's output is its dequantized weight:
-    bit for bit dequant_weight's, in bf16 and in f32."""
+    bit for bit dequant_weight's in bf16. In f32 it is the weight the 3xTF32
+    GEMM multiplies, the sum of its two TF32 planes (hi = tf32(w) with
+    cvt.rna's rounding, lo = tf32(w - hi)), bit for bit: dequant_weight's
+    itself in q4_0, q5_0 and q8_0, whose values have at most 19
+    significant bits; within 2^-22 of it in q4_1 and q5_1 (+ m adds bits)."""
     from dinov2_tpu_torch.ops.qmatmul import dequant_weight
     from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_kernel
 
+    def tf32(x):
+        return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
     ql = _ql(fmt, 200, 256, seed=1, device=cuda, packed=packed, scale=0.5)
-    for dtype in (torch.bfloat16, torch.float32):
-        got = quant_matmul_kernel(torch.eye(256, dtype=dtype, device=cuda), ql)
-        assert torch.equal(got, dequant_weight(ql, dtype).T)
+    got = quant_matmul_kernel(torch.eye(256, dtype=torch.bfloat16, device=cuda), ql)
+    assert torch.equal(got, dequant_weight(ql, torch.bfloat16).T)
+    w = dequant_weight(ql, torch.float32)
+    hi = tf32(w)
+    planes = hi + tf32(w - hi)
+    got = quant_matmul_kernel(torch.eye(256, dtype=torch.float32, device=cuda), ql)
+    assert torch.equal(got, planes.T)
+    if ql.m is None:
+        assert torch.equal(planes, w)
+    else:
+        assert ((planes.double() - w.double()).abs() <= 2.0**-22 * w.double().abs()).all()
 
 
 @pytest.mark.parametrize("n, k", [(200, 256), (33, 768), (3072, 768)])

@@ -52,11 +52,11 @@ F32_FORWARD_ATOL = 1e-5
 F32_BACKWARD_ATOL = 2e-5
 
 
-def _tile(x: torch.Tensor, r0: int) -> torch.Tensor:
-    """Rows r0..r0+63 of (B, T, H, 64) x as (B, H, 64, 64) f32, rows past T
+def _tile(x: torch.Tensor, r0: int, n: int = TILE) -> torch.Tensor:
+    """Rows r0..r0+n-1 of (B, T, H, 64) x as (B, H, n, 64) f32, rows past T
     zero-filled, as the kernels' cp.async fills a shared tile."""
-    rows = x[:, r0 : r0 + TILE].permute(0, 2, 1, 3).float()
-    return torch.nn.functional.pad(rows, (0, 0, 0, TILE - rows.shape[2]))
+    rows = x[:, r0 : r0 + n].permute(0, 2, 1, 3).float()
+    return torch.nn.functional.pad(rows, (0, 0, 0, n - rows.shape[2]))
 
 
 def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -95,25 +95,33 @@ def emulate_forward(q, k, v, scale, block_rows):
     return out, lse
 
 
-def emulate_backward(q, k, v, o, lse, g, scale, block_rows):
-    """K6's loops: (dq, dk, dv); p and dS in f32, rounded to the inputs'
-    dtype for the second products."""
+def emulate_backward(q, k, v, o, lse, g, scale, block_rows, stream_rows=TILE, product=None):
+    """K6's loops: (dq, dk, dv); p and dS in f32. Blocks of block_rows keys
+    (dK/dV) or queries (dQ), a warpgroup per 64, stream tiles of
+    stream_rows queries (keys). By default the first products take the
+    inputs as they are and p and dS are rounded to the inputs' dtype for
+    the second (the bf16 kernel); `product(a, b)` instead multiplies every
+    operand pair as a kernel does (K6 f32's 3xTF32, tests/test_torch_tf32x3.py),
+    each tile's product a chunk added to the running sums."""
     b, t, heads, _ = q.shape
     dq, dk, dv = (torch.empty((b, t, heads, 64), dtype=q.dtype) for _ in range(3))
     delta = (g.float() * o.float()).sum(dim=-1).permute(0, 2, 1)  # the prologue kernel
     scale_log2 = np.float32(scale * LOG2E)
+    first = product or (lambda a, c: a @ c)
+    second = product or (lambda a, c: _rounded(a, q.dtype) @ c)
 
-    def stats(x, r0):  # (B, H, 64) rows of lse or delta, 0 past T
-        rows = x[:, :, r0 : r0 + TILE]
-        return torch.nn.functional.pad(rows, (0, TILE - rows.shape[2]))
+    def stats(x, r0, n):  # (B, H, n) rows of lse or delta, 0 past T
+        rows = x[:, :, r0 : r0 + n]
+        return torch.nn.functional.pad(rows, (0, n - rows.shape[2]))
 
-    def valid(r0):  # (64,) which rows of a tile lie below T
-        return torch.arange(r0, r0 + TILE) < t
+    def valid(r0, n=TILE):  # (n,) which rows of a tile lie below T
+        return torch.arange(r0, r0 + n) < t
 
     def store(dst, acc, r0):
         rows = min(TILE, t - r0)
         dst[:, r0 : r0 + rows] = acc[:, :, :rows].permute(0, 2, 1, 3).to(dst.dtype)
 
+    n = stream_rows
     # the dK/dV kernel: a warpgroup owns 64 keys, loops over the query tiles,
     # and works on the transposed tiles s^T = K Q^T, dP^T = V dO^T
     for block in range(0, t, block_rows):
@@ -121,33 +129,33 @@ def emulate_backward(q, k, v, o, lse, g, scale, block_rows):
             k_tile, v_tile = _tile(k, k0), _tile(v, k0)
             dk_acc = torch.zeros((b, heads, TILE, 64))
             dv_acc = torch.zeros((b, heads, TILE, 64))
-            for q0 in range(0, t, TILE):
-                q_tile, do_tile = _tile(q, q0), _tile(g, q0)
-                st = k_tile @ q_tile.transpose(-1, -2)
-                dpt = v_tile @ do_tile.transpose(-1, -2)
-                neg_lse = -stats(lse, q0) * np.float32(LOG2E)
+            for q0 in range(0, t, n):
+                q_tile, do_tile = _tile(q, q0, n), _tile(g, q0, n)
+                st = first(k_tile, q_tile.transpose(-1, -2))
+                dpt = first(v_tile, do_tile.transpose(-1, -2))
+                neg_lse = -stats(lse, q0, n) * np.float32(LOG2E)
                 pt = torch.exp2(st * scale_log2 + neg_lse[:, :, None, :])
-                pt = pt * (valid(k0)[:, None] & valid(q0)[None, :])
-                dst = pt * (dpt - stats(delta, q0)[:, :, None, :]) * scale
-                dv_acc += _rounded(pt, q.dtype) @ do_tile
-                dk_acc += _rounded(dst, q.dtype) @ q_tile
+                pt = pt * (valid(k0)[:, None] & valid(q0, n)[None, :])
+                dst = pt * (dpt - stats(delta, q0, n)[:, :, None, :]) * scale
+                dv_acc += second(pt, do_tile)
+                dk_acc += second(dst, q_tile)
             store(dk, dk_acc, k0)
             store(dv, dv_acc, k0)
     # the dQ kernel: a warpgroup owns 64 queries and loops over the key tiles
     for block in range(0, t, block_rows):
         for q0 in range(block, min(block + block_rows, t), TILE):
             q_tile, do_tile = _tile(q, q0), _tile(g, q0)
-            neg_lse = -stats(lse, q0) * np.float32(LOG2E)
-            d = stats(delta, q0)
+            neg_lse = -stats(lse, q0, TILE) * np.float32(LOG2E)
+            d = stats(delta, q0, TILE)
             dq_acc = torch.zeros((b, heads, TILE, 64))
-            for k0 in range(0, t, TILE):
-                k_tile, v_tile = _tile(k, k0), _tile(v, k0)
-                s = q_tile @ k_tile.transpose(-1, -2)
-                dp = do_tile @ v_tile.transpose(-1, -2)
+            for k0 in range(0, t, n):
+                k_tile, v_tile = _tile(k, k0, n), _tile(v, k0, n)
+                s = first(q_tile, k_tile.transpose(-1, -2))
+                dp = first(do_tile, v_tile.transpose(-1, -2))
                 p = torch.exp2(s * scale_log2 + neg_lse[..., None])
-                p = p * (valid(q0)[:, None] & valid(k0)[None, :])
+                p = p * (valid(q0)[:, None] & valid(k0, n)[None, :])
                 ds = p * (dp - d[..., None]) * scale
-                dq_acc += _rounded(ds, q.dtype) @ k_tile
+                dq_acc += second(ds, k_tile)
             store(dq, dq_acc, q0)
     return dq, dk, dv
 
