@@ -160,11 +160,13 @@ rank's kernel checks, one line a case, the pipeline cases, the checkpoint
 and the engine, the NCCL refusal), and the f32 phases (f32 kernel checks after
 K9's, each f32 kernel within 1e-5 (gradients 2e-5; K5 and K7 with
 gelu_tanh_f16 5e-4, one f16 step of the GELU) of max(1, max|y|) of its
-plain f32 version beside its bound at 67 TFLOP/s and SDPA or one f32 linear
-call, K8 f32 bit for bit K1 f32 on the dequantized weights; the f32
-classify slice; the f32 run of the feature slice; the f32
-training slice); then a check that no "auto" attention route of these paths
-fell to plain PyTorch on the card. Any failure exits
+plain f32 version beside its bound at 3xTF32's 165 TFLOP/s (FFMA's 67
+beside it) and SDPA or one f32 linear call, K5 f32 also at D = 80, K8 f32
+bit for bit K1 f32 on the dequantized weights, K1, K5 and K8 f32 launch by
+launch in order with each 3xTF32 GEMM's TFLOP/s; the f32 classify slice;
+the f32 run of the feature slice; the f32 training slice); then a check
+that no "auto" attention route of these paths fell to plain PyTorch on the
+card. Any failure exits
 non-zero. The line before the last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. With no CUDA device, or run from a directory
 that holds only this file, it exits non-zero and prints no result.
@@ -4532,10 +4534,38 @@ def _f32_check(label, kernel, plain, card, flops, moved_bytes, library=None,
 
 def _f32_linear_ms(a2, w) -> float:
     """One f32 torch.nn.functional.linear on a GEMM launch's operands (a
-    (M, K) and an (in, out) weight), TF32 off: a yardstick beside the FFMA
+    (M, K) and an (in, out) weight), TF32 off: a yardstick beside the 3xTF32
     GEMMs, which the port never calls."""
     wt = w.t().contiguous()
     return cuda_median_ms(lambda: torch.nn.functional.linear(a2, wt))
+
+
+def _f32_launch_split(what: str, run, kernels: dict, order: tuple, gemm_flops: dict, card: str,
+                      per_call: dict | None = None) -> dict:
+    """An f32 kernel's launches one by one: a check that one call of run
+    launches kernels whose names hold the words of `order` in that order,
+    then torch.profiler's device ms of each (device_ms_by_launch over ten
+    calls), each 3xTF32 GEMM's TFLOP/s of f32 products (gemm_flops: label ->
+    FLOP of a launch) beside it. Returns {"ms_<label>": ms}."""
+    got = launch_order(run, len(order))
+    require(len(got) == len(order) and all(w in n for w, n in zip(order, got)),
+            f"{what}'s launches: {got}")
+    ms = device_ms_by_launch(run, kernels, what, per_call=per_call)
+    parts = [f"{name} {value:.4f}" + (f" ({1e-9 * gemm_flops[name] / value:.1f} TFLOP/s of f32 "
+                                      f"products)" if name in gemm_flops else "")
+             for name, value in ms.items()]
+    print(f"f32 kernel check: {what} launch by launch: launches in order "
+          f"{', '.join(w.removesuffix('_kernel') for w in order)}; device ms (torch.profiler, "
+          f"10 calls): {', '.join(parts)}, sum {sum(ms.values()):.4f} ({card})")
+    return {f"ms_{name}": value for name, value in ms.items()}
+
+
+# K1 f32's and K8 f32's six launches; K8 f32 dequantizes where K1 f32 splits
+F32_HALF_LAYER_ORDER = ("f32_row_norm_kernel", "split_tf32_t_kernel", "F32Bias",
+                        "f32_attention_forward_kernel", "split_tf32_t_kernel", "F32Residual")
+F32_HALF_LAYER_KERNELS = {"f32_row_norm_kernel": "layer_norm", "split_tf32_t_kernel": "split",
+                          "F32Bias": "qkv", "f32_attention_forward_kernel": "attention",
+                          "F32Residual": "proj"}
 
 
 def phase_f32_kernel_checks(card: str) -> dict:
@@ -4579,6 +4609,11 @@ def phase_f32_kernel_checks(card: str) -> dict:
     print(f"f32 kernel check: K1's two GEMM launches beside one f32 linear call each: qkv "
           f"{found['K1']['qkv_linear_ms']:.4f} ms, proj {found['K1']['proj_linear_ms']:.4f} ms "
           f"({card})")
+    m = b * t
+    found["K1"].update(_f32_launch_split(
+        f"K1 f32 B={b} T={t} D={d}", lambda: slab_layer_block(*args, heads, scale, eps),
+        F32_HALF_LAYER_KERNELS, F32_HALF_LAYER_ORDER,
+        {"qkv": 2.0 * m * d * 3 * d, "proj": 2.0 * m * d * d}, card, per_call={"split": 2}))
 
     for b, t, heads in ((BATCH, 257, 12), (GIANT_BATCH, 257, 24)):
         rng = np.random.default_rng(SEED + heads)
@@ -4665,15 +4700,19 @@ def phase_f32_kernel_checks(card: str) -> dict:
 # carries it into the output (tests/test_torch_mlp_tiles.py's
 # F32_ATOL_F16_GELU); the share of elements past F32_TOL is printed beside it
 F32_GELU_F16_TOL = 5e-4
-F32_MLP_RAGGED = (3, 43)  # (B, T): 129 rows, one past the FFMA GEMM's 128-row tile
+F32_MLP_RAGGED = (3, 43)  # (B, T): 129 rows, one past the 3xTF32 GEMM's 128-row tile
+# K5 f32 at a width whose fc1 K is no multiple of the GEMM's 32-deep k-step:
+# its last step is half the TMA's zeros
+F32_MLP_NARROW = 80
 
 
 def phase_f32_mlp_quant_checks(card: str) -> dict:
     """K5 f32 against its plain f32 version at the fuse_mlp slice's shape
-    (B=64, T=257, D=768) and at a ragged M, for the three activations; K8
+    (B=64, T=257, D=768), at a ragged M and at D = F32_MLP_NARROW, for the
+    three activations, its five launches apart by torch.profiler; K8
     f32 at the classify shape for q4_0, q5_1 (packed) and q8_0 (int8 SoA),
     bit for bit K1 f32 on the dequantized weights and within F32_TOL of its
-    plain version; K7's f32 route (3xTF32) at the f32 q4_0 path's fc1, fc2
+    plain version, its six launches apart; K7's f32 route (3xTF32) at the f32 q4_0 path's fc1, fc2
     and head, its two launches apart by torch.profiler. Each timed beside
     its bound, its plain version and one f32 F.linear per GEMM. Returns
     {kernel: numbers} for the JSON line."""
@@ -4692,8 +4731,7 @@ def phase_f32_mlp_quant_checks(card: str) -> dict:
 
     require(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on for f32 matmuls")
     eps, found = 1e-6, {}
-    d = 768
-    for b, t in ((BATCH, 257), F32_MLP_RAGGED):
+    for b, t, d in ((BATCH, 257, 768), (*F32_MLP_RAGGED, 768), (*F32_MLP_RAGGED, F32_MLP_NARROW)):
         args = [a.float() for a in _mlp_args(b, t, d)]
         for act in ("gelu_tanh_f16", "gelu_erf", "gelu_tanh"):
             run = partial(slab_mlp_block, *args, act, eps)
@@ -4707,8 +4745,9 @@ def phase_f32_mlp_quant_checks(card: str) -> dict:
                 past = (run() - ref).abs() > F32_TOL * max(1.0, ref.abs().max().item())
                 print(f"f32 kernel check: {label}: {past.float().mean().item():.3g} of the "
                       f"elements past {F32_TOL} of max(1, max|y|) (one f16 step of g)")
-            found[b, act] = numbers
-    main = found[BATCH, "gelu_tanh_f16"]
+            found[b, d, act] = numbers
+    d = 768
+    main = found[BATCH, d, "gelu_tanh_f16"]
     x, lns, lnb, w1, b1, w2, _, _ = [a.float() for a in _mlp_args(BATCH, 257, d)]
     x2 = x.reshape(-1, d)
     h = torch.nn.functional.layer_norm(x2, (d,), lns, lnb, eps)
@@ -4716,14 +4755,25 @@ def phase_f32_mlp_quant_checks(card: str) -> dict:
     k5 = {
         **main,
         "max_abs_err": max(v["max_abs_err"] for v in found.values()),
-        **{f"{key}_{act}": found[BATCH, act][key] for act in ("gelu_erf", "gelu_tanh")
+        **{f"{key}_{act}": found[BATCH, d, act][key] for act in ("gelu_erf", "gelu_tanh")
            for key in ("ms", "plain_ms")},
-        "ms_ragged": found[F32_MLP_RAGGED[0], "gelu_tanh_f16"]["ms"],
+        "ms_ragged": found[F32_MLP_RAGGED[0], d, "gelu_tanh_f16"]["ms"],
+        f"ms_d{F32_MLP_NARROW}": found[F32_MLP_RAGGED[0], F32_MLP_NARROW, "gelu_tanh_f16"]["ms"],
         "fc1_linear_ms": _f32_linear_ms(h, w1),
         "fc2_linear_ms": _f32_linear_ms(hidden, w2),
     }
     print(f"f32 kernel check: K5 f32's two GEMM launches beside one f32 linear call each: fc1 "
           f"{k5['fc1_linear_ms']:.4f} ms, fc2 {k5['fc2_linear_ms']:.4f} ms ({card})")
+    m = BATCH * 257
+    k5.update(_f32_launch_split(
+        f"K5 f32 B={BATCH} T=257 D={d} gelu_tanh_f16",
+        partial(slab_mlp_block, *[a.float() for a in _mlp_args(BATCH, 257, d)], "gelu_tanh_f16",
+                eps),
+        {"f32_row_norm_kernel": "layer_norm", "split_tf32_t_kernel": "split", "F32Act": "fc1",
+         "F32Residual": "fc2"},
+        ("f32_row_norm_kernel", "split_tf32_t_kernel", "F32Act", "split_tf32_t_kernel",
+         "F32Residual"),
+        {"fc1": 2.0 * m * d * 4 * d, "fc2": 2.0 * m * d * 4 * d}, card, per_call={"split": 2}))
     del args, x, x2, h, hidden
 
     b, t, heads = BATCH, 257, 12
@@ -4750,11 +4800,21 @@ def phase_f32_mlp_quant_checks(card: str) -> dict:
             x2 = x.reshape(-1, d)
             quant["qkv_linear_ms"] = _f32_linear_ms(x2, dense[0])
             quant["proj_linear_ms"] = _f32_linear_ms(x2, dense[1])
+            m = b * t
+            quant["split"] = _f32_launch_split(
+                f"K8 f32 {fmt} B={b} T={t} D={d}", partial(slab_layer_block_quant, x, *rest),
+                {**{w: n for w, n in F32_HALF_LAYER_KERNELS.items() if n != "split"},
+                 "Tf32SplitRows": "dequantize"},
+                tuple(w.replace("split_tf32_t_kernel", "Tf32SplitRows")
+                      for w in F32_HALF_LAYER_ORDER),
+                {"qkv": 2.0 * m * d * 3 * d, "proj": 2.0 * m * d * d}, card,
+                per_call={"dequantize": 2})
     k8 = {
         **quant[QUANT_SLICE_FORMAT],
         "max_abs_err": max(quant[fmt]["max_abs_err"] for fmt in ("q4_0", "q5_1", "q8_0")),
         **{f"ms_{fmt}": quant[fmt]["ms"] for fmt in ("q5_1", "q8_0")},
         "qkv_linear_ms": quant["qkv_linear_ms"], "proj_linear_ms": quant["proj_linear_ms"],
+        **quant["split"],
     }
     print(f"f32 kernel check: K8 f32's two GEMM launches beside one f32 linear call each on "
           f"the decoded weights: qkv {k8['qkv_linear_ms']:.4f} ms, proj "
@@ -4783,7 +4843,7 @@ def phase_f32_mlp_quant_checks(card: str) -> dict:
         # the two launches one by one: the TF32 planes of the weight, the GEMM
         ms = device_ms_by_launch(
             partial(quant_matmul_kernel, x, ql, bias, act),
-            {"Tf32SplitRows": "dequantize", "quant_matmul_tf32x3_kernel": "gemm"}, "K7 f32")
+            {"Tf32SplitRows": "dequantize", "tf32x3_gemm_kernel": "gemm"}, "K7 f32")
         print(f"f32 kernel check: K7 f32 launch by launch, {QUANT_SLICE_FORMAT} {name} M={m} "
               f"K={k} N={n} {act}: device ms of a launch (torch.profiler, 10 calls): dequantize "
               f"to the TF32 planes {ms['dequantize']:.4f}, 3xTF32 GEMM {ms['gemm']:.4f} "
@@ -4884,7 +4944,8 @@ def _f32_against_cpu(engine, cpu_params, images, config, what: str) -> str:
 
 def phase_f32_classify(card: str, path: Path) -> dict:
     """DinoEngine(path, dtype=torch.float32, device="cuda").classify on the
-    classify slice's 64 images (T=257): K1 f32 12 times a forward; the same
+    classify slice's 64 images (T=257): K1 f32 12 times a forward (its
+    weight split and 3xTF32 GEMM named in a profiler window); the same
     weights at slab_fusion "proj" (K2 f32) and "core" (K3 f32), and with
     fuse_mlp=True (K1 f32 and K5 f32 12 each). The same file quantized to
     q4_0 through quant_mode="fused" in f32: K8 f32 12 and K7 (its 3xTF32
@@ -4929,6 +4990,11 @@ def phase_f32_classify(card: str, path: Path) -> dict:
 
     found["layer"] = run(engine, "f32 classify: ViT-B/14 f32", {"K1": layers})
     _f32_against_cpu(engine, cpu_params, images, config, "f32 classify cross-check")
+    require_kernels_in_window(
+        partial(engine.classify_probs, images),
+        {"split_tf32_t_kernel": "K1 f32's weight split to TF32 planes",
+         "tf32x3_gemm_kernel": "K1 f32's 3xTF32 GEMM"},
+        "f32 classify: ViT-B/14 f32", card)
     for level, kernel in (("proj", "K2"), ("core", "K3")):
         other = _same_weights(engine, slab_fusion=level)
         found[level] = run(other, f'f32 classify: ViT-B/14 f32 slab_fusion="{level}"',
@@ -4958,7 +5024,7 @@ def phase_f32_classify(card: str, path: Path) -> dict:
     require_kernels_in_window(
         partial(engine.classify_probs, images),
         {"Tf32SplitRows": "K7's dequantize to TF32 planes",
-         "quant_matmul_tf32x3_kernel": "K7's 3xTF32 GEMM"},
+         "tf32x3_gemm_kernel": "K7's 3xTF32 GEMM"},
         f"f32 classify: {name}", card)
     fused = _same_weights(engine, fuse_mlp=True)
     found[f"{QUANT_SLICE_FORMAT} fuse_mlp"] = run(
@@ -5065,7 +5131,8 @@ def phase_f32_train(card: str, source) -> dict:
     the recompute backward plain); the same with flash_attention=True (K4
     with lse 24, K6 12 a step); F32_FUSE_MLP_STEPS with fuse_mlp=True (K1
     f32 and K5 f32 24 each a step, K5's backward the plain recompute; the
-    flash run's 3xTF32 K6 kernels named in a profiler window);
+    default run's weight split and 3xTF32 GEMM and the flash run's 3xTF32
+    K6 kernels named in a profiler window);
     then TRAIN_LONG_STEPS default steps on 8
     preprocessed 518 px images (T=1370: the flash route). Step 1's loss and
     raw gradients against the CPU f32 step on the same images (at T=1370 one
@@ -5129,6 +5196,11 @@ def phase_f32_train(card: str, source) -> dict:
         def step():
             state[0], state[1], _ = trainer.step(state[0], state[1], images, labels)
 
+        if opts is None:
+            require_kernels_in_window(
+                step, {"split_tf32_t_kernel": "K1 f32's weight split to TF32 planes",
+                       "tf32x3_gemm_kernel": "K1 f32's 3xTF32 GEMM"},
+                f"f32 training {name}", card)
         if name == "flash_attention=True":
             require_kernels_in_window(
                 step, {"tf32x3_backward_dkv_kernel": "K6 f32's dK/dV",
@@ -5367,7 +5439,8 @@ def main() -> int:
     ]
     # the f32 variants: their own C entries in the same sources, their own
     # counts (`.f32_launches`) from the f32 paths
-    headers = "dinov2_tpu_torch/csrc/f32_gemm.cuh, dinov2_tpu_torch/csrc/f32_attention.cuh"
+    headers = ("dinov2_tpu_torch/csrc/f32_gemm.cuh, dinov2_tpu_torch/csrc/tf32x3_gemm.cuh, "
+               "dinov2_tpu_torch/csrc/f32_attention.cuh")
     defaults, flash = f32_train["make_trainer(config) defaults"], f32_train["flash_attention=True"]
     kernels += [
         {
@@ -5434,7 +5507,8 @@ def main() -> int:
             "name": "slab_mlp_block_f32",
             "route": "cuda",
             "source": "dinov2_tpu_torch/csrc/slab_mlp.cu",
-            "also_source": "dinov2_tpu_torch/csrc/f32_gemm.cuh",
+            "also_source": "dinov2_tpu_torch/csrc/f32_gemm.cuh, "
+                           "dinov2_tpu_torch/csrc/tf32x3_gemm.cuh",
             "replaces": f"{fused}:811",
             "also_replaces": f"{fused}:859",
             "launches": f32_classify["fuse_mlp"]["K5"],
@@ -5462,6 +5536,7 @@ def main() -> int:
             "route": "cuda",
             "source": "dinov2_tpu_torch/csrc/quant_matmul.cu",
             "also_source": "dinov2_tpu_torch/csrc/dequant_tile.cuh, "
+                           "dinov2_tpu_torch/csrc/tf32x3_gemm.cuh, "
                            "dinov2_tpu_torch/csrc/tf32x3.cuh, "
                            "dinov2_tpu_torch/csrc/tma_pipeline.cuh",
             "replaces": "dinov2_tpu/ops/pallas_qmatmul.py:215",

@@ -1,8 +1,8 @@
 // Reading a ggml-quantized linear weight (models/params.py::QuantLinear)
 // straight from its packed form, for K7 (quant_matmul.cu: its dequantize
-// launch, bf16 (N, K) or, for f32 x, the two TF32 planes of the f32 weight,
-// (2, N, K)) and K8 (quant_layer.cu: its two dequantize launches, bf16
-// (N, K) or, for K8 f32, f32 (K, N) transposed).
+// launch) and K8 (quant_layer.cu: its two dequantize launches): bf16 (N, K)
+// for bf16 x, or for f32 x the two TF32 planes of the f32 weight, (2, N,
+// K), the B operand of tf32x3_gemm.cuh's GEMM as it lies.
 //
 // Layouts, as the loader writes them (QuantLinear's docstring):
 //   packed (q4_0/q4_1/q5_0/q5_1): codes (N, K/2) u8 natural-order planes,
@@ -18,7 +18,7 @@
 // code to f32, times d, plus m, each rounded in f32 (explicit __fmul_rn /
 // __fadd_rn, so nvcc cannot contract them into one fused multiply-add), then
 // one cast to the GEMM's type (none for f32; the TF32 split of tf32x3.cuh
-// for K7's f32 GEMM, whose planes sum to the f32 value: exactly for q4_0,
+// for the 3xTF32 GEMM of K7 f32 and K8 f32, whose planes sum to the f32 value: exactly for q4_0,
 // q5_0 and q8_0, whose values have at most 19 significant bits, within
 // 2^-22 of it for q4_1 and q5_1). The TPU kernel's bf16 scale rounding and
 // its blocksums(x)·mᵀ correction (dinov2_tpu/ops/pallas_qmatmul.py) are MXU
@@ -26,8 +26,8 @@
 //
 // The Python wrappers ask packed weights for K/2 % 64 == 0 (every DINOv2
 // width has it) and SoA weights for K % 64 == 0: a 16-byte piece of codes
-// (dequant_weight_kernel) or 8 values (dequant8) then lie inside one plane,
-// and K is a whole number of the GEMMs' 64-deep k-steps.
+// (dequant_weight_kernel) then lies inside one plane, and K is a whole
+// number of the bf16 GEMMs' 64-deep k-steps.
 
 #pragma once
 
@@ -44,44 +44,6 @@ struct QuantWeight {
   int n, k;
   int packed;
   int zero;  // subtracted from packed codes
-
-  // Elements k0..k0+7 (k0 % 8 == 0) of row `row`, dequantized to f32.
-  __device__ __forceinline__ void dequant8(int row, int k0, float (&v)[8]) const {
-    const size_t blk = static_cast<size_t>(row) * (k >> 5) + (k0 >> 5);
-    const float scale = __ldg(d + blk);
-    int q[8];
-    if (packed) {
-      const int half = k >> 1;
-      const bool high = k0 >= half;
-      const int j0 = high ? k0 - half : k0;
-      const uint2 bytes =
-          __ldg(reinterpret_cast<const uint2*>(codes + static_cast<size_t>(row) * half + j0));
-      uint32_t bits = 0;
-      if (qh_lo) {
-        bits = __ldg((high ? qh_hi : qh_lo) + static_cast<size_t>(row) * (half >> 3) + (j0 >> 3));
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const uint32_t byte = ((i < 4 ? bytes.x : bytes.y) >> (8 * (i & 3))) & 0xFFu;
-        const uint32_t nibble = high ? byte >> 4 : byte & 0xFu;
-        q[i] = static_cast<int>(nibble | (((bits >> i) & 1u) << 4)) - zero;
-      }
-    } else {
-      const uint2 bytes =
-          __ldg(reinterpret_cast<const uint2*>(codes + static_cast<size_t>(row) * k + k0));
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        q[i] = static_cast<int8_t>(((i < 4 ? bytes.x : bytes.y) >> (8 * (i & 3))) & 0xFFu);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = __fmul_rn(static_cast<float>(q[i]), scale);
-    if (m) {
-      const float mn = __ldg(m + blk);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = __fadd_rn(v[i], mn);
-    }
-  }
 };
 
 // A QuantWeight from a C entry point's arguments, as the Python wrappers pass
@@ -103,8 +65,8 @@ namespace {
 constexpr int kDequantThreads = 256;
 
 // The value of code q times scale, plus mn where the format has m (mins
-// not null), rounded in f32 without fused multiply-add: QuantWeight::
-// dequant8's arithmetic.
+// not null), rounded in f32 without fused multiply-add: dequant_weight's
+// arithmetic.
 __device__ __forceinline__ float dequant_value(int q, float scale, const float* mins, float mn) {
   const float v = __fmul_rn(static_cast<float>(q), scale);
   return mins ? __fadd_rn(v, mn) : v;
@@ -129,7 +91,7 @@ struct Bf16Rows {
 
 // ... or the two TF32 planes of the f32 values, (2, N, K): hi = tf32(v) at
 // plane 0, lo = tf32(v - hi) at plane 1 (`plane` floats on), the B operand
-// of K7's 3xTF32 GEMM as it lies.
+// of the 3xTF32 GEMM (K7 f32, K8 f32) as it lies.
 struct Tf32SplitRows {
   float* out;
   size_t plane;
@@ -211,40 +173,6 @@ cudaError_t launch_dequant_weight(const QuantWeight& w, bf16* out, cudaStream_t 
 cudaError_t launch_dequant_weight_split(const QuantWeight& w, float* planes, cudaStream_t s) {
   return launch_dequant_rows(
       w, Tf32SplitRows{planes, static_cast<size_t>(w.n) * static_cast<size_t>(w.k)}, s);
-}
-
-constexpr int kDequantTRows = 32;   // weight rows (output columns) a block transposes
-constexpr int kDequantTDepth = 64;  // k a block transposes
-
-// W^T (K, N) f32 = dequant(W)^T, the (in, out) layout f32_gemm.cuh reads,
-// bit for bit dequant_weight(W, f32).T: a block turns a 32-row x 64-deep
-// piece of W into f32 (a thread 8 values of one row, QuantWeight::dequant8,
-// no cast), through shared memory, and writes it as 64 rows of 32 floats
-// of W^T, a warp 128 contiguous bytes a row. Rows past N are neither read
-// nor written; K % 64 == 0 (the wrappers' condition).
-__global__ void __launch_bounds__(kDequantThreads)
-    dequant_weight_t_f32_kernel(QuantWeight w, float* __restrict__ out) {
-  __shared__ float tile[kDequantTDepth][kDequantTRows + 1];
-  const int n0 = blockIdx.y * kDequantTRows, k0 = blockIdx.x * kDequantTDepth;
-  const int r = threadIdx.x >> 3, piece = (threadIdx.x & 7) * 8;
-  float v[8];
-  if (n0 + r < w.n) {
-    w.dequant8(n0 + r, k0 + piece, v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) tile[piece + i][r] = v[i];
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  if (n0 + lane >= w.n) return;
-  for (int kk = threadIdx.x >> 5; kk < kDequantTDepth; kk += kDequantThreads / 32) {
-    out[static_cast<size_t>(k0 + kk) * w.n + n0 + lane] = tile[kk][lane];
-  }
-}
-
-cudaError_t launch_dequant_weight_t_f32(const QuantWeight& w, float* out, cudaStream_t s) {
-  const dim3 grid(w.k / kDequantTDepth, (w.n + kDequantTRows - 1) / kDequantTRows);
-  dequant_weight_t_f32_kernel<<<grid, kDequantThreads, 0, s>>>(w, out);
-  return cudaGetLastError();
 }
 
 }  // namespace

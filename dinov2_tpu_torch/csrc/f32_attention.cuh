@@ -15,8 +15,9 @@
 // attention core of dinov2_tpu/ops/fused_attention.py (_slab_kernel,
 // _head_softmax_pv), which are generic in dtype: f32 scores, an f32 softmax
 // on the exact row max, and P kept in f32 for P.V (p.astype(v.dtype) is a
-// no-op). The products must be full f32 (f32_gemm.cuh's note), so they run
-// as FFMA on the CUDA cores.
+// no-op). The products must be f32-accurate (f32_gemm.cuh's note); here
+// they run as FFMA on the CUDA cores (3xTF32 on the tensor cores, as the
+// f32 GEMM and K6 f32 run, is later work: ROADMAP.md).
 //
 // What bounds it on an H100: 4*B*H*T^2*64 FLOP (61.5 GFLOP at B=8, T=1370,
 // H=16: 0.92 ms at 67 TFLOP/s f32 against 0.05 ms for the 180 MB of

@@ -20,11 +20,17 @@
 // QuantLinear, as the k-major operand. Both add the same k16 products into
 // f32 in the same order.
 //
-// launch_f32_half_layer is the same four launches on f32 activations and
-// f32 (in, out) weights, shared by K1 f32 (dense weights) and K8 f32 (its
-// weights dequantized transposed into that layout first): f32_gemm.cuh's
-// layer norm and FFMA GEMM with F32Bias and F32Residual, and
-// f32_attention.cuh's tile loop on the slab's head views.
+// launch_f32_half_layer is the same on f32 activations, shared by K1 f32
+// (dense (in, out) weights) and K8 f32 (quantized ones), with the weights'
+// TF32 planes written into one scratch just before each GEMM reads them
+// (six launches): LN1 (f32_gemm.cuh's layer norm), qkv's planes, the QKV
+// GEMM with F32Bias, f32_attention.cuh's tile loop on the slab's head
+// views, proj's planes over qkv's, the proj GEMM with F32Residual, both
+// GEMMs tf32x3_gemm.cuh's 3xTF32 core. K1 f32 splits and transposes its
+// dense weights into the planes (split_tf32_t_kernel), K8 f32 dequantizes
+// straight into them (dequant_tile.cuh's Tf32SplitRows); the planes are
+// the same f32 values split the same way, so on dequant_weight(W, f32).T
+// K1 f32 gives K8 f32's output bit for bit.
 
 #pragma once
 
@@ -70,24 +76,48 @@ cudaError_t launch_half_layer(const bf16* x, const float* ln_scale, const float*
                                           ResidualEpilogue{b_proj, ls1, x, out, d}, m, d, d, s);
 }
 
-// The four f32 launches on s: x, out (B, T, D), w_qkv (D, 3D) and w_proj
-// (D, D) f32 (in, out); qkv (B, T, 3D) and attn (B, T, D) f32 scratch the
-// caller allocated (attn holds LN1's rows until the attention launch).
-// D % 16 == 0. Returns the first launch error.
-inline cudaError_t launch_f32_half_layer(const float* x, const float* ln_scale,
-                                         const float* ln_bias, const float* w_qkv,
-                                         const float* b_qkv, const float* w_proj,
-                                         const float* b_proj, const float* ls1, float* qkv,
-                                         float* attn, float* out, int b, int t, int d, int heads,
-                                         float scale, float eps, cudaStream_t s) {
+// A dense f32 half-layer's weights, w_qkv (D, 3D) and w_proj (D, D) stored
+// (in, out): each split and transposed into the planes (2, N, D).
+struct DenseF32Weights {
+  const float* w_qkv;
+  const float* w_proj;
+  int d;
+
+  cudaError_t qkv(float* planes, cudaStream_t s) const {
+    return launch_split_tf32_t(w_qkv, planes, d, 3 * d, s);
+  }
+  cudaError_t proj(float* planes, cudaStream_t s) const {
+    return launch_split_tf32_t(w_proj, planes, d, d, s);
+  }
+};
+
+// The six f32 launches on s: x, out (B, T, D) f32; weights.qkv and
+// weights.proj write the (2, 3D, D) and (2, D, D) TF32 planes of the two
+// weights into `planes` (6 D^2 floats, proj's over qkv's once the QKV GEMM
+// has read them); qkv (B, T, 3D) and attn (B, T, D) f32 scratch the caller
+// allocated (attn holds LN1's rows until the attention launch). D % 4 == 0.
+// Encodes both GEMMs' tensor maps first; returns the first error.
+template <class Weights>
+cudaError_t launch_f32_half_layer(const float* x, const float* ln_scale, const float* ln_bias,
+                                  const Weights& weights, const float* b_qkv,
+                                  const float* b_proj, const float* ls1, float* planes,
+                                  float* qkv, float* attn, float* out, int b, int t, int d,
+                                  int heads, float scale, float eps, cudaStream_t s) {
   const int m = b * t;
-  cudaError_t err = launch_f32_layer_norm_rows(x, ln_scale, ln_bias, attn, m, d, eps, s);
+  Tf32x3Maps qkv_maps, proj_maps;  // both GEMMs read attn: LN1's rows, then the attention
+  cudaError_t err = encode_tf32x3_maps(&qkv_maps, attn, planes, m, 3 * d, d);
+  if (err == cudaSuccess) err = encode_tf32x3_maps(&proj_maps, attn, planes, m, d, d);
+  if (err == cudaSuccess) {
+    err = launch_f32_layer_norm_rows(x, ln_scale, ln_bias, attn, m, d, eps, s);
+  }
+  if (err == cudaSuccess) err = weights.qkv(planes, s);
+  if (err == cudaSuccess) {
+    err = launch_tf32x3_gemm(qkv_maps, F32Bias{b_qkv, qkv, 3 * d}, m, 3 * d, d, s);
+  }
+  if (err == cudaSuccess) err = launch_f32_slab_attention(qkv, attn, b, t, d, heads, scale, s);
+  if (err == cudaSuccess) err = weights.proj(planes, s);
   if (err != cudaSuccess) return err;
-  err = launch_f32_gemm(attn, w_qkv, F32Bias{b_qkv, qkv, 3 * d}, m, 3 * d, d, s);
-  if (err != cudaSuccess) return err;
-  err = launch_f32_slab_attention(qkv, attn, b, t, d, heads, scale, s);
-  if (err != cudaSuccess) return err;
-  return launch_f32_gemm(attn, w_proj, F32Residual{b_proj, ls1, x, out, d}, m, d, d, s);
+  return launch_tf32x3_gemm(proj_maps, F32Residual{b_proj, ls1, x, out, d}, m, d, d, s);
 }
 
 }  // namespace

@@ -32,20 +32,39 @@
 //
 // The f32 entry (dinov2_quant_layer_f32) is the same on f32 activations,
 // with the JAX kernel's f32 numerics (its VMEM scratch is of x's dtype,
-// fused_quant_attention.py:139-168, so the weights stay f32):
-//   1, 2. dequant_weight_t_f32_kernel (dequant_tile.cuh): qkv into a (D, 3D)
-//      f32 scratch, then proj into a (D, D) f32 one after it, each written
-//      transposed, (in, out): code -> f32, * d, + m, no cast, bit for bit
-//      dequant_weight(W, f32).T;
-//   3-6. K1 f32's four launches (half_layer.cuh::launch_f32_half_layer) on
-//      them, unchanged.
-// So K8 f32 is bit for bit the "dequant" route (models/vit.py: the layer's
-// weights dequantized by plain ops, then K1 f32). At the main path's shape
-// K1 f32's ~91 GFLOP bind it: 1.35 ms at 67 TFLOP/s f32 outside the tensor
-// cores; the scratch is 9.4 MB, written once and read from L2.
+// fused_quant_attention.py:139-168, so the weights stay f32): K1 f32's six
+// launches (half_layer.cuh::launch_f32_half_layer) with each weight's
+// planes written by dequant_weight_kernel<Tf32SplitRows> (K7 f32's
+// dequantize launch): code -> f32, * d, + m, no cast, then the TF32 split,
+// hi and lo (2, N, D), the K-major layout the 3xTF32 GEMM reads and the
+// QuantLinear's own (no transpose). qkv's planes go into the scratch, the
+// QKV GEMM reads them, then proj's overwrite them. K1 f32 splits
+// dequant_weight(W, f32).T into the same planes, so K8 f32 is bit for bit
+// the "dequant" route (models/vit.py: the layer's weights dequantized by
+// plain ops, then K1 f32). At the main path's shape K1 f32's ~91 GFLOP bind
+// it: 0.55 ms at 3xTF32's 165 TFLOP/s; the scratch is 14.2 MB, written and
+// read from L2.
 
 #include "dequant_tile.cuh"
 #include "half_layer.cuh"
+
+namespace dinov2 {
+namespace {
+
+// K8 f32's weights: each dequantized straight into its TF32 planes.
+struct QuantF32Weights {
+  QuantWeight qkv_w, proj_w;
+
+  cudaError_t qkv(float* planes, cudaStream_t s) const {
+    return launch_dequant_weight_split(qkv_w, planes, s);
+  }
+  cudaError_t proj(float* planes, cudaStream_t s) const {
+    return launch_dequant_weight_split(proj_w, planes, s);
+  }
+};
+
+}  // namespace
+}  // namespace dinov2
 
 extern "C" {
 
@@ -89,8 +108,8 @@ int dinov2_quant_layer_bf16(const void* x, const void* ln_scale, const void* ln_
 }
 
 // The same half-layer in f32: x, out, the scratch buffers f32, the weights
-// and the rest as above; weight_scratch holds 4 D^2 floats, qkv's (D, 3D)
-// then proj's (D, D), each (in, out). Same requirements.
+// and the rest as above; weight_scratch holds 6 D^2 floats, the TF32
+// planes of one weight at a time. Same requirements.
 int dinov2_quant_layer_f32(const void* x, const void* ln_scale, const void* ln_bias,
                            const void* qkv_codes, const void* qkv_d, const void* qkv_m,
                            const void* qkv_qh_lo, const void* qkv_qh_hi, int qkv_packed,
@@ -101,23 +120,17 @@ int dinov2_quant_layer_f32(const void* x, const void* ln_scale, const void* ln_b
                            void* attn_scratch, void* out, int b, int t, int d, int heads,
                            float scale, float eps, void* stream, void* weight_scratch) {
   using namespace dinov2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* w_qkv = static_cast<float*>(weight_scratch);
-  float* w_proj = w_qkv + 3LL * d * d;
-  cudaError_t err = launch_dequant_weight_t_f32(
+  const QuantF32Weights weights{
       quant_weight(qkv_codes, qkv_d, qkv_m, qkv_qh_lo, qkv_qh_hi, qkv_packed, qkv_zero, 3 * d, d),
-      w_qkv, s);
-  if (err != cudaSuccess) return err;
-  err = launch_dequant_weight_t_f32(quant_weight(proj_codes, proj_d, proj_m, proj_qh_lo,
-                                                 proj_qh_hi, proj_packed, proj_zero, d, d),
-                                    w_proj, s);
-  if (err != cudaSuccess) return err;
+      quant_weight(proj_codes, proj_d, proj_m, proj_qh_lo, proj_qh_hi, proj_packed, proj_zero, d,
+                   d)};
   return launch_f32_half_layer(
       static_cast<const float*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), w_qkv, static_cast<const float*>(b_qkv), w_proj,
+      static_cast<const float*>(ln_bias), weights, static_cast<const float*>(b_qkv),
       static_cast<const float*>(b_proj), static_cast<const float*>(ls1),
-      static_cast<float*>(qkv_scratch), static_cast<float*>(attn_scratch),
-      static_cast<float*>(out), b, t, d, heads, scale, eps, s);
+      static_cast<float*>(weight_scratch), static_cast<float*>(qkv_scratch),
+      static_cast<float*>(attn_scratch), static_cast<float*>(out), b, t, d, heads, scale, eps,
+      static_cast<cudaStream_t>(stream));
 }
 
 const char* dinov2_cuda_error_string(int code) {

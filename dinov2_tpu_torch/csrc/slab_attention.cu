@@ -45,11 +45,15 @@
 // the tensor cores (flash_attention.cu's note), so K3 does not come near its
 // bound of bytes.
 //
-// The f32 entries run the same launches on f32 activations and weights
-// (f32_attention.cuh's tile loop, f32_gemm.cuh's FFMA GEMM with the residual
-// epilogue), with the JAX package's f32 numerics. At ViT-g/14's shape K3 in
-// f32 is 6.5 GFLOP over 101 MB: 0.10 ms at 67 TFLOP/s f32 outside the
-// tensor cores against 0.03 ms for the bytes; operations bind it, and K2.
+// The f32 entries run the same launches on f32 activations and weights,
+// with the JAX package's f32 numerics: K3 f32 is f32_attention.cuh's tile
+// loop; K2 f32 adds the TF32 planes of w_proj, split and transposed into a
+// scratch the caller allocated, and the proj GEMM on tf32x3_gemm.cuh's
+// 3xTF32 core with the residual epilogue, K1 f32's last two launches. At
+// ViT-g/14's shape K3 in f32 is 6.5 GFLOP over 101 MB: 0.04 ms at 3xTF32's
+// 165 TFLOP/s against 0.03 ms for the bytes (its loop runs on FFMA, at 67
+// TFLOP/s 0.10 ms); K2 adds 19.4 GFLOP of proj, 0.12 ms: operations bind
+// it.
 //
 // Every entry point returns cudaGetLastError() after its launches.
 
@@ -97,21 +101,22 @@ int dinov2_slab_attention_f32(const void* qkv, void* out, int b, int t, int d, i
                                            static_cast<cudaStream_t>(stream));
 }
 
-// K2 in f32: x, qkv, w_proj, attn_scratch and out f32; D % 16 == 0.
+// K2 in f32: x, qkv, w_proj, attn_scratch and out f32; weight_scratch holds
+// 2 D^2 floats (w_proj's TF32 planes). Three launches; same requirements.
 int dinov2_slab_attention_block_f32(const void* x, const void* qkv, const void* w_proj,
                                     const void* b_proj, const void* ls1, void* attn_scratch,
                                     void* out, int b, int t, int d, int heads, float scale,
-                                    void* stream) {
+                                    void* stream, void* weight_scratch) {
   using namespace dinov2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* attn = static_cast<float*>(attn_scratch);
   const cudaError_t err =
       launch_f32_slab_attention(static_cast<const float*>(qkv), attn, b, t, d, heads, scale, s);
   if (err != cudaSuccess) return err;
-  return launch_f32_gemm(
-      attn, static_cast<const float*>(w_proj),
+  return launch_f32_linear(
+      attn, static_cast<const float*>(w_proj), static_cast<float*>(weight_scratch),
       F32Residual{static_cast<const float*>(b_proj), static_cast<const float*>(ls1),
-                          static_cast<const float*>(x), static_cast<float*>(out), d},
+                  static_cast<const float*>(x), static_cast<float*>(out), d},
       b * t, d, d, s);
 }
 

@@ -42,13 +42,16 @@
 // f32 scores inside the exponent (flash_attention.cu's note); the log2(e)
 // fold into bf16 q that the TPU kernel makes is not copied.
 //
-// The f32 entry (dinov2_slab_layer_f32) runs the same four launches on f32
+// The f32 entry (dinov2_slab_layer_f32) runs the same half-layer on f32
 // activations and f32 weights, with the JAX package's f32 numerics (every
 // cast to the compute dtype a no-op): half_layer.cuh's
-// launch_f32_half_layer, which K8 f32 runs too, on f32_gemm.cuh's layer
-// norm and FFMA GEMM with the bias and residual epilogues and
-// f32_attention.cuh's tile loop on the slab's head views. At the main path's shape its ~91 GFLOP are
-// 1.36 ms at 67 TFLOP/s f32 outside the tensor cores: operations bind it.
+// launch_f32_half_layer, which K8 f32 runs too, in six launches: LN1, the
+// TF32 planes of w_qkv (split and transposed into a scratch the caller
+// allocated), the QKV GEMM with the bias epilogue, f32_attention.cuh's
+// tile loop on the slab's head views, the planes of w_proj, the proj GEMM
+// with the residual epilogue; both GEMMs on tf32x3_gemm.cuh's 3xTF32 core,
+// f32-accurate products on the tensor cores. At the main path's shape its
+// ~91 GFLOP are 0.55 ms at 3xTF32's 165 TFLOP/s: operations bind it.
 //
 // Every entry point returns the first launch's error, else
 // cudaGetLastError() after the last.
@@ -78,17 +81,20 @@ int dinov2_slab_layer_bf16(const void* x, const void* ln_scale, const void* ln_b
 }
 
 // The same half-layer in f32: x, w_qkv, w_proj, the scratch buffers and out
-// f32, the rest as above; D % 16 == 0.
+// f32, the rest as above; weight_scratch holds 6 D^2 floats, the TF32
+// planes of one weight at a time. D % 64 == 0 (head_dim 64).
 int dinov2_slab_layer_f32(const void* x, const void* ln_scale, const void* ln_bias,
                           const void* w_qkv, const void* b_qkv, const void* w_proj,
                           const void* b_proj, const void* ls1, void* qkv_scratch,
                           void* attn_scratch, void* out, int b, int t, int d, int heads,
-                          float scale, float eps, void* stream) {
-  return dinov2::launch_f32_half_layer(
+                          float scale, float eps, void* stream, void* weight_scratch) {
+  using namespace dinov2;
+  return launch_f32_half_layer(
       static_cast<const float*>(x), static_cast<const float*>(ln_scale),
-      static_cast<const float*>(ln_bias), static_cast<const float*>(w_qkv),
-      static_cast<const float*>(b_qkv), static_cast<const float*>(w_proj),
-      static_cast<const float*>(b_proj), static_cast<const float*>(ls1),
+      static_cast<const float*>(ln_bias),
+      DenseF32Weights{static_cast<const float*>(w_qkv), static_cast<const float*>(w_proj), d},
+      static_cast<const float*>(b_qkv), static_cast<const float*>(b_proj),
+      static_cast<const float*>(ls1), static_cast<float*>(weight_scratch),
       static_cast<float*>(qkv_scratch), static_cast<float*>(attn_scratch),
       static_cast<float*>(out), b, t, d, heads, scale, eps, static_cast<cudaStream_t>(stream));
 }

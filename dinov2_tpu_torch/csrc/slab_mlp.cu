@@ -41,15 +41,18 @@
 // rounded to bf16 (gelu_tanh_f16 through f16 on both sides, activation.cuh,
 // shared with K7); fc2 accumulated in f32 over all of DH.
 //
-// The f32 entry (dinov2_slab_mlp_f32) runs the same three launches on f32
+// The f32 entry (dinov2_slab_mlp_f32) runs the same half-layer on f32
 // activations and f32 (in, out) weights, with the JAX package's f32
 // numerics (every cast to the compute dtype a no-op; fused_attention.py:
-// 870-883): f32_gemm.cuh's layer norm into `out`, its FFMA GEMM with F32Act
-// (act(acc + b1), the activation on the f32 sum) into an (M, DH) f32 hidden
-// buffer, and with F32Residual (x + (acc + b2) * ls2, each step rounded
-// once). At the main path's shape its 155 GFLOP are 2.32 ms at 67 TFLOP/s
-// f32 outside the tensor cores: operations bind it; the f32 hidden buffer
-// (202 MB, written once and read once) is ~0.12 ms of HBM time.
+// 870-883), in five launches: f32_gemm.cuh's layer norm into `out`; the
+// TF32 planes of w1, split and transposed into a scratch the caller
+// allocated; fc1 on tf32x3_gemm.cuh's 3xTF32 core with F32Act (act(acc +
+// b1), the activation on the f32 sum) into an (M, DH) f32 hidden buffer;
+// w2's planes over w1's; fc2 with F32Residual (x + (acc + b2) * ls2, each
+// step rounded once). At the main path's shape its 155 GFLOP are 0.94 ms at
+// 3xTF32's 165 TFLOP/s: operations bind it; the f32 hidden buffer (202 MB,
+// written once and read once) is ~0.12 ms of HBM time, the planes (18.9
+// MB each) ~6 us.
 //
 // Each entry point returns the first launch's error, else
 // cudaGetLastError() after the last.
@@ -105,14 +108,15 @@ int dinov2_slab_mlp_bf16(const void* x, const void* ln_scale, const void* ln_bia
 }
 
 // The same half-layer in f32: x, w1, w2, out and hidden_scratch f32, the
-// rest as above. Requires D % 16 == 0 (any width), DH == 4 * D and one of
-// the three activations (anything else returns cudaErrorInvalidValue
+// rest as above; weight_scratch holds 2 D DH floats, the TF32 planes of one
+// weight at a time. Requires D % 16 == 0 (any width), DH == 4 * D and one
+// of the three activations (anything else returns cudaErrorInvalidValue
 // before any launch), 16-byte aligned pointers, and the tensors' device
 // current on the calling thread.
 int dinov2_slab_mlp_f32(const void* x, const void* ln_scale, const void* ln_bias,
                         const void* w1, const void* b1, const void* w2, const void* b2,
                         const void* ls2, void* out, int m, int d, int dh, int activation,
-                        float eps, void* stream, void* hidden_scratch) {
+                        float eps, void* stream, void* hidden_scratch, void* weight_scratch) {
   using namespace dinov2;
   if (dh != 4 * d || m <= 0 || d <= 0 || d % 16 || activation < kGeluTanhF16 ||
       activation > kGeluTanh) {
@@ -123,8 +127,9 @@ int dinov2_slab_mlp_f32(const void* x, const void* ln_scale, const void* ln_bias
   const float* b1_ = static_cast<const float*>(b1);
   float* out_ = static_cast<float*>(out);
   float* hidden = static_cast<float*>(hidden_scratch);
+  float* planes = static_cast<float*>(weight_scratch);
   auto fc1 = [&](auto ep) {
-    return launch_f32_gemm(out_, static_cast<const float*>(w1), ep, m, dh, d, s);
+    return launch_f32_linear(out_, static_cast<const float*>(w1), planes, ep, m, dh, d, s);
   };
 
   cudaError_t err = launch_f32_layer_norm_rows(x_, static_cast<const float*>(ln_scale),
@@ -142,8 +147,8 @@ int dinov2_slab_mlp_f32(const void* x, const void* ln_scale, const void* ln_bias
       err = fc1(F32Act<kGeluTanh>{b1_, hidden, dh});
   }
   if (err != cudaSuccess) return err;
-  return launch_f32_gemm(
-      hidden, static_cast<const float*>(w2),
+  return launch_f32_linear(
+      hidden, static_cast<const float*>(w2), planes,
       F32Residual{static_cast<const float*>(b2), static_cast<const float*>(ls2), x_, out_, d}, m,
       d, dh, s);
 }

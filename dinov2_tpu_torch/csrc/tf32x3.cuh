@@ -1,6 +1,6 @@
 // 3xTF32 on Hopper's tensor cores: f32-accurate products for the f32
-// kernels that are redesigned off the CUDA cores (K7's f32 GEMM,
-// quant_matmul.cu; K6 f32, f32_backward.cuh).
+// kernels that are redesigned off the CUDA cores (the f32 GEMM of K1, K2,
+// K5, K7 and K8, tf32x3_gemm.cuh; K6 f32, f32_backward.cuh).
 //
 // An f32 operand a is split once, where it is staged, into two TF32 values,
 //
@@ -26,7 +26,7 @@
 // products of every k8 step come first and the large ones after them, so
 // the small terms are summed while the accumulator is still small and only
 // the chunk's k8 steps of large terms meet the truncation at full size. On
-// an H100 this keeps K7's f32 GEMM (32-deep chunks) and K6 f32 inside the
+// an H100 this keeps the f32 GEMM (32-deep chunks) and K6 f32 inside the
 // port's f32 bounds (1e-5, gradients 2e-5, of max(1, max|y|)), if further
 // from an f32 FFMA sum than FFMA itself (PERF.md).
 //

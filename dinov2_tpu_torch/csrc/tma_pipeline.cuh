@@ -1,6 +1,6 @@
 // Hopper's asynchronous copy pieces for the port's persistent,
-// warp-specialised GEMMs (K9's s8 GEMM, int8_matmul.cu; K7's f32 3xTF32
-// GEMM, quant_matmul.cu): shared-memory
+// warp-specialised GEMMs (K9's s8 GEMM, int8_matmul.cu; the f32 kernels'
+// 3xTF32 GEMM, tf32x3_gemm.cuh): shared-memory
 // barriers (mbarrier) that count both arrivals and the bytes a tensor copy
 // lands, 2-D tensor copies global -> shared (cp.async.bulk.tensor, the
 // Tensor Memory Accelerator), warpgroup register reallocation (setmaxnreg),

@@ -140,18 +140,27 @@ def flash_backward_lib() -> ctypes.CDLL:
     return lib
 
 
+# bf16 entries whose f32 namesake takes one more pointer at the end: the
+# scratch for the TF32 planes of its dense weights (csrc/tf32x3_gemm.cuh)
+F32_WEIGHT_SCRATCH = {"dinov2_slab_layer_bf16", "dinov2_slab_attention_block_bf16",
+                      "dinov2_slab_mlp_bf16"}
+
+
 def entry(lib: ctypes.CDLL, bf16_name: str, f32: bool):
     """The C entry `bf16_name` of lib, or with `f32` its f32 namesake (K1,
     K2, K3, K4 with and without lse, K5, K6, K8: the same arguments, f32
-    tensors where the bf16 entry takes bf16), bound here at first use
+    tensors where the bf16 entry takes bf16, and for the entries in
+    F32_WEIGHT_SCRATCH a weight scratch last), bound here at first use
     rather than in the library loader, so that a library built from sources
-    without the f32 entries still loads (scripts/compare_kernel_builds.py)."""
+    without the f32 entries still loads (scripts/compare_kernel_builds.py;
+    an older f32 entry without the trailing scratch ignores it)."""
     fn = getattr(lib, bf16_name)
     if not f32:
         return fn
     f32_fn = getattr(lib, bf16_name.replace("_bf16", "_f32"))
     if f32_fn.argtypes is None:
-        f32_fn.argtypes, f32_fn.restype = fn.argtypes, fn.restype
+        extra = [ctypes.c_void_p] if bf16_name in F32_WEIGHT_SCRATCH else []
+        f32_fn.argtypes, f32_fn.restype = fn.argtypes + extra, fn.restype
     return f32_fn
 
 

@@ -11,10 +11,11 @@ csrc/slab_attention.cu for K2 and K3, csrc/slab_mlp.cu), which replace the
 Pallas TPU kernels `_slab_layer_kernel`, `_slab_proj_kernel`, `_slab_kernel`
 and `_slab_mlp_kernel`/`_slab_mlp_flat_kernel` of
 `dinov2_tpu/ops/fused_attention.py`. Each takes bf16 and f32 activations
-(f32: the f32 entries of the same sources, csrc/f32_gemm.cuh and
-csrc/f32_attention.cuh, full f32 products on the CUDA cores); anything
-else raises. On a CPU tensor each runs its plain PyTorch version
-(`slab_layer_reference`,
+(f32: the f32 entries of the same sources, f32-accurate products: the
+GEMMs 3xTF32 on the tensor cores, csrc/tf32x3_gemm.cuh, on the weights'
+TF32 planes split into a scratch each call, the attention loop FFMA on the
+CUDA cores, csrc/f32_attention.cuh); anything else raises. On a CPU tensor
+each runs its plain PyTorch version (`slab_layer_reference`,
 `_slab_block_reference`, `_slab_reference`, `slab_mlp_reference`), which
 keeps the JAX package's unfused ordering. Every wrapper counts its calls
 that launch kernels in `.launches` for bf16 and `.f32_launches` for f32
@@ -34,10 +35,10 @@ bias/LayerScale/residual epilogue on a pipelined wgmma GEMM core
 slab's head views (csrc/flash_forward.cuh), which is K3's kernel and K4's.
 It writes and re-reads LN1's rows, the 76 MB qkv slab and the 25 MB attention
 output in HBM each call, which the TPU kernel keeps on chip: later work
-(ROADMAP.md). K5 is three launches on the same blocks (in f32 on
-csrc/f32_gemm.cuh's, the activation in fc1's epilogue): LN2 of every row, fc1
-with the activation epilogue into an (M, 4D) hidden buffer in HBM, and fc2
-with the bias/LayerScale/residual epilogue.
+(ROADMAP.md). K5 is three launches on the same blocks (in f32 five, each
+GEMM behind the split of its weight), the activation in fc1's epilogue:
+LN2 of every row, fc1 with the activation epilogue into an (M, 4D) hidden
+buffer in HBM, and fc2 with the bias/LayerScale/residual epilogue.
 
 The kernel's softmax takes the exact running row max, so the JAX package's
 CLS-shift overflow rescue has no counterpart here.
@@ -219,6 +220,16 @@ def _check_kernel_dtype_head64(x: torch.Tensor, d: int, num_heads: int, what: st
         )
 
 
+def f32_weight_scratch(x: torch.Tensor, floats: int) -> list:
+    """What an f32 C entry that multiplies by dense weights takes last: a
+    scratch of `floats` f32 for their TF32 planes (one weight's (2, N, K)
+    at a time, csrc/tf32x3_gemm.cuh); nothing for bf16 x. The caller holds
+    the list until its launch has been issued and passes the pointers."""
+    if x.dtype != torch.float32:
+        return []
+    return [torch.empty((floats,), dtype=torch.float32, device=x.device)]
+
+
 def check_half_layer_args(
     x, ln_scale, ln_bias, b_qkv, b_proj, ls1, num_heads, w_qkv=None, w_proj=None,
     aligned: bool = True,
@@ -309,12 +320,14 @@ def slab_layer_buffers(
     qkv = torch.empty((b, t, 3 * d), dtype=x.dtype, device=x.device)
     attn = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
+    planes = f32_weight_scratch(x, 6 * d * d)
     with torch.cuda.device(x.device):  # the launches go to the current device
         code = launch(
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w_qkv.data_ptr(),
             b_qkv.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(), ls1.data_ptr(),
             qkv.data_ptr(), attn.data_ptr(), out.data_ptr(),
             b, t, d, num_heads, scale, eps, torch.cuda.current_stream(x.device).cuda_stream,
+            *(p.data_ptr() for p in planes),
         )
     check_status(lib, code, "slab_layer_block")
     count_launch(slab_layer_block, x.dtype)
@@ -458,11 +471,12 @@ def _slab_attention_block_cuda(x, qkv, w_proj, b_proj, ls1, num_heads, scale):
     launch = entry(lib, "dinov2_slab_attention_block_bf16", x.dtype == torch.float32)
     attn = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
+    planes = f32_weight_scratch(x, 2 * d * d)
     with torch.cuda.device(x.device):  # the launches go to the current device
         code = launch(
             x.data_ptr(), qkv.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(), ls1.data_ptr(),
             attn.data_ptr(), out.data_ptr(), b, t, d, num_heads, scale,
-            torch.cuda.current_stream(x.device).cuda_stream,
+            torch.cuda.current_stream(x.device).cuda_stream, *(p.data_ptr() for p in planes),
         )
     check_status(lib, code, "slab_attention_block")
     count_launch(slab_attention_block, x.dtype)
@@ -581,12 +595,13 @@ def _slab_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, activation, eps):
     lib = slab_mlp_lib()
     launch = entry(lib, "dinov2_slab_mlp_bf16", x.dtype == torch.float32)
     hidden = torch.empty((b * t, dh), dtype=x.dtype, device=x.device)
+    planes = f32_weight_scratch(x, 2 * d * dh)
     with torch.cuda.device(x.device):  # the launches go to the current device
         code = launch(
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), ls2.data_ptr(), out.data_ptr(), b * t, d, dh,
             ACTIVATIONS[activation], eps, torch.cuda.current_stream(x.device).cuda_stream,
-            hidden.data_ptr(),
+            hidden.data_ptr(), *(p.data_ptr() for p in planes),
         )
     check_status(lib, code, "slab_mlp_block")
     count_launch(slab_mlp_block, x.dtype)

@@ -10,11 +10,13 @@ in csrc/quant_layer.cu, which replaces the Pallas TPU kernel
 `_quant_layer_kernel`: both weights dequantized once a call into a (4D, D)
 bf16 scratch buffer (K7's dequantize kernel, one launch each), then K1's
 four launches (ops/fused_attention.py) on that scratch. f32 activations
-take the f32 entry: both weights dequantized into 4 D^2 f32 of scratch,
-each written transposed as K1 f32's (in, out) operand, then K1 f32's four
-launches, so its output is bit for bit that of K1 f32 on
-`dequant_weight(W, f32).T` (quant_slab "dequant"). The dense weights exist
-only for the call, in that buffer: the TPU kernel's VMEM scratch, in HBM.
+take the f32 entry, K1 f32's six launches with each weight dequantized
+straight into its two TF32 planes (K7 f32's dequantize kernel) in 6 D^2 f32
+of scratch just before the 3xTF32 GEMM that reads them: K1 f32 splits
+`dequant_weight(W, f32).T` into the same planes, so the output is bit for
+bit that of K1 f32 on those weights (quant_slab "dequant"). The dense
+weights exist only for the call, in that buffer: the TPU kernel's VMEM
+scratch, in HBM.
 On a CPU tensor it runs the plain PyTorch version, `quant_layer_reference`:
 dequant_weight, then K1's plain version, as the JAX package's reference
 does.
@@ -70,7 +72,8 @@ def slab_layer_block_quant(
     CPU tensors run the plain version. CUDA tensors launch the K8 kernel
     (bf16 or f32; anything else raises; its six launches share scratch of
     x's dtype allocated here for the call: the qkv slab, the attention
-    output and the 4 D^2 dequantized weights) and add one to
+    output and the dequantized weights, 4 D^2 in bf16, 6 D^2 of TF32 planes
+    in f32) and add one to
     `slab_layer_block_quant.launches` (bf16) or `.f32_launches` (f32).
     Both go through the operator `dinov2_tpu_torch::slab_layer_block_quant`
     (ops/_library.py). An input
@@ -120,8 +123,10 @@ def _quant_layer_cuda(*args):
     launch = entry(lib, "dinov2_quant_layer_bf16", x.dtype == torch.float32)
     qkv = torch.empty((b, t, 3 * d), dtype=x.dtype, device=x.device)
     attn = torch.empty((b, t, d), dtype=x.dtype, device=x.device)
-    # bf16: qkv's (3D, D) rows, then proj's; f32: qkv's (D, 3D), then proj's (D, D)
-    weights = torch.empty((4 * d, d), dtype=x.dtype, device=x.device)
+    # bf16: qkv's (3D, D) rows, then proj's; f32: the TF32 planes of one
+    # weight at a time, qkv's (2, 3D, D), then proj's (2, D, D) over them
+    weights = torch.empty((4 * d if x.dtype == torch.bfloat16 else 6 * d, d), dtype=x.dtype,
+                          device=x.device)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):  # the launches go to the current device
         code = launch(

@@ -6,10 +6,10 @@ DIR holds another version of dinov2_tpu_torch/csrc/ (e.g. the parent
 commit's: `git archive <commit> dinov2_tpu_torch/csrc | tar -x -C <dir>`).
 For K1, K2, K3, K4 (with and without lse), K5, K6 (dq, dk, dv), K7 (bf16
 fc1 and fc2, f32 fc1, fc2 and head), K8, K6 f32 at the two training
-shapes and K9 (the whole call, its quantize and its
-GEMM alone, at chip_smoke.py's INT8_SHAPES: fc1, fc2, the head and qkv at
-T=1370), at the shapes chip_smoke.py checks them at,
-it builds both versions, runs both wrappers on the same seeded inputs, and
+shapes, K1, K2, K5 and K8 f32 (the port's f32 GEMM core) and K9 (the whole
+call, its quantize and its GEMM alone, at chip_smoke.py's INT8_SHAPES: fc1,
+fc2, the head and qkv at T=1370), at the shapes chip_smoke.py checks them
+at, it builds both versions, runs both wrappers on the same seeded inputs, and
 times them in turns (other, this, this, other; median CUDA-event ms, and the
 host's microseconds to issue one call with the card never waited for). K4
 (with and without lse) and K6 must be equal bit for bit, and so must K9
@@ -19,15 +19,18 @@ behind autograd (four launches: where the event time is the host time, the
 host binds it). The kernels that REDESIGNED names, whose f32 sums may run in
 another order in the two versions, must be equal within TOLERANCE of the
 output's scale (bf16 outputs: an ulp of the largest values is 0.4% of
-them): against the parent of the 3xTF32 redesign of K7's f32 route and K6
-f32, those two; against an older tree, add the kernels redesigned since
-(K8 against a tree before its wgmma kernel; K1, K2, K3 against one before
-theirs; K5 and K7's bf16 path against one before theirs). Exits non-zero
+them): against the parent of the move of the dense f32 GEMM onto 3xTF32,
+K1, K2, K5 and K8 f32 (K7 f32, moved onto the shared GEMM, and K6 f32 stay
+bit for bit); against an older tree, add the kernels redesigned since (K7
+f32 and K6 f32 against a tree before their 3xTF32 redesign; K8 against one
+before its wgmma kernel; K1, K2, K3 against one before theirs; K5 and K7's
+bf16 path against one before theirs). Exits non-zero
 otherwise. The f32 cases also print each build's distance from their plain
 f32 version on the same inputs. Needs a CUDA device and nvcc.
 
-The wrappers pass K5's hidden buffer, K7's and K8's weight scratch and
-K9's GELU table as the last argument of their C entries, so an entry from
+The wrappers pass K5's hidden buffer, K7's and K8's weight scratch, the
+f32 entries' scratch for their weights' TF32 planes (K1, K2, K5) and K9's
+GELU table as the last argument of their C entries, so an entry from
 before those buffers, which takes one argument fewer, runs with the same
 wrapper and never reads it. --only PREFIX keeps the cases whose names start
 with it (e.g. --only K9).
@@ -72,13 +75,19 @@ from dinov2_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_forward_lse,
 )
 from dinov2_tpu_torch.ops.fused_attention import (  # noqa: E402
+    _slab_block_reference,
     slab_attention,
     slab_attention_backward,
     slab_attention_block,
     slab_layer_block,
+    slab_layer_reference,
     slab_mlp_block,
+    slab_mlp_reference,
 )
-from dinov2_tpu_torch.ops.fused_quant_attention import slab_layer_block_quant  # noqa: E402
+from dinov2_tpu_torch.ops.fused_quant_attention import (  # noqa: E402
+    quant_layer_reference,
+    slab_layer_block_quant,
+)
 from dinov2_tpu_torch.ops.int8_matmul_kernel import (  # noqa: E402
     int8_gelu_table,
     int8_gemm_kernel,
@@ -102,7 +111,7 @@ INT8_SHAPES = {
     "qkv_t1370": (8 * 1370, 768, 2304, None, torch.bfloat16),
 }
 # held within tolerance; every other kernel bit for bit
-REDESIGNED = ("K7 f32", "K6 f32")
+REDESIGNED = ("K1 f32", "K2 f32", "K5 f32", "K8 f32")
 TOLERANCE = 1e-2  # of max|other|, plus 1e-5
 
 
@@ -207,6 +216,31 @@ def cases():
         mlp = mlp_args(rng, bb, tt, dd)
         calls[f"K5 slab_mlp_block B={bb} T={tt} D={dd} gelu_tanh_f16"] = partial(
             slab_mlp_block, *mlp, "gelu_tanh_f16", 1e-6)
+    # the f32 kernels on the 3xTF32 GEMM, at chip_smoke.py's f32 shapes
+    args32 = [a.float() for a in args]
+    x32, lns32, lnb32, _, bq32, _, bp32, ls32 = args32
+    mlp32 = [a.float() for a in mlp_args(rng, b, t, d)]
+    f32_cases = {
+        f"K1 f32 slab_layer_block B={b} T={t} D={d}": (
+            slab_layer_block, slab_layer_reference, (*args32, heads, 0.125, 1e-6)),
+        f"K5 f32 slab_mlp_block B={b} T={t} D={d} gelu_tanh_f16": (
+            slab_mlp_block, slab_mlp_reference, (*mlp32, "gelu_tanh_f16", 1e-6)),
+        f"K8 f32 slab_layer_block_quant q4_0 packed B={b} T={t} D={d}": (
+            slab_layer_block_quant, quant_layer_reference,
+            (x32, lns32, lnb32, wq4, bq32, wp4, bp32, ls32, heads, 0.125, 1e-6)),
+    }
+    bg, dg, hg = 16, 1536, 24  # K2 f32 at ViT-g/14's slab shape
+
+    def f32(shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape) * scale).to("cuda", torch.float32)
+
+    block = (f32((bg, t, dg)), f32((bg, t, 3 * dg), 1.5), f32((dg, dg), 0.05), f32(dg, 0.1),
+             torch.from_numpy(rng.uniform(0.1, 1.0, dg)).to("cuda", torch.float32))
+    f32_cases[f"K2 f32 slab_attention_block B={bg} T={t} D={dg}"] = (
+        slab_attention_block, _slab_block_reference, (*block, hg, 0.125))
+    for name, (kernel, plain, inputs) in f32_cases.items():
+        calls[name] = partial(kernel, *inputs)
+        PLAIN[name] = partial(plain, *inputs)
     quant_shapes = {  # (x dtype, layer) -> (M, K, N, activation), chip_smoke.py's
         ("bf16", "fc1"): (b * t, d, 4 * d, "gelu_tanh_f16"),
         ("bf16", "fc2"): (b * t, 4 * d, d, None),

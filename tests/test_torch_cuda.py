@@ -1061,7 +1061,8 @@ def test_default_trainer_takes_a_step_on_cuda(cuda):
         assert counts() == [(n, f + kernels.get(i, 0)) for i, (n, f) in enumerate(before)]
 
 
-# The f32 kernels (csrc/f32_gemm.cuh, f32_attention.cuh, f32_backward.cuh):
+# The f32 kernels (csrc/f32_gemm.cuh and tf32x3_gemm.cuh, f32_attention.cuh,
+# f32_backward.cuh):
 # each against its plain f32 version on the same card, within 1e-5 (forward,
 # lse) and 2e-5 (gradients) of max(1, max|plain|), at ragged T.
 

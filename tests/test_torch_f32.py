@@ -1,12 +1,13 @@
 """f32 activations on the card's kernels, on the CPU.
 
-The f32 kernels (csrc/f32_gemm.cuh, csrc/f32_attention.cuh,
-csrc/f32_backward.cuh) cannot run here. What can: the routing that sends f32
-to them on a card ("auto" lands where the JAX resolver's TPU gate lands for
-f32), the routes models/vit.py takes to K5 and K8 in f32 and around them in
-f16, the argument checks that refuse what the kernels refuse, the FFMA
-GEMM's tile walk (its masks at ragged M and N, its k-steps and both
-epilogues' order)
+The f32 kernels (csrc/f32_gemm.cuh, csrc/tf32x3_gemm.cuh,
+csrc/f32_attention.cuh, csrc/f32_backward.cuh) cannot run here. What can:
+the routing that sends f32 to them on a card ("auto" lands where the JAX
+resolver's TPU gate lands for f32), the routes models/vit.py takes to K5
+and K8 in f32 and around them in f16, the argument checks that refuse what
+the kernels refuse, the 3xTF32 GEMM's walk on a dense weight
+(tests/test_torch_tf32x3.py's emulation: its masks at ragged M and N, a
+partial k-step, and both dense epilogues' order)
 against the plain version, and the plain f32 versions the kernels are held
 to on the card against the JAX functions they port. The attention tile
 loops in f32 are tests/test_torch_flash_tiles.py's emulations (64-row
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 import torch_threads  # noqa: F401  (caps torch's threads under xdist)
+from test_torch_tf32x3 import emulate_f32_linear
 
 from dinov2_tpu.ops import attention as jax_attention
 from dinov2_tpu.ops import flash_attention as jflash
@@ -131,46 +133,24 @@ def test_k8_argument_check_takes_f32_and_refuses_f16(dtype):
         fused_quant_attention._check_quant_layer_args(*args, aligned=False)
 
 
-# ------------------------------------------------- the FFMA GEMM's walk
-
-TILE, DEPTH = 128, 16  # a block's output tile, a ring stage's k
-
-
-def emulate_ffma_gemm(a, w, epilogue):
-    """f32_gemm.cuh's walk: 128 x 128 output tiles, rows past M and columns
-    past N zero-filled and never written, 16-deep k-steps accumulated in
-    order, the epilogue on each stored row piece."""
-    m, k = a.shape
-    n = w.shape[1]
-    out = torch.full((m, n), float("nan"))
-    for r0 in range(0, m, TILE):
-        for c0 in range(0, n, TILE):
-            a_tile = torch.zeros((TILE, k))
-            a_tile[: min(TILE, m - r0)] = a[r0 : r0 + TILE]
-            w_tile = torch.zeros((k, TILE))
-            w_tile[:, : min(TILE, n - c0)] = w[:, c0 : c0 + TILE]
-            acc = torch.zeros((TILE, TILE))
-            for k0 in range(0, k, DEPTH):
-                acc += a_tile[:, k0 : k0 + DEPTH] @ w_tile[k0 : k0 + DEPTH]
-            rows, cols = min(TILE, m - r0), min(TILE, n - c0)
-            out[r0 : r0 + rows, c0 : c0 + cols] = epilogue(
-                acc[:rows, :cols], slice(r0, r0 + rows), slice(c0, c0 + cols))
-    return out
-
+# ------------------------------------------------- the 3xTF32 GEMM's walk
 
 @pytest.mark.parametrize("m, k, n", [(1, 16, 4), (130, 32, 132), (257, 64, 384)])
 @pytest.mark.parametrize("which", ["bias", "residual"])
-def test_ffma_gemm_walk_matches_plain_version(m, k, n, which):
+def test_tf32x3_gemm_walk_matches_plain_version(m, k, n, which):
     """K1's QKV launch (acc + b_qkv) and proj launch (x + (acc + b) * ls1)
-    in f32, at ragged M and N = 4 * odd, against the plain version's order."""
+    in f32 on tf32x3_gemm.cuh (the weight split and transposed into its
+    planes, then the GEMM's walk), at ragged M, N = 4 * odd and K = 16 (one
+    k-step, half of it the TMA's zeros), against the plain version's
+    order."""
     rng = np.random.default_rng(m + n)
     a, w, bias, ls, x = (torch.from_numpy(v) for v in _arrays(
         rng, (m, k), (k, n), (n,), (n,), (m, n)))
     if which == "bias":
-        got = emulate_ffma_gemm(a, w, lambda acc, r, c: acc + bias[c])
+        got = emulate_f32_linear(a, w, lambda acc, r, c: acc + bias[c])
         want = torch.matmul(a, w) + bias
     else:
-        got = emulate_ffma_gemm(a, w, lambda acc, r, c: x[r, c] + (acc + bias[c]) * ls[c])
+        got = emulate_f32_linear(a, w, lambda acc, r, c: x[r, c] + (acc + bias[c]) * ls[c])
         want = x + (torch.matmul(a, w) + bias) * ls
     atol = F32_ATOL * max(1.0, want.abs().max().item())  # the card's bound: of max(1, max|y|)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=atol, rtol=0)

@@ -1,22 +1,26 @@
 """K5 f32 and K8 f32 on Hopper, on the CPU.
 
 The f32 entries of csrc/slab_mlp.cu (K5) and csrc/quant_layer.cu (K8) run
-on csrc/f32_gemm.cuh's FFMA GEMM and cannot run here. This file emulates
-their launches step for step in plain PyTorch, with
-tests/test_torch_f32.py's emulation of that GEMM's walk (128 x 128 output
-tiles, rows past M and columns past N zero-filled and never written,
-16-deep k-steps accumulated in order):
-  - K5 f32: the layer norm of each row, fc1 with the F32Act epilogue
-    (act(acc + b1), the activation on the f32 sum) into the (M, 4D) f32
-    hidden buffer, fc2 with F32Residual (x + (acc + b2) * ls2); held
-    against `slab_mlp_reference` and the JAX `slab_mlp_block` in f32 in
-    interpret mode, for the three activations, at M = 74 and 130 (a ragged
-    second row tile) and at widths the bf16 K5 is not built for;
-  - K8 f32: dequant_weight_t_f32_kernel's block walk (32 weight rows x 64
-    k a block, each value code -> f32, * d, + m, written transposed),
-    bit for bit `dequant_weight(W, f32).T` for the five formats, packed and
-    int8 SoA; then K1 f32's four launches on it, bit for bit the same walk
-    on the "dequant" route's weights, and held against
+their GEMMs on csrc/tf32x3_gemm.cuh's 3xTF32 core and cannot run here. This
+file emulates their launches step for step in plain PyTorch, with
+tests/test_torch_tf32x3.py's emulations of that core (a dense weight split
+and transposed into its TF32 planes; the GEMM's 128 x 128 output tiles,
+rows past M, weight rows past N and columns past K zero, 32-deep chunks of
+three products added to the f32 sum):
+  - K5 f32: the layer norm of each row, w1's planes, fc1 with the F32Act
+    epilogue (act(acc + b1), the activation on the f32 sum) into the (M,
+    4D) f32 hidden buffer, w2's planes, fc2 with F32Residual (x + (acc +
+    b2) * ls2); held against `slab_mlp_reference` and the JAX
+    `slab_mlp_block` in f32 in interpret mode, for the three activations,
+    at M = 74 and 130 (a ragged second row tile) and at widths the bf16 K5
+    is not built for, D = 80 among them (fc1's K = 80: a last k-step half
+    zeros);
+  - K8 f32: dequant_weight_kernel<Tf32SplitRows>'s walk (a thread a 16-byte
+    piece of a row's codes, each value code -> f32, * d, + m, then split),
+    bit for bit the TF32 split of `dequant_weight(W, f32)` and of its
+    transpose's split_tf32_t walk, for the five formats, packed and int8
+    SoA; then K1 f32's six launches on those planes, bit for bit the same
+    walk on the "dequant" route's weights, and held against
     `quant_layer_reference` and the JAX `slab_layer_block_quant` in f32 in
     interpret mode;
   - the model: a 2-layer f32 ViT (D = 128, 2 heads) with fuse_mlp=True,
@@ -30,10 +34,10 @@ import numpy as np
 import pytest
 import torch
 import torch_threads  # noqa: F401  (caps torch's threads under xdist)
-from test_torch_f32 import emulate_ffma_gemm
 from test_torch_gemm_tiles import EPS, SCALE, emulate_layer_norm_rows
 from test_torch_mlp_tiles import ACTIVATIONS, F32_ATOL_F16_GELU, FORMATS
 from test_torch_quant import _jax_ql, _to_port
+from test_torch_tf32x3 import emulate_f32_linear, emulate_tf32x3_gemm, split_tf32_t, tf32_split
 
 from dinov2_tpu.io.synthetic import write_synthetic_gguf
 from dinov2_tpu.models import params as jparams
@@ -51,7 +55,7 @@ from dinov2_tpu_torch.ops.qmatmul import apply_activation, dequant_weight
 F32_ATOL = 1e-5  # summation order only
 # the forward against JAX: tests/test_torch_quant.py's f32 token bound
 TOKEN_ATOL, PROB_ATOL = 5e-5, 1e-6
-DEQUANT_ROWS, DEQUANT_DEPTH = 32, 64  # dequant_weight_t_f32_kernel's block
+DEQUANT_PIECE = 16  # dequant_weight_kernel: a thread's bytes of codes
 
 
 def _atol(activation):
@@ -59,15 +63,15 @@ def _atol(activation):
 
 
 def emulate_slab_mlp_f32(x, ln_scale, ln_bias, w1, b1, w2, b2, ls2, activation):
-    """dinov2_slab_mlp_f32's three launches: LN2, fc1 with F32Act into the
-    (M, 4D) hidden buffer, fc2 with F32Residual."""
+    """dinov2_slab_mlp_f32's five launches: LN2, w1's planes, fc1 with F32Act
+    into the (M, 4D) hidden buffer, w2's planes, fc2 with F32Residual."""
     b, t, d = x.shape
     x2 = x.reshape(b * t, d)
     h = emulate_layer_norm_rows(x2, ln_scale, ln_bias, EPS)
-    hidden = emulate_ffma_gemm(
+    hidden = emulate_f32_linear(
         h, w1, lambda acc, r, c: apply_activation(acc + b1[c], activation))
     assert hidden.shape == (b * t, 4 * d) and hidden.dtype == torch.float32
-    out = emulate_ffma_gemm(hidden, w2, lambda acc, r, c: x2[r, c] + (acc + b2[c]) * ls2[c])
+    out = emulate_f32_linear(hidden, w2, lambda acc, r, c: x2[r, c] + (acc + b2[c]) * ls2[c])
     return out.reshape(b, t, d)
 
 
@@ -86,14 +90,15 @@ def _mlp_inputs(m, d, seed):
     return [torch.from_numpy(a.astype(np.float32)) for a in arrays]
 
 
-@pytest.mark.parametrize("m, d", [(74, 64), (130, 96)])
+@pytest.mark.parametrize("m, d", [(74, 64), (130, 96), (74, 80)])
 @pytest.mark.parametrize("activation", ACTIVATIONS)
 def test_k5_f32_walk_matches_plain_version_and_jax(activation, m, d):
     """K5 f32's walk against slab_mlp_reference in f32 and the JAX
-    slab_mlp_block in f32 (interpret mode). D = 64 and 96 are no widths of
-    the bf16 K5; at D = 96 fc1's 384 columns are three tiles and fc2's 96 a
-    ragged one. gelu_tanh_f16 with F32_ATOL_F16_GELU
-    (tests/test_torch_mlp_tiles.py says why)."""
+    slab_mlp_block in f32 (interpret mode). D = 64, 80 and 96 are no widths
+    of the bf16 K5; at D = 96 fc1's 384 columns are three tiles and fc2's 96
+    a ragged one; at D = 80 fc1's K = 80 ends in a k-step half zeros.
+    gelu_tanh_f16 with F32_ATOL_F16_GELU (tests/test_torch_mlp_tiles.py says
+    why)."""
     args = _mlp_inputs(m, d, seed=m + d)
     got = emulate_slab_mlp_f32(*args, activation)
     assert got.shape == args[0].shape and torch.isfinite(got).all()
@@ -118,66 +123,70 @@ def test_f32_gelu_tanh_f16_saturates_as_jax_does():
     assert got[7] == np.inf and np.isnan(got[9])
 
 
-def emulate_dequant_t_f32(ql):
-    """dequant_weight_t_f32_kernel's walk on a QuantLinear (N, K): a block
-    of 32 weight rows x 64 k, each thread 8 consecutive values of one row
-    from the raw fields (QuantWeight::dequant8: a nibble plane and its 5th
-    bits, or an int8 code; * d, + m in f32), written transposed into a
-    (K, N) f32 buffer; rows past N neither read nor written."""
-    n = ql.codes.shape[0]
-    k = ql.codes.shape[1] * (2 if ql.packed else 1)
-    assert k % DEQUANT_DEPTH == 0
-    out = torch.full((k, n), float("nan"))
-    half = k // 2
-    for n0 in range(0, n, DEQUANT_ROWS):
-        rows = slice(n0, min(n0 + DEQUANT_ROWS, n))
-        for k0 in range(0, k, DEQUANT_DEPTH):
-            tile = torch.empty((DEQUANT_DEPTH, rows.stop - rows.start))
-            for piece in range(0, DEQUANT_DEPTH, 8):
-                kp = k0 + piece
-                if ql.packed:
-                    high = kp >= half
-                    j0 = kp - half if high else kp
-                    raw = ql.codes[rows, j0 : j0 + 8].to(torch.int32)
-                    q = raw >> 4 if high else raw & 0xF
-                    if ql.qh_lo is not None:
-                        word = (ql.qh_hi if high else ql.qh_lo)[rows, j0 // 8].to(torch.int32)
-                        q = q | (((word[:, None] >> torch.arange(8)) & 1) << 4)
-                    q = q - ql.zero_point
-                else:
-                    q = ql.codes[rows, kp : kp + 8].to(torch.int32)
-                v = q.to(torch.float32) * ql.d[rows, kp // 32][:, None]
-                if ql.m is not None:
-                    v = v + ql.m[rows, kp // 32][:, None]
-                tile[piece : piece + 8] = v.T
-            out[k0 : k0 + DEQUANT_DEPTH, rows] = tile
-    return out
+def emulate_dequant_split(ql):
+    """dequant_weight_kernel<Tf32SplitRows>'s walk on a QuantLinear (N, K):
+    a thread a 16-byte piece of a row's codes, 16 int8 SoA values or 16
+    packed bytes whose low nibbles are values j0..j0+15 and high nibbles
+    K/2+j0..K/2+j0+15 with their 5th bits; each value code -> f32, * d, + m
+    in f32, then split into the hi and lo planes, (N, K) each, where K1 f32's
+    GEMM reads them."""
+    n, row_bytes = ql.codes.shape
+    k = row_bytes * (2 if ql.packed else 1)
+    hi, lo = torch.full((n, k), float("nan")), torch.full((n, k), float("nan"))
+
+    def store(k0, q):
+        v = q.to(torch.float32) * ql.d[:, k0 // 32][:, None]
+        if ql.m is not None:
+            v = v + ql.m[:, k0 // 32][:, None]
+        hi[:, k0 : k0 + DEQUANT_PIECE], lo[:, k0 : k0 + DEQUANT_PIECE] = tf32_split(v)
+
+    for j0 in range(0, row_bytes, DEQUANT_PIECE):
+        raw = ql.codes[:, j0 : j0 + DEQUANT_PIECE].to(torch.int32)
+        if not ql.packed:
+            store(j0, raw)
+            continue
+        for high in (0, 1):
+            q = raw >> 4 if high else raw & 0xF
+            if ql.qh_lo is not None:
+                qh = (ql.qh_hi if high else ql.qh_lo)[:, j0 // 8 : j0 // 8 + 2].to(torch.int32)
+                bits = qh[:, 0] | (qh[:, 1] << 8)
+                q = q | (((bits[:, None] >> torch.arange(DEQUANT_PIECE)) & 1) << 4)
+            store(j0 + high * row_bytes, q - ql.zero_point)
+    return hi, lo
 
 
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "soa"])
 @pytest.mark.parametrize("fmt", FORMATS)
-def test_k8_f32_dequantize_is_dequant_weight_transposed(fmt, packed):
-    """The transposed f32 dequantize is bit for bit dequant_weight(W, f32).T
-    at N = 160 (five row blocks, none ragged past 32) and N = 100 (a ragged
-    last block), K = 128 (both planes of a packed row)."""
+def test_k8_f32_planes_are_the_split_of_the_dequantized_weight(fmt, packed):
+    """K8 f32's dequantize launches write the TF32 split of dequant_weight(W,
+    f32) bit for bit, which is what K1 f32's split_tf32_t walk makes of its
+    transpose (so both run the GEMM on the same planes), at N = 160 and N =
+    100, K = 128 (both planes of a packed row)."""
     for n, seed in ((160, 1), (100, 2)):
         w = (np.random.default_rng(seed).standard_normal((n, 128)) * 0.5).astype(np.float32)
         ql = _to_port(_jax_ql(w, fmt, packed))
-        got = emulate_dequant_t_f32(ql)
-        assert got.shape == (128, n)
-        assert torch.equal(got, dequant_weight(ql, torch.float32).T)
+        hi, lo = emulate_dequant_split(ql)
+        assert hi.shape == lo.shape == (n, 128)
+        dense = dequant_weight(ql, torch.float32)
+        want = tf32_split(dense)
+        assert torch.equal(hi, want[0]) and torch.equal(lo, want[1])
+        split = split_tf32_t(dense.T.contiguous())
+        assert torch.equal(hi, split[0]) and torch.equal(lo, split[1])
 
 
-def emulate_half_layer_f32(x, ln_scale, ln_bias, w_qkv, b_qkv, w_proj, b_proj, ls1, heads):
-    """launch_f32_half_layer's four launches on (in, out) f32 weights: LN1,
-    the QKV GEMM with F32Bias, the attention (K3 f32's plain version), the
-    proj GEMM with F32Residual."""
+def emulate_half_layer_f32(x, ln_scale, ln_bias, qkv_planes, b_qkv, proj_planes, b_proj, ls1,
+                           heads):
+    """launch_f32_half_layer's six launches given each weight's TF32 planes
+    (hi, lo): LN1, (qkv's planes), the QKV GEMM with F32Bias, the attention
+    (K3 f32's plain version), (proj's planes), the proj GEMM with
+    F32Residual."""
     b, t, d = x.shape
     x2 = x.reshape(b * t, d)
     h = emulate_layer_norm_rows(x2, ln_scale, ln_bias, EPS)
-    qkv = emulate_ffma_gemm(h, w_qkv, lambda acc, r, c: acc + b_qkv[c])
+    qkv = emulate_tf32x3_gemm(h, qkv_planes, lambda acc, r, c: acc + b_qkv[c])
     attn = _slab_reference(qkv.reshape(b, t, 3 * d), heads, SCALE).reshape(b * t, d)
-    out = emulate_ffma_gemm(attn, w_proj, lambda acc, r, c: x2[r, c] + (acc + b_proj[c]) * ls1[c])
+    out = emulate_tf32x3_gemm(attn, proj_planes,
+                              lambda acc, r, c: x2[r, c] + (acc + b_proj[c]) * ls1[c])
     return out.reshape(b, t, d)
 
 
@@ -197,21 +206,22 @@ def _layer_inputs(t, fmt, packed, seed, d=128):
 @pytest.mark.parametrize("fmt, packed", [("q4_0", True), ("q5_1", True), ("q8_0", False),
                                          ("q4_1", False)])
 def test_k8_f32_walk_is_the_dequant_route_and_matches_jax(fmt, packed, t):
-    """K8 f32's six launches: both weights dequantized transposed into the
-    (D, 3D) and (D, D) f32 scratch, then K1 f32's walk on them, which gives
-    the "dequant" route's bits (K1 f32's walk on dequant_weight(W, f32).T);
-    within F32_ATOL of quant_layer_reference and of the JAX
-    slab_layer_block_quant in f32, interpret mode (M = 10 and 130: a
+    """K8 f32's six launches: each weight dequantized into its TF32 planes
+    just before its GEMM, K1 f32's walk on them, which gives the "dequant"
+    route's bits (K1 f32's walk on dequant_weight(W, f32).T, its planes made
+    by split_tf32_t); within F32_ATOL of quant_layer_reference and of the
+    JAX slab_layer_block_quant in f32, interpret mode (M = 10 and 130: a
     ragged second row tile)."""
     heads, d = 2, 128
     (x, lns, lnb, bq, bp, ls), jq, jp = _layer_inputs(t, fmt, packed, seed=t)
     qkv_ql, proj_ql = _to_port(jq), _to_port(jp)
     rows = [torch.from_numpy(a) for a in (x, lns, lnb, bq, bp, ls)]
     xt, lnst, lnbt, bqt, bpt, lst = rows
-    scratch = [emulate_dequant_t_f32(qkv_ql), emulate_dequant_t_f32(proj_ql)]
-    assert [tuple(s.shape) for s in scratch] == [(d, 3 * d), (d, d)]
-    got = emulate_half_layer_f32(xt, lnst, lnbt, scratch[0], bqt, scratch[1], bpt, lst, heads)
-    dense = [dequant_weight(ql, torch.float32).T.contiguous() for ql in (qkv_ql, proj_ql)]
+    planes = [emulate_dequant_split(qkv_ql), emulate_dequant_split(proj_ql)]
+    assert [tuple(p[0].shape) for p in planes] == [(3 * d, d), (d, d)]
+    got = emulate_half_layer_f32(xt, lnst, lnbt, planes[0], bqt, planes[1], bpt, lst, heads)
+    dense = [split_tf32_t(dequant_weight(ql, torch.float32).T.contiguous())
+             for ql in (qkv_ql, proj_ql)]
     assert torch.equal(got, emulate_half_layer_f32(xt, lnst, lnbt, dense[0], bqt, dense[1], bpt,
                                                    lst, heads))
     want = quant_layer_reference(xt, lnst, lnbt, qkv_ql, bqt, proj_ql, bpt, lst, heads, SCALE, EPS)

@@ -1,4 +1,4 @@
-"""3xTF32, the f32 products of K7's f32 route and of K6 f32, on the CPU.
+"""3xTF32, the f32 products of the port's f32 GEMM and of K6 f32, on the CPU.
 
 csrc/tf32x3.cuh splits every f32 operand once, where it is staged, into two
 TF32 values, hi = tf32(a) (cvt.rna.tf32.f32: to nearest, ties away) and
@@ -7,13 +7,20 @@ the tensor cores, a long sum in chunks added with rounded f32 adds. The
 kernels cannot run here. This file holds:
   - the split itself, with the kernel's rounding (+0x1000 on the bits, then
     the low 13 bits cleared);
+  - csrc/tf32x3_gemm.cuh, the GEMM every f32 kernel with a weight runs (K1,
+    K2, K5, K7 and K8 f32): split_tf32_t_kernel's walk, which splits and
+    transposes a dense (in, out) weight into its (2, N, K) planes, at ragged
+    K and N; the GEMM's walk (128 x 128 tiles, rows past M, weight rows past
+    N and columns past K landing as zeros, 32-deep k-steps each a fresh
+    chunk of three products added to the f32 sum, the epilogue on the rows
+    < M and columns < N), which tests/test_torch_f32.py and
+    test_torch_f32_mlp.py run with the dense epilogues;
   - K7's f32 route (csrc/quant_matmul.cu): the dequantize launch's two
     planes, whose sum is `dequant_weight(W, f32)` bit for bit in the
-    symmetric formats; the GEMM's walk (128 x 128 tiles, rows past M and N
-    landing as zeros, 32-deep k-steps each a chunk, the act(acc + bias)
-    epilogue on the columns < N), held against `quant_matmul_reference`,
-    the JAX `quant_matmul(backend="xla")` and `quant_matmul_pallas` in
-    interpret mode;
+    symmetric formats, then the GEMM's walk with the act(acc + bias)
+    epilogue, held against `quant_matmul_reference`, the JAX
+    `quant_matmul(backend="xla")` and `quant_matmul_pallas` in interpret
+    mode;
   - K6 f32's walk (csrc/f32_backward.cuh): test_torch_flash_tiles.py's
     `emulate_backward` with 32-row streamed tiles and the 3xTF32 product,
     held against `flash_backward_reference` and the JAX `_flash_backward`
@@ -42,7 +49,8 @@ from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_reference
 FORMATS = ["q4_0", "q4_1", "q5_0", "q5_1", "q8_0"]
 SYMMETRIC = {"q4_0", "q5_0", "q8_0"}
 ACTIVATIONS = [None, "gelu_tanh_f16", "gelu_erf", "gelu_tanh"]
-ROWS, COLS, DEPTH = 128, 128, 32  # K7's f32 GEMM: output tile, k-step
+ROWS, COLS, DEPTH = 128, 128, 32  # tf32x3_gemm_kernel: output tile, k-step
+SPLIT_TILE = 32  # split_tf32_t_kernel's piece: 32 k rows x 32 n columns
 # chip_smoke.py's bounds, of max(1, max|plain|): F32_TOL, F32_GRAD_TOL
 F32_TOL = 1e-5
 F32_GRAD_TOL = 2e-5
@@ -133,6 +141,72 @@ def test_one_pass_tf32_misses_the_f32_bound_and_3xtf32_meets_it():
     assert (tf32x3(a, b) - want).abs().max().item() <= _bound(want, F32_TOL)
 
 
+# ------------------------------------------------------ the shared f32 GEMM
+
+def split_tf32_t(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """split_tf32_t_kernel's walk on a dense (in, out) weight w (K, N): a
+    block a 32 x 32 piece, each value split as it is written transposed into
+    the hi and lo planes, (N, K) each; past K and N nothing is read or
+    written."""
+    k, n = w.shape
+    hi, lo = torch.full((n, k), float("nan")), torch.full((n, k), float("nan"))
+    for k0 in range(0, k, SPLIT_TILE):
+        for n0 in range(0, n, SPLIT_TILE):
+            h, l = tf32_split(w[k0 : k0 + SPLIT_TILE, n0 : n0 + SPLIT_TILE].T)
+            hi[n0 : n0 + SPLIT_TILE, k0 : k0 + SPLIT_TILE] = h
+            lo[n0 : n0 + SPLIT_TILE, k0 : k0 + SPLIT_TILE] = l
+    return hi, lo
+
+
+def emulate_tf32x3_gemm(x, planes, epilogue):
+    """tf32x3_gemm_kernel's walk for x (M, K) and a weight's planes (hi, lo),
+    (N, K) each: 128 x 128 output tiles; rows past M, weight rows past N and
+    columns past K zero (the TMA's fill, so a K that is not a multiple of 32
+    ends in a step of zeros); 32-deep k-steps each a fresh chunk of three
+    products (x split where it lands) added to the f32 sum; then
+    epilogue(acc, rows, cols) on the rows < M and columns < N, rows and cols
+    the output's slices."""
+    hi, lo = planes
+    (m, k), n = x.shape, hi.shape[0]
+    depth = -(-k // DEPTH) * DEPTH
+    out = torch.full((m, n), float("nan"))
+    for row0 in range(0, m, ROWS):
+        rows = min(ROWS, m - row0)
+        xr = torch.zeros((ROWS, depth))
+        xr[:rows, :k] = x[row0 : row0 + rows]
+        for col0 in range(0, n, COLS):
+            width = min(COLS, n - col0)
+            wh, wl = torch.zeros((COLS, depth)), torch.zeros((COLS, depth))
+            wh[:width, :k], wl[:width, :k] = hi[col0 : col0 + width], lo[col0 : col0 + width]
+            acc = torch.zeros((ROWS, COLS))
+            for k0 in range(0, depth, DEPTH):
+                xh, xl = tf32_split(xr[:, k0 : k0 + DEPTH])
+                step = slice(k0, k0 + DEPTH)
+                acc = acc + (xl @ wh[:, step].T + xh @ wl[:, step].T + xh @ wh[:, step].T)
+            out[row0 : row0 + rows, col0 : col0 + width] = epilogue(
+                acc[:rows, :width], slice(row0, row0 + rows), slice(col0, col0 + width))
+    return out
+
+
+def emulate_f32_linear(x, w, epilogue):
+    """tf32x3_gemm.cuh's launch_f32_linear on a dense (in, out) weight w:
+    its planes (split_tf32_t), then the GEMM's walk on them."""
+    return emulate_tf32x3_gemm(x, split_tf32_t(w), epilogue)
+
+
+@pytest.mark.parametrize("k, n", [(80, 320), (320, 80), (45, 70)])
+def test_split_transpose_is_the_split_of_w_transposed(k, n):
+    """Every value of both planes written, at K and N that are no multiple of
+    the 32 x 32 piece (K5 f32's fc1 and fc2 at D = 80; both ragged): hi =
+    tf32(w.T), lo = tf32(w.T - hi), whole TF32 values, bit for bit."""
+    w = torch.from_numpy(np.random.default_rng(k + n).standard_normal((k, n)).astype(np.float32))
+    hi, lo = split_tf32_t(w)
+    assert hi.shape == lo.shape == (n, k)
+    assert torch.equal(hi, tf32_round(w.T)) and torch.equal(lo, tf32_round(w.T - hi))
+    for plane in (hi, lo):
+        assert not (plane.view(torch.int32) & 0x1FFF).any()
+
+
 # --------------------------------------------------------------- K7's f32 route
 
 def dequant_planes(ql) -> tuple[torch.Tensor, torch.Tensor]:
@@ -142,32 +216,10 @@ def dequant_planes(ql) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def emulate_quant_matmul_f32(x, ql, bias, activation):
-    """quant_matmul_tf32x3_kernel's walk: 128 x 128 output tiles, rows past M
-    and weight rows past N zero (the TMA's fill), 32-deep k-steps each a
-    fresh chunk of three products added to the f32 sum, then act(acc +
-    bias) on the rows < M and columns < N."""
-    hi, lo = dequant_planes(ql)
-    (m, k), n = x.shape, hi.shape[0]
-    assert k % DEPTH == 0
-    out = torch.full((m, n), float("nan"))
-    for row0 in range(0, m, ROWS):
-        rows = min(ROWS, m - row0)
-        xr = torch.zeros((ROWS, k))
-        xr[:rows] = x[row0 : row0 + rows]
-        for col0 in range(0, n, COLS):
-            width = min(COLS, n - col0)
-            wh, wl = torch.zeros((COLS, k)), torch.zeros((COLS, k))
-            wh[:width], wl[:width] = hi[col0 : col0 + width], lo[col0 : col0 + width]
-            acc = torch.zeros((ROWS, COLS))
-            for k0 in range(0, k, DEPTH):
-                xh, xl = tf32_split(xr[:, k0 : k0 + DEPTH])
-                step = slice(k0, k0 + DEPTH)
-                acc = acc + (xl @ wh[:, step].T + xh @ wl[:, step].T + xh @ wh[:, step].T)
-            y = acc[:rows, :width]
-            if bias is not None:
-                y = y + bias[col0 : col0 + width]
-            out[row0 : row0 + rows, col0 : col0 + width] = apply_activation(y, activation)
-    return out
+    """K7's f32 route: the weight's planes, then the GEMM's walk with F32Act,
+    act(acc + bias) (act(acc) without a bias)."""
+    return emulate_tf32x3_gemm(x, dequant_planes(ql), lambda acc, r, c: apply_activation(
+        acc if bias is None else acc + bias[c], activation))
 
 
 @pytest.mark.parametrize("packed", [True, False], ids=["packed", "soa"])
