@@ -161,7 +161,8 @@ and the engine, the NCCL refusal), and the f32 phases (f32 kernel checks after
 K9's, each f32 kernel within 1e-5 (gradients 2e-5; K5 and K7 with
 gelu_tanh_f16 5e-4, one f16 step of the GELU) of max(1, max|y|) of its
 plain f32 version beside its bound at 3xTF32's 165 TFLOP/s (FFMA's 67
-beside it) and SDPA or one f32 linear call, K5 f32 also at D = 80, K8 f32
+beside it), its achieved TFLOP/s and share of the bound, and SDPA or one
+f32 linear call, K5 f32 also at D = 80, K8 f32
 bit for bit K1 f32 on the dequantized weights, K1, K5 and K8 f32 launch by
 launch in order with each 3xTF32 GEMM's TFLOP/s; the f32 classify slice;
 the f32 run of the feature slice; the f32 training slice); then a check
@@ -4522,7 +4523,9 @@ def _f32_check(label, kernel, plain, card, flops, moved_bytes, library=None,
         "ffma_bound_ms": roofline(flops, moved_bytes, PEAK_F32_FLOPS)["bound_ms"],
         "library_ms": cuda_median_ms(library) if library else None,
     }
-    line = (f"f32 kernel check: {label}: {'; '.join(parts)}; median {measured['ms']:.4f} ms, "
+    line = (f"f32 kernel check: {label}: {'; '.join(parts)}; median {measured['ms']:.4f} ms "
+            f"({flops / measured['ms'] / 1e9:.1f} TFLOP/s achieved, "
+            f"{100 * measured['bound_ms'] / measured['ms']:.1f}% of the bound), "
             f"plain f32 {measured['plain_ms']:.4f} ms, bound {measured['bound_ms']:.4f} ms "
             f"({measured['bound_by']}, 3xTF32 at {PEAK_TF32X3_FLOPS / 1e12:.1f} TFLOP/s; FFMA "
             f"at 67 TFLOP/s {measured['ffma_bound_ms']:.4f} ms)")
@@ -4562,9 +4565,9 @@ def _f32_launch_split(what: str, run, kernels: dict, order: tuple, gemm_flops: d
 
 # K1 f32's and K8 f32's six launches; K8 f32 dequantizes where K1 f32 splits
 F32_HALF_LAYER_ORDER = ("f32_row_norm_kernel", "split_tf32_t_kernel", "F32Bias",
-                        "f32_attention_forward_kernel", "split_tf32_t_kernel", "F32Residual")
+                        "tf32x3_attention_forward_kernel", "split_tf32_t_kernel", "F32Residual")
 F32_HALF_LAYER_KERNELS = {"f32_row_norm_kernel": "layer_norm", "split_tf32_t_kernel": "split",
-                          "F32Bias": "qkv", "f32_attention_forward_kernel": "attention",
+                          "F32Bias": "qkv", "tf32x3_attention_forward_kernel": "attention",
                           "F32Residual": "proj"}
 
 
@@ -5440,7 +5443,7 @@ def main() -> int:
     # the f32 variants: their own C entries in the same sources, their own
     # counts (`.f32_launches`) from the f32 paths
     headers = ("dinov2_tpu_torch/csrc/f32_gemm.cuh, dinov2_tpu_torch/csrc/tf32x3_gemm.cuh, "
-               "dinov2_tpu_torch/csrc/f32_attention.cuh")
+               "dinov2_tpu_torch/csrc/f32_attention.cuh, dinov2_tpu_torch/csrc/tf32x3.cuh")
     defaults, flash = f32_train["make_trainer(config) defaults"], f32_train["flash_attention=True"]
     kernels += [
         {
@@ -5469,7 +5472,8 @@ def main() -> int:
             "name": "slab_attention_f32",
             "route": "cuda",
             "source": "dinov2_tpu_torch/csrc/slab_attention.cu",
-            "also_source": "dinov2_tpu_torch/csrc/f32_attention.cuh",
+            "also_source": "dinov2_tpu_torch/csrc/f32_attention.cuh, "
+                           "dinov2_tpu_torch/csrc/tf32x3.cuh",
             "replaces": f"{fused}:331",
             "launches": f32_classify["core"]["K3"],
             **f32_measured["K3"],
@@ -5478,7 +5482,8 @@ def main() -> int:
             "name": "flash_attention_f32",
             "route": "cuda",
             "source": "dinov2_tpu_torch/csrc/flash_attention.cu",
-            "also_source": "dinov2_tpu_torch/csrc/f32_attention.cuh",
+            "also_source": "dinov2_tpu_torch/csrc/f32_attention.cuh, "
+                           "dinov2_tpu_torch/csrc/tf32x3.cuh",
             "replaces": "dinov2_tpu/ops/flash_attention.py:95",
             "also_replaces": "dinov2_tpu/ops/flash_attention.py:34",
             "launches": k4_f32_launches,

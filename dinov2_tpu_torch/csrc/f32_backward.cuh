@@ -76,7 +76,6 @@
 #pragma once
 
 #include "f32_attention.cuh"
-#include "tf32x3.cuh"
 
 namespace dinov2 {
 namespace {
@@ -84,19 +83,8 @@ namespace {
 constexpr int kF32BwdWarpgroups = 2;
 constexpr int kF32BwdThreads = 128 * kF32BwdWarpgroups;
 constexpr int kF32BwdRows = kTile * kF32BwdWarpgroups;  // keys (queries) of a block
-constexpr int kF32Stream = 32;                          // rows of a streamed tile
-constexpr int kF32DeltaRows = kF32AttentionThreads / 16;
-// planes: a resident 64 x 64 operand (two atoms of 64 rows), a streamed 32 x
-// 64 one (two atoms of 32 rows) and a transposed streamed one (64 dims x 32
-// rows, one atom, its rows permuted: SplitFragments); bytes of one plane
-constexpr int kResidentAtom = kTile * 128;
-constexpr int kResidentPlane = 2 * kResidentAtom;
-constexpr int kStreamAtom = kF32Stream * 128;
-constexpr int kStreamPlane = 2 * kStreamAtom;
-constexpr int kStreamTPlane = kHeadDim * 128;
-// the landing buffer for the raw values of one streamed tile of one tensor:
-// each thread of a warpgroup its four 16-byte pieces, thread-major
-constexpr int kRawBytes = 4 * 128 * 16;
+constexpr int kF32DeltaThreads = 256;
+constexpr int kF32DeltaRows = kF32DeltaThreads / 16;
 // the dK/dV kernel: each warpgroup's K and V (hi, lo each); the streamed
 // Q, Q^T, dO, dO^T (hi, lo each); raw Q and dO; lse and delta rows as the
 // planes' tile has them, then as they land
@@ -109,12 +97,18 @@ constexpr int kDqStreamBytes = 4 * kStreamPlane + 2 * kStreamTPlane;
 constexpr int kDqShared =
     1024 + kF32BwdWarpgroups * 4 * kResidentPlane + kDqStreamBytes + 2 * kRawBytes;
 static_assert(kDkvShared <= 232448 && kDqShared <= 232448, "a block's planes fit");
-static_assert(kF32Stream * kHeadDim / 16 == 128, "a thread holds one 4 x 4 piece of a tile");
+
+// sum over the 16 lanes of a half-warp, which hold one row
+__device__ __forceinline__ float row_sum16(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
 
 // delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]; o and d_out
 // contiguous (B, T, H, 64) f32. Sixteen threads a row, 16 bytes of each
 // tensor a thread: bytes bind it.
-__global__ void __launch_bounds__(kF32AttentionThreads)
+__global__ void __launch_bounds__(kF32DeltaThreads)
     f32_backward_delta_rows(const float* __restrict__ o, const float* __restrict__ d_out,
                             float* __restrict__ delta, int rows, int t, int heads) {
   const int row = blockIdx.x * kF32DeltaRows + (threadIdx.x >> 4);
@@ -127,99 +121,6 @@ __global__ void __launch_bounds__(kF32AttentionThreads)
   if (valid && (threadIdx.x & 15) == 0) {
     const int head = row % heads, token = (row / heads) % t, img = row / (heads * t);
     delta[(static_cast<size_t>(img) * heads + head) * t + token] = sum;
-  }
-}
-
-// The rows of a 32-row tile that thread wt of a warpgroup holds: piece tb =
-// wt / 16 is rows 8*(tb / 2) + (tb % 2) + 2*i, i = 0..3, dims 4*(wt % 16)..
-// The rows of a piece are the k positions 4*tb.. of a transposed plane in
-// SplitFragments' order (row 2*t + b of a group of eight at t + 4*b).
-__device__ __forceinline__ int piece_row(int wt, int i) {
-  const int tb = wt >> 4;
-  return 8 * (tb >> 1) + (tb & 1) + 2 * i;
-}
-
-// A thread's piece of rows r0.. of a head's (T, 64) matrix (`ld` floats a
-// row); zeros past T.
-__device__ __forceinline__ void load_piece(float4 (&v)[4], const float* __restrict__ src,
-                                           size_t ld, int r0, int t, int wt) {
-  const int dim = 4 * (wt & 15);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + piece_row(wt, i);
-    v[i] = row < t ? *reinterpret_cast<const float4*>(src + row * ld + dim)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// The same piece, copied asynchronously (cp.async, 16 bytes a row, zeros
-// past T) into this thread's slots of a landing buffer; the caller commits.
-__device__ __forceinline__ void land_piece_async(uint8_t* raw, const float* __restrict__ src,
-                                                 size_t ld, int r0, int t, int wt) {
-  const int dim = 4 * (wt & 15);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + piece_row(wt, i);
-    const bool valid = row < t;
-    cp_async_16(shared_address(raw + (i * 128 + wt) * 16), src + (valid ? row : 0) * ld + dim,
-                valid);
-  }
-}
-
-// This thread's landed piece (its own copies: no barrier needed)
-__device__ __forceinline__ void read_piece(float4 (&v)[4], const uint8_t* raw, int wt) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = reinterpret_cast<const float4*>(raw)[i * 128 + wt];
-}
-
-// The piece's hi and lo into K-major row planes (its rows, from row0, of two
-// atoms `atom` bytes apart, dims in the rows): 16-byte stores.
-__device__ __forceinline__ void store_rows(uint8_t* hi, uint8_t* lo, int atom, int row0,
-                                           const float4 (&v)[4], int wt) {
-  const int db = wt & 15;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t at = (db >> 3) * atom + swizzled(row0 + piece_row(wt, i), db & 7);
-    float4 h, l;
-    split_tf32(v[i], h, l);
-    *reinterpret_cast<float4*>(hi + at) = h;
-    *reinterpret_cast<float4*>(lo + at) = l;
-  }
-}
-
-// The piece's hi and lo into a transposed plane (64 dims x 32 k positions,
-// one atom): dim d's row holds the piece's four rows at positions 4*tb..,
-// one 16-byte store a dim. A thread takes its four dims in a rotated order
-// (its e-th store is dim 4*db + (e + db / 2) % 4), so that a warp's 32
-// stores of each pass fall on every 16-byte bank group four times.
-__device__ __forceinline__ void store_columns(uint8_t* hi, uint8_t* lo, const float4 (&v)[4],
-                                              int wt) {
-  const int tb = wt >> 4, db = wt & 15;
-#pragma unroll
-  for (int pass = 0; pass < 4; ++pass) {
-    const int e = (pass + (db >> 1)) & 3;
-    const float4 col = e == 0   ? make_float4(v[0].x, v[1].x, v[2].x, v[3].x)
-                       : e == 1 ? make_float4(v[0].y, v[1].y, v[2].y, v[3].y)
-                       : e == 2 ? make_float4(v[0].z, v[1].z, v[2].z, v[3].z)
-                                : make_float4(v[0].w, v[1].w, v[2].w, v[3].w);
-    const uint32_t at = swizzled(4 * db + e, tb);
-    float4 h, l;
-    split_tf32(col, h, l);
-    *reinterpret_cast<float4*>(hi + at) = h;
-    *reinterpret_cast<float4*>(lo + at) = l;
-  }
-}
-
-// A warpgroup's resident 64-row operand: rows r0.. of a head's (T, 64)
-// matrix split into two-atom hi and lo planes, in two 32-row passes.
-__device__ __forceinline__ void stage_resident(uint8_t* hi, uint8_t* lo,
-                                               const float* __restrict__ src, size_t ld, int r0,
-                                               int t, int wt) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float4 v[4];
-    load_piece(v, src, ld, r0 + half * kF32Stream, t, wt);
-    store_rows(hi, lo, kResidentAtom, half * kF32Stream, v, wt);
   }
 }
 
@@ -536,7 +437,7 @@ inline int launch_f32_backward(const float* q, const float* k, const float* v, c
                                long long out_token_stride, long long out_head_stride,
                                float scale, cudaStream_t stream) {
   const int rows = b * t * heads;
-  f32_backward_delta_rows<<<(rows + kF32DeltaRows - 1) / kF32DeltaRows, kF32AttentionThreads,
+  f32_backward_delta_rows<<<(rows + kF32DeltaRows - 1) / kF32DeltaRows, kF32DeltaThreads,
                             0, stream>>>(o, d_out, delta, rows, t, heads);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -51,9 +51,8 @@
 // scratch the caller allocated, and the proj GEMM on tf32x3_gemm.cuh's
 // 3xTF32 core with the residual epilogue, K1 f32's last two launches. At
 // ViT-g/14's shape K3 in f32 is 6.5 GFLOP over 101 MB: 0.04 ms at 3xTF32's
-// 165 TFLOP/s against 0.03 ms for the bytes (its loop runs on FFMA, at 67
-// TFLOP/s 0.10 ms); K2 adds 19.4 GFLOP of proj, 0.12 ms: operations bind
-// it.
+// 165 TFLOP/s (f32_attention.cuh's 3xTF32 wgmma) against 0.03 ms for the
+// bytes; K2 adds 19.4 GFLOP of proj, 0.12 ms: operations bind it.
 //
 // Every entry point returns cudaGetLastError() after its launches.
 

@@ -1,6 +1,7 @@
 // 3xTF32 on Hopper's tensor cores: f32-accurate products for the f32
 // kernels that are redesigned off the CUDA cores (the f32 GEMM of K1, K2,
-// K5, K7 and K8, tf32x3_gemm.cuh; K6 f32, f32_backward.cuh).
+// K5, K7 and K8, tf32x3_gemm.cuh; the forward attention of K1 to K4 and K8
+// f32, f32_attention.cuh; K6 f32, f32_backward.cuh).
 //
 // An f32 operand a is split once, where it is staged, into two TF32 values,
 //

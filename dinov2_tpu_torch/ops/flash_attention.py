@@ -7,21 +7,21 @@ dinov2_tpu/ops/flash_attention.py).
 On CUDA tensors both launch the hand-written kernel in
 csrc/flash_attention.cu, which replaces the Pallas TPU kernels
 `_attn_kernel_1kv` and `_attn_kernel`: in bf16 its wgmma tile loop, in f32
-its f32 entries (csrc/f32_attention.cuh, full f32 products on the CUDA
-cores, P kept in f32 as the JAX kernels keep it). It reads q, k and v through their
-strides, so `flash_attention_slab` hands it the head views of the qkv slab
-(`split_heads`) and no head transpose goes through HBM, for any head_dim
-(the JAX package gates its slab variant to hd % 128 for a Mosaic rule only).
-On CPU tensors both run the plain version, `vanilla_attention`'s math: f32
-scores and softmax, probabilities rounded to the inputs' dtype for the P.V
-product with f32 accumulation.
+its f32 entries (csrc/f32_attention.cuh, f32-accurate 3xTF32 products on the
+tensor cores, P kept in f32 as the JAX kernels keep it). It reads q, k and v
+through their strides, so `flash_attention_slab` hands it the head views of
+the qkv slab (`split_heads`) and no head transpose goes through HBM, for any
+head_dim (the JAX package gates its slab variant to hd % 128 for a Mosaic
+rule only). On CPU tensors both run the plain version, `vanilla_attention`'s
+math: f32 scores and softmax, probabilities rounded to the inputs' dtype for
+the P.V product with f32 accumulation.
 
-The kernel streams 64-key tiles with an exact online softmax (running row
-max, f32 statistics), so the TPU kernels' block picking, their CLS-shift
-core and its overflow rescue have no counterpart here. In bf16 K4 and K6 run
-their products as wgmma on 128-byte-swizzled shared tiles filled by a cp.async
-ring (csrc/wgmma_tiles.cuh); a block's rows (64 or 128) are picked by shape
-in the C entry points (`kernel_tile_rows` reports them).
+The kernel streams 64-key tiles (32 in f32) with an exact online softmax
+(running row max, f32 statistics), so the TPU kernels' block picking, their
+CLS-shift core and its overflow rescue have no counterpart here. In bf16 K4
+and K6 run their products as wgmma on 128-byte-swizzled shared tiles filled
+by a cp.async ring (csrc/wgmma_tiles.cuh); a block's rows (64 or 128) are
+picked by shape in the C entry points (`kernel_tile_rows` reports them).
 
 Both are differentiable, as the JAX functions are through their custom_vjp.
 When an input requires grad the forward is the kernel's `with_lse` variant

@@ -13,8 +13,8 @@ and `_slab_mlp_kernel`/`_slab_mlp_flat_kernel` of
 `dinov2_tpu/ops/fused_attention.py`. Each takes bf16 and f32 activations
 (f32: the f32 entries of the same sources, f32-accurate products: the
 GEMMs 3xTF32 on the tensor cores, csrc/tf32x3_gemm.cuh, on the weights'
-TF32 planes split into a scratch each call, the attention loop FFMA on the
-CUDA cores, csrc/f32_attention.cuh); anything else raises. On a CPU tensor
+TF32 planes split into a scratch each call, the attention 3xTF32 too,
+csrc/f32_attention.cuh); anything else raises. On a CPU tensor
 each runs its plain PyTorch version (`slab_layer_reference`,
 `_slab_block_reference`, `_slab_reference`, `slab_mlp_reference`), which
 keeps the JAX package's unfused ordering. Every wrapper counts its calls

@@ -6,7 +6,11 @@ DIR holds another version of dinov2_tpu_torch/csrc/ (e.g. the parent
 commit's: `git archive <commit> dinov2_tpu_torch/csrc | tar -x -C <dir>`).
 For K1, K2, K3, K4 (with and without lse), K5, K6 (dq, dk, dv), K7 (bf16
 fc1 and fc2, f32 fc1, fc2 and head), K8, K6 f32 at the two training
-shapes, K1, K2, K5 and K8 f32 (the port's f32 GEMM core) and K9 (the whole
+shapes, K1, K2, K5 and K8 f32 (the port's f32 GEMM core), K3 f32 at ViT-B's
+and ViT-g's slab shapes, K4 f32 with and without lse at the feature shape
+and with lse at the training shape (the f32 forward attention), the f32
+ViT-B/14 224 px and ViT-L/14 518 px forward whose attention is K1 f32 and
+K4 f32 (random weights: each build's tokens of one forward) and K9 (the whole
 call, its quantize and its GEMM alone, at chip_smoke.py's INT8_SHAPES: fc1,
 fc2, the head and qkv at T=1370), at the shapes chip_smoke.py checks them
 at, it builds both versions, runs both wrappers on the same seeded inputs, and
@@ -19,21 +23,24 @@ behind autograd (four launches: where the event time is the host time, the
 host binds it). The kernels that REDESIGNED names, whose f32 sums may run in
 another order in the two versions, must be equal within TOLERANCE of the
 output's scale (bf16 outputs: an ulp of the largest values is 0.4% of
-them): against the parent of the move of the dense f32 GEMM onto 3xTF32,
-K1, K2, K5 and K8 f32 (K7 f32, moved onto the shared GEMM, and K6 f32 stay
-bit for bit); against an older tree, add the kernels redesigned since (K7
-f32 and K6 f32 against a tree before their 3xTF32 redesign; K8 against one
-before its wgmma kernel; K1, K2, K3 against one before theirs; K5 and K7's
-bf16 path against one before theirs). Exits non-zero
-otherwise. The f32 cases also print each build's distance from their plain
-f32 version on the same inputs. Needs a CUDA device and nvcc.
+them): against the parent of the move of the f32 forward attention onto
+3xTF32, K3 and K4 f32 (with and without lse) and K1, K2 and K8 f32, whose
+attention launch it is (K5, K6 and K7 f32 stay bit for bit); against an
+older tree, add the kernels redesigned since (K5 f32 against a tree before
+the f32 GEMM's move onto 3xTF32; K7 f32 and K6 f32 against one before
+their 3xTF32 redesign; K8 against one before its wgmma kernel; K1, K2, K3
+against one before theirs; K5 and K7's bf16 path against one before
+theirs). Exits non-zero otherwise. The f32 cases also print each build's
+distance from their plain f32 version on the same inputs, and the f32
+attention cases one scaled_dot_product_attention f32 call's time on the
+same inputs. Needs a CUDA device and nvcc.
 
 The wrappers pass K5's hidden buffer, K7's and K8's weight scratch, the
 f32 entries' scratch for their weights' TF32 planes (K1, K2, K5) and K9's
 GELU table as the last argument of their C entries, so an entry from
 before those buffers, which takes one argument fewer, runs with the same
-wrapper and never reads it. --only PREFIX keeps the cases whose names start
-with it (e.g. --only K9).
+wrapper and never reads it. --only PREFIX[,PREFIX...] keeps the cases
+whose names start with one of them (e.g. --only K9 or --only "K3 f32,K4 f32").
 
     python3 scripts/compare_kernel_builds.py --host-tree DIR
 
@@ -64,18 +71,22 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from dinov2_tpu_torch.models.params import Int8Linear, quantize_linear  # noqa: E402
+from dinov2_tpu_torch.models.config import PRESETS, DinoConfig  # noqa: E402
+from dinov2_tpu_torch.models.params import Int8Linear, init_params, quantize_linear  # noqa: E402
+from dinov2_tpu_torch.models.vit import ModelOptions, forward_features  # noqa: E402
 from dinov2_tpu_torch.ops import _kernels  # noqa: E402
-from dinov2_tpu_torch.ops.attention import split_heads  # noqa: E402
+from dinov2_tpu_torch.ops.attention import split_heads, vanilla_attention  # noqa: E402
 from dinov2_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_slab,
     flash_backward,
     flash_backward_reference,
     flash_forward_lse,
+    flash_forward_reference,
 )
 from dinov2_tpu_torch.ops.fused_attention import (  # noqa: E402
     _slab_block_reference,
+    _slab_reference,
     slab_attention,
     slab_attention_backward,
     slab_attention_block,
@@ -111,7 +122,7 @@ INT8_SHAPES = {
     "qkv_t1370": (8 * 1370, 768, 2304, None, torch.bfloat16),
 }
 # held within tolerance; every other kernel bit for bit
-REDESIGNED = ("K1 f32", "K2 f32", "K5 f32", "K8 f32")
+REDESIGNED = ("K1 f32", "K2 f32", "K3 f32", "K4 f32", "K8 f32")
 TOLERANCE = 1e-2  # of max|other|, plus 1e-5
 
 
@@ -184,8 +195,17 @@ def mlp_args(rng, b, t, d):
     return [torch.from_numpy(a).to("cuda", dt) for a, dt in arrays]
 
 
-# f32 cases -> their plain f32 version on the same inputs (filled by cases())
+# f32 cases -> their plain f32 version on the same inputs, and the f32
+# attention cases -> one scaled_dot_product_attention call (filled by cases())
 PLAIN = {}
+LIBRARY = {}
+
+
+def sdpa(q, k, v, scale):
+    """One scaled_dot_product_attention call on (B, T, H, 64) head views:
+    a yardstick the port never calls."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale)
 
 
 def cases():
@@ -238,6 +258,38 @@ def cases():
              torch.from_numpy(rng.uniform(0.1, 1.0, dg)).to("cuda", torch.float32))
     f32_cases[f"K2 f32 slab_attention_block B={bg} T={t} D={dg}"] = (
         slab_attention_block, _slab_block_reference, (*block, hg, 0.125))
+    # the f32 forward attention at chip_smoke.py's shapes: K3 at ViT-B's and
+    # ViT-g's slab shapes, K4 with and without lse at the feature shape, K4
+    # with lse at the training shape (T=257: one query in the last block)
+    attention_cases = {
+        (b, t, heads): ("K3",), (bg, t, hg): ("K3",), (8, 1370, 16): ("K4", "K4 lse"),
+        (32, 257, 12): ("K4 lse",)}
+    for (bb, tt, hh), kinds in attention_cases.items():
+        slab = f32((bb, tt, 3 * 64 * hh), 1.5)
+        q, k, v = split_heads(slab, hh)
+        shape = f"B={bb} T={tt} H={hh}"
+        named = {
+            "K3": (f"K3 f32 slab_attention {shape}", slab_attention, _slab_reference,
+                   (slab, hh, 0.125)),
+            "K4": (f"K4 f32 flash_attention_slab {shape}", flash_attention_slab,
+                   lambda s, h, c: vanilla_attention(*split_heads(s, h), c), (slab, hh, 0.125)),
+            "K4 lse": (f"K4 f32 with lse flash_forward_lse {shape}", flash_forward_lse,
+                       flash_forward_reference, (q, k, v, 0.125)),
+        }
+        for kind in kinds:
+            name, kernel, plain, inputs = named[kind]
+            f32_cases[name] = (kernel, plain, inputs)
+            LIBRARY[name] = partial(sdpa, q, k, v, 0.125)
+    # the f32 paths the forward attention runs on, random weights, parity
+    # hf: ViT-B/14 at 224 px (T=257, K1 f32 12 a forward) and ViT-L/14 at 518
+    # px (T=1370, K4 f32 24 a forward), the tokens of one forward
+    opts32 = ModelOptions(parity="hf", compute_dtype=torch.float32)
+    for kind, preset, bb, size in (("K1", "base", 64, 224), ("K4", "large", 8, 518)):
+        config = DinoConfig(**{**PRESETS[preset].__dict__, "img_size": 518})
+        params = init_params(config, seed=0, dtype=torch.float32, device="cuda")
+        images = f32((bb, size, size, 3))
+        calls[f"{kind} f32 path: ViT-{preset[0].upper()}/14 forward_features B={bb} {size} px"] = (
+            partial(forward_features, params, images, config, opts32))
     for name, (kernel, plain, inputs) in f32_cases.items():
         calls[name] = partial(kernel, *inputs)
         PLAIN[name] = partial(plain, *inputs)
@@ -310,8 +362,9 @@ def distance(got, plain) -> str:
     """Each output's max|got - plain| / max(1, max|plain|)."""
     got = got if isinstance(got, tuple) else (got,)
     plain = plain if isinstance(plain, tuple) else (plain,)
-    return ", ".join(f"{(a - p).abs().max().item() / max(1.0, p.abs().max().item()):.3g}"
-                     for a, p in zip(got, plain))
+    return ", ".join(
+        f"{(a.reshape(p.shape) - p).abs().max().item() / max(1.0, p.abs().max().item()):.3g}"
+        for a, p in zip(got, plain))
 
 
 def compare(name: str, ours, theirs) -> tuple[bool, str]:
@@ -422,7 +475,9 @@ def main() -> int:
     which = parser.add_mutually_exclusive_group(required=True)
     which.add_argument("--other-csrc", type=Path)
     which.add_argument("--host-tree", type=Path)
-    parser.add_argument("--only", default="", help="keep the cases whose names start with this")
+    parser.add_argument("--only", default="",
+                        help="keep the cases whose names start with one of these "
+                             "(comma-separated)")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("compare_kernel_builds: no CUDA device available", file=sys.stderr)
@@ -438,7 +493,7 @@ def main() -> int:
     same = True
     with torch.no_grad():  # K3's backward turns grad on again inside
         for name, call in cases().items():
-            if not name.startswith(opts.only):
+            if not name.startswith(tuple(opts.only.split(","))):
                 continue
             with csrc(other):
                 theirs = call()
@@ -456,6 +511,9 @@ def main() -> int:
                 plain = PLAIN[name]()
                 verdict += (f"; from the plain f32 version, of max(1, max|plain|): this "
                             f"{distance(ours, plain)}, other {distance(theirs, plain)}")
+            if name in LIBRARY:
+                verdict += (f"; scaled_dot_product_attention f32 on the same inputs "
+                            f"{median_ms(LIBRARY[name]):.4f} ms")
             print(
                 f"{name}: {verdict}; other build {ms_other[0]:.4f} and "
                 f"{ms_other[1]:.4f} ms, this build {ms_this[0]:.4f} and {ms_this[1]:.4f} ms; "

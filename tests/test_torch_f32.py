@@ -9,10 +9,11 @@ the kernels refuse, the 3xTF32 GEMM's walk on a dense weight
 (tests/test_torch_tf32x3.py's emulation: its masks at ragged M and N, a
 partial k-step, and both dense epilogues' order)
 against the plain version, and the plain f32 versions the kernels are held
-to on the card against the JAX functions they port. The attention tile
-loops in f32 are tests/test_torch_flash_tiles.py's emulations (64-row
-blocks, 64-key tiles), which the f32 kernels follow; K5 f32's and K8 f32's
-walks are tests/test_torch_f32_mlp.py's.
+to on the card against the JAX functions they port. The f32 attention
+tile loops are tests/test_torch_flash_tiles.py's emulations (the forward's
+128-row blocks and 32-key tiles), which tests/test_torch_tf32x3.py runs with
+the kernels' 3xTF32 products; K5 f32's and K8 f32's walks are
+tests/test_torch_f32_mlp.py's.
 """
 
 import logging

@@ -2,7 +2,8 @@
 
 csrc/flash_attention.cu (K4) and csrc/flash_backward.cu (K6) cannot run
 here. This file emulates their tile loops in plain PyTorch, step for step:
-blocks of 64 or 128 rows, a warpgroup per 64 rows, 64-row streamed tiles,
+blocks of 64 or 128 rows, a warpgroup per 64 rows, 64-row streamed tiles
+(the f32 kernels' 128-row blocks and 32-row tiles for f32 inputs),
 rows past T zero-filled and masked, the online softmax on raw scores with a
 base-2 exponent (scale * log2(e) folded into one FMA), one reciprocal of the
 row sum, p and dS rounded to the inputs' dtype before the second products,
@@ -43,6 +44,7 @@ from dinov2_tpu_torch.ops.flash_attention import (
 from dinov2_tpu_torch.parallel.train import make_trainer
 
 TILE = 64  # rows of a warpgroup and of a streamed tile
+F32_FORWARD_TILES = (128, 32)  # csrc/f32_attention.cuh: a block's queries, a streamed tile's keys
 LOG2E = 1.4426950408889634
 SCALE = 0.125
 RAGGED_T = (1, 63, 64, 65, 127, 128, 129, 257, 300)
@@ -64,29 +66,37 @@ def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).float()
 
 
-def emulate_forward(q, k, v, scale, block_rows):
-    """K4's loops: (out, lse) of (B, T, H, 64) q, k, v."""
+def emulate_forward(q, k, v, scale, block_rows, key_rows=TILE, product=None):
+    """K4's loops: (out, lse) of (B, T, H, 64) q, k, v. Blocks of block_rows
+    queries, a warpgroup per 64, streamed tiles of key_rows keys. By default
+    s = q k^T takes the inputs as they are and p is rounded to the inputs'
+    dtype for P.V (the bf16 kernel); `product(a, b)` instead multiplies both
+    operand pairs as a kernel does (K4 f32's 3xTF32,
+    tests/test_torch_tf32x3.py). Each tile's P.V is a chunk folded in as
+    o * alpha + chunk."""
     b, t, heads, _ = q.shape
     out = torch.empty((b, t, heads, 64), dtype=q.dtype)
     lse = torch.empty((b, heads, t), dtype=torch.float32)
     scale_log2 = np.float32(scale * LOG2E)
+    first = product or (lambda a, c: a @ c)
+    second = product or (lambda a, c: _rounded(a, q.dtype) @ c)
     for block in range(0, t, block_rows):
         for q0 in range(block, block + block_rows, TILE):  # one warpgroup each
             if q0 >= t:
-                continue  # the warpgroup runs on zero rows and writes nothing
+                continue  # the warpgroup's rows all lie past T: it writes nothing
             q_tile = _tile(q, q0)
             o = torch.zeros((b, heads, TILE, 64))
             m = torch.full((b, heads, TILE), -math.inf)
             l = torch.zeros((b, heads, TILE))
-            for k0 in range(0, t, TILE):
-                s = q_tile @ _tile(k, k0).transpose(-1, -2)
-                if k0 + TILE > t:
+            for k0 in range(0, t, key_rows):
+                s = first(q_tile, _tile(k, k0, key_rows).transpose(-1, -2))
+                if k0 + key_rows > t:
                     s[..., t - k0 :] = -math.inf
                 m_new = torch.maximum(m, s.amax(dim=-1))
                 alpha = torch.exp2((m - m_new) * scale_log2)
                 p = torch.exp2(s * scale_log2 - (m_new * scale_log2)[..., None])
                 l = l * alpha + p.sum(dim=-1)
-                o = o * alpha[..., None] + _rounded(p, q.dtype) @ _tile(v, k0)
+                o = o * alpha[..., None] + second(p, _tile(v, k0, key_rows))
                 m = m_new
             rows = min(TILE, t - q0)
             result = o * (1.0 / l)[..., None]
@@ -191,8 +201,11 @@ def test_forward_tile_loops_match_plain_version(t, heads, slab, dtype):
     q, k, v, _ = _inputs(t, heads, slab, dtype, seed=t + heads)
     want, want_lse = flash_forward_reference(q.float(), k.float(), v.float(), SCALE)
     plain, _ = flash_forward_reference(q, k, v, SCALE)
-    for block_rows in (64, 128):
-        out, lse = emulate_forward(q, k, v, SCALE, block_rows)
+    # bf16: 64- or 128-row blocks, 64-key tiles; f32: f32_attention.cuh's
+    # 128-row blocks and 32-key tiles
+    walks = [(64, TILE), (128, TILE)] if dtype == torch.bfloat16 else [F32_FORWARD_TILES]
+    for block_rows, key_rows in walks:
+        out, lse = emulate_forward(q, k, v, SCALE, block_rows, key_rows)
         assert out.dtype == dtype and out.shape == q.shape and lse.shape == (2, heads, t)
         np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), atol=F32_FORWARD_ATOL, rtol=0)
         if dtype == torch.float32:

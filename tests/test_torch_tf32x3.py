@@ -24,7 +24,14 @@ kernels cannot run here. This file holds:
   - K6 f32's walk (csrc/f32_backward.cuh): test_torch_flash_tiles.py's
     `emulate_backward` with 32-row streamed tiles and the 3xTF32 product,
     held against `flash_backward_reference` and the JAX `_flash_backward`
-    in interpret mode.
+    in interpret mode;
+  - the f32 forward attention's walk (csrc/f32_attention.cuh, K4 f32 with
+    and without lse, and K3 f32, the attention launch of K1, K2 and K8
+    f32): `emulate_forward` with 128-query blocks, 32-key tiles and the
+    3xTF32 product, each tile's P.V a chunk folded in as o * alpha +
+    chunk, held against `flash_forward_reference` and the JAX
+    `_flash_forward(with_lse=True)` in interpret mode, and on a (B, T, 3D)
+    slab against `_slab_reference` and the JAX `_slab_forward`.
 The emulation sums each product's terms to nearest in f32; the card's
 tensor cores truncate inside a chunk, which only the card's checks
 (chip_smoke.py, F32_TOL and F32_GRAD_TOL) can show.
@@ -36,13 +43,16 @@ import pytest
 import torch
 import torch_threads  # noqa: F401  (caps torch's threads under xdist)
 from test_torch_flash_backward import _force_multi_block, _qkvg
-from test_torch_flash_tiles import emulate_backward
+from test_torch_flash_tiles import F32_FORWARD_TILES, emulate_backward, emulate_forward
 from test_torch_quant import _jax_ql, _to_port
 
 from dinov2_tpu.ops import flash_attention as jfa
+from dinov2_tpu.ops import fused_attention as jfused
 from dinov2_tpu.ops import qmatmul as jqmatmul
 from dinov2_tpu.ops.pallas_qmatmul import quant_matmul_pallas
-from dinov2_tpu_torch.ops.flash_attention import flash_backward_reference
+from dinov2_tpu_torch.ops.attention import split_heads
+from dinov2_tpu_torch.ops.flash_attention import flash_backward_reference, flash_forward_reference
+from dinov2_tpu_torch.ops.fused_attention import _slab_reference
 from dinov2_tpu_torch.ops.qmatmul import apply_activation, dequant_weight
 from dinov2_tpu_torch.ops.qmatmul_kernel import quant_matmul_reference
 
@@ -327,3 +337,54 @@ def test_k6_f32_walk_matches_plain_version_and_jax(monkeypatch, t, slab):
         assert a.shape == (b, t, heads, 64) and torch.isfinite(a).all(), name
         assert (a - p).abs().max().item() <= _bound(p, F32_GRAD_TOL), name
         assert np.abs(a.numpy() - np.asarray(w)).max() <= _bound(p, F32_GRAD_TOL), name
+
+
+# ------------------------------------------------- the f32 forward attention
+
+
+@pytest.mark.parametrize("slab", [False, True], ids=["contiguous", "slab"])
+@pytest.mark.parametrize("t", [65, 300])
+def test_k4_f32_walk_matches_plain_version_and_jax(monkeypatch, t, slab):
+    """K4 f32's walk (blocks of 128 queries, 64 a warpgroup, 32-key tiles,
+    both products 3xTF32, each tile's P.V a chunk folded in as o * alpha +
+    chunk) against flash_forward_reference and the JAX forward with lse in
+    interpret mode, out and lse within F32_TOL of max(1, max|plain|). At T =
+    300 the JAX kernel takes several KV blocks; with `slab` q, k and v are
+    strided head views, as flash_attention_slab hands them."""
+    if t == 300:
+        _force_multi_block(monkeypatch, t)
+    b, heads = 2, 2
+    q, k, v, _ = _qkvg(t + 11, b, t, heads)
+    qs, ks, vs = (torch.from_numpy(a) for a in (q, k, v))
+    if slab:
+        qkv = torch.cat([a.reshape(b, t, heads * 64) for a in (qs, ks, vs)], dim=-1)
+        qs, ks, vs = split_heads(qkv, heads)
+    o, lse = jfa._flash_forward(*map(jnp.asarray, (q, k, v)), SCALE, interpret=True,
+                                with_lse=True)
+    want_jax = (np.asarray(o), np.asarray(lse)[:, :t, 0].reshape(b, heads, t))
+    got = emulate_forward(qs, ks, vs, SCALE, *F32_FORWARD_TILES, tf32x3)
+    plain = flash_forward_reference(qs, ks, vs, SCALE)
+    for name, a, p, w in zip(("out", "lse"), got, plain, want_jax):
+        assert a.shape == p.shape and torch.isfinite(a).all(), name
+        assert (a - p).abs().max().item() <= _bound(p, F32_TOL), name
+        assert np.abs(a.numpy() - w).max() <= _bound(p, F32_TOL), name
+
+
+@pytest.mark.parametrize("t", [1, 65, 257])
+def test_k3_f32_walk_on_a_slab_matches_plain_version_and_jax(t):
+    """The same walk on the head views of a (B, T, 3D) f32 slab, K3 f32
+    (the attention launch of K1, K2 and K8 f32), against _slab_reference
+    and the JAX slab kernel in interpret mode, within F32_TOL of
+    max(1, max|plain|). T = 257 leaves one query in the last block and one
+    key in the last tile."""
+    b, heads = 2, 2
+    qkv = np.random.default_rng(t + 5).standard_normal((b, t, 3 * 64 * heads)) * 1.5
+    qkv = qkv.astype(np.float32)
+    slab = torch.from_numpy(qkv)
+    out, _ = emulate_forward(*split_heads(slab, heads), SCALE, *F32_FORWARD_TILES, tf32x3)
+    got = out.reshape(b, t, 64 * heads)
+    plain = _slab_reference(slab, heads, SCALE)
+    want_jax = np.asarray(jfused._slab_forward(jnp.asarray(qkv), heads, SCALE, interpret=True))
+    assert got.shape == plain.shape and torch.isfinite(got).all()
+    assert (got - plain).abs().max().item() <= _bound(plain, F32_TOL)
+    assert np.abs(got.numpy() - want_jax).max() <= _bound(plain, F32_TOL)
