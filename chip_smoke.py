@@ -2123,8 +2123,8 @@ def phase_features(card: str) -> tuple[int, int]:
 
     def timed(eng) -> tuple[list[float], float]:
         """Host seconds of each call, and the median ms of its synchronized
-        forward alone (the engine's last_compute_ms: preprocess and model,
-        without the upload and the copy of the tokens to the host)."""
+        forward (the engine's last_compute_ms: the upload, preprocess and
+        model, without the copy of the tokens to the host)."""
         seconds, forward_ms = [], []
         for _ in range(FEATURE_TIMED_CALLS):
             start = time.perf_counter()

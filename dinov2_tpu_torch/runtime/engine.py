@@ -53,6 +53,22 @@ shards, the psums cross the ranks, and every rank returns the same
 outputs. A 'data' axis larger than 1 whose slices lie on different ranks
 raises a ValueError: their outputs would live on other processes, which the
 JAX engine cannot fetch either.
+
+Host spans (utils/timing.py::span, on torch's profiler: they show exactly
+when a profiler runs) name the engine's stages
+`dinov2_tpu_torch.engine.<stage>`:
+  - gather: grouping by size and np.stack;
+  - pad: the bucket padding on the host (`_pad_rows`);
+  - upload: the pageable staging and the copy to the device;
+  - launch: preprocess, the groups' merge and the forward's launches, with
+    pad and upload inside it;
+  - fetch: slicing the outputs and copying them to the host (PCA: and the
+    nearest resize there).
+The synchronize that closes `last_compute_ms` lies outside every span.
+`last_compute_ms` runs from the first pad to the end of that synchronize
+in every entry. `DinoEngine.uploaded_rows` and `DinoEngine.padded_rows`
+count, over the process, the rows `_upload` sent and the padding rows
+among them.
 """
 
 from __future__ import annotations
@@ -86,7 +102,12 @@ from dinov2_tpu_torch.parallel.mesh import (
 )
 from dinov2_tpu_torch.utils.debug import check_finite
 from dinov2_tpu_torch.utils.logging import get_logger, log_model_banner
-from dinov2_tpu_torch.utils.timing import time_blocked
+from dinov2_tpu_torch.utils.timing import span, time_blocked
+
+
+def _stage(name: str):
+    """The engine's host span of stage `name`."""
+    return span(f"dinov2_tpu_torch.engine.{name}")
 
 
 def _bucket(n: int) -> int:
@@ -98,6 +119,11 @@ def _bucket(n: int) -> int:
 
 
 class DinoEngine:
+    # rows _upload sent to the device and the padding rows among them, over
+    # the process (as the kernel wrappers' `.launches`)
+    uploaded_rows = 0
+    padded_rows = 0
+
     def __init__(
         self,
         model_path: str | Path,
@@ -261,7 +287,13 @@ class DinoEngine:
     def _upload(self, batch: np.ndarray, rows: int) -> torch.Tensor:
         """Host batch padded to `rows` (on the host: the padding never crosses
         PCIe twice) -> tensor on the device."""
-        return torch.from_numpy(self._pad_rows(batch, rows)).to(self.device)
+        with _stage("pad"):
+            padded = self._pad_rows(batch, rows)
+        with _stage("upload"):
+            x = torch.from_numpy(padded).to(self.device)
+        DinoEngine.uploaded_rows += rows
+        DinoEngine.padded_rows += rows - batch.shape[0]
+        return x
 
     def _feature_grid(self, batch: np.ndarray) -> tuple[int, int]:
         """The quirk-Q4 patch grid of a (B, H, W, 3) batch."""
@@ -287,32 +319,35 @@ class DinoEngine:
         (B, num_classes) f32 probabilities."""
         if not self.loaded.has_classifier:
             raise ValueError("checkpoint has no classifier head")
-        groups = self._group_by_shape(images)
+        with _stage("gather"):
+            groups = self._group_by_shape(images)
         if not groups:
             return np.zeros((0, self.config.num_classes), dtype=np.float32)
 
         @torch.inference_mode()
         def run():
-            if len(groups) == 1:
-                idxs, batch = groups[0]
-                pre = classify_preprocess(self._upload(batch, self._target_batch(len(idxs))))
-                return self._forward(pre, classify=True), len(idxs)
-            order, parts = [], []
-            for idxs, batch in groups:
-                order.extend(idxs)
-                # pad each group to its bucket before preprocessing, slice after
-                pre = classify_preprocess(self._upload(batch, _bucket(len(idxs))))
-                parts.append(pre[: len(idxs)])
-            inv = torch.from_numpy(np.argsort(np.asarray(order))).to(self.device)
-            pre = torch.cat(parts)[inv]
-            n = pre.shape[0]
-            pad = pre[-1:].expand(self._target_batch(n) - n, *pre.shape[1:])
-            return self._forward(torch.cat([pre, pad]), classify=True), n
+            with _stage("launch"):
+                if len(groups) == 1:
+                    idxs, batch = groups[0]
+                    pre = classify_preprocess(self._upload(batch, self._target_batch(len(idxs))))
+                    return self._forward(pre, classify=True), len(idxs)
+                order, parts = [], []
+                for idxs, batch in groups:
+                    order.extend(idxs)
+                    # pad each group to its bucket before preprocessing, slice after
+                    pre = classify_preprocess(self._upload(batch, _bucket(len(idxs))))
+                    parts.append(pre[: len(idxs)])
+                inv = torch.from_numpy(np.argsort(np.asarray(order))).to(self.device)
+                pre = torch.cat(parts)[inv]
+                n = pre.shape[0]
+                pad = pre[-1:].expand(self._target_batch(n) - n, *pre.shape[1:])
+                return self._forward(torch.cat([pre, pad]), classify=True), n
 
         (out, n), ms = time_blocked(run, device=self.device)
         self.last_compute_ms = ms
         check_finite(out, "classify:")
-        return out["probs"][:n].cpu().numpy()
+        with _stage("fetch"):
+            return out["probs"][:n].cpu().numpy()
 
     # ------------------------------------------------------------------
     def extract_features(self, images) -> dict[str, Any]:
@@ -322,28 +357,32 @@ class DinoEngine:
 
         Images must share one size (the patch grid is shape-defining); use
         extract_features_mixed for a mixed-size list."""
-        batch = self._stack_batch(images)
+        with _stage("gather"):
+            batch = self._stack_batch(images)
         n = batch.shape[0]
-        x = self._upload(batch, self._target_batch(n))
 
         @torch.inference_mode()
         def run():
-            pre = feature_preprocess(x, self.config.patch_size)
-            return self._forward(pre, classify=False)
+            with _stage("launch"):
+                x = self._upload(batch, self._target_batch(n))
+                pre = feature_preprocess(x, self.config.patch_size)
+                return self._forward(pre, classify=False)
 
         out, ms = time_blocked(run, device=self.device)
         self.last_compute_ms = ms
         check_finite(out, "features:")
-        return {
-            "cls_token": out["cls_token"][:n].cpu().numpy(),
-            "patch_tokens": out["patch_tokens"][:n].cpu().numpy(),
-            "grid": self._feature_grid(batch),
-        }
+        with _stage("fetch"):
+            return {
+                "cls_token": out["cls_token"][:n].cpu().numpy(),
+                "patch_tokens": out["patch_tokens"][:n].cpu().numpy(),
+                "grid": self._feature_grid(batch),
+            }
 
     def extract_features_mixed(self, images) -> list[dict[str, Any]]:
         """Mixed-size feature extraction: one batched forward per (H, W) group;
         per-image dicts in the input order (grids differ per size)."""
-        groups = self._group_by_shape(images)
+        with _stage("gather"):
+            groups = self._group_by_shape(images)
         results: list[dict[str, Any] | None] = [None] * sum(len(i) for i, _ in groups)
         for idxs, batch in groups:
             feats = self.extract_features(batch)
@@ -369,10 +408,16 @@ class DinoEngine:
         input size: the device returns the grid (a ~p² smaller copy) and the
         host nearest-resizes it, as the reference does."""
         n = batch.shape[0]
-        x = self._upload(batch, self._target_batch(n))
-        vis, ms = time_blocked(self._pca_grid, x, self._feature_grid(batch), device=self.device)
+        vis, ms = time_blocked(self._launch_pca, batch, device=self.device)
         self.last_compute_ms = ms
-        return resize_nearest_host(vis[:n].cpu().numpy(), batch.shape[1], batch.shape[2])
+        with _stage("fetch"):
+            return resize_nearest_host(vis[:n].cpu().numpy(), batch.shape[1], batch.shape[2])
+
+    def _launch_pca(self, batch: np.ndarray) -> torch.Tensor:
+        """Upload a host batch and queue its PCA grid (`_pca_grid`)."""
+        with _stage("launch"):
+            x = self._upload(batch, self._target_batch(batch.shape[0]))
+            return self._pca_grid(x, self._feature_grid(batch))
 
     def pca_visualization(self, image: np.ndarray) -> np.ndarray:
         """One RGB image -> uint8 PCA visualization at the image's size."""
@@ -384,14 +429,15 @@ class DinoEngine:
         device; returns the (bucket, gh, gw, 3) uint8 tensor on the device
         (row 0 is the frame; `.cpu()` waits). The caller can decode the next
         frame meanwhile."""
-        batch = self._stack_batch(image)
-        return self._pca_grid(self._upload(batch, self._target_batch(batch.shape[0])),
-                              self._feature_grid(batch))
+        with _stage("gather"):
+            batch = self._stack_batch(image)
+        return self._launch_pca(batch)
 
     def pca_visualizations(self, images) -> list[np.ndarray]:
         """Mixed-size images -> per-image uint8 PCA visualizations: one
         preprocess + forward + batched PCA per (H, W) group."""
-        groups = self._group_by_shape(images)
+        with _stage("gather"):
+            groups = self._group_by_shape(images)
         out: list[np.ndarray | None] = [None] * sum(len(i) for i, _ in groups)
         for idxs, batch in groups:
             vis = self._pca_batch(batch)

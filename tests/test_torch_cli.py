@@ -40,7 +40,7 @@ from dinov2_tpu_torch.cli import convert as convert_cli
 from dinov2_tpu_torch.cli._common import load_image_rgb, resolve_asset, save_image_rgb
 from dinov2_tpu_torch.io import convert
 from dinov2_tpu_torch.utils import logging as port_logging
-from dinov2_tpu_torch.utils.timing import Timer
+from dinov2_tpu_torch.utils.timing import time_blocked
 
 ROOT = Path(__file__).resolve().parent.parent
 TINY = DinoConfig(hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
@@ -303,10 +303,8 @@ def test_engine_prints_the_banner(ckpt):
 
 @pytest.mark.parametrize("device", [None, "cpu"])
 def test_timer_brackets_the_block(device):
-    timer = Timer()
-    with timer.measure(device) as t:
-        time.sleep(0.02)
-    assert t is timer and 15 <= timer.elapsed_ms < 2000
+    out, elapsed_ms = time_blocked(lambda: time.sleep(0.02) or "done", device=device)
+    assert out == "done" and 15 <= elapsed_ms < 2000
 
 
 def test_resolve_asset_follows_the_jax_rule(tmp_path, monkeypatch):
