@@ -1,9 +1,9 @@
 """Inference engine: load -> classify / features / PCA (port of
 dinov2_tpu/runtime/engine.py).
 
-Batches are padded on the host to a power of two (the JAX engine's bucket,
-which bounds its jit cache; here it keeps the kernels' shapes to a few),
-preprocessed on the device, and run through one forward.
+Batches are padded to a power of two (the JAX engine's bucket, which bounds
+its jit cache; here it keeps the kernels' shapes to a few), preprocessed on
+the device, and run through one forward.
   - classify: mixed-size images are preprocessed per size group and merged
     into one forward batch (all are 224x224 after the crop).
   - features: one forward per size group (the patch grid depends on the
@@ -54,21 +54,38 @@ outputs. A 'data' axis larger than 1 whose slices lie on different ranks
 raises a ValueError: their outputs would live on other processes, which the
 JAX engine cannot fetch either.
 
+Staging: every upload goes through one host buffer the engine keeps and
+reuses (`_uploads`), pinned on a card and copied to it without blocking,
+ordinary memory on the CPU. Each image is written once, from the caller's
+array into its row of its size group's slice; each group then goes to the
+device in one copy, so the card copies and preprocesses one group while the
+host writes the next. The buffer grows only when a call needs more bytes
+than it holds, and is rewritten only once the copies out of it have ended
+(an event after the last one): `pca_visualization_async` returns while its
+copy may still run. Padding rows never cross PCIe: a single-size batch is
+padded to its bucket on the device by repeating its last row; mixed-size
+classify preprocesses each group at its own row count and pads the merged
+batch on the device. The forward sees the bucket-sized batch either way.
+
 Host spans (utils/timing.py::span, on torch's profiler: they show exactly
 when a profiler runs) name the engine's stages
 `dinov2_tpu_torch.engine.<stage>`:
-  - gather: grouping by size and np.stack;
-  - pad: the bucket padding on the host (`_pad_rows`);
-  - upload: the pageable staging and the copy to the device;
+  - gather: grouping by size (no copy of the images);
+  - upload: the wait for the staging buffer, the row writes into it and the
+    copy to the device;
+  - pad: the padding on the device (`_pad_rows`), once a call;
   - launch: preprocess, the groups' merge and the forward's launches, with
-    pad and upload inside it;
+    upload and pad inside it;
   - fetch: slicing the outputs and copying them to the host (PCA: and the
     nearest resize there).
 The synchronize that closes `last_compute_ms` lies outside every span.
-`last_compute_ms` runs from the first pad to the end of that synchronize
-in every entry. `DinoEngine.uploaded_rows` and `DinoEngine.padded_rows`
-count, over the process, the rows `_upload` sent and the padding rows
-among them.
+`last_compute_ms` runs from the start of launch to the end of that
+synchronize in every entry. Counters over the process, as the kernel
+wrappers' `.launches`: `DinoEngine.uploaded_rows`, the rows sent to the
+device; `DinoEngine.padded_rows`, the padding rows among them (none, since
+the padding is made on the device); `DinoEngine.pinned_rows`, the rows sent
+from pinned memory; `DinoEngine.staging_allocs`, the times a staging buffer
+was allocated or grown.
 """
 
 from __future__ import annotations
@@ -119,10 +136,14 @@ def _bucket(n: int) -> int:
 
 
 class DinoEngine:
-    # rows _upload sent to the device and the padding rows among them, over
-    # the process (as the kernel wrappers' `.launches`)
+    # over the process (as the kernel wrappers' `.launches`): rows _uploads
+    # sent to the device, the padding rows among them (none: the padding is
+    # made on the device), the rows sent from pinned memory, and the times a
+    # staging buffer was allocated or grown
     uploaded_rows = 0
     padded_rows = 0
+    pinned_rows = 0
+    staging_allocs = 0
 
     def __init__(
         self,
@@ -218,6 +239,10 @@ class DinoEngine:
             self.loaded = dataclasses.replace(self.loaded, params=None)
         log_model_banner(self.config, str(model_path))
         self.last_compute_ms = 0.0
+        # the host buffer of every upload (pinned on a card), and the event
+        # after the last copy out of it
+        self._staging: torch.Tensor | None = None
+        self._staged: torch.cuda.Event | None = None
 
     def _tensor_parallel(self, prepare, tp: int) -> None:
         """The TP route: the loaded tree prepared for a tp-way split, placed
@@ -254,51 +279,94 @@ class DinoEngine:
 
     # ------------------------------------------------------------------
     @staticmethod
-    def _stack_batch(images) -> np.ndarray:
+    def _same_size(images) -> Sequence[np.ndarray]:
+        """Same-size RGB images, (B, H, W, 3) or a list of (H, W, 3), as a
+        sequence of rows; one (H, W, 3) image is a batch of one."""
         if isinstance(images, np.ndarray) and images.ndim == 3:
             images = images[None]
-        batch = np.stack(list(images), axis=0)
-        if batch.ndim != 4 or batch.shape[-1] != 3:
-            raise ValueError("expected RGB images (B, H, W, 3)")
-        return batch
+        shapes = {np.shape(img) for img in images}
+        if len(shapes) != 1 or len(shape := shapes.pop()) != 3 or shape[-1] != 3:
+            raise ValueError("expected RGB images (B, H, W, 3) of one size")
+        return images
 
     @staticmethod
-    def _group_by_shape(images) -> list[tuple[list[int], np.ndarray]]:
+    def _group_by_shape(images) -> list[tuple[list[int], list[np.ndarray]]]:
         """Group images by (H, W): one preprocess per size group."""
         if isinstance(images, np.ndarray):
             images = [images] if images.ndim == 3 else list(images)
         groups: dict[tuple[int, int], list[int]] = {}
         for i, img in enumerate(images):
             groups.setdefault((img.shape[0], img.shape[1]), []).append(i)
-        return [
-            (idxs, np.stack([images[i] for i in idxs], axis=0))
-            for idxs in groups.values()
-        ]
+        return [(idxs, [images[i] for i in idxs]) for idxs in groups.values()]
 
     @staticmethod
-    def _pad_rows(batch: np.ndarray, target: int) -> np.ndarray:
-        """Pad a host batch to `target` rows by repeating the last row."""
+    def _pad_rows(batch: torch.Tensor, target: int) -> torch.Tensor:
+        """Pad a device batch to `target` rows by repeating its last row."""
         if target == batch.shape[0]:
             return batch
-        return np.concatenate(
-            [batch, np.repeat(batch[-1:], target - batch.shape[0], axis=0)], axis=0
-        )
+        return torch.cat([batch, batch[-1:].expand(target - batch.shape[0], *batch.shape[1:])])
 
-    def _upload(self, batch: np.ndarray, rows: int) -> torch.Tensor:
-        """Host batch padded to `rows` (on the host: the padding never crosses
-        PCIe twice) -> tensor on the device."""
+    def _padded(self, batch: torch.Tensor, target: int) -> torch.Tensor:
         with _stage("pad"):
-            padded = self._pad_rows(batch, rows)
-        with _stage("upload"):
-            x = torch.from_numpy(padded).to(self.device)
-        DinoEngine.uploaded_rows += rows
-        DinoEngine.padded_rows += rows - batch.shape[0]
-        return x
+            return self._pad_rows(batch, target)
 
-    def _feature_grid(self, batch: np.ndarray) -> tuple[int, int]:
-        """The quirk-Q4 patch grid of a (B, H, W, 3) batch."""
+    def _staging_slices(self, batches) -> list[torch.Tensor]:
+        """Each batch's (B, H, W, C) slice of the staging buffer, once no copy
+        out of it is in flight; the buffer grows when they need more bytes
+        than it holds. Slices start at 64-byte boundaries, so that each can
+        take its batch's dtype."""
+        if self._staged is not None:
+            self._staged.synchronize()
+            self._staged = None
+        layouts, end = [], 0  # (offset, bytes, dtype, shape) of each slice
+        for batch in batches:
+            dtype = np.result_type(*{np.asarray(img).dtype for img in batch})
+            shape = (len(batch), *np.shape(batch[0]))
+            nbytes = int(np.prod(shape)) * dtype.itemsize
+            layouts.append((end, nbytes, torch.from_numpy(np.empty(0, dtype)).dtype, shape))
+            end += -(-nbytes // 64) * 64
+        if self._staging is None or self._staging.numel() < end:
+            # dropped first: torch's pinned cache, which rounds blocks to powers
+            # of two, hands the old block out again where it is large enough
+            self._staging = None
+            self._staging = torch.empty(end, dtype=torch.uint8,
+                                        pin_memory=self.device.type == "cuda")
+            DinoEngine.staging_allocs += 1
+        return [self._staging[lo:lo + nbytes].view(dtype).view(shape)
+                for lo, nbytes, dtype, shape in layouts]
+
+    def _uploads(self, batches):
+        """Same-size host batches -> their tensors on the device, one at a
+        time: batch k is written into its staging slice and its copy queued
+        when the caller asks for it, so the device copies and preprocesses
+        batch k while the host writes batch k + 1. Each image is copied once,
+        into its row; the copy does not block the host on a card."""
+        with _stage("upload"):
+            slices = self._staging_slices(batches)
+        pinned = self._staging.is_pinned()
+        for batch, rows in zip(batches, slices):
+            with _stage("upload"):
+                host = rows.numpy()
+                for i, img in enumerate(batch):
+                    host[i] = img
+                x = rows.to(self.device, non_blocking=pinned, copy=True)
+                if pinned:  # on the stream the copy went to: self.device's
+                    self._staged = torch.cuda.Event()
+                    self._staged.record(torch.cuda.current_stream(self.device))
+            DinoEngine.uploaded_rows += len(batch)
+            DinoEngine.pinned_rows += len(batch) if pinned else 0
+            yield x
+
+    def _upload(self, batch, rows: int) -> torch.Tensor:
+        """One same-size host batch -> its device tensor padded to `rows`."""
+        (x,) = self._uploads([batch])
+        return self._padded(x, rows)
+
+    def _feature_grid(self, batch) -> tuple[int, int]:
+        """The quirk-Q4 patch grid of same-size (H, W, 3) images."""
         p = self.config.patch_size
-        th, tw = feature_target_size(batch.shape[1], batch.shape[2], p)
+        h, w, _ = np.shape(batch[0])
+        th, tw = feature_target_size(h, w, p)
         return th // p, tw // p
 
     # ------------------------------------------------------------------
@@ -331,17 +399,15 @@ class DinoEngine:
                     idxs, batch = groups[0]
                     pre = classify_preprocess(self._upload(batch, self._target_batch(len(idxs))))
                     return self._forward(pre, classify=True), len(idxs)
+                # each group preprocessed at its own rows, the merge padded
                 order, parts = [], []
-                for idxs, batch in groups:
+                for (idxs, _), x in zip(groups, self._uploads([b for _, b in groups])):
                     order.extend(idxs)
-                    # pad each group to its bucket before preprocessing, slice after
-                    pre = classify_preprocess(self._upload(batch, _bucket(len(idxs))))
-                    parts.append(pre[: len(idxs)])
+                    parts.append(classify_preprocess(x))
                 inv = torch.from_numpy(np.argsort(np.asarray(order))).to(self.device)
                 pre = torch.cat(parts)[inv]
                 n = pre.shape[0]
-                pad = pre[-1:].expand(self._target_batch(n) - n, *pre.shape[1:])
-                return self._forward(torch.cat([pre, pad]), classify=True), n
+                return self._forward(self._padded(pre, self._target_batch(n)), classify=True), n
 
         (out, n), ms = time_blocked(run, device=self.device)
         self.last_compute_ms = ms
@@ -358,8 +424,8 @@ class DinoEngine:
         Images must share one size (the patch grid is shape-defining); use
         extract_features_mixed for a mixed-size list."""
         with _stage("gather"):
-            batch = self._stack_batch(images)
-        n = batch.shape[0]
+            batch = self._same_size(images)
+        n = len(batch)
 
         @torch.inference_mode()
         def run():
@@ -403,26 +469,26 @@ class DinoEngine:
         out = self._forward(pre, classify=False)
         return pca_visualization_batch(out["patch_tokens"], grid)
 
-    def _pca_batch(self, batch: np.ndarray) -> np.ndarray:
+    def _pca_batch(self, batch) -> np.ndarray:
         """Same-size images (B, H, W, 3) -> (B, H, W, 3) uint8 PCA images at the
         input size: the device returns the grid (a ~p² smaller copy) and the
         host nearest-resizes it, as the reference does."""
-        n = batch.shape[0]
+        n = len(batch)
+        h, w, _ = np.shape(batch[0])
         vis, ms = time_blocked(self._launch_pca, batch, device=self.device)
         self.last_compute_ms = ms
         with _stage("fetch"):
-            return resize_nearest_host(vis[:n].cpu().numpy(), batch.shape[1], batch.shape[2])
+            return resize_nearest_host(vis[:n].cpu().numpy(), h, w)
 
-    def _launch_pca(self, batch: np.ndarray) -> torch.Tensor:
+    def _launch_pca(self, batch) -> torch.Tensor:
         """Upload a host batch and queue its PCA grid (`_pca_grid`)."""
         with _stage("launch"):
-            x = self._upload(batch, self._target_batch(batch.shape[0]))
+            x = self._upload(batch, self._target_batch(len(batch)))
             return self._pca_grid(x, self._feature_grid(batch))
 
     def pca_visualization(self, image: np.ndarray) -> np.ndarray:
         """One RGB image -> uint8 PCA visualization at the image's size."""
-        img = image[None] if image.ndim == 3 else image
-        return self._pca_batch(np.asarray(img))[0]
+        return self._pca_batch(self._same_size(np.asarray(image)))[0]
 
     def pca_visualization_async(self, image: np.ndarray) -> torch.Tensor:
         """Queue one frame's preprocess + forward + PCA without waiting for the
@@ -430,7 +496,7 @@ class DinoEngine:
         (row 0 is the frame; `.cpu()` waits). The caller can decode the next
         frame meanwhile."""
         with _stage("gather"):
-            batch = self._stack_batch(image)
+            batch = self._same_size(image)
         return self._launch_pca(batch)
 
     def pca_visualizations(self, images) -> list[np.ndarray]:

@@ -205,6 +205,78 @@ def test_engine_features_on_cuda_close_to_cpu_f32(cuda, tmp_path):
     assert frame.is_cuda and frame.dtype == torch.uint8 and tuple(frame.shape) == (1, 7, 8, 3)
 
 
+@pytest.mark.parametrize("card", ["cuda", "cuda:1"])
+def test_engine_staging_is_pinned_and_never_rewritten_under_a_copy(cuda, tmp_path, card):
+    """The staging buffer is pinned and every row leaves from it. A copy
+    queued behind a busy stream still carries its own images when the next
+    upload follows at once; realtime's back-to-back PCA frames, queued behind
+    a busy stream too, each return their own frame's grid. `cuda:1` puts the
+    engine on a card that is not the current one (the CLIs' `--device
+    cuda:N`): the copies go to that card's stream, and so must the event that
+    guards the buffer."""
+    if torch.device(card).index is not None and torch.cuda.device_count() <= torch.device(card).index:
+        pytest.skip(f"needs {card}")
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    config = DinoConfig(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+                        num_classes=0, patch_size=14, img_size=70)
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (480, 640, 3), dtype=np.uint8) for _ in range(8)]
+
+    def busy():  # the engine's stream busy for ~0.1 s while the host writes on
+        with torch.cuda.device(torch.device(card)):
+            torch.cuda._sleep(200_000_000)
+
+    with torch.cuda.device(0):
+        gpu = DinoEngine(write_synthetic_gguf(tmp_path / "tiny.gguf", config, seed=3),
+                         dtype=torch.bfloat16, device=card)
+        on_card = torch.empty(0, device=card).device  # "cuda" as cuda:0
+        uploaded, pinned = DinoEngine.uploaded_rows, DinoEngine.pinned_rows
+        alone = [gpu.pca_visualization_async(f).cpu() for f in frames]
+        assert gpu._staging.is_pinned()
+        torch.cuda.synchronize(gpu.device)
+        busy()
+        queued = [next(gpu._uploads([[f]])) for f in frames[:2]]
+        assert [x.device == on_card and torch.equal(x[0].cpu(), torch.from_numpy(f))
+                for x, f in zip(queued, frames)] == [True, True]
+        busy()
+        back_to_back = [gpu.pca_visualization_async(f) for f in frames]
+        assert [torch.equal(got.cpu(), want) for got, want in zip(back_to_back, alone)] == [
+            True] * len(frames)
+    assert (DinoEngine.pinned_rows - pinned) == (DinoEngine.uploaded_rows - uploaded) == 18
+
+
+def test_engine_staging_at_the_photo_cell_shapes(cuda, tmp_path):
+    """ViT-B/14 bf16 classify of 48 landscape and 16 portrait photos (the
+    benchmark's classify cell) against the host staging
+    (tests/torch_host_staging.py): each group is now preprocessed at its own
+    rows, 48 where it was 64, and cuBLAS may round the resize otherwise at
+    that shape. The envelope of docs/PARITY.md: the widest |log p - log p_host|
+    at most 1e-3, and the order the host staging's."""
+    import torch_host_staging as host_staging
+    from dinov2_tpu_torch.runtime.engine import DinoEngine
+
+    config = DinoConfig(hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                        num_classes=1000, patch_size=14, img_size=518)
+    gpu = DinoEngine(write_synthetic_gguf(tmp_path / "vitb14.gguf", config, seed=3, scale=0.05),
+                     dtype=torch.bfloat16, device="cuda")
+    rng = np.random.default_rng(1)
+
+    def photo(h, w):  # 25-pixel blocks of random colours: distinct answers
+        blocks = rng.integers(0, 256, (h // 25 + 1, w // 25 + 1, 3), dtype=np.uint8)
+        return np.ascontiguousarray(blocks.repeat(25, 0).repeat(25, 1)[:h, :w])
+
+    imgs = [photo(375, 500) for _ in range(48)] + [photo(500, 375) for _ in range(16)]
+    imgs = [imgs[i] for i in rng.permutation(64)]
+    got = np.log(gpu.classify_probs(imgs))
+    want = np.log(host_staging.classify_probs(gpu, imgs))
+    gap = np.abs(got - want).max()
+    between = min(np.abs(want[i] - want[i + 1]).max() for i in range(63))
+    print(f"photo cell staging: widest |log p - log p_host| {gap:.3g}, "
+          f"bit for bit {np.array_equal(got, want)}, nearest two images {between:.3g}")
+    assert gap <= 1e-3 < between
+
+
 QUANT_FORMATS = ["q4_0", "q4_1", "q5_0", "q5_1", "q8_0"]
 
 

@@ -28,7 +28,8 @@ def _images(rng, n, h, w):
 
 
 def _classify(engine):
-    """48 landscape and 16 portrait images in one call: buckets 64 and 16."""
+    """48 landscape and 16 portrait images in one call: groups of 48 and 16,
+    merged into the bucket of 64."""
     rng = np.random.default_rng(0)
     imgs = _images(rng, 48, 28, 42) + _images(rng, 16, 42, 28)
     order = rng.permutation(len(imgs))
@@ -36,19 +37,21 @@ def _classify(engine):
 
 
 def _features(engine):
-    """3 images of one size: a bucket of 4."""
+    """3 images of one size, padded to the bucket of 4 on the device."""
     engine.extract_features(np.stack(_images(np.random.default_rng(1), 3, 42, 56)))
 
 
 def _pca(engine):
-    """3 images of one size and 2 of another: buckets 4 and 2."""
+    """3 images of one size and 2 of another: buckets 4 and 2, padded on the
+    device."""
     rng = np.random.default_rng(2)
     engine.pca_visualizations(_images(rng, 3, 42, 56) + _images(rng, 2, 56, 42))
 
 
-# entry -> (call, the rows it uploads, the padding rows among them)
-ENTRIES = {"classify": (_classify, 80, 16), "features": (_features, 4, 1),
-           "pca": (_pca, 6, 1)}
+# entry -> (call, the rows it uploads, the padding rows among them: none, the
+# padding is made on the device)
+ENTRIES = {"classify": (_classify, 64, 0), "features": (_features, 3, 0),
+           "pca": (_pca, 5, 0)}
 
 
 @pytest.fixture(scope="module")
@@ -106,7 +109,8 @@ def test_row_counters_advance_by_the_upload(engine, entry):
 
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_last_compute_ms_brackets_the_padding(engine, entry, monkeypatch):
-    """One bracket in every entry: from the first pad to the synchronize."""
+    """One bracket in every entry: from the start of launch, around the pad,
+    to the synchronize."""
     real = DinoEngine._pad_rows
 
     def slow(batch, target):
