@@ -47,6 +47,10 @@ TRAIN_LEAVES = {
     "layers/mlp/fc1/bias": "encoder.layer.{i}.mlp.fc1.bias",
     "layers/mlp/fc2/kernel": "encoder.layer.{i}.mlp.fc2.weight",
     "layers/mlp/fc2/bias": "encoder.layer.{i}.mlp.fc2.bias",
+    "layers/mlp/win/kernel": "encoder.layer.{i}.mlp.weights_in.weight",
+    "layers/mlp/win/bias": "encoder.layer.{i}.mlp.weights_in.bias",
+    "layers/mlp/wout/kernel": "encoder.layer.{i}.mlp.weights_out.weight",
+    "layers/mlp/wout/bias": "encoder.layer.{i}.mlp.weights_out.bias",
     "layers/ls2": "encoder.layer.{i}.layer_scale2.lambda1",
 }
 

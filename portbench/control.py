@@ -9,8 +9,10 @@ cell's own size, in one process:
     lower reading;
   - the control's: the reference put in the program's place, computed a
     precision below the configuration's (bf16: float8 e4m3 operands of
-    every linear layer; float32: TF32 products), against the float32
-    reference on the same inputs, for each of --control-seeds;
+    every linear layer; float32: TF32 products; a W8A8 int8 mix: int4
+    codes of weights and activations, with 6-bit activation codes beside
+    int8 weights as context), against the float32 reference on the same
+    inputs, for each of --control-seeds;
   - for a training cell also the faults planted in the reference put in
     the program's place: half of the batch left out, the mean taken over
     the rest; one image's CLS token altered. A step that leaves its state
@@ -29,32 +31,57 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
+# W8A8 int8 mixes: (weights' largest code, activations' largest code) of
+# the reference in the program's place. int4 (W4A4), the precision below
+# int8, is the control; 6-bit activation codes beside int8 weights are a
+# reading of context: they read under three times the program's own gap,
+# so they set no upper reading and the limit need not fail them.
+INT8_CONTROLS = {"control:int4": (7, 7), "context:a6": (127, 31)}
+
+
+def _numbers(cell, low, exact, pool, device):
+    """The comparison's numbers of the model `low` in the program's place,
+    against the model `exact`, on every batch of the pool."""
+    from portbench import check
+    from portbench.reference import model as reference
+
+    pairs = []
+    for batch in pool:
+        if cell.traffic["entry"] == "classify_probs":
+            probs = reference.classify_log_probs(low, batch, device).exp().cpu().numpy()
+            pairs.append((probs, reference.classify_log_probs(exact, batch, device)))
+        else:
+            cls, patch = reference.features(low, batch, device)
+            out = {"cls_token": cls.cpu().numpy(), "patch_tokens": patch.cpu().numpy()}
+            pairs.append((out, reference.features(exact, batch, device)))
+    return (check.classify_numbers(pairs) if cell.traffic["entry"] == "classify_probs"
+            else check.features_numbers(pairs))
+
+
 def _inference_control(cell, seed, device):
-    from portbench import check, harness, traffic
+    from portbench import harness, traffic
     from portbench.reference import model as reference
 
     t = cell.traffic
     pool = traffic.image_pool(t, seed, device)
     tensors, four_bit = harness._reference_tensors(cell, seed, device)
     parity = t["engine"]["parity"]
-    lower = "fp8"
+    acts = harness.act_rows(cell)
+    out = {}
     with reference.precision("f32"):
-        exact = reference.Model(cell.config, tensors, parity, "f32", four_bit)
-        low = reference.Model(cell.config, tensors, parity, lower, four_bit)
-        pairs = []
-        for batch in pool:
-            if t["entry"] == "classify_probs":
-                probs = reference.classify_log_probs(low, batch, device).exp().cpu().numpy()
-                pairs.append((probs, reference.classify_log_probs(exact, batch, device)))
-            else:
-                cls, patch = reference.features(low, batch, device)
-                out = {"cls_token": cls.cpu().numpy(), "patch_tokens": patch.cpu().numpy()}
-                pairs.append((out, reference.features(exact, batch, device)))
+        exact = reference.Model(cell.config, tensors, parity, "f32", four_bit, acts)
+        if "int8" in t:
+            for kind, (weight_max, act_max) in INT8_CONTROLS.items():
+                coded, _ = harness._reference_tensors(cell, seed, device, weight_max)
+                low = reference.Model(cell.config, coded, parity, "f32", four_bit, acts, act_max)
+                out[kind] = _numbers(cell, low, exact, pool, device)
+                del coded, low
+        else:
+            low = reference.Model(cell.config, tensors, parity, "fp8", four_bit)
+            out["control:fp8"] = _numbers(cell, low, exact, pool, device)
     del tensors
     harness._free(device)
-    numbers = (check.classify_numbers(pairs) if t["entry"] == "classify_probs"
-               else check.features_numbers(pairs))
-    return {f"control:{lower}": numbers}
+    return out
 
 
 def _training_control(cell, seed, device):

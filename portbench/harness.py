@@ -30,7 +30,7 @@ import torch
 
 from portbench import check, seeds, spec, trace, traffic, weights, work
 from portbench.reference import model as reference
-from portbench.reference import q4_0
+from portbench.reference import int8, q4_0
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 FORBIDDEN = ("jax", "jaxlib", "flax", "dinov2_tpu")
@@ -109,18 +109,30 @@ class Reservoir:
                 self.items[j] = item
 
 
-def _reference_tensors(cell: spec.Cell, seed: int, device) -> tuple[dict, frozenset]:
+def _reference_tensors(cell: spec.Cell, seed: int, device,
+                       weight_max: int = int8.INT8_MAX) -> tuple[dict, frozenset]:
     """The weights again from the seed, float32; q4_0 weights decoded from
-    the blocks the reference encoder makes of them."""
+    the blocks the reference encoder makes of them; under a traffic's int8
+    scheme the weights it names rounded to their per-row codes of at most
+    `weight_max` (int8: 127)."""
     fmt = cell.traffic["weights"]
+    coded = cell.traffic.get("int8", {}).get("weights", ())
     tensors, four_bit = {}, set()
     for name, t in weights.model_arrays(cell.config, seed, device).items():
         if weights.quantized(name, tuple(t.shape), fmt):
             tensors[name] = q4_0.decode(*q4_0.encode(t.float()))
             four_bit.add(name)
+        elif coded and name.endswith(".weight") and int8.covers(name[:-len(".weight")], coded):
+            tensors[name] = int8.weight_rows(t, weight_max)
+            four_bit.add(name)
         else:
             tensors[name] = t.float()
     return tensors, frozenset(four_bit)
+
+
+def act_rows(cell: spec.Cell) -> tuple:
+    """The linears whose input rows the traffic's int8 scheme codes."""
+    return tuple(cell.traffic.get("int8", {}).get("activations", ()))
 
 
 def _free(device) -> None:
@@ -187,7 +199,8 @@ def _inference(cell, seed, seconds, tracing, device, clock, out):
 
     tensors, four_bit = _reference_tensors(cell, seed, device)
     with reference.precision("f32"):
-        model = reference.Model(cell.config, tensors, t["engine"]["parity"], "f32", four_bit)
+        model = reference.Model(cell.config, tensors, t["engine"]["parity"], "f32", four_bit,
+                                act_rows(cell))
         refs = {}
         pairs = []
         for idx, result in sample.items:

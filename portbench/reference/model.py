@@ -13,6 +13,9 @@ the -imagenet1k-1-layer head (parity "hf"):
     (dinov2.cpp compares counts), the CLS row kept;
   - pre-LN blocks: x + ls1 * proj(attention(LN1(x))), then
     x + ls2 * fc2(GELU(fc1(LN2(x)))); LayerNorm eps from the configuration;
+    with the configuration's use_swiglu_ffn the second is Hugging Face's
+    Dinov2SwiGLUFFN: x + ls2 * weights_out(SiLU(x1) * x2), x1 and x2 the
+    halves of weights_in(LN2(x)) in that order;
   - GELU: in "reference" ggml's, read from a table of f16 values:
     f16(gelu_tanh(f16(x))); in "hf" the exact erf GELU;
   - the final LayerNorm; the head on [CLS, pooled patches]: in "reference"
@@ -24,6 +27,10 @@ lets cuBLAS and cuDNN run float32 products in TF32, and "fp8" rounds both
 operands of every linear layer to float8 e4m3 (activations scaled per row,
 weights per output row; 4-bit weights are kept) before an f32 product.
 The last two are the controls of the comparison, never the reference.
+
+W8A8 int8 (a traffic's "int8" scheme): the weights come already rounded to
+their codes (reference/int8.py), and `act_rows` names the linears whose
+input rows are rounded to codes of at most `act_max` before the product.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import int8
 
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
@@ -140,15 +149,21 @@ def gelu(x: torch.Tensor, parity: str) -> torch.Tensor:
 
 class Model:
     """The forward of one configuration on a dict of float32 tensors named
-    as the GGUF names them. `four_bit` names the weights decoded from q4_0."""
+    as the GGUF names them. `four_bit` names the weights already rounded to
+    a quantized format (decoded from q4_0, or int8 codes); `act_rows` names
+    the linears whose input rows become codes of at most `act_max`
+    (int8.covers)."""
 
     def __init__(self, config: dict, tensors: dict, parity: str, prec: str = "f32",
-                 four_bit: frozenset = frozenset()):
+                 four_bit: frozenset = frozenset(), act_rows: tuple = (),
+                 act_max: int = int8.INT8_MAX):
         self.c = config
         self.t = tensors
         self.parity = parity
         self.prec = prec
         self.four_bit = four_bit
+        self.act_rows = tuple(act_rows)
+        self.act_max = act_max
         self.heads = config["num_attention_heads"]
         self.patch = config["patch_size"]
         self.grid = config["image_size"] // config["patch_size"]
@@ -156,6 +171,8 @@ class Model:
         self.eps = config["layer_norm_eps"]
 
     def _linear(self, x, name, bias=True):
+        if self.act_rows and int8.covers(name, self.act_rows):
+            x = int8.activation_rows(x, self.act_max)
         return linear(x, self.t[f"{name}.weight"], self.t[f"{name}.bias"] if bias else None,
                       self.prec, f"{name}.weight" in self.four_bit)
 
@@ -198,8 +215,13 @@ class Model:
         att = att.transpose(1, 2).reshape(n, tokens, d)
         x = x + t[f"{base}.layer_scale1.lambda1"] * self._linear(att, f"{base}.attention.output.dense")
         h = layer_norm(x, t[f"{base}.norm2.weight"], t[f"{base}.norm2.bias"], self.eps)
-        h = gelu(self._linear(h, f"{base}.mlp.fc1"), self.parity)
-        return x + t[f"{base}.layer_scale2.lambda1"] * self._linear(h, f"{base}.mlp.fc2")
+        if self.c.get("use_swiglu_ffn"):
+            x1, x2 = self._linear(h, f"{base}.mlp.weights_in").chunk(2, dim=-1)
+            h = self._linear(F.silu(x1) * x2, f"{base}.mlp.weights_out")
+        else:
+            h = self._linear(gelu(self._linear(h, f"{base}.mlp.fc1"), self.parity),
+                             f"{base}.mlp.fc2")
+        return x + t[f"{base}.layer_scale2.lambda1"] * h
 
     def tokens(self, x: torch.Tensor) -> torch.Tensor:
         """Preprocessed images -> the final-normed tokens."""

@@ -20,7 +20,8 @@ def _run(cell):
 
 
 @pytest.mark.parametrize("name", ["vitb14-classify-b64", "vitl14-features-518-b8",
-                                  "vitb14-classify-q4_0-b64", "vitb14-train-f32-b32"])
+                                  "vitb14-classify-q4_0-b64", "vitb14-classify-int8-b64",
+                                  "vitb14-train-f32-b32"])
 def test_sound_run_is_correct(tiny_cell, name):
     result = _run(tiny_cell(name, None if name.endswith("f32-b32") else WIDE))
     assert result["correct"], result["checks"]
@@ -60,6 +61,7 @@ def _misorder_groups(monkeypatch):
 @pytest.mark.parametrize("name, fault", [
     ("vitb14-classify-b64", _alter_answer), ("vitb14-classify-b64", _misorder_groups),
     ("vitb14-classify-q4_0-b64", _alter_answer), ("vitb14-classify-q4_0-b64", _misorder_groups),
+    ("vitb14-classify-int8-b64", _alter_answer), ("vitb14-classify-int8-b64", _misorder_groups),
     ("vitl14-features-518-b8", _alter_answer),
 ])
 def test_inference_faults_are_caught(tiny_cell, monkeypatch, name, fault):
@@ -70,7 +72,7 @@ def test_inference_faults_are_caught(tiny_cell, monkeypatch, name, fault):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["vitb14-classify-b64", "vitl14-features-518-b8",
-                                  "vitb14-classify-q4_0-b64"])
+                                  "vitb14-classify-q4_0-b64", "vitb14-classify-int8-b64"])
 def test_a_wrong_answer_is_caught_at_cell_size(card, monkeypatch, name):
     """At the published widths and the cell's own batch on the card, one
     image's answer taking another's fails the cell's limits."""

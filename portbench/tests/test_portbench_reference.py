@@ -11,7 +11,7 @@ from portbench import harness
 from portbench.reference import q4_0
 
 CELLS = ["vitb14-classify-b64", "vitl14-features-518-b8", "vitb14-classify-q4_0-b64",
-         "vitb14-train-f32-b32"]
+         "vitb14-classify-int8-b64", "vitb14-train-f32-b32"]
 
 
 @pytest.mark.parametrize("name", CELLS)

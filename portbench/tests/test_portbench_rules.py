@@ -43,7 +43,7 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
         "from conftest import tiny\n"
         "from portbench import harness, spec\n"
         "for name in ['vitb14-classify-b64', 'vitl14-features-518-b8',"
-        " 'vitb14-classify-q4_0-b64', 'vitb14-train-f32-b32']:\n"
+        " 'vitb14-classify-q4_0-b64', 'vitb14-classify-int8-b64', 'vitb14-train-f32-b32']:\n"
         "    r = harness.run_cell(tiny(spec.load_cell(name)), 5, 0.05, False, 'cpu')\n"
         "    assert r['forbidden'] == [], r['forbidden']\n"
         "assert 'dinov2_tpu_torch' in sys.modules\n"

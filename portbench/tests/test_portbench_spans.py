@@ -93,6 +93,8 @@ NEW = {"vitb14-classify-b64": ["engine_host_ms.infer", "engine_idle_ms.infer",
                                "launch_idle_ms.infer", "padded_rows_pct.infer"],
        "vitb14-classify-q4_0-b64": ["engine_host_ms.infer", "engine_idle_ms.infer",
                                     "launch_idle_ms.infer", "padded_rows_pct.infer"],
+       "vitb14-classify-int8-b64": ["engine_host_ms.infer", "engine_idle_ms.infer",
+                                    "launch_idle_ms.infer", "padded_rows_pct.infer"],
        "vitl14-features-518-b8": ["engine_host_ms.features", "engine_idle_ms.features"],
        "vitb14-train-f32-b32": []}
 
@@ -102,8 +104,9 @@ def test_a_traced_run_reads_the_port_spans(tiny_cell, monkeypatch, name):
     """A --trace 1 run of the cell at a tiny size on the CPU (the card's
     synchronize made a no-op): the port's spans reach the trace's host
     operations, and the cell's line carries exactly its new metrics; the
-    tiny classify batch (6 + 2 images, buckets 8 + 2) pads a fifth of its
-    rows, as the cell's 48 + 16 do."""
+    engine uploads the tiny classify batch (6 + 2 images) unpadded and
+    makes the size buckets' padding on the device, so the share of padded
+    rows it uploads reads 0, as in the cell's 48 + 16."""
     from dinov2_tpu_torch.runtime.engine import DinoEngine
 
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
@@ -115,6 +118,6 @@ def test_a_traced_run_reads_the_port_spans(tiny_cell, monkeypatch, name):
                                   "padded_rows_pct"}}
     assert new == set(NEW[name])
     if "padded_rows_pct.infer" in new:
-        assert result["metrics"]["padded_rows_pct.infer"]["value"] == pytest.approx(20.0)
+        assert result["metrics"]["padded_rows_pct.infer"]["value"] == 0.0
     for m in new:
         assert result["metrics"][m]["value"] >= 0

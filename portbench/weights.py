@@ -9,6 +9,10 @@ configuration file's "weights": matrices N(0, matrix_std), biases
 N(0, bias_std), embeddings N(0, embedding_std), LayerNorm scales and
 LayerScale N(mean, std).
 
+With the configuration's use_swiglu_ffn a layer's MLP is the converter's
+SwiGLU pair, mlp.weights_in (2h, D) and mlp.weights_out (D, h), in place
+of fc1 and fc2.
+
 For a q4_0 mix every 2-D tensor named *weight (the reference quantizer's
 rule: qkv, proj, fc1, fc2 and the classifier) is written as the blocks of
 reference/q4_0.py, which the reference decodes again.
@@ -28,11 +32,22 @@ from portbench.reference import q4_0
 FTYPES = {"f16": 1, "q4_0": 2}
 
 
+def swiglu_hidden(config: dict) -> int:
+    """The SwiGLU FFN's hidden size h (weights_in is (2h, D), weights_out
+    (D, h)), 0 without use_swiglu_ffn: Hugging Face's Dinov2SwiGLUFFN rule,
+    int(D * mlp_ratio * 2 / 3) rounded up to a multiple of 8 (4096 at
+    ViT-g's 1536)."""
+    if not config.get("use_swiglu_ffn"):
+        return 0
+    return (int(int(config["hidden_size"] * config["mlp_ratio"]) * 2 / 3) + 7) // 8 * 8
+
+
 def tensor_specs(config: dict) -> list[tuple[str, tuple[int, ...], str]]:
     """(name, shape, kind) of every tensor, in the converter's order."""
     d = config["hidden_size"]
     p = config["patch_size"]
     inter = d * config["mlp_ratio"]
+    swiglu = swiglu_hidden(config)
     grid = config["image_size"] // p
     regs = config["assumed"].get("num_register_tokens", 0)
     specs = [
@@ -57,12 +72,22 @@ def tensor_specs(config: dict) -> list[tuple[str, tuple[int, ...], str]]:
             (f"{base}.layer_scale1.lambda1", (d,), "layer_scale"),
             (f"{base}.norm2.weight", (d,), "norm_scale"),
             (f"{base}.norm2.bias", (d,), "bias"),
-            (f"{base}.mlp.fc1.weight", (inter, d), "matrix"),
-            (f"{base}.mlp.fc1.bias", (inter,), "bias"),
-            (f"{base}.mlp.fc2.weight", (d, inter), "matrix"),
-            (f"{base}.mlp.fc2.bias", (d,), "bias"),
-            (f"{base}.layer_scale2.lambda1", (d,), "layer_scale"),
         ]
+        if swiglu:
+            specs += [
+                (f"{base}.mlp.weights_in.weight", (2 * swiglu, d), "matrix"),
+                (f"{base}.mlp.weights_in.bias", (2 * swiglu,), "bias"),
+                (f"{base}.mlp.weights_out.weight", (d, swiglu), "matrix"),
+                (f"{base}.mlp.weights_out.bias", (d,), "bias"),
+            ]
+        else:
+            specs += [
+                (f"{base}.mlp.fc1.weight", (inter, d), "matrix"),
+                (f"{base}.mlp.fc1.bias", (inter,), "bias"),
+                (f"{base}.mlp.fc2.weight", (d, inter), "matrix"),
+                (f"{base}.mlp.fc2.bias", (d,), "bias"),
+            ]
+        specs.append((f"{base}.layer_scale2.lambda1", (d,), "layer_scale"))
     specs += [("layernorm.weight", (d,), "norm_scale"), ("layernorm.bias", (d,), "bias")]
     if config["num_labels"]:
         specs += [

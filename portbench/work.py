@@ -9,11 +9,13 @@ Bytes count each input once and each output once.
 
 from __future__ import annotations
 
+from portbench.weights import swiglu_hidden
+
 # NVIDIA H100 SXM data sheet, dense: bf16 989 TFLOP/s, TF32 (the tensor
-# cores' float32 products) 495 TFLOP/s; HBM3 3.35 TB/s
-PEAK_FLOPS = {"bf16": 989e12, "f32": 495e12}
+# cores' float32 products) 495 TFLOP/s, INT8 1979 TOP/s; HBM3 3.35 TB/s
+PEAK_FLOPS = {"bf16": 989e12, "f32": 495e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
-BYTES = {"bf16": 2, "f32": 4, "q4_0": 18 / 32}  # a value; q4_0: 18-byte blocks of 32
+BYTES = {"bf16": 2, "f32": 4, "q4_0": 18 / 32, "int8": 1}  # a value; q4_0: 18-byte blocks of 32
 
 
 def tokens_of(config: dict, traffic: dict) -> int:
@@ -30,18 +32,45 @@ def tokens_of(config: dict, traffic: dict) -> int:
     return 1 + regs + grid
 
 
+def linear_flops(config: dict, tokens: int, classify: bool) -> dict[str, int]:
+    """Operations of one image's linears by GGUF name without the layer
+    (each counts for every layer): QKV, proj, the MLP's pair (fc1 and fc2,
+    or SwiGLU's weights_in and weights_out) and the head on [CLS, pooled]."""
+    d = config["hidden_size"]
+    h = swiglu_hidden(config)
+    out = {"attention.attention.qkv": 2 * tokens * d * 3 * d,
+           "attention.output.dense": 2 * tokens * d * d}
+    if h:
+        out.update({"mlp.weights_in": 2 * tokens * d * 2 * h,
+                    "mlp.weights_out": 2 * tokens * h * d})
+    else:
+        inter = d * config["mlp_ratio"]
+        out.update({"mlp.fc1": 2 * tokens * d * inter, "mlp.fc2": 2 * tokens * inter * d})
+    if classify:
+        out["classifier"] = 2 * 2 * d * config["num_labels"]
+    return out
+
+
 def forward_flops(config: dict, tokens: int, classify: bool) -> int:
     """Operations of one image's forward: the patch embedding, per layer
-    QKV, QK^T, PV, proj, fc1 and fc2, and the head on [CLS, pooled]."""
+    QKV, QK^T, PV, proj and the MLP's pair, and the head on [CLS, pooled]."""
     d = config["hidden_size"]
     p = config["patch_size"]
-    inter = d * config["mlp_ratio"]
     patches = tokens - 1 - config["assumed"].get("num_register_tokens", 0)
-    per_layer = 2 * tokens * d * (3 * d + d + 2 * inter) + 4 * tokens * tokens * d
-    flops = 2 * patches * 3 * p * p * d + config["num_hidden_layers"] * per_layer
-    if classify:
-        flops += 2 * 2 * d * config["num_labels"]
-    return flops
+    linears = linear_flops(config, tokens, classify)
+    head = linears.pop("classifier", 0)
+    per_layer = sum(linears.values()) + 4 * tokens * tokens * d
+    return 2 * patches * 3 * p * p * d + config["num_hidden_layers"] * per_layer + head
+
+
+def int8_flops(config: dict, tokens: int, classify: bool, linears) -> int:
+    """Operations of one image's forward in the W8A8 linears `linears`
+    (names as a traffic's int8 scheme gives them: the tensor cores' int8
+    products); the rest of forward_flops runs in the activations' type."""
+    layers = config["num_hidden_layers"]
+    return sum(n if name == "classifier" else layers * n
+               for name, n in linear_flops(config, tokens, classify).items()
+               if name in linears)
 
 
 def attention_half_layer(batch: int, tokens: int, config: dict, act: str, weights: str):
@@ -72,10 +101,25 @@ def mlp_linears(batch: int, tokens: int, config: dict, act: str, weights: str):
     return out
 
 
+def swiglu_linears(batch: int, tokens: int, config: dict, act: str, weights: str):
+    """SwiGLU's weights_in with its bias, then weights_out with its bias, as
+    two products: the (m, 2h) output of the first and the (m, h) gated
+    input of the second cross memory. The gate's elementwise work is not
+    counted."""
+    d = config["hidden_size"]
+    h = swiglu_hidden(config)
+    m = batch * tokens
+    out = []
+    for k, n in ((d, 2 * h), (h, d)):
+        out.append((2 * m * k * n, (m * k + m * n) * BYTES[act] + k * n * BYTES[weights] + 4 * n))
+    return out
+
+
 FUNCTIONS = {
     "attention_half_layer": attention_half_layer,
     "attention_core": attention_core,
     "mlp_linears": mlp_linears,
+    "swiglu_linears": swiglu_linears,
 }
 
 
